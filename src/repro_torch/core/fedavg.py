@@ -1,0 +1,253 @@
+"""Federated optimization: FedAvg / FedProx clients + THGS/secure-agg server
+(port of the synchronous flat round of ``repro.core.fedavg``).
+
+A round is:
+  1. ``batched_client_update`` — local SGD for every participant,
+     ``torch.func.vmap`` over the stacked client batches of
+     ``torch.func.grad_and_value`` (one batched program, as the reference's
+     ``jax.vmap``);
+  2. ``streams.encode_leaf_batch`` per leaf — the unified top-k ∪
+     mask-support encode for all clients (counter-based pair seeds from the
+     secagg round protocol: one ``pair_mask_streams`` launch per leaf);
+  3. ``streams.decode_leaf_batch`` per leaf — one ``stream_scatter_add``
+     launch over every client's stream, survivor gating, and Bonawitz
+     reconstruction of dropped clients' unpaired masks (a second
+     ``pair_mask_streams`` launch per leaf in a dropout round).
+
+Each stage runs under a ``torch.profiler.record_function`` span
+(``round.local_sgd``, ``round.secagg_setup``, ``round.encode``,
+``round.decode``), which ``python -m repro_torch.sim.profile`` reads; a span
+costs about a microsecond when no profiler is active.
+
+Parameters are ``{name: tensor}`` dicts in the reference's leaf order
+(``PaperModel.leaf_names``); the leaf's position is its ``leaf_id``.
+Weighted aggregation is client-side; the server divides by the survivors'
+total weight after the masks cancelled.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Mapping, Sequence
+
+import torch
+from torch.profiler import record_function
+
+from repro_torch.core import costs, schedules
+from repro_torch.core import streams as se
+from repro_torch.core.types import (CommRecord, FedConfig, SecureAggConfig,
+                                    THGSConfig)
+from repro_torch.secagg.protocol import RoundProtocol
+
+Params = dict[str, torch.Tensor]
+LossFn = Callable[[Mapping[str, torch.Tensor], Any], torch.Tensor]
+
+
+def _client_update(params: Params, batches, loss_fn: LossFn,
+                   local_steps: int, lr: float,
+                   prox_mu: float = 0.0) -> tuple[Params, torch.Tensor]:
+    """Local SGD (optionally FedProx-proximal) over ``batches = (x, y)``
+    stacked on a leading ``local_steps`` axis; returns (delta, mean loss)."""
+    grad_fn = torch.func.grad_and_value(loss_fn)
+
+    def prox_term(p):
+        sq = sum(torch.sum((p[n] - params[n]) ** 2) for n in params)
+        return 0.5 * prox_mu * sq
+
+    p = dict(params)
+    losses = []
+    for s in range(local_steps):
+        g, loss = grad_fn(p, tuple(b[s] for b in batches))
+        if prox_mu != 0.0:
+            gp = torch.func.grad(prox_term)(p)
+            g = {n: g[n] + gp[n] for n in g}
+        p = {n: p[n] - lr * g[n] for n in p}
+        losses.append(loss)
+    delta = {n: p[n] - params[n] for n in params}
+    return delta, torch.stack(losses).mean()
+
+
+def batched_client_update(params: Params, batches_stacked, loss_fn: LossFn,
+                          local_steps: int, lr: float,
+                          prox_mu: float = 0.0) -> tuple[Params, torch.Tensor]:
+    """All participants' local SGD in one vmapped program.
+
+    ``batches_stacked = (x[C, steps, B, ...], y[C, steps, B])``. Returns
+    (deltas stacked ``{name: [C, ...]}``, losses [C])."""
+    return torch.func.vmap(
+        lambda *b: _client_update(params, b, loss_fn, local_steps, lr,
+                                  prox_mu),
+        randomness="error")(*batches_stacked)
+
+
+@dataclasses.dataclass
+class FederatedState:
+    params: Params
+    residuals: dict[int, Params]        # per-client error feedback
+    losses: dict[int, float]            # last local loss per client (Eq. 2)
+    round: int = 0
+    comm_log: list[CommRecord] = dataclasses.field(default_factory=list)
+
+
+def init_state(params: Params, fed: FedConfig) -> FederatedState:
+    return FederatedState(
+        params=dict(params),
+        residuals={c: {n: torch.zeros_like(x) for n, x in params.items()}
+                   for c in range(fed.n_clients)},
+        losses={},
+    )
+
+
+def _mean_or_none(vals):
+    vals = [v for v in vals if v is not None]
+    return float(sum(vals) / len(vals)) if vals else None
+
+
+def _div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` as a true f32 division on every device (a CUDA tensor
+    divided by a Python scalar is multiplied by the reciprocal instead)."""
+    return x / torch.tensor(d, dtype=x.dtype, device=x.device)
+
+
+def run_round(
+    state: FederatedState,
+    client_batches: dict[int, Any],
+    loss_fn: LossFn,
+    fed: FedConfig,
+    thgs: THGSConfig | None,
+    sa: SecureAggConfig,
+    bits: costs.BitModel = costs.PAPER_BITS,
+    client_weights: Mapping[int, float] | None = None,
+    dropped: Sequence[int] = (),
+    leaf_hook: Callable[[int, str, dict], None] | None = None,
+) -> FederatedState:
+    """One synchronous aggregation round over the given participants.
+
+    ``thgs=None`` runs the dense FedAvg/FedProx baseline without secure
+    aggregation (dense secure aggregation is not ported yet and raises).
+    ``client_weights`` gives per-client aggregation weights (default 1).
+    ``dropped`` lists participants that agreed on masks but whose upload
+    never arrived: their streams are excluded and the survivors' unpaired
+    masks are regenerated from Shamir-reconstructed seeds and cancelled
+    (raises ``secagg.ThresholdError`` below the threshold).
+    ``leaf_hook(leaf_id, name, info)``
+    is called after each leaf's decode with the leaf's encode inputs, its
+    streams and its decoded sum (a probe for tests and smoke checks; None
+    costs nothing).
+    """
+    participants = sorted(client_batches.keys())
+    C = len(participants)
+    dropped = set(dropped)
+    assert dropped <= set(participants), "dropped must be participants"
+    survivors = [c for c in participants if c not in dropped]
+    assert survivors, "a round needs at least one surviving client"
+    names = list(state.params)
+    dev = state.params[names[0]].device
+    alive = torch.tensor([c not in dropped for c in participants],
+                         device=dev)
+    w_list = [float(client_weights.get(c, 1.0)) if client_weights else 1.0
+              for c in participants]
+    w_vec = torch.tensor(w_list, dtype=torch.float32, device=dev)
+    w_surv_total = sum(w for w, c in zip(w_list, participants)
+                       if c not in dropped)
+    sizes = [state.params[n].numel() for n in names]
+    model_size = sum(sizes)
+
+    # ---- 1. all clients' local SGD, one vmapped program ----
+    batches_stacked = tuple(
+        torch.stack([client_batches[c][i] for c in participants])
+        for i in range(len(client_batches[participants[0]])))
+    prox_mu = fed.prox_mu if fed.algorithm == "fedprox" else 0.0
+    with record_function("round.local_sgd"):
+        deltas, losses = batched_client_update(
+            state.params, batches_stacked, loss_fn, fed.local_steps,
+            fed.local_lr, prox_mu)
+        losses_list = [float(x) for x in losses.tolist()]
+
+    if thgs is not None:
+        # Eq. 2's beta from the federation-mean loss trajectory: one per-leaf
+        # k for the whole batched round
+        loss_prev = _mean_or_none([state.losses.get(c) for c in participants])
+        loss_curr = _mean_or_none(losses_list)
+        ks = schedules.leaf_ks(thgs, sizes, t=state.round,
+                               total_rounds=fed.rounds, loss_prev=loss_prev,
+                               loss_curr=loss_curr)
+        use_masks = sa.enabled and C >= 2
+        if use_masks:
+            with record_function("round.secagg_setup"):
+                proto = RoundProtocol.setup(sa, participants, state.round)
+                pair_seeds, pair_signs = proto.pair_seed_matrix()
+                recovery_seeds = (
+                    proto.recover_seeds(survivors, sorted(dropped))
+                    if dropped else None)
+        else:
+            proto = None
+            pair_seeds = pair_signs = recovery_seeds = None
+
+        agg, new_res = {}, {}
+        ks_acct, k_masks_acct = [], []
+        for leaf_id, (name, k, size) in enumerate(zip(names, ks, sizes)):
+            shape = state.params[name].shape
+            d_st = deltas[name]
+            r_st = torch.stack([state.residuals[c][name]
+                                for c in participants])
+            k_mask = sa.k_mask_for(size, C) if use_masks else 0
+            # ---- 2. batched unified-stream encode ----
+            with record_function("round.encode"):
+                streams_b, nr = se.encode_leaf_batch(
+                    d_st, r_st, k=k, nb=1, m=size, size=size,
+                    pair_seeds=pair_seeds, pair_signs=pair_signs,
+                    k_mask=k_mask, mask_p=sa.p, mask_q=sa.q,
+                    leaf_id=leaf_id, weights=w_vec)
+            # ---- 3. scatter-add decode + dropout recovery ----
+            with record_function("round.decode"):
+                dense = se.decode_leaf_batch(
+                    streams_b, nb=1, m=size, size=size,
+                    alive=alive if dropped else None,
+                    pair_seeds=recovery_seeds if dropped else None,
+                    pair_signs=pair_signs if dropped else None,
+                    k_mask=k_mask, mask_p=sa.p, mask_q=sa.q, leaf_id=leaf_id)
+            if leaf_hook is not None:
+                leaf_hook(leaf_id, name, {
+                    "updates": d_st, "residuals": r_st, "weights": w_vec,
+                    "alive": alive, "streams": streams_b, "dense": dense,
+                    "new_residuals": nr, "k": k, "k_mask": k_mask,
+                    "size": size, "pair_seeds": pair_seeds,
+                    "pair_signs": pair_signs,
+                    "recovery_seeds": recovery_seeds if dropped else None,
+                    "dropped": sorted(dropped)})
+            agg[name] = _div(dense, w_surv_total).reshape(shape)
+            # dropped clients transmitted nothing: their full accumulator
+            # carries over as error feedback
+            if dropped:
+                keep = alive.reshape((C,) + (1,) * len(shape))
+                nr = torch.where(keep, nr, (r_st + d_st).to(nr.dtype))
+            new_res[name] = nr
+            ks_acct.append(min(int(k), size))
+            k_masks_acct.append(k_mask)
+
+        for ci, c in enumerate(participants):
+            state.residuals[c] = {n: new_res[n][ci] for n in names}
+        rec = costs.round_record(
+            state.round, model_size, ks_acct, k_masks_acct,
+            n_clients=C, bits=bits, n_survivors=len(survivors),
+            threshold=proto.t if use_masks else 0, leaf_sizes=sizes)
+    else:
+        if sa.enabled:
+            raise NotImplementedError(
+                "dense secure aggregation (thgs=None with sa.enabled) is not "
+                "ported yet; it comes with the datacenter slice (ROADMAP "
+                "slice I)")
+        surv_idx = [participants.index(c) for c in survivors]
+        agg = {n: _div(sum(deltas[n][i] for i in surv_idx), len(surv_idx))
+               for n in names}
+        rec = costs.dense_round_record(
+            state.round, model_size, n_clients=C, bits=bits,
+            n_survivors=len(survivors))
+
+    for ci, c in enumerate(participants):
+        state.losses[c] = losses_list[ci]
+    state.params = {n: state.params[n] + fed.server_lr * agg[n]
+                    for n in names}
+    state.comm_log.append(rec)
+    state.round += 1
+    return state

@@ -1,0 +1,367 @@
+"""The unified sparse-stream engine (paper Alg. 1/2, Eq. 5) — port of the flat,
+serial, f32 path of ``repro.core.streams``.
+
+A stream for one leaf is a static-shape pair ``(indices, values)``:
+
+    indices : int32[C, n_blocks, k_total]  global indices row*m + col into the
+                                           padded [n_blocks, m] block view
+    values  : f32  [C, n_blocks, k_total]  w·acc[idx]·first_occurrence + mask
+
+with a leading client axis. ``n_blocks == 1, m == size`` is the flat per-leaf
+stream of the paper's single-host protocol. The encode is written batched over
+the client axis (the reference vmaps a per-client program); the decode
+flattens every client's gated stream into one index/value vector and
+scatter-adds it in one pass through ``kernels/ops.stream_scatter_add``.
+
+Pairwise masks are counter-based: per-pair uint32 seeds (DH-derived,
+Shamir-recoverable; ``secagg/protocol.py``) drive the murmur streams of
+``kernels/ops.pair_mask_streams``. Client weights scale the gradient part of
+the values before masking, so weighted aggregation keeps mask cancellation
+exact. Dropout recovery regenerates every survivor->dropped pair mask from the
+reconstructed seeds and subtracts it.
+
+Every operation keeps the reference's float order so the data plane is
+bit-equal to it on shared inputs: top-k ties resolve to the lower index
+(a stable descending sort, as ``lax.top_k``), the first-occurrence gate sorts
+stably, and the decode folds each position in slot order.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as kref
+
+
+class StreamBatch(NamedTuple):
+    """Stacked unified streams: leading axis = clients."""
+
+    indices: torch.Tensor  # int32[C, n_blocks, k_total]
+    values: torch.Tensor   # f32  [C, n_blocks, k_total]
+
+
+# --------------------------------------------------------------------- layout
+def block_layout(size: int, n_blocks: int) -> tuple[int, int, int]:
+    """(n_blocks, block_len, padded) — small leaves collapse to one block."""
+    if size < 4 * n_blocks:
+        n_blocks = 1
+    m = -(-size // n_blocks)
+    return n_blocks, m, n_blocks * m
+
+
+def to_blocks(x: torch.Tensor, n_blocks: int, m: int) -> torch.Tensor:
+    """Flat/leaf tensor -> padded [n_blocks, m] row-major block view."""
+    flat = x.reshape(-1)
+    pad = n_blocks * m - flat.shape[0]
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    return flat.reshape(n_blocks, m)
+
+
+def from_blocks(blocks: torch.Tensor, size: int, shape: tuple) -> torch.Tensor:
+    return blocks.reshape(-1)[:size].reshape(shape)
+
+
+# ------------------------------------------------------- first-occurrence gate
+def first_occurrence_rows(idx: torch.Tensor) -> torch.Tensor:
+    """Per row (last axis): True iff the slot is its index's first occurrence.
+
+    A stable sort puts duplicates of an index on consecutive ranks in slot
+    order, so a slot is first iff its sorted predecessor differs.
+    """
+    order = torch.argsort(idx, dim=-1, stable=True)
+    sorted_idx = torch.gather(idx, -1, order)
+    is_first = torch.cat(
+        [torch.ones_like(sorted_idx[..., :1], dtype=torch.bool),
+         sorted_idx[..., 1:] != sorted_idx[..., :-1]], -1)
+    return torch.zeros_like(is_first).scatter(-1, order, is_first)
+
+
+# ------------------------------------------------------------- selector stage
+def select_topk_rows(acc: torch.Tensor, k: int) -> torch.Tensor:
+    """[..., m] -> int64[..., k] per-row top-|.| indices (the 'exact'
+    selector), in ``lax.top_k`` order: descending magnitude, ties to the
+    lower index (``torch.topk``'s tie order differs, so a stable descending
+    sort takes its place)."""
+    order = torch.sort(acc.abs(), dim=-1, descending=True, stable=True).indices
+    return order[..., :k]
+
+
+# ----------------------------------------------------- THE unified-stream core
+def unified_stream_rows(
+    acc: torch.Tensor,                   # f32[C, nb, m] accumulators
+    k: int,
+    mask_idx: torch.Tensor | None,       # int[C, nb, k_mask_total] | None
+    mask_vals: torch.Tensor | None,      # f32[C, nb, k_mask_total] | None
+    *,
+    weight: torch.Tensor,                # f32[C] client-side weights
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """All clients, one leaf: ``top-k(|acc|) ∪ support(mask)`` (Eq. 5).
+
+    Returns ``(idx, vals, new_acc)``: ``idx`` the per-row column indices
+    (int64), ``vals = weight·acc[idx]·first_occurrence + mask`` and
+    ``new_acc`` with every transmitted position zeroed.
+    """
+    C, nb, m = acc.shape
+    k = int(min(k, m))
+    idx_t = select_topk_rows(acc, k)
+    zeros = torch.zeros((C, nb, k), dtype=torch.float32, device=acc.device)
+    if mask_idx is not None and mask_idx.shape[-1] > 0:
+        idx = torch.cat([idx_t, mask_idx.to(torch.int64)], -1)
+        mvals = torch.cat([zeros, mask_vals], -1)
+    else:
+        idx, mvals = idx_t, zeros
+    first = first_occurrence_rows(idx)
+    gvals = torch.gather(acc, -1, idx)
+    # the reference's ``w * g * first + mask``, which XLA lowers to a select
+    # on ``first``: a gated slot carries +0.0, never a signed zero
+    vals = torch.where(first, weight[:, None, None] * gvals, 0.0) + mvals
+    new_acc = acc.scatter(-1, idx, 0.0)
+    return idx, vals, new_acc
+
+
+# ------------------------------------------------------------- pairwise masks
+def _fold_seeds(seeds: torch.Tensor, leaf_id: int | None) -> torch.Tensor:
+    seeds = kref.as_u32(seeds)
+    return kref.fold_leaf_seed(seeds, leaf_id) if leaf_id is not None \
+        else seeds
+
+
+def _client_mask_layout(idx: torch.Tensor, mag: torch.Tensor,
+                        signs: torch.Tensor, nb: int,
+                        k_mask: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``[C, C, nb, k_mask]`` pair streams -> the per-client layout
+    ``[C, nb, C * k_mask]`` (peer-major within a row), signs applied."""
+    cr, n = idx.shape[:2]
+    vals = signs.to(torch.float32)[:, :, None, None] * mag
+    idx = idx.permute(0, 2, 1, 3)
+    vals = vals.permute(0, 2, 1, 3)
+    return (idx.reshape(cr, nb, n * k_mask),
+            vals.reshape(cr, nb, n * k_mask))
+
+
+def mask_streams_all_pairs(
+    pair_seeds: torch.Tensor,   # [C, C] uint32 counter seeds (0 on diagonal)
+    pair_signs: torch.Tensor,   # f32[C, C] Bonawitz signs (0 on diagonal)
+    nb: int,
+    k_mask: int,
+    m: int,
+    *,
+    p: float,
+    q: float,
+    leaf_id: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every client's concatenated pair-mask streams in one kernel launch.
+
+    The seed matrix is symmetric and a stream's idx/|val| depend only on the
+    seed, so each unordered pair (upper triangle with the diagonal) is
+    generated once and mirrored; signs are applied outside the generator, so
+    the mirrored copy is the exact negation. Returns ``(idx int32[C, nb,
+    C*k_mask], vals f32[C, nb, C*k_mask])``.
+    """
+    device = pair_seeds.device
+    C = pair_seeds.shape[0]
+    seeds = _fold_seeds(pair_seeds, leaf_id)
+    iu, ju = np.triu_indices(C)
+    tri = np.zeros((C, C), np.int64)
+    tri[iu, ju] = np.arange(len(iu))
+    tri[ju, iu] = tri[iu, ju]
+    iu_t = torch.as_tensor(iu, device=device)
+    ju_t = torch.as_tensor(ju, device=device)
+    tri_t = torch.as_tensor(tri, device=device)
+    idx_u, mag_u = ops.pair_mask_streams(
+        seeds[iu_t, ju_t],
+        torch.ones(len(iu), dtype=torch.float32, device=device),
+        nb=nb, k_mask=k_mask, m=m, p=p, q=q)
+    return _client_mask_layout(idx_u[tri_t], mag_u[tri_t],
+                               pair_signs.to(device), nb, k_mask)
+
+
+# ------------------------------------------------------------- batched encode
+def encode_batch_blocks(
+    acc: torch.Tensor,                       # f32[C, nb, m]
+    k: int,
+    *,
+    pair_seeds: torch.Tensor | None = None,  # [C, C] uint32 counter seeds
+    pair_signs: torch.Tensor | None = None,  # f32[C, C]
+    k_mask: int = 0,
+    mask_p: float = -1.0,
+    mask_q: float = 2.0,
+    leaf_id: int | None = None,
+    weights: torch.Tensor | None = None,     # f32[C]
+) -> tuple[StreamBatch, torch.Tensor]:
+    """Batched client encode: pair masks of the round in one pass, then the
+    unified stream of every client. Returns (StreamBatch with global indices
+    row*m + col, new_acc [C, nb, m])."""
+    C, nb, m = acc.shape
+    dev = acc.device
+    if weights is None:
+        weights = torch.ones((C,), dtype=torch.float32, device=dev)
+    m_idx = m_vals = None
+    if pair_seeds is not None and k_mask > 0 and C >= 2:
+        signs = pair_signs.to(dev, torch.float32)
+        m_idx, m_vals = mask_streams_all_pairs(
+            pair_seeds.to(dev), signs, nb, k_mask, m, p=mask_p, q=mask_q,
+            leaf_id=leaf_id)
+        # Inactive (self) slots carry zero mask value; point their support
+        # at the block's top-1 position so the first-occurrence gate zeroes
+        # the slot entirely — a random index there would transmit the raw
+        # gradient unmasked.
+        top1 = torch.argmax(acc.abs(), -1).to(torch.int32)[..., None]
+        col_active = torch.repeat_interleave(signs != 0.0, k_mask,
+                                             dim=-1)[:, None, :]
+        m_idx = torch.where(col_active, m_idx, top1)
+    idx, vals, new_acc = unified_stream_rows(acc, k, m_idx, m_vals,
+                                             weight=weights.to(dev))
+    rows = torch.arange(nb, dtype=torch.int64, device=dev)[None, :, None]
+    gidx = (rows * m + idx).to(torch.int32)
+    return StreamBatch(indices=gidx, values=vals), new_acc
+
+
+def encode_leaf_batch(
+    updates: torch.Tensor,        # [C, *leaf_shape] stacked client updates
+    residuals: torch.Tensor,      # [C, *leaf_shape] stacked error feedback
+    *,
+    k: int,
+    nb: int,
+    m: int,
+    size: int,
+    pair_seeds: torch.Tensor | None = None,
+    pair_signs: torch.Tensor | None = None,
+    k_mask: int = 0,
+    mask_p: float = -1.0,
+    mask_q: float = 2.0,
+    leaf_id: int = 0,
+    weights: torch.Tensor | None = None,
+) -> tuple[StreamBatch, torch.Tensor]:
+    """Leaf-level encode: accumulate -> block view -> batched encode.
+
+    The server's per-leaf entry: ``acc = residuals + updates`` in f32, the
+    unified stream of every client (``k`` top-k slots plus ``k_mask`` mask
+    slots per pair per block, ``leaf_id`` folded into every pair seed), and
+    the new error feedback with the transmitted positions zeroed. Returns
+    ``(StreamBatch int32/f32[C, nb, k + C*k_mask], new_residuals)``.
+    """
+    C = updates.shape[0]
+    leaf_shape = tuple(updates.shape[1:])
+    acc = (residuals.to(torch.float32) + updates.to(torch.float32))
+    acc = torch.stack([to_blocks(acc[c], nb, m) for c in range(C)])
+    streams, new_acc = encode_batch_blocks(
+        acc, k, pair_seeds=pair_seeds, pair_signs=pair_signs,
+        k_mask=k_mask, mask_p=mask_p, mask_q=mask_q, leaf_id=leaf_id,
+        weights=weights)
+    new_res = torch.stack([from_blocks(new_acc[c], size, leaf_shape)
+                           for c in range(C)])
+    return streams, new_res.to(residuals.dtype)
+
+
+# ------------------------------------------------------------- server decode
+def _scatter_flat(flat_idx: torch.Tensor, flat_vals: torch.Tensor,
+                  padded: int) -> torch.Tensor:
+    return ops.stream_scatter_add(flat_idx, flat_vals, size=padded)
+
+
+def _flatten_round_stream(
+    streams: StreamBatch,
+    alive: torch.Tensor | None,
+    weights: torch.Tensor | None,
+    extra: StreamBatch | None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The round's single flat (idx, vals) stream: per-client gating
+    applied, recovery streams appended after the clients' slots."""
+    C = streams.indices.shape[0]
+    dev = streams.values.device
+    gate = torch.ones((C,), dtype=torch.float32, device=dev)
+    if weights is not None:
+        gate = gate * weights.to(dev, torch.float32)
+    if alive is not None:
+        gate = gate * alive.to(dev, torch.float32)
+    vals = streams.values * gate[:, None, None]
+    flat_idx = streams.indices.reshape(-1)
+    flat_vals = vals.reshape(-1)
+    if extra is not None:
+        flat_idx = torch.cat([flat_idx, extra.indices.reshape(-1)])
+        flat_vals = torch.cat(
+            [flat_vals, extra.values.reshape(-1).to(torch.float32)])
+    return flat_idx, flat_vals
+
+
+def decode_sum_blocks(
+    streams: StreamBatch,
+    nb: int,
+    m: int,
+    *,
+    alive: torch.Tensor | None = None,
+    weights: torch.Tensor | None = None,
+    extra: StreamBatch | None = None,
+) -> torch.Tensor:
+    """Scatter-add every client's stream into the dense [nb*m] buffer in one
+    kernel launch. Returns f32[nb*m]."""
+    flat_idx, flat_vals = _flatten_round_stream(streams, alive, weights,
+                                                extra)
+    return _scatter_flat(flat_idx, flat_vals, nb * m)
+
+
+def dropout_cancel_streams_seeded(
+    pair_seeds: torch.Tensor,   # [C, C] uint32 seeds (survivor<->dropped used)
+    pair_signs: torch.Tensor,   # f32[C, C]
+    alive: torch.Tensor,        # bool[C]
+    nb: int,
+    k_mask: int,
+    m: int,
+    *,
+    p: float,
+    q: float,
+    leaf_id: int | None = None,
+) -> StreamBatch:
+    """Bonawitz dropout recovery: regenerate every survivor->dropped pair
+    mask from the (Shamir-reconstructed) seeds in one kernel launch and emit
+    its negation; pairs outside ``alive[s] & ~alive[d]`` contribute zeros."""
+    dev = alive.device
+    C = pair_seeds.shape[0]
+    alive_f = alive.to(torch.float32)
+    seeds = _fold_seeds(pair_seeds.to(dev), leaf_id).reshape(C * C)
+    idx, vals = ops.pair_mask_streams(
+        seeds, pair_signs.to(dev, torch.float32).reshape(C * C),
+        nb=nb, k_mask=k_mask, m=m, p=p, q=q)
+    gates = (alive_f[:, None] * (1.0 - alive_f[None, :])).reshape(C * C)
+    vals = -gates[:, None, None] * vals
+    rows = torch.arange(nb, dtype=torch.int32, device=dev)[None, :, None]
+    return StreamBatch(indices=rows * m + idx, values=vals)
+
+
+def decode_leaf_batch(
+    streams: StreamBatch,
+    *,
+    nb: int,
+    m: int,
+    size: int,
+    alive: torch.Tensor | None = None,
+    weights: torch.Tensor | None = None,
+    pair_seeds: torch.Tensor | None = None,
+    pair_signs: torch.Tensor | None = None,
+    k_mask: int = 0,
+    mask_p: float = -1.0,
+    mask_q: float = 2.0,
+    leaf_id: int = 0,
+) -> torch.Tensor:
+    """Server decode for one leaf: survivor-gated scatter-add, plus the
+    cancellation of reconstructed masks when ``alive`` marks dropouts and
+    ``pair_seeds`` (the Shamir-recovered ones) are given.
+
+    ``weights`` scales whole streams server-side — correct only for uniform
+    protocols; weighted FL applies weights client-side at encode. Returns
+    f32[size]: the survivors' weighted sparse sum, masks cancelled; the
+    caller normalizes by the survivors' total weight.
+    """
+    extra = None
+    if alive is not None and pair_seeds is not None and k_mask > 0:
+        extra = dropout_cancel_streams_seeded(
+            pair_seeds, pair_signs, alive, nb, k_mask, m,
+            p=mask_p, q=mask_q, leaf_id=leaf_id)
+    dense = decode_sum_blocks(streams, nb, m, alive=alive, weights=weights,
+                              extra=extra)
+    return dense[:size]

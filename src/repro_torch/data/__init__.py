@@ -1,0 +1,9 @@
+"""Synthetic dataset stand-ins and federated partitioners (numpy)."""
+from repro_torch.data.datasets import (CIFAR10, FASHION_MNIST, MNIST, SPECS,
+                                       DatasetSpec, make_dataset)
+from repro_torch.data.federated import (client_batches, dirichlet, iid,
+                                        noniid_label_k)
+
+__all__ = ["CIFAR10", "FASHION_MNIST", "MNIST", "SPECS", "DatasetSpec",
+           "make_dataset", "client_batches", "dirichlet", "iid",
+           "noniid_label_k"]

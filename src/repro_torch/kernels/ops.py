@@ -1,0 +1,45 @@
+"""Public kernel entry points: dispatch by the tensor's device (port of
+``repro.kernels.ops``).
+
+A CUDA tensor launches the hand-written CUDA kernel; a CPU tensor takes the
+kernel's plain PyTorch version in ``kernels/ref.py``. There is no fallback
+from one to the other: a CUDA launch that cannot build or launch raises.
+``launch_counts()`` reads how often each kernel was launched, which is how a
+run shows that it went through the kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import mask_prng, ref, stream_decode
+
+KERNELS = ("stream_scatter_add", "pair_mask_streams")
+
+
+def stream_scatter_add(indices: torch.Tensor, values: torch.Tensor, *,
+                       size: int) -> torch.Tensor:
+    """Flat stream -> dense f32[size], each position folded in slot order."""
+    if values.device.type == "cuda":
+        return stream_decode.stream_scatter_add_cuda(indices, values, size)
+    return ref.stream_scatter_add_ref(indices, values, size)
+
+
+def pair_mask_streams(seeds: torch.Tensor, signs: torch.Tensor, *, nb: int,
+                      k_mask: int, m: int, p: float = -1.0, q: float = 2.0):
+    """All of a round's pair-mask streams in one pass (Eq. 3-4): one seed
+    and sign per pair -> ``(idx int32[N, nb, k_mask], vals f32)``."""
+    if seeds.device.type == "cuda":
+        return mask_prng.pair_mask_streams_cuda(seeds, signs, nb=nb,
+                                                k_mask=k_mask, m=m, p=p, q=q)
+    return ref.pair_mask_stream_ref(seeds, signs, nb, k_mask, m, p=p, q=q)
+
+
+def launch_counts() -> dict:
+    """Kernel launches since the last reset, by kernel name."""
+    return {"stream_scatter_add": stream_decode.launches,
+            "pair_mask_streams": mask_prng.launches}
+
+
+def reset_launch_counts() -> None:
+    stream_decode.launches = 0
+    mask_prng.launches = 0

@@ -1,0 +1,113 @@
+"""Plain PyTorch versions of the port's CUDA kernels (port of
+``repro.kernels.ref``, the pair-mask and scatter-add part).
+
+These are the functions the CPU tests hold against the JAX reference and the
+functions ``chip_smoke.py`` holds each CUDA kernel against on the card. The
+main path never calls them for a CUDA tensor: ``kernels/ops.py`` dispatches by
+the tensor's device.
+
+uint32 arithmetic: PyTorch has no ``+``, ``>>`` or ``%`` for uint32 on the
+CPU, so every murmur lane is an int64 holding a value in ``[0, 2**32)`` and
+every step masks back to 32 bits. The multiply is split into 16-bit halves so
+no int64 product overflows (a plain ``x * 0x846CA68B`` needs 64 bits).
+"""
+from __future__ import annotations
+
+import torch
+
+M32 = 0xFFFFFFFF
+
+# Domain-separation salts, identical to the JAX reference: one murmur stream
+# for support indices, one for values, one for per-leaf seed folding.
+IDX_SALT = 0x9E3779B9
+VAL_SALT = 0x85EBCA6B
+LEAF_SALT = 0xA511E9B3
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``(x * c) mod 2**32`` for int64 lanes ``x`` in ``[0, 2**32)``."""
+    lo = x * (c & 0xFFFF)                        # < 2**48
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16        # low 16 bits, shifted
+    return (lo + hi) & M32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """murmur3-style avalanche of uint32 lanes held in int64."""
+    x = x.to(torch.int64) & M32
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    x = x ^ (x >> 16)
+    return x
+
+
+def as_u32(seeds: torch.Tensor) -> torch.Tensor:
+    """Integer seed tensor -> int64 lanes holding its uint32 values."""
+    return seeds.to(torch.int64) & M32
+
+
+def fold_leaf_seed(seeds: torch.Tensor, leaf_id: int) -> torch.Tensor:
+    """Fold a leaf id into pair seeds: ``mix32(seed ^ mix32(leaf + SALT))``."""
+    leaf = torch.tensor((int(leaf_id) + LEAF_SALT) & M32, dtype=torch.int64,
+                        device=seeds.device)
+    return _mix32(as_u32(seeds) ^ _mix32(leaf))
+
+
+def pair_mask_stream_ref(seeds, signs, nb: int, k_mask: int, m: int,
+                         *, p: float, q: float):
+    """Counter-based sparse pair-mask streams.
+
+    For each seed, flat counter ``c = block * k_mask + slot``:
+    ``idx = mix32(mix32(seed ^ IDX_SALT) + c) % m`` and
+    ``val = sign * (p + q * (mix32(mix32(seed ^ VAL_SALT) + c) >> 8) / 2**24)``.
+    Returns ``(idx int64->int32[..., nb, k_mask], vals f32[..., nb, k_mask])``.
+    """
+    seeds = as_u32(seeds)
+    dev = seeds.device
+    signs = torch.as_tensor(signs, dtype=torch.float32, device=dev)
+    c = torch.arange(nb * k_mask, dtype=torch.int64, device=dev)
+    c = c.reshape((1,) * seeds.dim() + (nb, k_mask))
+    base_i = _mix32(seeds ^ IDX_SALT)[..., None, None]
+    base_v = _mix32(seeds ^ VAL_SALT)[..., None, None]
+    idx = (_mix32((base_i + c) & M32) % m).to(torch.int32)
+    # top 24 bits: the f32-exact 2^-24 grid, so colliding masks cancel
+    # bit-exactly in the scatter-add
+    u = (_mix32((base_v + c) & M32) >> 8).to(torch.float32) / float(2 ** 24)
+    vals = signs[..., None, None] * (p + q * u)
+    return idx, vals
+
+
+def stream_scatter_add_ref(indices: torch.Tensor, values: torch.Tensor,
+                           size: int) -> torch.Tensor:
+    """Scatter-add a flat stream into dense f32[size]; out-of-range dropped.
+
+    Every position folds its contributions in slot order starting from +0.0,
+    as the JAX reference's scatter does on the CPU. PyTorch's accumulating
+    scatters promise no order (``index_put_(accumulate=True)`` uses atomic
+    adds across threads on a large CPU input, and sorts plus warp-reduces on
+    CUDA), so the fold is built from its definition: each slot's rank among
+    the earlier slots of its index (a stable sort), then one pass per rank,
+    each a plain add at distinct positions. Runs on the inputs' device.
+    """
+    idx = indices.reshape(-1).to(torch.int64)
+    val = values.reshape(-1).to(torch.float32)
+    valid = (idx >= 0) & (idx < size)
+    idx, val = idx[valid], val[valid]
+    out = torch.zeros(size, dtype=torch.float32, device=val.device)
+    n = idx.numel()
+    if n == 0:
+        return out
+    order = torch.argsort(idx, stable=True)
+    s = idx[order]
+    pos = torch.arange(n, device=idx.device)
+    first = torch.ones(n, dtype=torch.bool, device=idx.device)
+    first[1:] = s[1:] != s[:-1]
+    seg_start = torch.cummax(torch.where(first, pos, 0), 0).values
+    rank = torch.empty_like(pos)
+    rank[order] = pos - seg_start
+    for r in range(int(rank.max()) + 1):
+        sel = rank == r
+        at = idx[sel]
+        out[at] = out[at] + val[sel]
+    return out

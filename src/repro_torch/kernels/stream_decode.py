@@ -1,0 +1,44 @@
+"""Slot-order stream scatter-add: the CUDA kernel's wrapper (port of
+``repro.kernels.stream_decode.stream_scatter_add``).
+
+The kernel is ``csrc/stream_scatter_add.cu`` (CTA-owned output tiles, stream
+walked in order, no float atomics); its plain version is
+``kernels/ref.py::stream_scatter_add_ref``. A CPU tensor takes the plain
+version, a CUDA tensor launches the kernel or raises. ``launches`` counts
+kernel launches and nothing else.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+
+launches = 0
+
+
+def stream_scatter_add_cuda(indices: torch.Tensor, values: torch.Tensor,
+                            size: int) -> torch.Tensor:
+    """Launch the kernel: flat int32 ``indices`` and f32 ``values`` on one
+    CUDA device -> dense f32[size]; entries outside [0, size) dropped."""
+    global launches
+    if indices.device.type != "cuda" or values.device != indices.device:
+        raise ValueError("stream_scatter_add_cuda needs indices and values on "
+                         f"one CUDA device, got {indices.device} and "
+                         f"{values.device}")
+    if indices.numel() != values.numel():
+        raise ValueError(f"indices ({indices.numel()}) and values "
+                         f"({values.numel()}) must have one entry each")
+    if not 0 <= size < 2 ** 31:
+        raise ValueError(f"size must be in [0, 2**31), got {size}")
+    idx = indices.reshape(-1).to(torch.int32).contiguous()
+    val = values.reshape(-1).to(torch.float32).contiguous()
+    out = torch.empty(size, dtype=torch.float32, device=indices.device)
+    if size == 0:
+        return out
+    fn = build.kernel("stream_scatter_add")
+    stream = torch.cuda.current_stream(indices.device).cuda_stream
+    rc = fn(idx.data_ptr(), val.data_ptr(), idx.numel(), out.data_ptr(), size,
+            stream)
+    build.check(rc, "stream_scatter_add")
+    launches += 1
+    return out

@@ -1,0 +1,156 @@
+"""Simulation configuration — port of ``repro.sim.config``.
+
+A :class:`SimConfig` names one multi-round federated run: model, dataset and
+partition, the federated protocol, THGS / secure aggregation, sampling and
+dropout, evaluation cadence and output path. The fields and their defaults
+are the reference's, so ``to_dict()`` writes the same ledger ``config``
+block. ``validate()`` refuses, with ``NotImplementedError`` naming the slice
+that brings it, every option this slice of the port does not run.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+from repro_torch.core.types import FedConfig, SecureAggConfig, THGSConfig
+
+PARTITIONS = ("iid", "noniid", "dirichlet")
+SAMPLERS = ("uniform", "weighted")
+ACCOUNTINGS = ("paper", "tpu")
+SHARD_CLIENTS = ("auto", "on", "off")
+TOPOLOGIES = ("flat", "tree")
+MODES = ("sync", "async")
+CODECS = ("f32", "int8", "int4", "1bit")
+
+
+def _not_ported(what: str, slice_: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet; it comes with {slice_} "
+        "(ROADMAP.md, Queue 1)")
+
+
+@dataclasses.dataclass(frozen=True)
+class SimConfig:
+    """Everything a ``repro_torch.sim.Simulation`` needs, as one record
+    (field meanings as in the reference's ``SimConfig``)."""
+
+    name: str = "sim"
+    # model + data
+    model: str = "mnist_mlp"
+    dataset: str = "mnist"
+    partition: str = "iid"
+    noniid_k: int = 4
+    dirichlet_alpha: float = 0.5
+    n_train: int = 4000
+    n_test: int = 800
+    # federated protocol (paper §5)
+    rounds: int = 30
+    n_clients: int = 20
+    clients_per_round: int = 5
+    local_steps: int = 5
+    local_batch: int = 50
+    local_lr: float = 0.05
+    server_lr: float = 1.0
+    algorithm: str = "fedavg"
+    prox_mu: float = 0.0
+    # mechanisms
+    thgs: Optional[THGSConfig] = None
+    sa: SecureAggConfig = SecureAggConfig(enabled=False)
+    codec: str = "f32"
+    dp: Optional[Any] = None
+    # scheduling
+    sampler: str = "uniform"
+    weight_by_data_count: bool = False
+    dropout_rate: float = 0.0
+    eval_every: int = 3
+    seed: int = 0
+    shard_clients: str = "auto"
+    topology: str = "flat"
+    tree_groups: int = 0
+    mode: str = "sync"
+    buffer_size: int = 0
+    max_staleness: int = 4
+    # accounting + I/O
+    accounting: str = "paper"
+    ckpt_dir: Optional[str] = None
+    ckpt_every: int = 0
+    out_json: Optional[str] = None
+
+    def fed(self) -> FedConfig:
+        return FedConfig(
+            n_clients=self.n_clients,
+            clients_per_round=self.clients_per_round,
+            local_steps=self.local_steps,
+            local_batch=self.local_batch,
+            local_lr=self.local_lr,
+            server_lr=self.server_lr,
+            prox_mu=self.prox_mu,
+            rounds=self.rounds,
+            algorithm=self.algorithm,
+        )
+
+    def validate(self) -> None:
+        if self.partition not in PARTITIONS:
+            raise ValueError(f"partition must be one of {PARTITIONS}, "
+                             f"got {self.partition!r}")
+        if self.sampler not in SAMPLERS:
+            raise ValueError(f"sampler must be one of {SAMPLERS}, "
+                             f"got {self.sampler!r}")
+        if self.accounting not in ACCOUNTINGS:
+            raise ValueError(f"accounting must be one of {ACCOUNTINGS}, "
+                             f"got {self.accounting!r}")
+        if self.shard_clients not in SHARD_CLIENTS:
+            raise ValueError(f"shard_clients must be one of {SHARD_CLIENTS}, "
+                             f"got {self.shard_clients!r}")
+        if self.topology not in TOPOLOGIES:
+            raise ValueError(f"topology must be one of {TOPOLOGIES}, "
+                             f"got {self.topology!r}")
+        if self.mode not in MODES:
+            raise ValueError(f"mode must be one of {MODES}, "
+                             f"got {self.mode!r}")
+        if self.codec not in CODECS:
+            raise ValueError(f"codec must be one of {CODECS}, "
+                             f"got {self.codec!r}")
+        if not (1 <= self.clients_per_round <= self.n_clients):
+            raise ValueError("need 1 <= clients_per_round <= n_clients, got "
+                             f"{self.clients_per_round} vs {self.n_clients}")
+        if not (0.0 <= self.dropout_rate <= 1.0):
+            raise ValueError(f"dropout_rate in [0, 1], got {self.dropout_rate}")
+        if self.rounds < 1:
+            raise ValueError(f"rounds must be >= 1, got {self.rounds}")
+        if self.algorithm not in ("fedavg", "fedprox"):
+            raise ValueError(f"unknown algorithm {self.algorithm!r}")
+        # what this slice refuses, and the slice that brings it
+        if self.codec != "f32":
+            raise _not_ported(f"codec {self.codec!r}", "slice B (wire codecs)")
+        if self.dp is not None:
+            raise _not_ported("distributed DP (dp)", "slice C (DP)")
+        if self.topology == "tree":
+            raise _not_ported("topology='tree'",
+                              "slice D (tree and async aggregation)")
+        if self.mode == "async":
+            raise _not_ported("mode='async'",
+                              "slice D (tree and async aggregation)")
+        if self.buffer_size:
+            raise ValueError("buffer_size is only meaningful with "
+                             "mode='async'")
+        if self.shard_clients == "on":
+            raise _not_ported("shard_clients='on'",
+                              "slice E (the client-sharded round)")
+        if self.ckpt_dir is not None:
+            raise _not_ported("checkpoints and resume (ckpt_dir)",
+                              "slice F (checkpoint and serving)")
+        if self.thgs is None and self.sa.enabled:
+            raise _not_ported("dense secure aggregation (thgs=None with "
+                              "sa.enabled)", "slice I (the datacenter layer)")
+        if self.thgs is not None:
+            self.thgs.validate()
+            if self.thgs.selector != "exact":
+                raise _not_ported(f"selector {self.thgs.selector!r}",
+                                  "slice I (the datacenter layer)")
+
+    def replace(self, **kw) -> "SimConfig":
+        return dataclasses.replace(self, **kw)
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)

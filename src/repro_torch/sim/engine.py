@@ -1,0 +1,209 @@
+"""The multi-round federated simulation engine — port of the synchronous
+``repro.sim.engine.Simulation``.
+
+``Simulation`` owns data synthesis and partitioning, the per-round cohort
+schedule and dropout injection (sampler.py), the round itself
+(``core.fedavg.run_round``), the communication ledger and eval hooks. It runs
+on ``cuda`` unless the caller passes ``device="cpu"``; it never falls back
+from one to the other. Every float in the round is f32: on the card, TF32 is
+switched off for matmuls and convolutions.
+
+Initial parameters come from the port's own ``PaperModel.init_`` under an
+explicit ``torch.Generator`` seeded with ``cfg.seed`` (drawn on the CPU, so
+the CPU and the card start from the same weights), or are injected with
+``init_params`` — a reference-layout ``{outer: {inner: array}}`` tree, e.g.
+the JAX package's initial params, for parity runs.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.convert import params_from_jax
+from repro_torch.core import costs
+from repro_torch.core.fedavg import FederatedState, init_state, run_round
+from repro_torch.data.datasets import SPECS, make_dataset
+from repro_torch.data.federated import (client_batches, dirichlet, iid,
+                                        noniid_label_k)
+from repro_torch.models.paper_models import (accuracy, build_model,
+                                             cross_entropy_loss)
+from repro_torch.sim.config import SimConfig
+from repro_torch.sim.ledger import CommLedger
+from repro_torch.sim.sampler import ClientSampler
+
+# hook(round_t, info) with info keys:
+#   state, cohort, dropped, loss, record, acc (only on eval rounds)
+RoundHook = Callable[[int, dict], None]
+
+
+def resolve_device(device) -> torch.device:
+    """``cuda`` (the default everywhere) or an explicit ``cpu``; a CUDA
+    request without a card raises instead of running on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' (CLI: --device cpu) to run the "
+            "plain PyTorch versions on the CPU")
+    return dev
+
+
+@dataclasses.dataclass
+class SimResult:
+    """Outcome of one simulation: metric trajectories + the comm ledger."""
+
+    name: str
+    rounds: int
+    eval_every: int
+    accuracies: list
+    losses: list
+    wall_s: float
+    ledger: CommLedger
+    config: dict
+
+    @property
+    def final_acc(self) -> float:
+        """Mean of the last three eval points (the Table 2 convergence acc)."""
+        return float(np.mean(self.accuracies[-3:])) if self.accuracies else 0.0
+
+    def summary(self) -> dict:
+        return {
+            "name": self.name,
+            "rounds": self.rounds,
+            "eval_every": self.eval_every,
+            "final_acc": self.final_acc,
+            "accuracies": [float(a) for a in self.accuracies],
+            "losses": [float(x) for x in self.losses],
+            "wall_s": self.wall_s,
+            "config": self.config,
+            "ledger": self.ledger.summary(),
+        }
+
+    def to_json(self, path: str) -> str:
+        return self.ledger.to_json(path, extra={
+            k: v for k, v in self.summary().items() if k != "ledger"})
+
+
+class Simulation:
+    """Config-driven multi-round federated simulation (module docstring).
+
+    ``leaf_hook`` (attribute, default None) is handed to every round's
+    ``run_round`` — a probe on each leaf's streams and decoded sum.
+    """
+
+    def __init__(self, cfg: SimConfig, *, device="cuda", init_params=None):
+        cfg.validate()
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        self.model = build_model(cfg.model)
+        if init_params is not None:
+            self.model = params_from_jax(init_params, cfg.model)
+        else:
+            self.model.init_(torch.Generator().manual_seed(cfg.seed))
+        self.model = self.model.to(self.device)
+        spec = SPECS[cfg.dataset]
+        x, y = make_dataset(spec, cfg.n_train, seed=cfg.seed)
+        xt, yt = make_dataset(spec, cfg.n_test, seed=cfg.seed + 1,
+                              train=False)
+        self.x, self.y = x, y
+        self.xt = torch.from_numpy(xt).to(self.device)
+        self.yt = torch.from_numpy(yt.astype(np.int64)).to(self.device)
+        if cfg.partition == "iid":
+            self.parts = iid(y, cfg.n_clients, seed=cfg.seed)
+        elif cfg.partition == "noniid":
+            self.parts = noniid_label_k(y, cfg.n_clients, cfg.noniid_k,
+                                        seed=cfg.seed)
+        else:
+            self.parts = dirichlet(y, cfg.n_clients, cfg.dirichlet_alpha,
+                                   seed=cfg.seed)
+        self.data_counts = {c: int(len(idx)) for c, idx in self.parts.items()}
+        self.sampler = ClientSampler(
+            cfg.n_clients, cfg.clients_per_round, mode=cfg.sampler,
+            weights=self.data_counts if cfg.sampler == "weighted" else None,
+            dropout_rate=cfg.dropout_rate, seed=cfg.seed)
+        self.fed = cfg.fed()
+        self.bits = (costs.PAPER_BITS if cfg.accounting == "paper"
+                     else costs.TPU_BITS)
+        self.loss_fn = cross_entropy_loss(self.model)
+        self.client_weights = (self.data_counts if cfg.weight_by_data_count
+                               else None)
+        # injected dropout stays within what secure aggregation can recover:
+        # at least the Shamir threshold t of the cohort survives
+        self.min_survivors = (
+            cfg.sa.t_for(cfg.clients_per_round)
+            if cfg.thgs is not None and cfg.sa.enabled else 1)
+        self.ledger = CommLedger()
+        self.leaf_hook = None
+
+    def _fresh_state(self) -> FederatedState:
+        params = {n: p.detach().clone()
+                  for n, p in self.model.params().items()}
+        return init_state(params, self.fed)
+
+    def _batches_for(self, round_t: int, cohort: Sequence[int]) -> dict:
+        """Fixed-shape [steps, batch, ...] stacks for every cohort member,
+        seeded by (seed, round, client) exactly as the reference."""
+        cfg = self.cfg
+        out = {}
+        for c in cohort:
+            xb, yb = client_batches(
+                self.x, self.y, self.parts[int(c)], cfg.local_batch,
+                cfg.local_steps,
+                seed=cfg.seed * 7919 + round_t * 1000 + int(c))
+            out[int(c)] = (torch.from_numpy(xb).to(self.device),
+                           torch.from_numpy(yb.astype(np.int64))
+                           .to(self.device))
+        return out
+
+    def run(self, *, hooks: Sequence[RoundHook] = ()) -> SimResult:
+        cfg = self.cfg
+        self.ledger = CommLedger()
+        state = self._fresh_state()
+        accs: list = []
+        losses: list = []
+        t0 = time.perf_counter()
+        for r in range(cfg.rounds):
+            cohort = self.sampler.cohort_for(r)
+            assert len(cohort) == cfg.clients_per_round, (
+                "fixed-cohort contract violated: "
+                f"{len(cohort)} != {cfg.clients_per_round}")
+            dropped = self.sampler.dropouts_for(
+                r, cohort, min_survivors=self.min_survivors)
+            batches = self._batches_for(r, cohort)
+            state = run_round(
+                state, batches, self.loss_fn, self.fed, cfg.thgs, cfg.sa,
+                bits=self.bits, client_weights=self.client_weights,
+                dropped=dropped, leaf_hook=self.leaf_hook)
+            rec = state.comm_log[-1]
+            self.ledger.record(rec)
+            loss = float(np.mean([state.losses[c] for c in batches]))
+            losses.append(loss)
+            info = {"state": state, "cohort": cohort, "dropped": dropped,
+                    "loss": loss, "record": rec}
+            if (r + 1) % max(1, cfg.eval_every) == 0:
+                acc = accuracy(self.model, state.params, self.xt, self.yt)
+                accs.append(acc)
+                info["acc"] = acc
+            for hook in hooks:
+                hook(r, info)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.state = state
+        return SimResult(
+            name=cfg.name,
+            rounds=cfg.rounds,
+            eval_every=cfg.eval_every,
+            accuracies=accs,
+            losses=losses,
+            wall_s=time.perf_counter() - t0,
+            ledger=self.ledger,
+            config=cfg.to_dict(),
+        )
+

@@ -1,0 +1,127 @@
+"""Port parity and isolation: the simulation engine end to end, the CLI, the
+refusals of what this slice does not port, and the rule that the port imports
+nothing of JAX or of ``repro``.
+
+A ``ci_smoke`` run with the reference's initial parameters injected gives the
+reference's ledger slot facts (ks, k_masks, survivors, upload bits) exactly
+and accuracies within 0.02 (local SGD differs in the last f32 bits)."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+
+from repro.models import paper_models as jpm  # noqa: E402
+from repro.sim import presets as jpresets  # noqa: E402
+from repro.sim.engine import Simulation as JSim  # noqa: E402
+from repro_torch.sim import presets as tpresets  # noqa: E402
+from repro_torch.sim.engine import Simulation as TSim  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+ENV = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+
+
+def _facts(ledger):
+    return [(e.ks, e.k_masks, e.n_clients, e.n_survivors, e.threshold)
+            for e in ledger.entries]
+
+
+@pytest.mark.parametrize("over", [{}, {"dropout_rate": 0.3, "rounds": 2}],
+                         ids=["ci_smoke", "ci_smoke_dropout"])
+def test_ci_smoke_ledger_and_accuracy_match_reference(over):
+    jcfg = jpresets.get("ci_smoke").replace(out_json=None, **over)
+    tcfg = tpresets.get("ci_smoke").replace(out_json=None, **over)
+    jres = JSim(jcfg).run(resume=False)
+    init = jax.tree_util.tree_map(
+        np.asarray, jpm.PAPER_MODELS[jcfg.model].init(
+            jax.random.key(jcfg.seed)))
+    tres = TSim(tcfg, device="cpu", init_params=init).run()
+    assert _facts(tres.ledger) == _facts(jres.ledger)
+    for acct in ("paper", "tpu"):
+        assert tres.ledger.totals(acct) == jres.ledger.totals(acct)
+    np.testing.assert_allclose(tres.accuracies, jres.accuracies, atol=0.02)
+    if over:
+        assert any(e.n_survivors < e.n_clients for e in tres.ledger.entries)
+    summary = tres.summary()
+    assert summary["config"] == JSim(jcfg).cfg.to_dict() | {"dp": None}
+    assert set(summary) == set(jres.summary())
+
+
+def test_cli_cpu_run_writes_ledger(tmp_path):
+    out = tmp_path / "ledger.json"
+    p = subprocess.run(
+        [sys.executable, "-m", "repro_torch.sim", "--preset", "ci_smoke",
+         "--device", "cpu", "--rounds", "1", "--out", str(out)],
+        capture_output=True, text=True, env=ENV, cwd=tmp_path, timeout=300)
+    assert p.returncode == 0, p.stderr
+    assert re.search(r"\[paper\] upload .* of FedAvg", p.stdout)
+    assert re.search(r"\[tpu  \] upload", p.stdout)
+    assert "final_acc=" in p.stdout
+    import json
+
+    doc = json.loads(out.read_text())
+    assert doc["ledger"]["paper"]["rounds"] == 1
+    assert not (tmp_path / "ledger.json.tmp").exists()
+
+
+def test_cli_without_cuda_exits_nonzero(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device runs")
+    p = subprocess.run(
+        [sys.executable, "-m", "repro_torch.sim", "--preset", "ci_smoke"],
+        capture_output=True, text=True, env=ENV, cwd=tmp_path, timeout=300)
+    assert p.returncode != 0
+    assert "CUDA" in p.stderr and "final_acc" not in p.stdout
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TSim(tpresets.get("ci_smoke"), device="cuda")
+
+
+@pytest.mark.parametrize("over,what", [
+    ({"codec": "int8"}, "codec"),
+    ({"dp": object()}, "DP"),
+    ({"topology": "tree"}, "tree"),
+    ({"mode": "async"}, "async"),
+    ({"shard_clients": "on"}, "shard_clients"),
+    ({"ckpt_dir": "ck"}, "checkpoints"),
+    ({"thgs": None}, "dense secure aggregation"),
+])
+def test_config_refuses_what_this_slice_does_not_port(over, what):
+    cfg = tpresets.get("table2_quick").replace(**over)
+    with pytest.raises(NotImplementedError, match=what):
+        cfg.validate()
+
+
+def test_presets_match_reference():
+    for name in tpresets.names():
+        t = tpresets.get(name).to_dict()
+        j = jpresets.get(name).to_dict()
+        assert t == j, name
+
+
+def test_port_imports_no_jax():
+    code = ("import sys, repro_torch, repro_torch.sim, repro_torch.convert, "
+            "repro_torch.sim.__main__, repro_torch.kernels.ops, "
+            "repro_torch.kernels.build; "
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or "
+            "m.startswith('repro.')); print(bad); sys.exit(1 if bad else 0)")
+    p = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=ENV, timeout=300)
+    assert p.returncode == 0, p.stdout + p.stderr
+
+
+def test_port_sources_never_import_reference():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    pat = re.compile(r"^\s*(import repro(\.|\s|$)|from repro(\.|\s))|"
+                     r"^\s*(import jax|from jax)", re.M)
+    for f in files:
+        assert not pat.search(f.read_text()), f
