@@ -12,8 +12,10 @@ exits non-zero and no failure is caught:
   2. kernels: each CUDA kernel against its plain PyTorch version on the card,
      bit-equal, at the shapes of the main path (mnist_mlp leaf ``l0.w``) and
      at VGG16's 512x512x3x3 leaf, with duplicates, -1 padding, out-of-range
-     entries and the order-sensitive triple [1, 2^-24, -1]; median times from
-     CUDA events beside the bound and the library call.
+     entries and the order-sensitive triple [1, 2^-24, -1]; the bit-pack
+     kernels at every width 1..32 and at the codec path's shapes (5 rows,
+     k = 7,880 at 18 and 8 bits; VGG16's k = 60,199 at 22 and 1 bit);
+     median times from CUDA events beside the bound and the library call.
   3. main path: ``table2_quick`` (mnist_mlp 784-200-10 at full width, 12
      rounds of THGS + sparse-mask secure aggregation) through
      ``repro_torch.sim.Simulation`` on the card, after a one-round warm-up;
@@ -25,6 +27,19 @@ exits non-zero and no failure is caught:
      sum computed with the plain versions.
   5. full-size model: cifar_vgg16 on cifar10 under the table2 protocol,
      2 rounds.
+  6. codecs: ``codec_sweep_quick`` (the table2 protocol without secagg, one
+     arm per wire codec f32/int8/int4/1bit, 12 rounds each) on the card;
+     counts reset before the sweep and read after it (96 launches of each
+     bit-pack kernel per quantized arm); each arm's upload under both
+     accountings against the f32 arm, its accuracy and launches; round 0's
+     ``l0.w`` replayed on the CPU with the plain versions: bit-equal for
+     int8/int4, within the 1bit scale tolerance (4 ulp) for 1bit.
+  7. DP: ``dp_quick`` (secagg, dropout 0.25, clip 1, z 0.6) and the four
+     arms of ``dp_frontier_quick`` on the card: the composed epsilon of each
+     arm against the reference's (40.1; 89.7 / 33.7 / 14.1), a dropout
+     round's decoded sum against the survivors' unmasked noised sum
+     (64 * 2^-24), and the off arm bit-identical to the same run with an
+     inactive ``DPConfig()``.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -46,6 +61,10 @@ MASK_OPS_PER_SLOT = 25         # integer ops of one pair-mask slot (two mix32
                                # chains, mod, shift, convert, 2 mul + add),
                                # counted at the f32 rate: the data sheet
                                # gives no int32 rate
+PACK_OPS_PER_FIELD = 4         # mask, shift, OR, offset of one packed field
+                               # (both directions), at the f32 rate
+ONE_BIT_REL = 4 * 2.0 ** -23   # the 1bit scale: a mean summed in another
+                               # order on the card than on the CPU
 
 
 def bound(bytes_: int, ops: int) -> tuple[float, str]:
@@ -266,6 +285,94 @@ def kernel_phase(shapes, device) -> dict:
     return rows
 
 
+def pack_fields(rs, R: int, k: int, width: int, device):
+    """uint32 fields below 2**width (int64 lanes) with 0 and the maximum in
+    the first row."""
+    import numpy as np
+    import torch
+
+    u = rs.randint(0, 2**32, (R, k), dtype=np.uint64) >> np.uint64(32 - width)
+    u[0, :2] = [0, 2**width - 1]
+    return torch.from_numpy(u.astype(np.int64)).to(device)
+
+
+def pack_kernel_phase(device) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import build, pack, ref
+
+    rs = np.random.RandomState(12)
+    for width in range(1, 33):
+        u = pack_fields(rs, 3, 75, width, device)
+        words = pack.bitpack_rows_cuda(u, width)
+        back = pack.bitunpack_rows_cuda(words, 75, width)
+        torch.cuda.synchronize()
+        plain = ref.bitpack_rows_ref(u, width)
+        check(bits_equal(words, plain), f"bitpack_rows != plain at w={width}")
+        check(bits_equal(back, ref.bitunpack_rows_ref(plain, 75, width))
+              and bits_equal(back, u),
+              f"bitunpack_rows != plain or no round trip at w={width}")
+    print("[kernels] bitpack_rows / bitunpack_rows: widths 1..32 at R=3 "
+          "k=75 bit-equal=yes round-trip=yes", flush=True)
+    rows = {"bitpack_rows": [], "bitunpack_rows": []}
+    for tag, R, k, width in (("mnist_mlp.l0.w.index", 5, 7880, 18),
+                             ("mnist_mlp.l0.w.int8", 5, 7880, 8),
+                             ("cifar_vgg16.512x512x3x3.index", 5, 60199, 22),
+                             ("cifar_vgg16.512x512x3x3.1bit", 5, 60199, 1)):
+        W = ref.packed_words(k, width)
+        u = pack_fields(rs, R, k, width, device)
+        words = pack.bitpack_rows_cuda(u, width)
+        back = pack.bitunpack_rows_cuda(words, k, width)
+        torch.cuda.synchronize()
+        plain_w = ref.bitpack_rows_ref(u, width)
+        plain_u = ref.bitunpack_rows_ref(plain_w, k, width)
+        check(bits_equal(words, plain_w), f"bitpack_rows != plain at {tag}")
+        check(bits_equal(back, plain_u) and bits_equal(back, u),
+              f"bitunpack_rows != plain or no round trip at {tag}")
+        err_p = (words - plain_w).abs().max().item()
+        err_u = (back - plain_u).abs().max().item()
+        u32 = (u & ref.M32).to(torch.int32)
+        w32 = (words & ref.M32).to(torch.int32)
+        out_w = torch.empty((R, W), dtype=torch.int32, device=device)
+        out_u = torch.empty((R, k), dtype=torch.int32, device=device)
+        fpack = build.kernel("bitpack_rows")
+        funpack = build.kernel("bitunpack_rows")
+
+        def launch_pack():
+            build.check(fpack(u32.data_ptr(), R, k, width, out_w.data_ptr(),
+                              W, torch.cuda.current_stream().cuda_stream),
+                        "bitpack_rows")
+
+        def launch_unpack():
+            build.check(funpack(w32.data_ptr(), R, W, k, width,
+                                out_u.data_ptr(),
+                                torch.cuda.current_stream().cuda_stream),
+                        "bitunpack_rows")
+
+        nbytes = 4 * R * k + 4 * R * W
+        for name, launch, wrapper, plain_fn, err in (
+                ("bitpack_rows", launch_pack,
+                 lambda: pack.bitpack_rows_cuda(u, width),
+                 lambda: ref.bitpack_rows_ref(u, width), err_p),
+                ("bitunpack_rows", launch_unpack,
+                 lambda: pack.bitunpack_rows_cuda(words, k, width),
+                 lambda: ref.bitunpack_rows_ref(words, k, width), err_u)):
+            ms = graph_ms(launch)
+            wrapper_ms = events_ms(wrapper)
+            plain_ms = events_ms(plain_fn, reps=3, inner=3)
+            bound_ms, bound_by = bound(nbytes, PACK_OPS_PER_FIELD * R * k)
+            rows[name].append(dict(
+                shape=tag, R=R, k=k, width=width, words=W, ms=ms,
+                wrapper_ms=wrapper_ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err))
+            print(f"[kernels] {name} {tag}: R={R} k={k} w={width} W={W} "
+                  f"bit-equal=yes ms={ms:.6f} wrapper_ms={wrapper_ms:.6f} "
+                  f"plain_ms={plain_ms:.6f} bound_ms={bound_ms:.8f} "
+                  f"library=none", flush=True)
+    return rows
+
+
 # ------------------------------------------------------------------ phase 4
 def plain_unmasked_sum(info) -> "object":
     """The survivors' weighted sparse sum without masks, from the round's own
@@ -285,6 +392,205 @@ def plain_unmasked_sum(info) -> "object":
     alive = info["alive"].cpu()
     return ref.stream_scatter_add_ref(idx[alive].reshape(-1),
                                       vals[alive].reshape(-1), acc.shape[1])
+
+
+def clone_info(info) -> dict:
+    import torch
+
+    out = {}
+    for key, v in info.items():
+        if torch.is_tensor(v):
+            v = v.clone()
+        elif hasattr(v, "indices"):                       # a StreamBatch
+            v = type(v)(v.indices.clone(), v.values.clone())
+        out[key] = v
+    return out
+
+
+# ------------------------------------------------------------------ phase 6
+def codec_phase(kind: str) -> dict:
+    """codec_sweep_quick on the card; returns the sweep's launch counts."""
+    import torch
+
+    from repro_torch.core import streams as se
+    from repro_torch.kernels import ops
+    from repro_torch.sim import presets
+    from repro_torch.sim.engine import Simulation
+
+    arms = presets.sweep_configs("codec_sweep_quick")
+    results = {}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for codec, cfg in arms.items():
+        sim = Simulation(cfg.replace(out_json=None), device="cuda")
+        probe = {}
+
+        def first_leaf(leaf_id, name, info, probe=probe):
+            if name == "l0.w" and not probe:
+                probe.update(clone_info(info), leaf_id=leaf_id)
+
+        sim.leaf_hook = first_leaf
+        before = ops.launch_counts()
+        res = sim.run()
+        after = ops.launch_counts()
+        check(all(torch.isfinite(p).all() for p in sim.state.params.values()),
+              f"non-finite parameters in the {codec} arm")
+        results[codec] = (res, {n: after[n] - before[n] for n in after},
+                          probe)
+    sweep_counts = ops.launch_counts()
+    base = {a: results["f32"][0].ledger.totals(a)["upload_bits"]
+            for a in ("paper", "tpu")}
+    for codec, (res, counts, probe) in results.items():
+        tp, tt = res.ledger.totals("paper"), res.ledger.totals("tpu")
+        # round 0's l0.w, replayed on the CPU with the plain versions
+        cpu = {k: (v.cpu() if torch.is_tensor(v) else v)
+               for k, v in probe.items()}
+        size = cpu["size"]
+        st, nr = se.encode_leaf_batch(
+            cpu["updates"], cpu["residuals"], k=cpu["k"], nb=1, m=size,
+            size=size, leaf_id=cpu["leaf_id"], weights=cpu["weights"],
+            codec=codec)
+        dense = se.decode_leaf_batch(st, nb=1, m=size, size=size)
+        card_st = probe["streams"]
+        idx_same = bits_equal(st.indices, card_st.indices.cpu())
+        if codec == "1bit":
+            cv, cn = card_st.values.cpu(), cpu["new_residuals"]
+            gap = (cv.abs() - st.values.abs()).abs().max().item()
+            same = (idx_same and torch.equal(cv.sign(), st.values.sign())
+                    and gap <= ONE_BIT_REL * st.values.abs().max().item()
+                    and (cn - nr).abs().max().item()
+                    <= gap + nr.abs().max().item() * 2.0 ** -23)
+            how = (f"indices bit-equal, values within 4 ulp "
+                   f"(max |d|scale| {gap:.3e}): {same}")
+        else:
+            same = (idx_same and bits_equal(st.values, card_st.values.cpu())
+                    and bits_equal(nr, cpu["new_residuals"])
+                    and bits_equal(dense, cpu["dense"]))
+            how = f"streams, residuals and decoded sum bit-equal: {same}"
+        print(f"[codec] {codec:4s} on {kind}: rounds={res.rounds} upload "
+              f"paper {tp['upload_mib']:.6f} MiB "
+              f"({tp['upload_bits'] / base['paper']:.4%} of f32) tpu "
+              f"{tt['upload_mib']:.6f} MiB "
+              f"({tt['upload_bits'] / base['tpu']:.4%} of f32) "
+              f"final_acc={res.final_acc:.4f} wall_s={res.wall_s:.4f} "
+              f"launches={counts}", flush=True)
+        print(f"[codec] {codec:4s} round 0 l0.w (k={cpu['k']}) replayed on "
+              f"the CPU: {how}", flush=True)
+        check(same, f"the card's round-0 l0.w {codec} encode differs from "
+              "the CPU replay")
+        n_leaves = len(res.ledger.entries[0].ks)
+        want = 0 if codec == "f32" else 2 * n_leaves * res.rounds
+        check(counts["bitpack_rows"] == want
+              and counts["bitunpack_rows"] == want,
+              f"{codec} arm launched the pack kernels {counts}, expected "
+              f"{want} each")
+        if codec != "f32":
+            check(tp["upload_bits"] < base["paper"]
+                  and tt["upload_bits"] < base["tpu"],
+                  f"{codec} uploads no less than f32")
+        check(res.final_acc >= 0.9, f"{codec} final_acc {res.final_acc:.4f}")
+    check(tuple(results) == ("f32", "int8", "int4", "1bit"), "arms")
+    check(results["int8"][0].ledger.totals("paper")["upload_bits"] * 3
+          <= base["paper"], "int8 above a third of the f32 upload (paper)")
+    print(f"[codec] codec_sweep_quick launches={sweep_counts}", flush=True)
+    for name in ("bitpack_rows", "bitunpack_rows"):
+        check(sweep_counts[name] == 288,
+              f"{name} launched {sweep_counts[name]} times, expected 288")
+    return sweep_counts
+
+
+# ------------------------------------------------------------------ phase 7
+def plain_noised_sum(info, leaf_id: int):
+    """The survivors' unmasked noised sum of a DP round's leaf: gradient on
+    the released slots (once per index), plus each client's noise, with the
+    plain versions on the card."""
+    import torch
+
+    from repro_torch.core import dp, streams as se
+    from repro_torch.kernels import ref
+
+    C, size = info["updates"].shape[0], info["size"]
+    k_data = min(info["k"], size)
+    acc = (info["residuals"].float() + info["updates"].float()).reshape(C, -1)
+    idx = info["streams"].indices.reshape(C, -1).to(torch.int64)
+    first = se.first_occurrence_rows(idx)
+    first[:, k_data:] = False
+    vals = torch.where(first, torch.gather(acc, 1, idx), 0.0)
+    noise = dp.add_stream_noise(
+        torch.zeros((C, 1, idx.shape[1]), device=acc.device),
+        info["dp_seeds"], sigma=info["dp_sigma"], leaf_id=leaf_id,
+        k_data=k_data).reshape(C, -1)
+    alive = info["alive"]
+    return ref.stream_scatter_add_ref(idx[alive].reshape(-1),
+                                      (vals + noise)[alive].reshape(-1), size)
+
+
+def dp_phase(kind: str) -> None:
+    import torch
+
+    from repro_torch.core.dp import DPConfig
+    from repro_torch.kernels import ops
+    from repro_torch.sim import presets
+    from repro_torch.sim.engine import Simulation
+
+    cfg = presets.get("dp_quick").replace(out_json=None)
+    sim = Simulation(cfg, device="cuda")
+    captured = {}
+
+    def leaf_hook(leaf_id, name, info):
+        if info["dropped"] and name == "l0.w" and "info" not in captured:
+            captured.update(info=clone_info(info), leaf_id=leaf_id)
+
+    sim.leaf_hook = leaf_hook
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    res = sim.run()
+    counts = ops.launch_counts()
+    priv = res.ledger.privacy()
+    check("info" in captured, "dp_quick dropped no client")
+    want = plain_noised_sum(captured["info"], captured["leaf_id"])
+    err = (captured["info"]["dense"] - want).abs().max().item()
+    tol = 64 * 2.0 ** -24
+    print(f"[dp] dp_quick on {kind}: eps={priv['epsilon']:.6f} at "
+          f"delta={priv['delta']:g} over {priv['rounds']} rounds "
+          f"final_acc={res.final_acc:.4f} launches={counts} dropout round "
+          f"{captured['info']['dropped']}: decoded vs plain unmasked noised "
+          f"sum max abs err {err:.3e} (tolerance 64 * 2^-24 = {tol:.3e})",
+          flush=True)
+    check(round(priv["epsilon"], 1) == 40.1,
+          f"dp_quick eps {priv['epsilon']:.4f} != 40.1")
+    check(err <= tol, f"DP dropout round off by {err:.3e}")
+    for name in ("stream_scatter_add", "pair_mask_streams"):
+        check(counts[name] > 0, f"dp_quick never launched {name}")
+
+    want_eps = {"z0.3": 89.7, "z0.6": 33.7, "z1.2": 14.1}
+    arms = presets.dp_sweep_configs("dp_frontier_quick")
+    off_sim = None
+    for label, cfg in arms.items():
+        sim = Simulation(cfg.replace(out_json=None), device="cuda")
+        res = sim.run()
+        priv = res.ledger.privacy()
+        eps = priv["epsilon"] if priv else float("inf")
+        up = res.ledger.totals("paper")
+        print(f"[dp] dp_frontier_quick {label:4s}: eps={eps:.6f} "
+              f"final_acc={res.final_acc:.4f} upload_vs_dense(paper)="
+              f"{up['upload_vs_dense']:.6f}", flush=True)
+        if label == "off":
+            check(priv is None, "the off arm has a privacy block")
+            off_sim, off_res = sim, res
+        else:
+            check(round(eps, 1) == want_eps[label],
+                  f"{label} eps {eps:.4f} != {want_eps[label]}")
+    inert = Simulation(arms["off"].replace(out_json=None, dp=DPConfig()),
+                       device="cuda")
+    inert_res = inert.run()
+    same = (inert_res.ledger.summary() == off_res.ledger.summary()
+            and all(bits_equal(inert.state.params[n], off_sim.state.params[n])
+                    for n in off_sim.state.params))
+    print(f"[dp] off arm vs the same run with an inactive DPConfig() "
+          f"(clip=inf, sigma=0): parameters and ledger bit-identical={same}",
+          flush=True)
+    check(same, "an inactive DPConfig changed the off arm")
 
 
 def main() -> int:
@@ -340,6 +646,7 @@ def main() -> int:
     shapes.append(("cifar_vgg16.512x512x3x3@k60199", 2359296, 60199,
                    sa.k_mask_for(2359296, 5), 5))
     rows = kernel_phase(shapes, device)
+    rows.update(pack_kernel_phase(device))
 
     # ------------------------------------------------------ 3. main path
     from repro_torch.sim import presets
@@ -354,8 +661,7 @@ def main() -> int:
 
     def first_leaf(leaf_id, name, info):
         if name == "l0.w" and not probe:
-            probe.update({k: (v.clone() if torch.is_tensor(v) else v)
-                          for k, v in info.items()}, leaf_id=leaf_id)
+            probe.update(clone_info(info), leaf_id=leaf_id)
 
     sim.leaf_hook = first_leaf
     torch.cuda.synchronize()
@@ -370,7 +676,7 @@ def main() -> int:
           f"final_acc={res.final_acc:.4f} accs={res.accuracies} "
           f"wall_s={res.wall_s:.4f} round_s={res.wall_s / cfg.rounds:.4f}",
           flush=True)
-    for name in ops.KERNELS:
+    for name in ("stream_scatter_add", "pair_mask_streams"):
         check(main_counts[name] > 0, f"main path never launched {name}")
     check(abs(t2["upload_vs_dense"] - 0.091) <= 0.005,
           f"upload_vs_dense {t2['upload_vs_dense']:.4f} outside 9.1% +- 0.5")
@@ -409,9 +715,7 @@ def main() -> int:
 
     def leaf_hook(leaf_id, name, info):
         if info["dropped"] and name == "l0.w" and "info" not in captured:
-            captured["info"] = {k: (v.clone() if torch.is_tensor(v) else v)
-                                for k, v in info.items()}
-            captured["info"]["streams"] = info["streams"]
+            captured["info"] = clone_info(info)
 
     def round_hook(r, info):
         per_round.append((r, list(info["dropped"]), ops.launch_counts()))
@@ -461,8 +765,14 @@ def main() -> int:
           f"peak_mem_gib={torch.cuda.max_memory_allocated() / 2**30:.3f} "
           f"finite={finite}", flush=True)
     check(finite, "non-finite VGG16 parameters")
-    for name in ops.KERNELS:
+    for name in ("stream_scatter_add", "pair_mask_streams"):
         check(vgg_counts[name] > 0, f"VGG16 rounds never launched {name}")
+
+    # --------------------------------------------------------- 6. codecs
+    codec_counts = codec_phase(kind)
+
+    # ------------------------------------------------------------- 7. DP
+    dp_phase(kind)
 
     # ------------------------------------------------------------ report
     sources = {"stream_scatter_add": ("src/repro_torch/kernels/csrc/"
@@ -470,13 +780,22 @@ def main() -> int:
                                       "src/repro/kernels/stream_decode.py:57"),
                "pair_mask_streams": ("src/repro_torch/kernels/csrc/"
                                      "pair_mask_streams.cu",
-                                     "src/repro/kernels/mask_prng.py:97")}
+                                     "src/repro/kernels/mask_prng.py:97"),
+               "bitpack_rows": ("src/repro_torch/kernels/csrc/bitpack.cu",
+                                "src/repro/kernels/pack.py:42"),
+               "bitunpack_rows": ("src/repro_torch/kernels/csrc/bitpack.cu",
+                                  "src/repro/kernels/pack.py:65")}
+    # each kernel's launches come from the path that runs it: table2_quick
+    # for the scatter and the masks, codec_sweep_quick for the bit packing
+    launches = {**main_counts,
+                "bitpack_rows": codec_counts["bitpack_rows"],
+                "bitunpack_rows": codec_counts["bitunpack_rows"]}
     kernels = []
     for name in ops.KERNELS:
         main_row = rows[name][0]
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name][0],
-            "replaces": sources[name][1], "launches": main_counts[name],
+            "replaces": sources[name][1], "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],

@@ -1,16 +1,17 @@
 """Communication-cost accounting (paper §5.2, Eq. 6-8) — port of
-``repro.core.costs`` for the f32 wire.
+``repro.core.costs``.
 
 The paper counts a sparse element as 96 bit (64-bit value + 32-bit index) and
 a dense element as 64 bit; the f32 wire is 64 bit sparse and 32 bit dense.
-Both accountings are reported. The quantized codecs' packed-word accounting
-comes with the codec slice.
+Both accountings are reported. A quantized codec's wire is its packed words
+(``core/codecs.wire_bits``), the same under both accountings.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Sequence
 
+from repro_torch.core import codecs
 from repro_torch.core.types import CommRecord
 
 
@@ -37,10 +38,21 @@ TPU_BITS = BitModel(value_bits=32, index_bits=32)     # f32 + int32
 
 
 def upload_bits_sparse(ks: Sequence[int], k_masks: Sequence[int], n_pairs: int,
-                       bits: BitModel = PAPER_BITS) -> int:
+                       bits: BitModel = PAPER_BITS, *, codec: str = "f32",
+                       leaf_sizes: Sequence[int] = ()) -> int:
     """Per-client upload bits for one sparse round (Eq. 6): ``sum(ks) +
     n_pairs * sum(k_masks)`` unified-stream slots (the gated self-pair slot
-    is never on the wire)."""
+    is never on the wire). A quantized ``codec`` uploads its packed words
+    instead, per leaf from ``(k, leaf size)`` — ``leaf_sizes`` aligned with
+    ``ks`` is then required."""
+    if codec != "f32":
+        codecs.reject_codec_with_masks(codec, any(km > 0 for km in k_masks))
+        if len(leaf_sizes) != len(ks):
+            raise ValueError(
+                "quantized-codec accounting needs leaf_sizes aligned with "
+                f"ks, got {len(leaf_sizes)} vs {len(ks)}")
+        return sum(codecs.wire_bits(k, s, codec)
+                   for k, s in zip(ks, leaf_sizes))
     return bits.sparse_bits(sum(ks) + n_pairs * sum(k_masks))
 
 
@@ -69,14 +81,24 @@ def round_record(
     *,
     n_survivors: Optional[int] = None,
     threshold: int = 0,
+    codec: str = "f32",
     leaf_sizes: Sequence[int] = (),
+    dp_clip: float = 0.0,
+    dp_sigma: float = 0.0,
+    dp_delta: float = 0.0,
 ) -> CommRecord:
     """Eq. 7-8 accounting for one sparse round: survivors upload their
     streams toward ``n_clients - 1`` peers, every participant downloads the
     dense model; secure-aggregation control traffic (phase-1 shares, phase-3
-    recovery shares) is charged separately when any ``k_masks`` > 0."""
+    recovery shares) is charged separately when any ``k_masks`` > 0.
+    ``codec`` switches the upload to packed-word accounting; the ``dp_*``
+    facts (clip S, noise multiplier z, target δ; 0.0 = off) are stored
+    only: the noise rides existing slots and costs no bits."""
+    if codec != "f32":
+        codecs.reject_codec_with_masks(codec, any(km > 0 for km in k_masks))
     surv = n_clients if n_survivors is None else n_survivors
-    up = surv * upload_bits_sparse(ks, k_masks, max(n_clients - 1, 0), bits)
+    up = surv * upload_bits_sparse(ks, k_masks, max(n_clients - 1, 0), bits,
+                                   codec=codec, leaf_sizes=leaf_sizes)
     dense = n_clients * upload_bits_dense(model_size, bits)
     secagg = any(km > 0 for km in k_masks)
     share_up = share_upload_bits(n_clients, bits) if secagg else 0
@@ -96,7 +118,11 @@ def round_record(
         model_size=model_size,
         ks=tuple(int(k) for k in ks),
         k_masks=tuple(int(k) for k in k_masks),
+        codec=codec,
         leaf_sizes=tuple(int(s) for s in leaf_sizes),
+        dp_clip=float(dp_clip),
+        dp_sigma=float(dp_sigma),
+        dp_delta=float(dp_delta),
     )
 
 

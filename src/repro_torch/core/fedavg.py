@@ -19,6 +19,12 @@ Each stage runs under a ``torch.profiler.record_function`` span
 ``round.decode``), which ``python -m repro_torch.sim.profile`` reads; a span
 costs about a microsecond when no profiler is active.
 
+With a non-f32 ``codec`` the encode also quantizes and packs each leaf's
+streams (two ``bitpack_rows`` and two ``bitunpack_rows`` launches a leaf);
+with an active ``dp`` each client's accumulator is clipped before the
+encode and the streams carry grid-rounded noise on a public support
+(``core/dp.py``).
+
 Parameters are ``{name: tensor}`` dicts in the reference's leaf order
 (``PaperModel.leaf_names``); the leaf's position is its ``leaf_id``.
 Weighted aggregation is client-side; the server divides by the survivors'
@@ -34,6 +40,9 @@ from torch.profiler import record_function
 
 from repro_torch.core import costs, schedules
 from repro_torch.core import streams as se
+from repro_torch.core.codecs import reject_codec_with_masks
+from repro_torch.core.dp import (DPConfig, clip_client_updates,
+                                 reject_codec_with_noise)
 from repro_torch.core.types import (CommRecord, FedConfig, SecureAggConfig,
                                     THGSConfig)
 from repro_torch.secagg.protocol import RoundProtocol
@@ -119,6 +128,8 @@ def run_round(
     client_weights: Mapping[int, float] | None = None,
     dropped: Sequence[int] = (),
     leaf_hook: Callable[[int, str, dict], None] | None = None,
+    codec: str = "f32",
+    dp: DPConfig | None = None,
 ) -> FederatedState:
     """One synchronous aggregation round over the given participants.
 
@@ -129,11 +140,33 @@ def run_round(
     never arrived: their streams are excluded and the survivors' unpaired
     masks are regenerated from Shamir-reconstructed seeds and cancelled
     (raises ``secagg.ThresholdError`` below the threshold).
+    ``codec`` selects the stream wire (``core/codecs.py``): a quantized
+    codec needs THGS and is rejected under secure aggregation.
+    ``dp`` (``core/dp.DPConfig``) clips each client's accumulator
+    ``residual + delta`` to ``dp.clip`` and, with ``sigma > 0``, releases
+    noised values on the round's public support; it needs THGS, the f32
+    codec and uniform client weights. ``None`` or an inactive config leaves
+    the round bit-identical to a round without DP.
     ``leaf_hook(leaf_id, name, info)``
     is called after each leaf's decode with the leaf's encode inputs, its
     streams and its decoded sum (a probe for tests and smoke checks; None
     costs nothing).
     """
+    dp_active = dp is not None and dp.active
+    if dp_active:
+        dp.validate()
+        if thgs is None:
+            raise ValueError(
+                "dp requires THGS sparse streams; the DP noise rides the "
+                "unified stream's transmitted slots (thgs is None)")
+        reject_codec_with_noise(codec, dp.sigma)
+        if client_weights and any(
+                float(w) != 1.0 for w in client_weights.values()):
+            raise ValueError(
+                "dp requires uniform client weights: weights scale the "
+                "stream values before masking, so a weight != 1.0 would "
+                "scale that client's contribution past the clip bound S "
+                "the accountant calibrates noise against")
     participants = sorted(client_batches.keys())
     C = len(participants)
     dropped = set(dropped)
@@ -164,6 +197,14 @@ def run_round(
         losses_list = [float(x) for x in losses.tolist()]
 
     if thgs is not None:
+        # per-(round, client) noise seeds and the round's public support
+        # seed, derived host-side from config + round alone
+        dp_sigma_c = dp.sigma_client(C) if dp_active else 0.0
+        dp_noised = dp_active and dp.noised
+        dp_seeds = (torch.from_numpy(
+            dp.client_seeds(state.round, participants).astype("int64"))
+            .to(dev) if dp_noised else None)
+        dp_sup_seed = int(dp.support_seed(state.round)) if dp_noised else 0
         # Eq. 2's beta from the federation-mean loss trajectory: one per-leaf
         # k for the whole batched round
         loss_prev = _mean_or_none([state.losses.get(c) for c in participants])
@@ -172,6 +213,7 @@ def run_round(
                                total_rounds=fed.rounds, loss_prev=loss_prev,
                                loss_curr=loss_curr)
         use_masks = sa.enabled and C >= 2
+        reject_codec_with_masks(codec, use_masks)
         if use_masks:
             with record_function("round.secagg_setup"):
                 proto = RoundProtocol.setup(sa, participants, state.round)
@@ -183,13 +225,24 @@ def run_round(
             proto = None
             pair_seeds = pair_signs = recovery_seeds = None
 
+        res_st = {n: torch.stack([state.residuals[c][n]
+                                  for c in participants]) for n in names}
+        if dp_active and dp.clips:
+            # clip the ENCODER INPUT, the accumulator residual + delta, so
+            # the bound S holds for the full stream a client emits; the
+            # clipped accumulator becomes the encode's update over a zeroed
+            # residual (compliant clients scale by exactly 1.0)
+            deltas = clip_client_updates(
+                {n: deltas[n].to(torch.float32) + res_st[n].to(torch.float32)
+                 for n in names}, clip=float(dp.clip))
+            res_st = {n: torch.zeros_like(r) for n, r in res_st.items()}
+
         agg, new_res = {}, {}
         ks_acct, k_masks_acct = [], []
         for leaf_id, (name, k, size) in enumerate(zip(names, ks, sizes)):
             shape = state.params[name].shape
             d_st = deltas[name]
-            r_st = torch.stack([state.residuals[c][name]
-                                for c in participants])
+            r_st = res_st[name]
             k_mask = sa.k_mask_for(size, C) if use_masks else 0
             # ---- 2. batched unified-stream encode ----
             with record_function("round.encode"):
@@ -197,7 +250,9 @@ def run_round(
                     d_st, r_st, k=k, nb=1, m=size, size=size,
                     pair_seeds=pair_seeds, pair_signs=pair_signs,
                     k_mask=k_mask, mask_p=sa.p, mask_q=sa.q,
-                    leaf_id=leaf_id, weights=w_vec)
+                    leaf_id=leaf_id, weights=w_vec, codec=codec,
+                    dp_sigma=dp_sigma_c, dp_seeds=dp_seeds,
+                    dp_support_seed=dp_sup_seed)
             # ---- 3. scatter-add decode + dropout recovery ----
             with record_function("round.decode"):
                 dense = se.decode_leaf_batch(
@@ -214,7 +269,9 @@ def run_round(
                     "size": size, "pair_seeds": pair_seeds,
                     "pair_signs": pair_signs,
                     "recovery_seeds": recovery_seeds if dropped else None,
-                    "dropped": sorted(dropped)})
+                    "dropped": sorted(dropped), "codec": codec,
+                    "dp_sigma": dp_sigma_c, "dp_seeds": dp_seeds,
+                    "dp_support_seed": dp_sup_seed})
             agg[name] = _div(dense, w_surv_total).reshape(shape)
             # dropped clients transmitted nothing: their full accumulator
             # carries over as error feedback
@@ -230,8 +287,18 @@ def run_round(
         rec = costs.round_record(
             state.round, model_size, ks_acct, k_masks_acct,
             n_clients=C, bits=bits, n_survivors=len(survivors),
-            threshold=proto.t if use_masks else 0, leaf_sizes=sizes)
+            threshold=proto.t if use_masks else 0, codec=codec,
+            leaf_sizes=sizes,
+            # inactive DP parts stay at the 0.0 defaults, so sigma=0 /
+            # clip=inf records equal records without DP
+            dp_clip=float(dp.clip) if dp_active and dp.clips else 0.0,
+            dp_sigma=float(dp.sigma) if dp_active else 0.0,
+            dp_delta=float(dp.delta) if dp_active and dp.noised else 0.0)
     else:
+        if codec != "f32":
+            raise ValueError(
+                f"codec {codec!r} requires THGS sparse streams; dense rounds "
+                "have no stream wire to quantize (thgs is None)")
         if sa.enabled:
             raise NotImplementedError(
                 "dense secure aggregation (thgs=None with sa.enabled) is not "

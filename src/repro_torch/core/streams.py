@@ -1,5 +1,6 @@
 """The unified sparse-stream engine (paper Alg. 1/2, Eq. 5) — port of the flat,
-serial, f32 path of ``repro.core.streams``.
+serial path of ``repro.core.streams``, with the wire codecs and the DP
+release.
 
 A stream for one leaf is a static-shape pair ``(indices, values)``:
 
@@ -24,6 +25,14 @@ Every operation keeps the reference's float order so the data plane is
 bit-equal to it on shared inputs: top-k ties resolve to the lower index
 (a stable descending sort, as ``lax.top_k``), the first-occurrence gate sorts
 stably, and the decode folds each position in slot order.
+
+A non-f32 ``codec`` quantizes each client's stream values row-wise, absorbs
+the quantization error into the error feedback, and sends the stream
+through the packed uint32 word wire (``core/codecs.py``: two
+``bitpack_rows`` and two ``bitunpack_rows`` launches per leaf). ``dp_sigma
+> 0`` switches the encode to the DP release shape (``core/dp.py``): the
+data slots release the round's public common support, mask slots carry
+masks only, and grid-rounded noise is added to every released slot.
 """
 from __future__ import annotations
 
@@ -32,6 +41,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core import codecs
+from repro_torch.core import dp as dp_mod
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
 
@@ -98,16 +109,24 @@ def unified_stream_rows(
     mask_vals: torch.Tensor | None,      # f32[C, nb, k_mask_total] | None
     *,
     weight: torch.Tensor,                # f32[C] client-side weights
+    dp_support: torch.Tensor | None = None,  # int[nb, k] public support
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """All clients, one leaf: ``top-k(|acc|) ∪ support(mask)`` (Eq. 5).
 
     Returns ``(idx, vals, new_acc)``: ``idx`` the per-row column indices
     (int64), ``vals = weight·acc[idx]·first_occurrence + mask`` and
     ``new_acc`` with every transmitted position zeroed.
+
+    ``dp_support`` is the DP release shape: the ``k`` data slots release
+    that public support instead of the top-k, mask slots carry no gradient
+    value, and ``new_acc`` zeroes only the released support.
     """
     C, nb, m = acc.shape
     k = int(min(k, m))
-    idx_t = select_topk_rows(acc, k)
+    if dp_support is not None:
+        idx_t = dp_support.to(torch.int64).expand(C, nb, k)
+    else:
+        idx_t = select_topk_rows(acc, k)
     zeros = torch.zeros((C, nb, k), dtype=torch.float32, device=acc.device)
     if mask_idx is not None and mask_idx.shape[-1] > 0:
         idx = torch.cat([idx_t, mask_idx.to(torch.int64)], -1)
@@ -115,11 +134,15 @@ def unified_stream_rows(
     else:
         idx, mvals = idx_t, zeros
     first = first_occurrence_rows(idx)
+    if dp_support is not None:
+        # a mask slot that is its index's first occurrence must not carry
+        # the (un-noised) gradient value out beside the masks
+        first[..., k:] = False
     gvals = torch.gather(acc, -1, idx)
     # the reference's ``w * g * first + mask``, which XLA lowers to a select
     # on ``first``: a gated slot carries +0.0, never a signed zero
     vals = torch.where(first, weight[:, None, None] * gvals, 0.0) + mvals
-    new_acc = acc.scatter(-1, idx, 0.0)
+    new_acc = acc.scatter(-1, idx_t if dp_support is not None else idx, 0.0)
     return idx, vals, new_acc
 
 
@@ -192,10 +215,12 @@ def encode_batch_blocks(
     mask_q: float = 2.0,
     leaf_id: int | None = None,
     weights: torch.Tensor | None = None,     # f32[C]
+    dp_support: torch.Tensor | None = None,  # int[nb, k] public support
 ) -> tuple[StreamBatch, torch.Tensor]:
     """Batched client encode: pair masks of the round in one pass, then the
     unified stream of every client. Returns (StreamBatch with global indices
-    row*m + col, new_acc [C, nb, m])."""
+    row*m + col, new_acc [C, nb, m]). ``dp_support`` (one support for every
+    client) selects the DP release shape."""
     C, nb, m = acc.shape
     dev = acc.device
     if weights is None:
@@ -206,19 +231,64 @@ def encode_batch_blocks(
         m_idx, m_vals = mask_streams_all_pairs(
             pair_seeds.to(dev), signs, nb, k_mask, m, p=mask_p, q=mask_q,
             leaf_id=leaf_id)
-        # Inactive (self) slots carry zero mask value; point their support
-        # at the block's top-1 position so the first-occurrence gate zeroes
-        # the slot entirely — a random index there would transmit the raw
-        # gradient unmasked.
-        top1 = torch.argmax(acc.abs(), -1).to(torch.int32)[..., None]
-        col_active = torch.repeat_interleave(signs != 0.0, k_mask,
-                                             dim=-1)[:, None, :]
-        m_idx = torch.where(col_active, m_idx, top1)
+        if dp_support is None:
+            # Inactive (self) slots carry zero mask value; point their
+            # support at the block's top-1 position so the first-occurrence
+            # gate zeroes the slot entirely — a random index there would
+            # transmit the raw gradient unmasked. Under DP mask slots carry
+            # no gradient at all, and this override would leak
+            # argmax(|acc|) through a transmitted index.
+            top1 = torch.argmax(acc.abs(), -1).to(torch.int32)[..., None]
+            col_active = torch.repeat_interleave(signs != 0.0, k_mask,
+                                                 dim=-1)[:, None, :]
+            m_idx = torch.where(col_active, m_idx, top1)
     idx, vals, new_acc = unified_stream_rows(acc, k, m_idx, m_vals,
-                                             weight=weights.to(dev))
+                                             weight=weights.to(dev),
+                                             dp_support=dp_support)
     rows = torch.arange(nb, dtype=torch.int64, device=dev)[None, :, None]
     gidx = (rows * m + idx).to(torch.int32)
     return StreamBatch(indices=gidx, values=vals), new_acc
+
+
+# ----------------------------------------------------- wire-format codec stage
+def codec_wire_stage(gidx, vals, new_acc, weights, m: int, codec: str):
+    """The client-side codec stage, mask-free rounds only: quantize the
+    batched stream values row-wise, absorb the quantization error into the
+    error-feedback accumulator (transmitted positions were just zeroed; they
+    now carry ``(sent - wire) / weight``), and sort each row by column for
+    the delta-packed index wire. Returns ``(cols int64[C, nb, k] sorted,
+    q int32[C, nb, k], scales f32[C, nb], new_acc)``."""
+    C = gidx.shape[0]
+    w = (weights.to(vals.device, torch.float32) if weights is not None
+         else torch.ones((C,), dtype=torch.float32, device=vals.device))
+    q, scales = codecs.quantize_rows(vals, codec)
+    cols = gidx.to(torch.int64) % m
+    # ``vals - q * scale`` with ONE rounding, as the reference's XLA fuses it
+    # into an FMA: in f64 the product is exact (|q| < 2^8, a 24-bit scale)
+    # and, for int8/int4, so is the difference (|vals - q*scale| <= scale/2
+    # puts the two within a factor of two unless q == 0), so the cast back
+    # rounds once; a 1bit difference may round twice, inside that codec's
+    # tolerance
+    err = (vals.to(torch.float64) - q.to(torch.float64)
+           * scales.to(torch.float64)[..., None]).to(torch.float32)
+    err = err / torch.where(w == 0.0, 1.0, w)[:, None, None]
+    # a codec row is the top-k alone: its columns are distinct, so the
+    # scatter_add is one add per position, as the reference's .at[].add
+    new_acc = new_acc.scatter_add(-1, cols, err)
+    order = torch.argsort(cols, dim=-1, stable=True)
+    return (torch.gather(cols, -1, order), torch.gather(q, -1, order),
+            scales, new_acc)
+
+
+def codec_wire_roundtrip(cols_s, q_s, scales, m: int, codec: str):
+    """Pack -> unpack -> dequantize one batched stream, so every round runs
+    the exact uint32 word wire. Lossless: the same sorted columns come back
+    and the values sit on the quantization lattice. Returns ``(cols
+    int32[C, nb, k], vq f32[C, nb, k])``."""
+    iw, vw = codecs.pack_stream_rows(cols_s, q_s, m=m, codec=codec)
+    cols2, q2 = codecs.unpack_stream_rows(iw, vw, k=q_s.shape[-1], m=m,
+                                          codec=codec)
+    return cols2, codecs.dequantize_rows(q2, scales)
 
 
 def encode_leaf_batch(
@@ -236,6 +306,10 @@ def encode_leaf_batch(
     mask_q: float = 2.0,
     leaf_id: int = 0,
     weights: torch.Tensor | None = None,
+    codec: str = "f32",
+    dp_sigma: float = 0.0,
+    dp_seeds: torch.Tensor | None = None,
+    dp_support_seed: int = 0,
 ) -> tuple[StreamBatch, torch.Tensor]:
     """Leaf-level encode: accumulate -> block view -> batched encode.
 
@@ -244,15 +318,49 @@ def encode_leaf_batch(
     slots per pair per block, ``leaf_id`` folded into every pair seed), and
     the new error feedback with the transmitted positions zeroed. Returns
     ``(StreamBatch int32/f32[C, nb, k + C*k_mask], new_residuals)``.
+
+    ``codec`` (``core/codecs.py``): a non-f32 codec quantizes the values
+    (error absorbed into the returned residuals) and runs the packed wire
+    round trip; it requires ``k_mask == 0``. ``dp_sigma`` > 0 is the
+    per-client DP noise stddev (``DPConfig.sigma_client``): the data slots
+    release the public support drawn from ``dp_support_seed`` and every
+    released slot gets noise from ``dp_seeds`` (uint32[C], one per client),
+    both folded with ``leaf_id``. It requires the f32 codec; 0 skips every
+    DP operation.
     """
+    # the codec x secagg rejection lives in ONE place (repro.lint RPL003)
+    codecs.reject_codec_with_masks(codec, k_mask)
+    dp_on = dp_sigma > 0.0
+    dp_support = None
     C = updates.shape[0]
+    if dp_on:
+        dp_mod.reject_codec_with_noise(codec, dp_sigma)
+        if dp_seeds is None:
+            raise ValueError("dp_sigma > 0 requires dp_seeds")
+        dp_support = dp_mod.common_support(
+            dp_support_seed, nb, min(int(k), m), m, leaf_id,
+            device=updates.device)
     leaf_shape = tuple(updates.shape[1:])
     acc = (residuals.to(torch.float32) + updates.to(torch.float32))
     acc = torch.stack([to_blocks(acc[c], nb, m) for c in range(C)])
     streams, new_acc = encode_batch_blocks(
         acc, k, pair_seeds=pair_seeds, pair_signs=pair_signs,
         k_mask=k_mask, mask_p=mask_p, mask_q=mask_q, leaf_id=leaf_id,
-        weights=weights)
+        weights=weights, dp_support=dp_support)
+    if dp_on:
+        streams = StreamBatch(
+            indices=streams.indices,
+            values=dp_mod.add_stream_noise(
+                streams.values, dp_seeds, sigma=dp_sigma, leaf_id=leaf_id,
+                k_data=min(int(k), m)))
+    if codec != "f32":
+        cols, q, scales, new_acc = codec_wire_stage(
+            streams.indices, streams.values, new_acc, weights, m, codec)
+        cols, vq = codec_wire_roundtrip(cols, q, scales, m, codec)
+        rows = torch.arange(nb, dtype=torch.int32,
+                            device=acc.device)[None, :, None]
+        streams = StreamBatch(indices=(rows * m + cols).to(torch.int32),
+                              values=vq)
     new_res = torch.stack([from_blocks(new_acc[c], size, leaf_shape)
                            for c in range(C)])
     return streams, new_res.to(residuals.dtype)

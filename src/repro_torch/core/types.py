@@ -87,9 +87,9 @@ class CommRecord:
 
     Totals are under the round's ``BitModel``; the slot-level facts (``ks``,
     ``k_masks``, participant/survivor counts, Shamir ``threshold``, model
-    size) let the ledger re-derive any accounting. The codec, staleness and
-    DP fields keep the reference's schema at their inactive defaults: this
-    slice runs f32 synchronous rounds without DP.
+    size) let the ledger re-derive any accounting. ``staleness`` keeps the
+    reference's schema at its synchronous default (async rounds are not
+    ported yet).
     """
 
     round: int = 0

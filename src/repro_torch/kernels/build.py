@@ -26,15 +26,23 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-# the C entry point of each source and its ctypes signature
-_P, _LL, _U, _F = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint,
-                   ctypes.c_float)
+# each source's C entry points (one per kernel) and their ctypes signatures
+_P, _LL, _U, _F, _I = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint,
+                       ctypes.c_float, ctypes.c_int)
 SOURCES = {
-    "stream_scatter_add": ("stream_scatter_add.cu", "stream_scatter_add_launch",
-                           [_P, _P, _LL, _P, _LL, _P]),
-    "pair_mask_streams": ("pair_mask_streams.cu", "pair_mask_streams_launch",
-                          [_P, _P, _LL, _LL, _U, _F, _F, _P, _P, _P]),
+    "stream_scatter_add.cu": {
+        "stream_scatter_add": ("stream_scatter_add_launch",
+                               [_P, _P, _LL, _P, _LL, _P])},
+    "pair_mask_streams.cu": {
+        "pair_mask_streams": ("pair_mask_streams_launch",
+                              [_P, _P, _LL, _LL, _U, _F, _F, _P, _P, _P])},
+    "bitpack.cu": {
+        "bitpack_rows": ("bitpack_rows_launch",
+                         [_P, _LL, _LL, _I, _P, _LL, _P]),
+        "bitunpack_rows": ("bitunpack_rows_launch",
+                           [_P, _LL, _LL, _LL, _I, _P, _P])},
 }
+N_KERNELS = sum(len(entries) for entries in SOURCES.values())
 
 _LOCK = threading.Lock()
 _FUNCS: dict = {}
@@ -59,33 +67,34 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def _lib_path(name: str, src: Path) -> Path:
+def _lib_path(fname: str) -> Path:
+    src = CSRC / fname
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return build_dir() / f"{name}-{digest.hexdigest()[:16]}.so"
+    return build_dir() / f"{src.stem}-{digest.hexdigest()[:16]}.so"
 
 
 def build_all(verbose: bool = False) -> dict:
     """Compile every missing library (in parallel) and load all of them.
 
-    Returns ``{name: ctypes function}``; idempotent and thread-safe.
+    Returns ``{kernel name: ctypes function}``; idempotent and thread-safe.
     """
     global build_seconds
     with _LOCK:
-        if len(_FUNCS) == len(SOURCES):
+        if len(_FUNCS) == N_KERNELS:
             return _FUNCS
         t0 = time.perf_counter()
         build_dir().mkdir(parents=True, exist_ok=True)
         procs = []
-        for name, (fname, _, _) in SOURCES.items():
-            src = CSRC / fname
-            out = _lib_path(name, src)
+        for fname in SOURCES:
+            out = _lib_path(fname)
             if out.exists():
                 continue
             tmp = out.with_name(out.name + f".tmp{os.getpid()}")
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC / fname)]
             if verbose:
                 cmd[1:1] = ["-Xptxas", "-v"]
-            procs.append((name, out, tmp, subprocess.Popen(
+            procs.append((fname, out, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
         errors = []
@@ -99,12 +108,13 @@ def build_all(verbose: bool = False) -> dict:
             os.replace(tmp, out)
         if errors:
             raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
-        for name, (fname, sym, argtypes) in SOURCES.items():
-            lib = ctypes.CDLL(str(_lib_path(name, CSRC / fname)))
-            fn = getattr(lib, sym)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            _FUNCS[name] = fn
+        for fname, entries in SOURCES.items():
+            lib = ctypes.CDLL(str(_lib_path(fname)))
+            for name, (sym, argtypes) in entries.items():
+                fn = getattr(lib, sym)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                _FUNCS[name] = fn
         build_seconds = time.perf_counter() - t0
         return _FUNCS
 

@@ -11,9 +11,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import mask_prng, ref, stream_decode
+from repro_torch.kernels import mask_prng, pack, ref, stream_decode
 
-KERNELS = ("stream_scatter_add", "pair_mask_streams")
+KERNELS = ("stream_scatter_add", "pair_mask_streams", "bitpack_rows",
+           "bitunpack_rows")
 
 
 def stream_scatter_add(indices: torch.Tensor, values: torch.Tensor, *,
@@ -34,12 +35,32 @@ def pair_mask_streams(seeds: torch.Tensor, signs: torch.Tensor, *, nb: int,
     return ref.pair_mask_stream_ref(seeds, signs, nb, k_mask, m, p=p, q=q)
 
 
+def bitpack_rows(u: torch.Tensor, *, width: int) -> torch.Tensor:
+    """Pack ``[R, k]`` fields of ``width`` bits into ``[R, ceil(k*width/32)]``
+    uint32 words (int64 lanes), each row one LSB-first bit stream."""
+    if u.device.type == "cuda":
+        return pack.bitpack_rows_cuda(u, width)
+    return ref.bitpack_rows_ref(u, width)
+
+
+def bitunpack_rows(words: torch.Tensor, *, k: int,
+                   width: int) -> torch.Tensor:
+    """Inverse of :func:`bitpack_rows`: words -> ``[R, k]`` fields."""
+    if words.device.type == "cuda":
+        return pack.bitunpack_rows_cuda(words, k, width)
+    return ref.bitunpack_rows_ref(words, k, width)
+
+
 def launch_counts() -> dict:
     """Kernel launches since the last reset, by kernel name."""
     return {"stream_scatter_add": stream_decode.launches,
-            "pair_mask_streams": mask_prng.launches}
+            "pair_mask_streams": mask_prng.launches,
+            "bitpack_rows": pack.pack_launches,
+            "bitunpack_rows": pack.unpack_launches}
 
 
 def reset_launch_counts() -> None:
     stream_decode.launches = 0
     mask_prng.launches = 0
+    pack.pack_launches = 0
+    pack.unpack_launches = 0

@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the port's CUDA kernels (port of
-``repro.kernels.ref``, the pair-mask and scatter-add part).
+``repro.kernels.ref``: the pair-mask, scatter-add and bit-pack part), and
+the counter-based DP streams, which no kernel computes.
 
 These are the functions the CPU tests hold against the JAX reference and the
 functions ``chip_smoke.py`` holds each CUDA kernel against on the card. The
@@ -22,6 +23,13 @@ M32 = 0xFFFFFFFF
 IDX_SALT = 0x9E3779B9
 VAL_SALT = 0x85EBCA6B
 LEAF_SALT = 0xA511E9B3
+# Salts of the distributed-DP streams (core/dp.py): two murmur streams per
+# client feed a Box-Muller transform, one public stream draws the round's
+# common release support. Distinct from the three above, so DP draws never
+# collide with the pair-mask draws under equal seeds.
+DP_U1_SALT = 0x94D049BB
+DP_U2_SALT = 0xBF58476D
+DP_SUP_SALT = 0xC2B2AE35
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -111,3 +119,95 @@ def stream_scatter_add_ref(indices: torch.Tensor, values: torch.Tensor,
         at = idx[sel]
         out[at] = out[at] + val[sel]
     return out
+
+
+# ------------------------------------------------------------ DP streams
+def _counter_stream(seeds: torch.Tensor, salt: int, nb: int,
+                    k: int) -> torch.Tensor:
+    """``mix32(mix32(seed ^ salt) + c)`` for flat counter ``c = block * k +
+    slot``: int64 lanes holding uint32 values, shape ``[..., nb, k]``."""
+    seeds = as_u32(seeds)
+    c = torch.arange(nb * k, dtype=torch.int64, device=seeds.device)
+    c = c.reshape((1,) * seeds.dim() + (nb, k))
+    base = _mix32(seeds ^ salt)[..., None, None]
+    return _mix32((base + c) & M32)
+
+
+def dp_support_stream_ref(seeds: torch.Tensor, nb: int, k: int,
+                          m: int) -> torch.Tensor:
+    """The PUBLIC common release support of a DP round:
+    ``mix32(mix32(seed ^ DP_SUP_SALT) + c) % m`` -> int32[..., nb, k].
+    Mod-``m`` collisions may repeat an index in a block; the stream's
+    first-occurrence gate sends the gradient there once."""
+    return (_counter_stream(seeds, DP_SUP_SALT, nb, k) % m).to(torch.int32)
+
+
+def dp_noise_stream_ref(seeds: torch.Tensor, nb: int, k: int, *,
+                        sigma: float) -> torch.Tensor:
+    """Grid-rounded Gaussian noise ``round(z * sigma * 2^24) * 2^-24``,
+    ``z`` by Box-Muller from two 24-bit counter streams (``u1`` in (0, 1],
+    ``u2`` in [0, 1)) -> f32[..., nb, k] on the mask grid, so masks and
+    noise add exactly. ``z`` uses PyTorch's f32 ``log``/``cos``, which may
+    differ from XLA's in the last bit: the rounded value then moves by a
+    grid step (tests/test_torch_dp.py states the tolerance)."""
+    f32 = torch.float32
+    dev = seeds.device
+    u1 = ((_counter_stream(seeds, DP_U1_SALT, nb, k) >> 8).to(f32) + 1.0) \
+        / torch.tensor(2.0 ** 24, dtype=f32, device=dev)
+    u2 = (_counter_stream(seeds, DP_U2_SALT, nb, k) >> 8).to(f32) \
+        / torch.tensor(2.0 ** 24, dtype=f32, device=dev)
+    two_pi = torch.tensor(2.0 * 3.141592653589793, dtype=f32, device=dev)
+    z = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(two_pi * u2)
+    q = torch.round(z * torch.tensor(sigma, dtype=f32, device=dev)
+                    * torch.tensor(2.0 ** 24, dtype=f32, device=dev))
+    return q * 2.0 ** -24
+
+
+# ------------------------------------------------------ wire bit packing
+# A row of ``k`` fields of ``w`` bits is one contiguous bit stream, least
+# significant bit first: field ``s`` holds bits ``[s*w, s*w + w)`` of the
+# row's uint32 word array. The reference packs in chunks of PACK_CHUNK = 32
+# slots (a chunk fills exactly ``w`` words: its TPU tiling), which lays the
+# bits out the same way.
+PACK_CHUNK = 32
+
+
+def packed_words(count: int, width: int) -> int:
+    """uint32 words needed for ``count`` fields of ``width`` bits."""
+    return -(-count * width // 32)
+
+
+def bitpack_rows_ref(u: torch.Tensor, width: int) -> torch.Tensor:
+    """Pack ``[R, k]`` fields (uint32 values in any integer dtype; the low
+    ``width`` bits of each are taken) into ``[R, ceil(k*width/32)]`` words.
+    Returns int64 lanes holding the uint32 words; padding bits are zero.
+    Built bit by bit: every field is spread into its ``width`` bits, the
+    bit stream is cut into 32-bit words and each word is summed back."""
+    if not 1 <= width <= 32:
+        raise ValueError(f"width must be in 1..32, got {width}")
+    R, k = u.shape
+    W = packed_words(k, width)
+    b = torch.arange(width, dtype=torch.int64, device=u.device)
+    bits = (as_u32(u)[..., None] >> b) & 1                 # [R, k, width]
+    bits = bits.reshape(R, k * width)
+    bits = torch.nn.functional.pad(bits, (0, 32 * W - k * width))
+    j = torch.arange(32, dtype=torch.int64, device=u.device)
+    return (bits.reshape(R, W, 32) << j).sum(-1)
+
+
+def bitunpack_rows_ref(words: torch.Tensor, k: int,
+                       width: int) -> torch.Tensor:
+    """Inverse of :func:`bitpack_rows_ref`: ``[R, W]`` words (uint32
+    values in any integer dtype) -> ``[R, k]`` fields, int64 lanes holding
+    values below ``2**width``."""
+    if not 1 <= width <= 32:
+        raise ValueError(f"width must be in 1..32, got {width}")
+    R, W = words.shape
+    if 32 * W < k * width:
+        raise ValueError(f"{W} words hold fewer than {k} fields of "
+                         f"{width} bits")
+    j = torch.arange(32, dtype=torch.int64, device=words.device)
+    bits = ((as_u32(words)[..., None] >> j) & 1).reshape(R, 32 * W)
+    bits = bits[:, :k * width].reshape(R, k, width)
+    b = torch.arange(width, dtype=torch.int64, device=words.device)
+    return (bits << b).sum(-1)

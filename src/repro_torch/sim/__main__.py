@@ -2,19 +2,29 @@
 
     python -m repro_torch.sim --preset table2_quick
     python -m repro_torch.sim --preset ci_smoke --device cpu
+    python -m repro_torch.sim --preset codec_sweep_quick --quick
+    python -m repro_torch.sim --preset dp_quick
+    python -m repro_torch.sim --preset table2_quick --codec int8
     python -m repro_torch.sim --list
 
 Runs the named preset (with any overrides) on the CUDA device, prints
 per-eval progress and the ledger under both bit accountings in the
-reference CLI's format, and writes the JSON ledger to ``--out`` (or the
-preset's default path). Without a CUDA device it exits non-zero unless
-``--device cpu`` is given.
+reference CLI's format (and the composed (ε, δ) of a DP run), and writes the
+JSON ledger to ``--out`` (or the preset's default path). A codec sweep
+(``codec_sweep[_quick]``) or a DP sweep (``dp_frontier[_quick]``) runs every
+arm and writes one combined JSON. Without a CUDA device it exits non-zero
+unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
+import os
 import sys
 
+from repro_torch.core.codecs import CODECS
+from repro_torch.core.dp import DPConfig
 from repro_torch.sim import presets
 from repro_torch.sim.engine import Simulation, resolve_device
 from repro_torch.sim.ledger import mib
@@ -30,12 +40,99 @@ def _progress_hook(round_t: int, info: dict) -> None:
               f"({rec.compression:.1f}x vs dense){drop}", flush=True)
 
 
+def _quick(over: dict, cfg) -> dict:
+    """The reference's ``--quick`` shrink: 3 rounds, small data, eval
+    every round."""
+    over.setdefault("rounds", min(3, cfg.rounds))
+    over.setdefault("n_train", min(600, cfg.n_train))
+    over.setdefault("n_test", min(200, cfg.n_test))
+    over["eval_every"] = 1
+    return over
+
+
+def _sweep_overrides(args, cfg) -> dict:
+    """Overrides that apply to every arm of a sweep (the sweep owns its own
+    axis: no --codec, no --dp-*)."""
+    over = {}
+    if args.rounds is not None:
+        over["rounds"] = args.rounds
+    if args.quick:
+        _quick(over, cfg)
+    return over
+
+
+def _write_sweep(name: str, runs: dict, out: str | None) -> None:
+    out = out or f"experiments/sim/{name}.json"
+    d = os.path.dirname(out)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    tmp = out + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump({"name": name, "runs": runs}, f, indent=2, default=float)
+    os.replace(tmp, out)
+    print(f"sweep ledger written to {out}")
+
+
+def _run_arms(args, arms: dict, axis: str, device) -> dict:
+    runs: dict[str, dict] = {}
+    for label, cfg in arms.items():
+        cfg = cfg.replace(**_sweep_overrides(args, cfg))
+        print(f"# sweep={args.preset} arm {axis}={label} rounds={cfg.rounds} "
+              f"cohort={cfg.clients_per_round}/{cfg.n_clients} "
+              f"device={device}", flush=True)
+        res = Simulation(cfg, device=device).run(hooks=[_progress_hook])
+        runs[label] = res.summary()
+    return runs
+
+
+def _run_codec_sweep(args, device) -> int:
+    """Every codec arm of a sweep (same protocol and seed, secure
+    aggregation off in every arm), then the upload of each against the f32
+    arm under both accountings."""
+    if args.codec is not None:
+        print("error: --codec conflicts with a sweep preset "
+              "(the sweep runs every codec)", file=sys.stderr)
+        return 2
+    runs = _run_arms(args, presets.sweep_configs(args.preset), "codec",
+                     device)
+    print(f"\n# {args.preset}: upload vs f32 baseline")
+    for acct in ("paper", "tpu"):
+        base = runs["f32"]["ledger"][acct]["upload_bits"] if "f32" in runs \
+            else None
+        for codec, summ in runs.items():
+            t = summ["ledger"][acct]
+            rel = (f"  ({t['upload_bits'] / base:6.1%} of f32)"
+                   if base else "")
+            print(f"[{acct:5s}] {codec:5s} upload {t['upload_mib']:9.2f} MiB "
+                  f"acc={summ['final_acc']:.3f}{rel}")
+    _write_sweep(args.preset, runs, args.out)
+    return 0
+
+
+def _run_dp_sweep(args, device) -> int:
+    """Every noise-multiplier arm of a DP frontier sweep (the z=0 arm runs
+    without dp), then the privacy/accuracy/communication frontier."""
+    runs = _run_arms(args, presets.dp_sweep_configs(args.preset), "dp",
+                     device)
+    print(f"\n# {args.preset}: privacy/accuracy/communication frontier")
+    for label, summ in runs.items():
+        t = summ["ledger"]["paper"]
+        priv = summ["ledger"].get("privacy")
+        eps = (f"eps={priv['epsilon']:8.3f} at delta={priv['delta']:g}"
+               if priv else "eps=   inf (no noise)  ")
+        print(f"{label:6s} {eps}  acc={summ['final_acc']:.3f}  "
+              f"upload={t['upload_mib']:.2f} MiB "
+              f"({t['upload_vs_dense']:.1%} of dense)")
+    _write_sweep(args.preset, runs, args.out)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.sim",
         description="Run a named federated-simulation preset on the port.")
     ap.add_argument("--preset", default=None,
-                    help=f"one of: {', '.join(presets.names())}")
+                    help=f"one of: {', '.join(presets.names())}, or a sweep")
     ap.add_argument("--list", action="store_true",
                     help="list presets and exit")
     ap.add_argument("--device", default="cuda",
@@ -44,6 +141,19 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=None)
     ap.add_argument("--out", default=None,
                     help="JSON ledger path (default: the preset's out_json)")
+    ap.add_argument("--quick", action="store_true",
+                    help="shrink the run (3 rounds, 600 train / 200 test "
+                         "samples, eval every round)")
+    ap.add_argument("--codec", choices=CODECS, default=None,
+                    help="stream wire codec; a non-f32 codec on a secagg "
+                         "preset turns secure aggregation off (masks cancel "
+                         "only on the f32 grid)")
+    ap.add_argument("--dp-sigma", type=float, default=None,
+                    help="DP cohort-sum noise multiplier z (0: no noise)")
+    ap.add_argument("--dp-clip", type=float, default=None,
+                    help="DP per-client L2 clip S")
+    ap.add_argument("--dp-delta", type=float, default=None,
+                    help="DP accountant target delta (default 1e-5)")
     args = ap.parse_args(argv)
 
     if args.list or not args.preset:
@@ -54,30 +164,64 @@ def main(argv=None) -> int:
             print(f"{name:22s} {cfg.model}/{cfg.dataset} "
                   f"{cfg.partition:9s} rounds={cfg.rounds:<3d} "
                   f"cohort={cfg.clients_per_round}/{cfg.n_clients} {mech}")
+        for name, arm_codecs in sorted(presets.SWEEPS.items()):
+            print(f"{name:22s} sweep over codecs: {', '.join(arm_codecs)}")
+        for name, sigmas in sorted(presets.DP_SWEEPS.items()):
+            print(f"{name:22s} sweep over dp noise z: "
+                  f"{', '.join(f'{z:g}' for z in sigmas)}")
         return 0 if args.list else 2
 
-    try:
-        cfg = presets.get(args.preset)
-    except KeyError as e:
-        print(f"error: {e.args[0]}", file=sys.stderr)
-        return 2
+    sweep = (_run_codec_sweep if args.preset in presets.SWEEPS
+             else _run_dp_sweep if args.preset in presets.DP_SWEEPS
+             else None)
+    if sweep is None:
+        try:
+            cfg = presets.get(args.preset)
+        except KeyError as e:
+            print(f"error: {e.args[0]}", file=sys.stderr)
+            return 2
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
+    if sweep is not None:
+        return sweep(args, device)
+
     over = {}
     if args.rounds is not None:
         over["rounds"] = args.rounds
     if args.out is not None:
         over["out_json"] = args.out
+    if (args.dp_sigma is not None or args.dp_clip is not None
+            or args.dp_delta is not None):
+        dp_over = {}
+        if args.dp_sigma is not None:
+            dp_over["sigma"] = args.dp_sigma
+        if args.dp_clip is not None:
+            dp_over["clip"] = args.dp_clip
+        if args.dp_delta is not None:
+            dp_over["delta"] = args.dp_delta
+        over["dp"] = dataclasses.replace(cfg.dp or DPConfig(), **dp_over)
+    if args.codec is not None:
+        over["codec"] = args.codec
+        if args.codec != "f32" and cfg.sa.enabled:
+            print(f"# NOTE: codec={args.codec} disables secure aggregation "
+                  "for this run — sparse pair masks cancel bit-exactly only "
+                  "on the f32 grid", flush=True)
+            over["sa"] = dataclasses.replace(cfg.sa, enabled=False)
+    if args.quick:
+        _quick(over, cfg)
     cfg = cfg.replace(**over)
 
     sim = Simulation(cfg, device=device)
+    codec_note = f" codec={cfg.codec}" if cfg.codec != "f32" else ""
+    dp_note = (f" dp=clip{cfg.dp.clip:g}/z{cfg.dp.sigma:g}"
+               if cfg.dp is not None and cfg.dp.active else "")
     print(f"# preset={args.preset} model={cfg.model} dataset={cfg.dataset} "
           f"partition={cfg.partition} rounds={cfg.rounds} "
-          f"cohort={cfg.clients_per_round}/{cfg.n_clients} "
-          f"device={device}", flush=True)
+          f"cohort={cfg.clients_per_round}/{cfg.n_clients}"
+          f"{codec_note}{dp_note} device={device}", flush=True)
     res = sim.run(hooks=[_progress_hook])
 
     for acct in ("paper", "tpu"):
@@ -91,6 +235,11 @@ def main(argv=None) -> int:
                   f"{mib(t['share_upload_bits']):.4f} MiB + recovery "
                   f"{mib(t['recovery_upload_bits']):.4f} MiB -> total "
                   f"{t['total_upload_vs_dense']:6.1%} of FedAvg")
+    priv = res.ledger.privacy()
+    if priv is not None:
+        print(f"[dp   ] eps={priv['epsilon']:.3f} at delta={priv['delta']:g} "
+              f"over {priv['rounds']} noised round(s) "
+              f"(clip={priv['clip']:g}, z={priv['noise_multiplier']:g})")
     print(f"final_acc={res.final_acc:.3f}  wall={res.wall_s:.1f}s")
     if cfg.out_json:
         path = res.to_json(cfg.out_json)

@@ -10,8 +10,10 @@ that brings it, every option this slice of the port does not run.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Optional
 
+from repro_torch.core.codecs import CODECS, reject_codec_with_masks
+from repro_torch.core.dp import DPConfig, reject_codec_with_noise
 from repro_torch.core.types import FedConfig, SecureAggConfig, THGSConfig
 
 PARTITIONS = ("iid", "noniid", "dirichlet")
@@ -20,7 +22,6 @@ ACCOUNTINGS = ("paper", "tpu")
 SHARD_CLIENTS = ("auto", "on", "off")
 TOPOLOGIES = ("flat", "tree")
 MODES = ("sync", "async")
-CODECS = ("f32", "int8", "int4", "1bit")
 
 
 def _not_ported(what: str, slice_: str) -> NotImplementedError:
@@ -57,7 +58,7 @@ class SimConfig:
     thgs: Optional[THGSConfig] = None
     sa: SecureAggConfig = SecureAggConfig(enabled=False)
     codec: str = "f32"
-    dp: Optional[Any] = None
+    dp: Optional[DPConfig] = None
     # scheduling
     sampler: str = "uniform"
     weight_by_data_count: bool = False
@@ -108,9 +109,6 @@ class SimConfig:
         if self.mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, "
                              f"got {self.mode!r}")
-        if self.codec not in CODECS:
-            raise ValueError(f"codec must be one of {CODECS}, "
-                             f"got {self.codec!r}")
         if not (1 <= self.clients_per_round <= self.n_clients):
             raise ValueError("need 1 <= clients_per_round <= n_clients, got "
                              f"{self.clients_per_round} vs {self.n_clients}")
@@ -120,11 +118,35 @@ class SimConfig:
             raise ValueError(f"rounds must be >= 1, got {self.rounds}")
         if self.algorithm not in ("fedavg", "fedprox"):
             raise ValueError(f"unknown algorithm {self.algorithm!r}")
+        if self.codec not in CODECS:
+            raise ValueError(f"codec must be one of {CODECS}, "
+                             f"got {self.codec!r}")
+        if self.codec != "f32" and self.thgs is None:
+            raise ValueError(
+                f"codec {self.codec!r} requires THGS sparse streams "
+                "(thgs=None runs the dense baseline, which has no stream "
+                "wire to quantize)")
+        # the shared guard (core/codecs.py, repro.lint RPL003)
+        reject_codec_with_masks(self.codec, self.sa.enabled)
+        if self.dp is not None and self.dp.active:
+            self.dp.validate()
+            if self.thgs is None:
+                raise ValueError(
+                    "dp requires THGS sparse streams (the DP noise rides "
+                    "the unified stream's transmitted slots)")
+            reject_codec_with_noise(self.codec, self.dp.sigma)
+            if self.mode == "async":
+                raise ValueError(
+                    "dp cannot run with mode='async': the noise scale "
+                    "sigma*clip/sqrt(C) is calibrated to a round-synchronous "
+                    "cohort, which a streaming buffer breaks")
+            if self.weight_by_data_count:
+                raise ValueError(
+                    "dp cannot run with weight_by_data_count: data-count "
+                    "weights scale each client's contribution past the clip "
+                    "bound, breaking the sensitivity analysis (use uniform "
+                    "weights)")
         # what this slice refuses, and the slice that brings it
-        if self.codec != "f32":
-            raise _not_ported(f"codec {self.codec!r}", "slice B (wire codecs)")
-        if self.dp is not None:
-            raise _not_ported("distributed DP (dp)", "slice C (DP)")
         if self.topology == "tree":
             raise _not_ported("topology='tree'",
                               "slice D (tree and async aggregation)")

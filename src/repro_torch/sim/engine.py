@@ -180,7 +180,8 @@ class Simulation:
             state = run_round(
                 state, batches, self.loss_fn, self.fed, cfg.thgs, cfg.sa,
                 bits=self.bits, client_weights=self.client_weights,
-                dropped=dropped, leaf_hook=self.leaf_hook)
+                dropped=dropped, leaf_hook=self.leaf_hook, codec=cfg.codec,
+                dp=cfg.dp)
             rec = state.comm_log[-1]
             self.ledger.record(rec)
             loss = float(np.mean([state.losses[c] for c in batches]))

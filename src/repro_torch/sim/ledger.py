@@ -4,16 +4,20 @@ port of ``repro.sim.ledger`` (same ``summary()`` / JSON schema).
 The ledger keeps the slot-level facts of each round's ``CommRecord`` and
 replays ``core.costs``'s Eq. 6-8 under both accountings (``PAPER_BITS``
 96-bit sparse elements, ``TPU_BITS`` the f32 wire), with the
-secure-aggregation control traffic reported beside the gradient upload.
+secure-aggregation control traffic reported beside the gradient upload. A
+quantized codec's rounds are charged their packed words; DP runs carry a
+``privacy`` block (per-round and composed (ε, δ)).
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 from typing import Optional, Sequence
 
 from repro_torch.core import costs
+from repro_torch.core import dp as dp_mod
 from repro_torch.core.types import CommRecord
 
 ACCOUNTINGS = {"paper": costs.PAPER_BITS, "tpu": costs.TPU_BITS}
@@ -27,8 +31,8 @@ def mib(bits: float) -> float:
 @dataclasses.dataclass(frozen=True)
 class LedgerEntry:
     """Slot-level facts of one round, independent of any BitModel. The
-    codec, staleness and DP fields keep the reference's schema at their
-    inactive defaults."""
+    staleness field keeps the reference's schema at its synchronous
+    default."""
 
     round: int
     n_clients: int
@@ -52,11 +56,26 @@ class LedgerEntry:
     def secagg(self) -> bool:
         return any(km > 0 for km in self.k_masks)
 
+    @property
+    def dp(self) -> bool:
+        """Did the round run the DP plane (clip and/or noise)?"""
+        return self.dp_clip > 0.0 or self.dp_sigma > 0.0
+
+    def dp_z_eff(self) -> float:
+        """Survivor-aware noise multiplier of the round's sum: each of the
+        C participants adds ``z * S / sqrt(C)`` and only the d survivors'
+        noise reaches the aggregate, so ``z * sqrt(d / C)``; 0.0 without
+        noise."""
+        if self.dp_sigma <= 0.0 or self.n_clients <= 0:
+            return 0.0
+        return self.dp_sigma * math.sqrt(self.n_survivors / self.n_clients)
+
     def upload_bits(self, bits: costs.BitModel) -> int:
         """Round gradient upload (Eq. 6 x survivors, or dense x survivors)."""
         if self.sparse:
             return self.n_survivors * costs.upload_bits_sparse(
-                self.ks, self.k_masks, max(self.n_clients - 1, 0), bits)
+                self.ks, self.k_masks, max(self.n_clients - 1, 0), bits,
+                codec=self.codec, leaf_sizes=self.leaf_sizes)
         return self.n_survivors * costs.upload_bits_dense(
             self.model_size, bits)
 
@@ -138,14 +157,49 @@ class CommLedger:
             "compression_x": dense / up if up else 0.0,
         }
 
-    def summary(self) -> dict:
-        """Both accountings side by side, plus the raw slot facts (no
-        ``privacy`` block: DP is not ported yet)."""
+    def privacy(self, delta: Optional[float] = None) -> Optional[dict]:
+        """The run's privacy accounting, or None without DP: per-round
+        Gaussian-mechanism (ε, δ) at ``dp_z_eff`` and their RDP composition
+        over the run. A clipped round without noise makes ε infinite.
+        ``delta`` overrides the recorded target δ."""
+        if not any(e.dp for e in self.entries):
+            return None
+        if delta is None:
+            delta = next((e.dp_delta for e in self.entries
+                          if e.dp_delta > 0.0), 1e-5)
+        z_effs = [e.dp_z_eff() for e in self.entries]
+        per_round = [
+            {
+                "round": e.round,
+                "z": e.dp_sigma,
+                "z_eff": z,
+                "clip": e.dp_clip,
+                "epsilon": dp_mod.round_epsilon(z, delta),
+            }
+            for e, z in zip(self.entries, z_effs)
+        ]
         return {
+            "delta": float(delta),
+            "epsilon": dp_mod.compose_epsilon(z_effs, delta),
+            "rounds": len(self.entries),
+            "clip": max((e.dp_clip for e in self.entries), default=0.0),
+            "noise_multiplier": max(
+                (e.dp_sigma for e in self.entries), default=0.0),
+            "per_round": per_round,
+        }
+
+    def summary(self) -> dict:
+        """Both accountings side by side, plus the raw slot facts; DP runs
+        add the ``privacy`` block."""
+        out = {
             "paper": self.totals("paper"),
             "tpu": self.totals("tpu"),
             "entries": [dataclasses.asdict(e) for e in self.entries],
         }
+        priv = self.privacy()
+        if priv is not None:
+            out["privacy"] = priv
+        return out
 
     def to_json(self, path: str, *, extra: Optional[dict] = None) -> str:
         """Write the ledger (and optional run metadata) atomically: dump to

@@ -1,9 +1,10 @@
 """Named experiment presets for ``python -m repro_torch.sim`` — the presets of
-``repro.sim.presets`` that this slice of the port runs (sync, flat, f32, no
-DP). Each is the reference's configuration field for field.
+``repro.sim.presets`` that the port runs (synchronous, flat), and the codec
+and DP sweeps. Each is the reference's configuration field for field.
 """
 from __future__ import annotations
 
+from repro_torch.core.dp import DPConfig
 from repro_torch.core.types import SecureAggConfig, THGSConfig
 from repro_torch.sim.config import SimConfig
 
@@ -57,12 +58,82 @@ PRESETS: dict[str, SimConfig] = {
         eval_every=2, thgs=_THGS, sa=_SA, sampler="weighted",
         weight_by_data_count=True, dropout_rate=0.2,
         out_json="experiments/sim/dropout_quick.json"),
+    # distributed DP under secure aggregation: the secagg_quick protocol with
+    # per-client L2 clipping and grid-rounded Gaussian noise under the pair
+    # masks; the ledger carries the composed (epsilon, delta)
+    "dp_quick": SimConfig(
+        name="dp_quick", partition="noniid", noniid_k=4, n_clients=12,
+        clients_per_round=6, rounds=8, n_train=1200, n_test=400,
+        eval_every=2, local_steps=3, local_batch=32, thgs=_THGS,
+        sa=SecureAggConfig(mask_ratio=0.01, threshold=0.6),
+        dropout_rate=0.25, seed=11,
+        dp=DPConfig(clip=1.0, sigma=0.6, delta=1e-5),
+        out_json="experiments/sim/dp_quick.json"),
     "ci_smoke": SimConfig(
         name="ci_smoke", partition="noniid", noniid_k=4, n_clients=6,
         clients_per_round=4, rounds=3, n_train=400, n_test=200,
         local_steps=2, local_batch=16, eval_every=1, thgs=_THGS, sa=_SA,
         out_json="experiments/sim/ci_smoke.json"),
 }
+
+
+# Codec sweeps: one Table-2-protocol run per wire codec. Every arm, the f32
+# baseline included, runs with secure aggregation off, so the arms differ
+# by wire codec alone (quantized codecs are rejected under secagg).
+SWEEPS: dict[str, tuple[str, ...]] = {
+    "codec_sweep_quick": ("f32", "int8", "int4", "1bit"),
+    "codec_sweep": ("f32", "int8", "int4", "1bit"),
+}
+
+
+def sweep_configs(name: str) -> dict[str, SimConfig]:
+    """The per-codec arms of a named sweep, keyed by codec."""
+    try:
+        arm_codecs = SWEEPS[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown sweep {name!r}; available: {', '.join(sorted(SWEEPS))}"
+        ) from None
+    quick = name.endswith("_quick")
+    return {
+        codec: SimConfig(
+            name=f"{name}_{codec}", thgs=_THGS,
+            sa=SecureAggConfig(enabled=False), codec=codec, **_table2(quick))
+        for codec in arm_codecs
+    }
+
+
+# Privacy-frontier sweeps: one dp_quick-protocol run per noise multiplier z
+# (the z=0 "off" arm runs without dp). Dropout is off, so the frontier is not
+# confounded by survivor variance.
+DP_SWEEPS: dict[str, tuple[float, ...]] = {
+    "dp_frontier_quick": (0.0, 0.3, 0.6, 1.2),
+    "dp_frontier": (0.0, 0.3, 0.6, 1.2),
+}
+
+
+def dp_sweep_configs(name: str) -> dict[str, SimConfig]:
+    """The per-noise-multiplier arms of a named DP sweep, keyed by arm label
+    ('off' for z=0, else 'z<value>')."""
+    try:
+        sigmas = DP_SWEEPS[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown dp sweep {name!r}; available: "
+            f"{', '.join(sorted(DP_SWEEPS))}") from None
+    quick = name.endswith("_quick")
+    base = dict(
+        partition="noniid", noniid_k=4, n_clients=12, clients_per_round=6,
+        rounds=8 if quick else 24, n_train=1200 if quick else 4000,
+        n_test=400, eval_every=2, local_steps=3, local_batch=32,
+        thgs=_THGS, sa=SecureAggConfig(mask_ratio=0.01, threshold=0.6),
+        dropout_rate=0.0, seed=11)
+    out = {}
+    for z in sigmas:
+        label = "off" if z == 0.0 else f"z{z:g}"
+        dp = None if z == 0.0 else DPConfig(clip=1.0, sigma=z, delta=1e-5)
+        out[label] = SimConfig(name=f"{name}_{label}", dp=dp, **base)
+    return out
 
 
 def names() -> list[str]:

@@ -4,6 +4,7 @@
         --out profile_table2_quick.json
     python -m repro_torch.sim.profile --preset table2 --model cifar_vgg16 \
         --dataset cifar10 --rounds 2
+    python -m repro_torch.sim.profile --preset codec_sweep_quick --arm int8
 
 Runs the preset once to warm up (kernel builds, cuBLAS, allocator), then
 again under ``torch.profiler`` with a per-round hook that synchronizes and
@@ -42,7 +43,11 @@ def _device_us(evt, self_only: bool) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.sim.profile")
-    ap.add_argument("--preset", default="table2_quick")
+    ap.add_argument("--preset", default="table2_quick",
+                    help="a preset, or a codec or DP sweep with --arm")
+    ap.add_argument("--arm", default=None,
+                    help="the arm of a sweep preset (a codec, or a DP arm "
+                         "label such as off or z0.6)")
     ap.add_argument("--rounds", type=int, default=None)
     ap.add_argument("--model", default=None, help="override the model")
     ap.add_argument("--dataset", default=None, help="override the dataset")
@@ -51,7 +56,13 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("error: the profile needs a CUDA device", file=sys.stderr)
         return 1
-    cfg = presets.get(args.preset).replace(out_json=None)
+    if args.preset in presets.SWEEPS:
+        cfg = presets.sweep_configs(args.preset)[args.arm or "int8"]
+    elif args.preset in presets.DP_SWEEPS:
+        cfg = presets.dp_sweep_configs(args.preset)[args.arm or "z0.6"]
+    else:
+        cfg = presets.get(args.preset)
+    cfg = cfg.replace(out_json=None)
     for field in ("rounds", "model", "dataset"):
         if getattr(args, field) is not None:
             cfg = cfg.replace(**{field: getattr(args, field)})
@@ -98,7 +109,8 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     doc = {
-        "preset": args.preset, "model": cfg.model, "card": smi,
+        "preset": args.preset, "name": cfg.name, "codec": cfg.codec,
+        "model": cfg.model, "card": smi,
         "device": torch.cuda.get_device_name(0),
         "rounds": cfg.rounds, "wall_s": wall,
         "round_s": round_s, "round_s_median": statistics.median(round_s),
@@ -107,7 +119,7 @@ def main(argv=None) -> int:
         "launches": counts, "device_busy_share": busy,
         "spans": spans, "port_kernels": port, "kernels": kernels[:25],
     }
-    print(f"[profile] {args.preset} {cfg.model} on {smi}: rounds={cfg.rounds} "
+    print(f"[profile] {cfg.name} {cfg.model} on {smi}: rounds={cfg.rounds} "
           f"wall_s={wall:.4f} round_s_median={doc['round_s_median']:.4f} "
           f"device_busy_share={busy:.4f} launches={counts}")
     for name, sp in sorted(spans.items()):

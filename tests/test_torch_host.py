@@ -7,6 +7,10 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# several test workers share the cores: one intra-op thread each keeps
+# PyTorch's thread pools from oversubscribing them (no result here depends
+# on the thread count)
+torch.set_num_threads(1)
 
 from repro.core import costs as jcosts  # noqa: E402
 from repro.core import masks as jmasks  # noqa: E402

@@ -7,6 +7,10 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# several test workers share the cores: one intra-op thread each keeps
+# PyTorch's thread pools from oversubscribing them (no result here depends
+# on the thread count)
+torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -175,12 +179,15 @@ def test_ops_dispatch_by_device_on_cpu():
     i2, v2 = tref.pair_mask_stream_ref(seeds, torch.ones(len(seeds)), 1, 5,
                                        77, p=-1.0, q=2.0)
     assert torch.equal(i1, i2) and torch.equal(v1, v2)
-    assert ops.launch_counts() == {"stream_scatter_add": 0,
-                                   "pair_mask_streams": 0}
+    u = torch.from_numpy(_fields(3, 45, 11, 4))
+    w1 = ops.bitpack_rows(u, width=11)
+    assert torch.equal(w1, tref.bitpack_rows_ref(u, 11))
+    assert torch.equal(ops.bitunpack_rows(w1, k=45, width=11), u)
+    assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
-    from repro_torch.kernels import mask_prng, stream_decode
+    from repro_torch.kernels import mask_prng, pack, stream_decode
 
     with pytest.raises(ValueError):
         stream_decode.stream_scatter_add_cuda(torch.zeros(3, dtype=torch.int32),
@@ -188,6 +195,69 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         mask_prng.pair_mask_streams_cuda(torch.zeros(3, dtype=torch.int64),
                                          torch.ones(3), nb=1, k_mask=2, m=5)
+    with pytest.raises(ValueError):
+        pack.bitpack_rows_cuda(torch.zeros(2, 3, dtype=torch.int64), 5)
+    with pytest.raises(ValueError):
+        pack.bitunpack_rows_cuda(torch.zeros(2, 3, dtype=torch.int64), 4, 5)
+
+
+def _fields(R, k, width, seed):
+    """uint32 fields below 2**width as int64, with the extremes 0 and
+    2**width - 1 in the first row."""
+    rs = np.random.RandomState(seed)
+    u = rs.randint(0, 2**32, (R, k), dtype=np.uint64) >> np.uint64(
+        32 - width)
+    u[0, :2] = [0, 2**width - 1]
+    return u.astype(np.int64)
+
+
+# every width 1..32 at an odd k that spans several 32-slot chunks, then the
+# index widths the main path uses (mnist_mlp leaves of 10, 200, 2,000 and
+# 156,800 elements; VGG16's 2,359,296) at their shapes, cut in k
+PACK_CASES = ([(3, 75, w) for w in range(1, 33)]
+              + [(5, 40, 4), (5, 63, 8), (5, 97, 11), (5, 7880, 18),
+                 (2, 2049, 22), (5, 7880, 8), (4, 1000, 1)])
+
+
+@pytest.mark.parametrize("R,k,width", PACK_CASES,
+                         ids=[f"w{w}-k{k}" for _, k, w in PACK_CASES])
+def test_bitpack_rows_bit_exact_with_reference(R, k, width):
+    """The plain versions equal the reference's ref twins, both ways, for
+    every width, and its Pallas kernels (interpret mode, a compile per
+    width) at the widths the main path uses and the extremes."""
+    from repro.kernels import pack as jpack
+
+    u = _fields(R, k, width, seed=width * 1000 + k)
+    ju = jnp.asarray(u.astype(np.uint32))
+    want = np.asarray(jref.bitpack_rows_ref(ju, width))
+    pallas = width in (1, 2, 4, 8, 11, 18, 22, 31, 32)
+    if pallas:
+        np.testing.assert_array_equal(
+            np.asarray(jpack.bitpack_rows(ju, width, interpret=True)), want)
+    got = tref.bitpack_rows_ref(torch.from_numpy(u), width)
+    assert got.shape == (R, tref.packed_words(k, width)) == want.shape
+    assert tref.packed_words(k, width) == jref.packed_words(k, width)
+    np.testing.assert_array_equal(got.numpy().astype(np.uint32), want)
+    back = tref.bitunpack_rows_ref(torch.from_numpy(want.astype(np.int64)),
+                                   k, width)
+    np.testing.assert_array_equal(back.numpy(), u)
+    jback = (jpack.bitunpack_rows(jnp.asarray(want), k, width,
+                                  interpret=True) if pallas
+             else jref.bitunpack_rows_ref(jnp.asarray(want), k, width))
+    np.testing.assert_array_equal(np.asarray(jback), u.astype(np.uint32))
+
+
+def test_bitpack_rows_ref_layout_and_high_bits():
+    """Field s sits at bits [s*w, s*w + w) of the row, LSB first; only the
+    low ``width`` bits of a field are taken; padding bits are zero."""
+    u = torch.tensor([[0b101, 0b011, 0b111, 0b001, 0b110]])
+    w = tref.bitpack_rows_ref(u, 3)
+    assert w.tolist() == [[0b110_001_111_011_101]]
+    assert torch.equal(tref.bitpack_rows_ref(u | (1 << 20), 3), w)
+    assert tref.bitpack_rows_ref(torch.tensor([[2**32 - 1]]), 32).tolist() \
+        == [[2**32 - 1]]
+    with pytest.raises(ValueError):
+        tref.bitpack_rows_ref(u, 33)
 
 
 @pytest.mark.gpu
@@ -219,5 +289,31 @@ def test_cuda_kernels_bit_equal_to_plain_versions():
                                        p=-1.0, q=2.0)
     assert torch.equal(ki, pi) and torch.equal(kv.view(torch.int32),
                                                pv.view(torch.int32))
-    assert ops.launch_counts() == {"stream_scatter_add": 4,
-                                   "pair_mask_streams": 1}
+    counts = ops.launch_counts()
+    assert (counts["stream_scatter_add"], counts["pair_mask_streams"]) == \
+        (4, 1)
+
+
+@pytest.mark.gpu
+def test_cuda_pack_kernels_bit_equal_to_plain_versions():
+    """On the card: both bit-pack kernels equal their plain versions bit for
+    bit, at every width and at the main path's and VGG16's shapes, and
+    round-trip; each wrapper call launches once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are CUDA C++ for sm_90a "
+                    "with no CPU mode")
+    dev = torch.device("cuda")
+    cases = [(3, 75, w) for w in range(1, 33)] + [
+        (5, 7880, 18), (5, 7880, 8), (5, 60199, 22), (5, 60199, 1)]
+    ops.reset_launch_counts()
+    for R, k, width in cases:
+        u = torch.from_numpy(_fields(R, k, width, seed=width + k)).to(dev)
+        words = ops.bitpack_rows(u, width=width)
+        plain = tref.bitpack_rows_ref(u, width)
+        back = ops.bitunpack_rows(words, k=k, width=width)
+        torch.cuda.synchronize()
+        assert torch.equal(words, plain), (R, k, width)
+        assert torch.equal(back, tref.bitunpack_rows_ref(plain, k, width))
+        assert torch.equal(back, u)
+    counts = ops.launch_counts()
+    assert counts["bitpack_rows"] == counts["bitunpack_rows"] == len(cases)

@@ -1,6 +1,6 @@
-"""Port parity and isolation: the simulation engine end to end, the CLI, the
-refusals of what this slice does not port, and the rule that the port imports
-nothing of JAX or of ``repro``.
+"""Port parity and isolation: the simulation engine end to end, the CLI (the
+codec and DP sweeps included), the refusals of what the port does not run
+yet, and the rule that the port imports nothing of JAX or of ``repro``.
 
 A ``ci_smoke`` run with the reference's initial parameters injected gives the
 reference's ledger slot facts (ks, k_masks, survivors, upload bits) exactly
@@ -15,17 +15,23 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# several test workers share the cores: one intra-op thread each keeps
+# PyTorch's thread pools from oversubscribing them (no result here depends
+# on the thread count)
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 
 from repro.models import paper_models as jpm  # noqa: E402
 from repro.sim import presets as jpresets  # noqa: E402
 from repro.sim.engine import Simulation as JSim  # noqa: E402
+from repro_torch.core.types import THGSConfig as TTHGS  # noqa: E402
 from repro_torch.sim import presets as tpresets  # noqa: E402
 from repro_torch.sim.engine import Simulation as TSim  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-ENV = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+ENV = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+       "OMP_NUM_THREADS": "1"}
 
 
 def _facts(ledger):
@@ -84,8 +90,8 @@ def test_cli_without_cuda_exits_nonzero(tmp_path):
 
 
 @pytest.mark.parametrize("over,what", [
-    ({"codec": "int8"}, "codec"),
-    ({"dp": object()}, "DP"),
+    ({"thgs": TTHGS(selector="sampled")}, "selector"),
+    ({"thgs": TTHGS(selector="local")}, "selector"),
     ({"topology": "tree"}, "tree"),
     ({"mode": "async"}, "async"),
     ({"shard_clients": "on"}, "shard_clients"),
@@ -103,12 +109,59 @@ def test_presets_match_reference():
         t = tpresets.get(name).to_dict()
         j = jpresets.get(name).to_dict()
         assert t == j, name
+    assert "dp_quick" in tpresets.names()
+
+
+def _cli(tmp_path, *args):
+    p = subprocess.run(
+        [sys.executable, "-m", "repro_torch.sim", "--device", "cpu", *args],
+        capture_output=True, text=True, env=ENV, cwd=tmp_path, timeout=600)
+    assert p.returncode == 0, p.stdout + p.stderr
+    return p.stdout
+
+
+def test_cli_codec_sweep_quick_matches_reference_percentages(tmp_path):
+    """``--preset codec_sweep_quick --quick`` on the CPU: each quantized
+    arm's paper-accounting upload is the reference's share of the f32 arm
+    (EXPERIMENTS.md: 27.0% / 22.9% / 19.7%, within 1 point), and the
+    combined JSON has all four arms."""
+    out = _cli(tmp_path, "--preset", "codec_sweep_quick", "--quick",
+               "--out", str(tmp_path / "sweep.json"))
+    pct = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"\[paper\] (int8|int4|1bit) .*\(\s*([\d.]+)% of f32\)", out)}
+    want = {"int8": 27.0, "int4": 22.9, "1bit": 19.7}
+    assert set(pct) == set(want), out
+    for codec, p in want.items():
+        assert abs(pct[codec] - p) <= 1.0, (codec, pct[codec])
+    import json
+
+    doc = json.loads((tmp_path / "sweep.json").read_text())
+    assert list(doc["runs"]) == ["f32", "int8", "int4", "1bit"]
+    assert all(r["rounds"] == 3 for r in doc["runs"].values())
+
+
+def test_cli_dp_quick_prints_reference_epsilon(tmp_path):
+    """``--preset dp_quick`` on the CPU composes ε = 40.1 at δ = 1e-5 over
+    its 8 noised rounds (the reference's number), with a privacy block in
+    the JSON; ``--codec int8`` on a secagg preset turns secagg off."""
+    out = _cli(tmp_path, "--preset", "dp_quick", "--out",
+               str(tmp_path / "dp.json"))
+    m = re.search(r"\[dp   \] eps=([\d.]+) at delta=1e-05 over 8", out)
+    assert m and round(float(m.group(1)), 1) == 40.1, out
+    import json
+
+    doc = json.loads((tmp_path / "dp.json").read_text())
+    assert round(doc["ledger"]["privacy"]["epsilon"], 1) == 40.1
+    out = _cli(tmp_path, "--preset", "ci_smoke", "--codec", "int8",
+               "--rounds", "1", "--out", str(tmp_path / "c.json"))
+    assert "disables secure aggregation" in out and "codec=int8" in out
 
 
 def test_port_imports_no_jax():
     code = ("import sys, repro_torch, repro_torch.sim, repro_torch.convert, "
-            "repro_torch.sim.__main__, repro_torch.kernels.ops, "
-            "repro_torch.kernels.build; "
+            "repro_torch.sim.__main__, repro_torch.sim.profile, "
+            "repro_torch.kernels.ops, repro_torch.kernels.build, "
+            "repro_torch.kernels.pack, repro_torch.core.dp; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')); print(bad); sys.exit(1 if bad else 0)")
