@@ -40,6 +40,21 @@ exits non-zero and no failure is caught:
      round's decoded sum against the survivors' unmasked noised sum
      (64 * 2^-24), and the off arm bit-identical to the same run with an
      inactive ``DPConfig()``.
+  8. flash: the flash-attention kernel against its plain version on the
+     card (2e-5 in f32, 2e-2 in bf16) at Yi-6B's prefill shape (B 4,
+     T = S = 1024, 32 heads, 4 kv heads, hd 128, bf16, causal), a 4096-token
+     prompt, f32, ragged tails (24, 1000), MQA and a 256-token window; for
+     the first two, the raw launch time beside the bound, the plain version
+     and ``scaled_dot_product_attention`` as the library yardstick.
+  9. lm: Yi-6B at full width (32 layers, d_model 4096, bf16, 12.1 GB of
+     random weights drawn on the card from seed 0) served by
+     ``InferenceServer(LMAdapter(max_batch=4, prompt_len=1024, n_new=16))``
+     under ``LoadGenerator``: 8 requests, 0 errors, 16 tokens each in the
+     vocabulary, 32 flash launches per prefill (counts reset before and read
+     after), a valid ``repro.serve/v1`` document; prefill and decode times,
+     tokens/s, peak memory; then Yi-6B at full width and 2 layers in f32
+     (TF32 off), one 256-token prompt and 4 new tokens, on the card against
+     the CPU's plain path: logits within 2e-4 and equal tokens.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -57,6 +72,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
+BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core rate
 MASK_OPS_PER_SLOT = 25         # integer ops of one pair-mask slot (two mix32
                                # chains, mod, shift, convert, 2 mul + add),
                                # counted at the f32 rate: the data sheet
@@ -67,10 +83,11 @@ ONE_BIT_REL = 4 * 2.0 ** -23   # the 1bit scale: a mean summed in another
                                # order on the card than on the CPU
 
 
-def bound(bytes_: int, ops: int) -> tuple[float, str]:
+def bound(bytes_: int, ops: int,
+          rate: float = F32_FLOPS) -> tuple[float, str]:
     """The least time in ms for the work, and what bounds it."""
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_FLOPS * 1e3
+    t_ops = ops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -593,6 +610,250 @@ def dp_phase(kind: str) -> None:
     check(same, "an inactive DPConfig changed the off arm")
 
 
+# ------------------------------------------------------------------ phase 8
+# (tag, B, T = S, Hq, Hkv, hd, dtype, causal, window); the first two are timed
+FLASH_SHAPES = (
+    ("yi_6b.prefill", 4, 1024, 32, 4, 128, "bfloat16", True, None),
+    ("yi_6b.long", 1, 4096, 32, 4, 128, "bfloat16", True, None),
+    ("f32", 2, 256, 8, 2, 64, "float32", True, None),
+    ("tail24", 2, 24, 32, 4, 128, "bfloat16", True, None),
+    ("tail1000", 1, 1000, 8, 2, 64, "float32", True, None),
+    ("mqa", 2, 512, 32, 1, 128, "bfloat16", True, None),
+    ("window256", 1, 1000, 32, 4, 128, "bfloat16", True, 256),
+)
+
+
+def flash_phase(device) -> list:
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import build, flash_attention as flash, ref
+
+    rows = []
+    for i, (tag, B, T, H, Hkv, hd, dt, causal, window) in enumerate(
+            FLASH_SHAPES):
+        dtype = getattr(torch, dt)
+        gen = torch.Generator(device=device).manual_seed(100 + i)
+        q, k, v = (torch.randn(shape, generator=gen, device=device).to(dtype)
+                   for shape in ((B, T, H, hd), (B, T, Hkv, hd),
+                                 (B, T, Hkv, hd)))
+        out = flash.flash_attention_cuda(q, k, v, causal=causal,
+                                         window=window)
+        torch.cuda.synchronize()
+        plain = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+        err = (out.float() - plain.float()).abs().max().item()
+        check(out.dtype == dtype and out.shape == q.shape
+              and torch.allclose(out.float(), plain.float(), rtol=tol,
+                                 atol=tol),
+              f"flash_attention != plain at {tag} (max abs {err:.3e}, "
+              f"tolerance {tol})")
+        row = dict(shape=tag, B=B, T=T, H=H, Hkv=Hkv, hd=hd, dtype=dt,
+                   causal=causal, window=window, max_abs_err=err)
+        line = (f"[flash] {tag}: B={B} T=S={T} H={H} Hkv={Hkv} hd={hd} {dt} "
+                f"causal={causal} window={window} max_abs_err={err:.3e} "
+                f"(tolerance {tol})")
+        if i < 2:
+            fn = build.kernel("flash_attention")
+            o = torch.empty_like(q)
+
+            def launch():
+                build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               o.data_ptr(), B, T, T, H, Hkv, hd, 1, 0,
+                               flash.DTYPES[dtype],
+                               torch.cuda.current_stream().cuda_stream),
+                            "flash_attention")
+
+            ms = graph_ms(launch, reps=5, inner=10)
+            plain_ms = events_ms(lambda: ref.flash_attention_ref(q, k, v),
+                                 reps=3, inner=2)
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                 enable_gqa=True)
+            lib_err = (lib.transpose(1, 2).float() - plain.float()
+                       ).abs().max().item()
+            lib_ms = events_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), reps=5,
+                inner=10)
+            flops = 4 * B * H * hd * T * (T + 1) // 2
+            nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+            bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS)
+            row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+                       bytes=nbytes)
+            line += (f" ms={ms:.6f} plain_ms={plain_ms:.6f} sdpa_ms="
+                     f"{lib_ms:.6f} (sdpa vs plain {lib_err:.3e}) bound_ms="
+                     f"{bound_ms:.6f} ({bound_by}: {flops:.4g} flops, "
+                     f"{nbytes / 1e6:.1f} MB) "
+                     f"TFLOP/s={flops / ms / 1e9:.2f}")
+        rows.append(row)
+        print(line, flush=True)
+        del q, k, v, out, plain
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ------------------------------------------------------------------ phase 9
+LM_TOL = 2e-4      # f32 logits, card vs CPU: sum order over d_model 4096
+
+
+def lm_phase(kind: str, card: str, flash_main_ms: float) -> dict:
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs, serving
+    from repro_torch.data import make_lm_tokens
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import greedy_generate
+    from repro_torch.models import transformer as tf
+
+    cfg = configs.get("yi_6b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = tf.param_count(params)
+    print(f"[lm] {cfg.name}: {cfg.n_layers} layers d_model={cfg.d_model} "
+          f"heads={cfg.n_heads}/{cfg.n_kv_heads} d_ff={cfg.d_ff} "
+          f"vocab={cfg.vocab} {cfg.dtype}: {n_params} parameters "
+          f"({n_params * 2 / 1e9:.2f} GB) drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(n_params == 6_061_035_520, f"Yi-6B has {n_params} parameters")
+    B, T, n_new = 4, 1024, 16
+    prompts, _ = make_lm_tokens(cfg.vocab, 8, T, seed=1)
+    prompts = np.asarray(prompts, np.int32)
+    adapter = serving.LMAdapter(cfg, max_batch=B, prompt_len=T, n_new=n_new)
+    # warm-up batch (cuBLAS handles, allocator) outside the counted run
+    warm = serving.InferenceServer(adapter, params)
+    ticket = warm.submit(prompts[0])
+    warm.step()
+    ticket.wait(0)
+
+    metrics = serving.ServingMetrics(offered_qps=100.0)
+    server = serving.InferenceServer(adapter, params, metrics=metrics)
+    loadgen = serving.LoadGenerator(server, prompts, 100.0, metrics=metrics,
+                                    wait_timeout_s=300.0)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    server.start()
+    try:
+        loadgen.run(n_requests=len(prompts))
+        tickets = list(loadgen._tickets)
+        errors = loadgen.drain()
+    finally:
+        server.stop()
+    counts = ops.launch_counts()
+    doc = metrics.summary()
+    outs = [t.wait(0) for t in tickets]
+    prefills = doc["batches"]["count"]
+    lat = doc["latency_us"]
+    print(f"[lm] served {doc['requests']} in {prefills} batches (fills "
+          f"{metrics.batch_fills}) launches={counts} tokens="
+          f"{doc['tokens']['generated']} tok_s={doc['tokens']['tok_s']:.2f} "
+          f"wall_s={doc['wall_s']:.4f} latency p50={lat['p50'] / 1e3:.1f} ms "
+          f"p99={lat['p99'] / 1e3:.1f} ms", flush=True)
+    print(f"[lm] first response: {list(map(int, outs[0]))}", flush=True)
+    check(errors == 0 and doc["requests"] == {"submitted": 8, "served": 8,
+                                              "errors": 0},
+          f"served {doc['requests']} with {errors} errors")
+    check(all(o.shape == (n_new,) and o.dtype == np.int32
+              and int(o.min()) >= 0 and int(o.max()) < cfg.vocab
+              for o in outs), "a response is not 16 tokens in the vocabulary")
+    check(counts["flash_attention"] == cfg.n_layers * prefills,
+          f"flash_attention launched {counts['flash_attention']} times for "
+          f"{prefills} prefills of {cfg.n_layers} layers")
+    errs = serving.validate_metrics(doc)
+    check(not errs, f"invalid repro.serve/v1 document: {errs}")
+
+    # prefill and decode times at the served shape, synchronous
+    tokens = torch.from_numpy(prompts[:B]).cuda()
+    cache_len = adapter.cache_len
+    times = {"prefill": [], "decode": []}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = tf.prefill(params, cfg, tokens, cache_len)
+        torch.cuda.synchronize()
+        times["prefill"].append(time.perf_counter() - t0)
+        tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        t0 = time.perf_counter()
+        for _ in range(n_new - 1):
+            logits, state = tf.decode_step(params, cfg, tok, state)
+            tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        torch.cuda.synchronize()
+        times["decode"].append((time.perf_counter() - t0) / (n_new - 1))
+    prefill_ms = statistics.median(times["prefill"]) * 1e3
+    decode_ms = statistics.median(times["decode"]) * 1e3
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    share = cfg.n_layers * flash_main_ms / prefill_ms
+    print(f"[lm] {card}: prefill B={B} T={T} {prefill_ms:.3f} ms "
+          f"({B * T / prefill_ms * 1e3:.0f} tok/s), decode "
+          f"{decode_ms:.3f} ms a token step at B={B} "
+          f"({B / decode_ms * 1e3:.1f} tok/s), served "
+          f"{doc['tokens']['tok_s']:.2f} tok/s, peak memory "
+          f"{peak_gib:.2f} GiB, flash kernel {cfg.n_layers} x "
+          f"{flash_main_ms:.4f} ms = {share:.1%} of a prefill", flush=True)
+    # where a prefill's and a decode step's time goes: kernel launches and
+    # device time (one stream: kernels do not overlap) against the wall
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for what, fn in (
+            ("prefill", lambda: tf.prefill(params, cfg, tokens, cache_len)),
+            ("decode step", lambda: tf.decode_step(params, cfg, tok, state))):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        dev = [(e.key, e.count, getattr(e, "self_device_time_total", 0.0))
+               for e in prof.key_averages()
+               if "CUDA" in str(getattr(e, "device_type", ""))]
+        dev = [d for d in dev if d[2] > 0]
+        dev_ms = sum(d[2] for d in dev) / 1e3
+        flash_ms = sum(d[2] for d in dev if "flash_attention" in d[0]) / 1e3
+        top = sorted(dev, key=lambda d: -d[2])[:4]
+        print(f"[lm] profiled {what}: wall {wall_ms:.3f} ms, "
+              f"{sum(d[1] for d in dev)} kernel launches, device "
+              f"{dev_ms:.3f} ms (busy {dev_ms / wall_ms:.1%}), flash "
+              f"{flash_ms:.3f} ms; top: " + "; ".join(
+                  f"{k[:48]} x{c} {t / 1e3:.3f} ms" for k, c, t in top),
+              flush=True)
+    del params, state, logits
+    torch.cuda.empty_cache()
+
+    # parity at full width, reduced depth: the card against the CPU
+    small = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card_model = tf.init_params(small,
+                                torch.Generator(device="cuda").manual_seed(0))
+    cpu_model = tf.init_params(small, device="cpu")
+    cpu_model.load_state_dict(card_model.state_dict())
+    prompt, _ = make_lm_tokens(cfg.vocab, 1, 256, seed=2)
+    prompt = torch.from_numpy(np.asarray(prompt, np.int32))
+    ops.reset_launch_counts()
+    lc, _ = tf.prefill(card_model, small, prompt.cuda(), 264)
+    check(ops.launch_counts()["flash_attention"] == 2,
+          "the parity prefill did not run the flash kernel")
+    lp, _ = tf.prefill(cpu_model, small, prompt, 264)
+    err = (lc.cpu() - lp).abs().max().item()
+    gc = greedy_generate(card_model, small, prompt.cuda(), 4, 264).cpu()
+    gp = greedy_generate(cpu_model, small, prompt, 4, 264)
+    print(f"[lm] parity {cfg.name} full width, 2 layers, f32 (TF32 off), "
+          f"prompt 256: prefill logits card vs CPU max abs err {err:.3e} "
+          f"(max |logit| {lp.abs().max().item():.3f}, tolerance {LM_TOL}); "
+          f"greedy tokens card {gc.tolist()} CPU {gp.tolist()}", flush=True)
+    check(err <= LM_TOL, f"card vs CPU logits differ by {err:.3e}")
+    check(torch.equal(gc, gp), "card and CPU greedy tokens differ")
+    del card_model, cpu_model
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -774,6 +1035,15 @@ def main() -> int:
     # ------------------------------------------------------------- 7. DP
     dp_phase(kind)
 
+    # ---------------------------------------------------------- 8. flash
+    t_phase = time.perf_counter()
+    rows["flash_attention"] = flash_phase(device)
+
+    # ------------------------------------------------------------- 9. LM
+    lm_counts = lm_phase(kind, card, rows["flash_attention"][0]["ms"])
+    print(f"[lm] phases 8-9 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
     # ------------------------------------------------------------ report
     sources = {"stream_scatter_add": ("src/repro_torch/kernels/csrc/"
                                       "stream_scatter_add.cu",
@@ -784,12 +1054,17 @@ def main() -> int:
                "bitpack_rows": ("src/repro_torch/kernels/csrc/bitpack.cu",
                                 "src/repro/kernels/pack.py:42"),
                "bitunpack_rows": ("src/repro_torch/kernels/csrc/bitpack.cu",
-                                  "src/repro/kernels/pack.py:65")}
+                                  "src/repro/kernels/pack.py:65"),
+               "flash_attention": ("src/repro_torch/kernels/csrc/"
+                                   "flash_attention.cu",
+                                   "src/repro/kernels/flash_attention.py:77")}
     # each kernel's launches come from the path that runs it: table2_quick
-    # for the scatter and the masks, codec_sweep_quick for the bit packing
+    # for the scatter and the masks, codec_sweep_quick for the bit packing,
+    # the served Yi-6B for the flash attention
     launches = {**main_counts,
                 "bitpack_rows": codec_counts["bitpack_rows"],
-                "bitunpack_rows": codec_counts["bitunpack_rows"]}
+                "bitunpack_rows": codec_counts["bitunpack_rows"],
+                "flash_attention": lm_counts["flash_attention"]}
     kernels = []
     for name in ops.KERNELS:
         main_row = rows[name][0]

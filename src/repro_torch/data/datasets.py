@@ -52,3 +52,21 @@ def make_dataset(spec: DatasetSpec, n: int | None = None, *, seed: int = 0,
     x = x + np.einsum("nk,nk...->n...", coef, dirs[y])
     x = x + noise * rs.randn(*x.shape).astype(np.float32)
     return x.astype(np.float32), y
+
+
+def make_lm_tokens(vocab: int, n_seqs: int, seq_len: int, *, seed: int = 0):
+    """Synthetic token streams with local structure (order-2 Markov-ish) so an LM
+    can reduce loss below uniform; labels are next-token shifted."""
+    rs = np.random.RandomState(seed)
+    # block-structured transition: token t+1 ~ (a*t + b) mod vocab with noise
+    a = rs.randint(1, 7, size=n_seqs)
+    b = rs.randint(0, vocab, size=n_seqs)
+    t0 = rs.randint(0, vocab, size=n_seqs)
+    toks = np.zeros((n_seqs, seq_len + 1), np.int32)
+    toks[:, 0] = t0
+    for i in range(seq_len):
+        nxt = (a * toks[:, i] + b) % vocab
+        flip = rs.rand(n_seqs) < 0.15
+        nxt = np.where(flip, rs.randint(0, vocab, size=n_seqs), nxt)
+        toks[:, i + 1] = nxt
+    return toks[:, :-1], toks[:, 1:]

@@ -41,6 +41,10 @@ SOURCES = {
                          [_P, _LL, _LL, _I, _P, _LL, _P]),
         "bitunpack_rows": ("bitunpack_rows_launch",
                            [_P, _LL, _LL, _LL, _I, _P, _P])},
+    "flash_attention.cu": {
+        "flash_attention": ("flash_attention_launch",
+                            [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _P])},
 }
 N_KERNELS = sum(len(entries) for entries in SOURCES.values())
 

@@ -9,12 +9,15 @@ run shows that it went through the kernels.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from repro_torch.kernels import mask_prng, pack, ref, stream_decode
+from repro_torch.kernels import (flash_attention as flash, mask_prng, pack,
+                                 ref, stream_decode)
 
 KERNELS = ("stream_scatter_add", "pair_mask_streams", "bitpack_rows",
-           "bitunpack_rows")
+           "bitunpack_rows", "flash_attention")
 
 
 def stream_scatter_add(indices: torch.Tensor, values: torch.Tensor, *,
@@ -51,12 +54,24 @@ def bitunpack_rows(words: torch.Tensor, *, k: int,
     return ref.bitunpack_rows_ref(words, k, width)
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """GQA attention ``[B,T,H,hd] x [B,S,Hkv,hd] -> [B,T,H,hd]`` with an
+    f32 online softmax, causal and/or banded to ``window``."""
+    if q.device.type == "cuda":
+        return flash.flash_attention_cuda(q, k, v, causal=causal,
+                                          window=window)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+
+
 def launch_counts() -> dict:
     """Kernel launches since the last reset, by kernel name."""
     return {"stream_scatter_add": stream_decode.launches,
             "pair_mask_streams": mask_prng.launches,
             "bitpack_rows": pack.pack_launches,
-            "bitunpack_rows": pack.unpack_launches}
+            "bitunpack_rows": pack.unpack_launches,
+            "flash_attention": flash.launches}
 
 
 def reset_launch_counts() -> None:
@@ -64,3 +79,4 @@ def reset_launch_counts() -> None:
     mask_prng.launches = 0
     pack.pack_launches = 0
     pack.unpack_launches = 0
+    flash.launches = 0

@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the port's CUDA kernels (port of
-``repro.kernels.ref``: the pair-mask, scatter-add and bit-pack part), and
-the counter-based DP streams, which no kernel computes.
+``repro.kernels.ref``: the pair-mask, scatter-add, bit-pack and
+flash-attention part), and the counter-based DP streams, which no kernel
+computes.
 
 These are the functions the CPU tests hold against the JAX reference and the
 functions ``chip_smoke.py`` holds each CUDA kernel against on the card. The
@@ -14,9 +15,12 @@ no int64 product overflows (a plain ``x * 0x846CA68B`` needs 64 bits).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 M32 = 0xFFFFFFFF
+NEG_INF = -1e30
 
 # Domain-separation salts, identical to the JAX reference: one murmur stream
 # for support indices, one for values, one for per-leaf seed folding.
@@ -211,3 +215,31 @@ def bitunpack_rows_ref(words: torch.Tensor, k: int,
     bits = bits[:, :k * width].reshape(R, k, width)
     b = torch.arange(width, dtype=torch.int64, device=words.device)
     return (bits << b).sum(-1)
+
+
+# ------------------------------------------------------------ attention
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """``[B,T,H,hd] x [B,S,Hkv,hd]`` GQA attention in f32 (twin of
+    ``repro.kernels.ref.flash_attention_ref``): K/V repeated per group, f32
+    scores, masked scores set to -1e30 (a row with every key masked gets the
+    uniform average), softmax, the output cast to q's dtype. Positions count
+    from 0 for both q and k."""
+    b, t, h, hd = q.shape
+    s = k.shape[1]
+    group = h // k.shape[2]
+    kf = torch.repeat_interleave(k, group, dim=2).float()
+    vf = torch.repeat_interleave(v, group, dim=2).float()
+    scores = torch.einsum("bthd,bshd->bhts", q.float(), kf) / (hd ** 0.5)
+    q_pos = torch.arange(t, device=q.device)[:, None]
+    k_pos = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((t, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhts,bshd->bthd", probs, vf)
+    return out.to(q.dtype)

@@ -317,3 +317,53 @@ def test_cuda_pack_kernels_bit_equal_to_plain_versions():
         assert torch.equal(back, u)
     counts = ops.launch_counts()
     assert counts["bitpack_rows"] == counts["bitunpack_rows"] == len(cases)
+
+
+# the shapes chip_smoke.py holds the flash kernel to: (B, T, Hq, Hkv, hd,
+# dtype, causal, window) — Yi-6B's prefill, a long prompt, f32, ragged
+# tails, MQA, a sliding window, and a window that ends before the keys
+FLASH_CASES = [
+    (4, 1024, 32, 4, 128, torch.bfloat16, True, None),
+    (1, 4096, 32, 4, 128, torch.bfloat16, True, None),
+    (2, 256, 8, 2, 64, torch.float32, True, None),
+    (2, 24, 32, 4, 128, torch.bfloat16, True, None),
+    (1, 1000, 8, 2, 64, torch.float32, True, None),
+    (2, 200, 8, 1, 128, torch.bfloat16, True, None),
+    (1, 1000, 32, 4, 128, torch.bfloat16, True, 256),
+    (1, 300, 4, 2, 64, torch.float32, False, 64),
+    (1, 130, 4, 4, 64, torch.float32, False, None),
+]
+
+
+def flash_inputs(B, T, H, Hkv, hd, dtype, seed, S=None):
+    rs = np.random.RandomState(seed)
+    S = T if S is None else S
+    return [torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(dtype)
+            for shape in ((B, T, H, hd), (B, S, Hkv, hd), (B, S, Hkv, hd))]
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_close_to_plain_version():
+    """On the card: the flash kernel against its plain version at the
+    serving path's shapes, within 2e-5 (f32) / 2e-2 (bf16: one rounding of
+    the output), one launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel is CUDA C++ for sm_90a "
+                    "with no CPU mode")
+    dev = torch.device("cuda")
+    ops.reset_launch_counts()
+    cases = FLASH_CASES + [(1, 100, 4, 2, 64, torch.float32, True, 8, 40)]
+    for i, case in enumerate(cases):
+        B, T, H, Hkv, hd, dtype, causal, window = case[:8]
+        S = case[8] if len(case) > 8 else None      # T > S: rows with no key
+        q, k, v = (x.to(dev) for x in flash_inputs(B, T, H, Hkv, hd, dtype,
+                                                    seed=i, S=S))
+        out = ops.flash_attention(q, k, v, causal=causal, window=window)
+        plain = tref.flash_attention_ref(q, k, v, causal=causal,
+                                         window=window)
+        torch.cuda.synchronize()
+        tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+        assert out.dtype == dtype and out.shape == q.shape
+        torch.testing.assert_close(out.float(), plain.float(), rtol=tol,
+                                   atol=tol, msg=lambda m: f"{case}: {m}")
+    assert ops.launch_counts()["flash_attention"] == len(cases)
