@@ -15,7 +15,14 @@ exits non-zero and no failure is caught:
      entries and the order-sensitive triple [1, 2^-24, -1]; the bit-pack
      kernels at every width 1..32 and at the codec path's shapes (5 rows,
      k = 7,880 at 18 and 8 bits; VGG16's k = 60,199 at 22 and 1 bit);
-     median times from CUDA events beside the bound and the library call.
+     median times from CUDA events beside the bound and the library call;
+     ``thgs_sparsify`` and ``mask_prng_apply`` bit-equal (as bits) at
+     VGG16's largest leaf (f32 and bf16), mnist_mlp's l0.w and odd sizes,
+     with ties at f32(0.1), +-inf accumulators, both signs, three (p, q)
+     and the uint32 -> f32 rounding probes, then driven through ``ops`` over
+     every leaf of mnist_mlp and VGG16 (counts reset before, read after)
+     and timed cold (raw launches in a CUDA graph over buffer sets larger
+     than L2) beside the bound, the wrapper and the plain version.
   3. main path: ``table2_quick`` (mnist_mlp 784-200-10 at full width, 12
      rounds of THGS + sparse-mask secure aggregation) through
      ``repro_torch.sim.Simulation`` on the card, after a one-round warm-up;
@@ -40,13 +47,24 @@ exits non-zero and no failure is caught:
      round's decoded sum against the survivors' unmasked noised sum
      (64 * 2^-24), and the off arm bit-identical to the same run with an
      inactive ``DPConfig()``.
-  8. flash: the flash-attention kernel against its plain version on the
+  8. tree: ``tree_quick`` (secagg, dropout 0.25, 3 sub-aggregators) on the
+     card: every leaf's tree decode bit-equal to the flat decode of the same
+     streams, survivors [5, 6, 4, 4, 4, 5, 5, 5], upload 6.3% +- 0.5 pt,
+     accuracy against the port's CPU run and the reference's 0.941, 96
+     scatter launches; then 2 VGG16 rounds under the tree protocol (G = 3),
+     each leaf bit-equal to flat, the 2,359,296-element leaves also over an
+     uneven split.
+  9. async: ``async_quick`` (FedBuff buffer 4, max staleness 3) on the card:
+     the reference's staleness vectors, upload 7.0% +- 0.5 pt, accuracy;
+     then an all-fresh buffer through ``run_async_update`` bit-equal to
+     ``run_round``.
+ 10. flash: the flash-attention kernel against its plain version on the
      card (2e-5 in f32, 2e-2 in bf16) at Yi-6B's prefill shape (B 4,
      T = S = 1024, 32 heads, 4 kv heads, hd 128, bf16, causal), a 4096-token
      prompt, f32, ragged tails (24, 1000), MQA and a 256-token window; for
      the first two, the raw launch time beside the bound, the plain version
      and ``scaled_dot_product_attention`` as the library yardstick.
-  9. lm: Yi-6B at full width (32 layers, d_model 4096, bf16, 12.1 GB of
+ 11. lm: Yi-6B at full width (32 layers, d_model 4096, bf16, 12.1 GB of
      random weights drawn on the card from seed 0) served by
      ``InferenceServer(LMAdapter(max_batch=4, prompt_len=1024, n_new=16))``
      under ``LoadGenerator``: 8 requests, 0 errors, 16 tokens each in the
@@ -390,6 +408,268 @@ def pack_kernel_phase(device) -> dict:
     return rows
 
 
+# ----------------------------------------------- phase 2: thgs + mask apply
+# (tag, elements): VGG16's largest leaf, the main path's l0.w, odd sizes
+SPLIT_SIZES = (("cifar_vgg16.512x512x3x3", 2359296),
+               ("mnist_mlp.l0.w", 156800), ("n1", 1), ("n97", 97), ("n255", 255), ("n257", 257),
+               ("n50000", 50000))
+DELTA = 0.1                 # not f32-exact: a tie at f32(0.1) is not kept
+MASK_PQ = ((-1.0, 2.0), (-1.5, 3.0), (-0.7, 1.3))
+# mix32 outputs whose uint32 -> f32 conversion rounds: around 2^24 and 2^25
+# multiples (ties to even both ways), odd values near 2^32, and 0xFFFFFFFF,
+# which rounds to 2^32 (u = p + q exactly)
+U32_PROBES = (0, 2**24 - 1, 2**24 + 1, 2**24 + 3, 2**25 + 2, 2**25 + 6,
+              2**31 + 1, 2**31 + 128, 2**31 + 384, 2**32 - 129, 2**32 - 128,
+              2**32 - 127, 2**32 - 3, 2**32 - 1)
+
+
+def unmix32(y: int) -> int:
+    """Inverse of the murmur finalizer mix32 (a bijection on uint32)."""
+    m = 2**32
+    y ^= y >> 16
+    y = y * pow(0x846CA68B, -1, m) % m
+    y ^= (y >> 15) ^ (y >> 30)
+    y = y * pow(0x7FEB352D, -1, m) % m
+    return y ^ (y >> 16)
+
+
+def bits_equal_nan(a, b) -> bool:
+    """Bit-equal, except that a NaN matches any NaN (payloads differ between
+    the x86 default NaN, torch's and CUDA's conversions)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    na, nb = torch.isnan(a), torch.isnan(b)
+    if not torch.equal(na, nb):
+        return False
+    ia = a.view(torch.int32 if a.dtype == torch.float32 else torch.int16)
+    ib = b.view(ia.dtype)
+    return torch.equal(ia[~na], ib[~nb])
+
+
+def max_err(a, b) -> float:
+    import torch
+
+    d = (a.float() - b.float()).abs()
+    d = d[torch.isfinite(d)]
+    return d.max().item() if d.numel() else 0.0
+
+
+def split_inputs(n: int, seed: int, g_dtype, r_dtype, device):
+    """g ~ N(0, 1), r ~ N(0, 0.04), with planted ties at f32(DELTA) (when r
+    is f32), +-inf accumulators and a -0.0 accumulator."""
+    import numpy as np
+    import torch
+
+    rs = np.random.RandomState(seed)
+    g = rs.randn(n).astype(np.float32)
+    r = (0.2 * rs.randn(n)).astype(np.float32)
+    if n >= 8:
+        d32 = np.float32(DELTA)
+        g[:8] = [0.09375, -0.09375, np.inf, -np.inf, -0.0, d32, 2.0, -3.0]
+        r[:8] = [d32 - np.float32(0.09375), np.float32(0.09375) - d32, 1.0,
+                 -1.0, -0.0, 0.0, 0.5, 0.25]
+    return (torch.from_numpy(g).to(device).to(g_dtype),
+            torch.from_numpy(r).to(device).to(r_dtype))
+
+
+def split_mask_kernel_phase(device) -> tuple[dict, dict]:
+    """thgs_sparsify and mask_prng_apply: bit-equal to their plain versions
+    (compared as bits) at VGG16's largest leaf, mnist_mlp's l0.w and odd
+    sizes; then driven through ``ops`` over every leaf of both models with
+    the counts reset before and read after; then timed."""
+    import torch
+
+    from repro_torch.core import schedules
+    from repro_torch.core.types import THGSConfig
+    from repro_torch.kernels import build, mask_prng, ops, ref
+    from repro_torch.kernels import thgs_sparsify as thgs
+    from repro_torch.models.paper_models import build_model
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    errs = {"thgs_sparsify": 0.0, "mask_prng_apply": 0.0}
+    # ---- correctness: every size, dtype pair and threshold kind
+    for i, (tag, n) in enumerate(SPLIT_SIZES):
+        pairs = ((f32, f32), (bf16, bf16)) if n > 10**6 else (
+            (f32, f32), (bf16, bf16), (bf16, f32), (f32, bf16))
+        for j, (gd, rd) in enumerate(pairs):
+            g, r = split_inputs(n, 10 * i + j, gd, rd, device)
+            thr = (torch.tensor(DELTA, dtype=f32, device=device) if j % 2 == 0
+                   else DELTA)
+            sk, rk = thgs.thgs_sparsify_cuda(g, r, thr)
+            torch.cuda.synchronize()
+            sp, rp = ref.thgs_sparsify_ref(g, r, DELTA)
+            check(bits_equal_nan(sk, sp) and bits_equal_nan(rk, rp),
+                  f"thgs_sparsify != plain at {tag} {gd}/{rd}")
+            if n >= 8 and rd == f32:
+                check(sk[0].item() == 0.0
+                      and (gd != f32 or sk[5].item() == 0.0)
+                      and sk[2].item() == float("inf")
+                      and torch.isnan(rk[2:4].float()).all().item()
+                      and rk[4].float().item() == 0.0
+                      and torch.signbit(rk[4].float()).item(),
+                      f"thgs_sparsify tie / inf / -0.0 cases wrong at {tag}")
+            errs["thgs_sparsify"] = max(errs["thgs_sparsify"],
+                                        max_err(sk, sp), max_err(rk, rp))
+        gens = torch.Generator(device=device).manual_seed(500 + i)
+        for gd in ((f32, bf16) if n >= 156800 else (f32,)):
+            g = torch.randn(n, generator=gens, device=device).to(gd)
+            for p, q in MASK_PQ:
+                for sign in (1.0, -1.0):
+                    for sigma in (p + 0.25 * q, 10.0):
+                        ok, mk = mask_prng.mask_prng_apply_cuda(
+                            g, 1234 + i, p=p, q=q, sigma=sigma, sign=sign)
+                        torch.cuda.synchronize()
+                        op, mp = ref.mask_prng_ref(g, 1234 + i, p=p, q=q,
+                                                   sigma=sigma, sign=sign)
+                        check(bits_equal(mk, mp) and bits_equal_nan(ok, op),
+                              f"mask_prng_apply != plain at {tag} {gd} "
+                              f"p={p} q={q} sign={sign} sigma={sigma}")
+                        errs["mask_prng_apply"] = max(
+                            errs["mask_prng_apply"], max_err(ok, op),
+                            max_err(mk, mp))
+        print(f"[kernels] thgs_sparsify / mask_prng_apply {tag}: n={n} "
+              f"bit-equal=yes (dtype pairs, delta={DELTA} as a device "
+              f"tensor and as a float, ties, +-inf, -0.0; p/q {MASK_PQ}, "
+              f"both signs)", flush=True)
+    g = torch.zeros(8, device=device)
+    for pos, x in enumerate(U32_PROBES):
+        seed = unmix32(x) ^ (pos % 8)
+        for p, q in MASK_PQ:
+            _, mk = mask_prng.mask_prng_apply_cuda(g, seed, p=p, q=q,
+                                                   sigma=10.0, sign=-1.0)
+            _, mp = ref.mask_prng_ref(g, seed, p=p, q=q, sigma=10.0,
+                                      sign=-1.0)
+            torch.cuda.synchronize()
+            check(bits_equal(mk, mp), f"mask_prng_apply u32 probe {x:#x}")
+            if x == 2**32 - 1:
+                want = -torch.tensor(p, dtype=f32) - torch.tensor(q, dtype=f32)
+                check(mk[pos % 8].item() == want.item(),
+                      f"0xFFFFFFFF did not give u = p + q at p={p} q={q}")
+    print(f"[kernels] mask_prng_apply uint32->f32 probes "
+          f"{[hex(x) for x in U32_PROBES]}: bit-equal=yes, 0xFFFFFFFF gives "
+          f"u = p + q", flush=True)
+
+    # ---- the ops path: every leaf of mnist_mlp and VGG16 through the public
+    # entries (no reference path calls these two kernels): the THGS split at
+    # the round-0 top-k threshold, computed on the card, then a pair's two
+    # masks, which cancel exactly
+    thgs_cfg = THGSConfig(s0=0.05, alpha=0.9, s_min=0.01)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    n_leaves = 0
+    checks = []
+    for model in ("mnist_mlp", "cifar_vgg16"):
+        m = build_model(model)
+        shapes = {n: tuple(t.shape) for n, t in m.params().items()}
+        names = m.leaf_names()
+        ks = schedules.leaf_ks(thgs_cfg, [m.params()[n].numel()
+                                          for n in names], t=0,
+                               total_rounds=12)
+        gen = torch.Generator(device=device).manual_seed(7)
+        for leaf_id, (name, k) in enumerate(zip(names, ks)):
+            g = torch.randn(shapes[name], generator=gen, device=device)
+            r = 0.1 * torch.randn(shapes[name], generator=gen, device=device)
+            acc = (g + r).reshape(-1)
+            delta = torch.topk(acc.abs(), min(k, acc.numel())).values[-1]
+            sparse, resid = ops.thgs_sparsify(g, r, delta)
+            seed = (0x5EED0000 + leaf_id) & 0xFFFFFFFF
+            masked, mask = ops.mask_prng_apply(sparse, seed=seed, sigma=-0.98)
+            _, peer = ops.mask_prng_apply(torch.zeros_like(sparse), seed=seed,
+                                          sigma=-0.98, sign=-1.0)
+            checks.append((name, g, r, delta, sparse, resid, seed, masked,
+                           mask, peer))
+            n_leaves += 1
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    for name, g, r, delta, sparse, resid, seed, masked, mask, peer in checks:
+        sp, rp = ref.thgs_sparsify_ref(g, r, delta)
+        mo, mp = ref.mask_prng_ref(sparse, seed, p=-1.0, q=2.0, sigma=-0.98)
+        check(bits_equal(sparse, sp) and bits_equal(resid, rp)
+              and bits_equal(masked, mo) and bits_equal(mask, mp),
+              f"ops path differs from the plain versions at {name}")
+        check(torch.equal(mask + peer, torch.zeros_like(mask)),
+              f"a pair's masks do not cancel at {name}")
+    del checks
+    print(f"[kernels] ops path over {n_leaves} leaves of mnist_mlp and "
+          f"cifar_vgg16 (top-k threshold on the card, a pair's two masks): "
+          f"launches thgs_sparsify={counts['thgs_sparsify']} "
+          f"mask_prng_apply={counts['mask_prng_apply']}, bit-equal to the "
+          f"plain versions, masks cancel exactly", flush=True)
+    check(counts["thgs_sparsify"] == n_leaves
+          and counts["mask_prng_apply"] == 2 * n_leaves,
+          f"ops path launches {counts} for {n_leaves} leaves")
+
+    # ---- times at VGG16's largest leaf: raw launches in a CUDA graph over
+    # enough buffer sets (> 150 MB) that every launch reads from HBM, not
+    # from the 50 MB L2; the wrapper's whole call; the plain version
+    rows = {"thgs_sparsify": [], "mask_prng_apply": []}
+    n = SPLIT_SIZES[0][1]
+    fsplit = build.kernel("thgs_sparsify")
+    fmask = build.kernel("mask_prng_apply")
+    for dt in (f32, bf16):
+        code = build.DTYPE_CODES[dt]
+        esz = torch.tensor([], dtype=dt).element_size()
+        n_sets = max(2, -(-150_000_000 // (4 * esz * n)))
+        sets = []
+        for i in range(n_sets):
+            g, r = split_inputs(n, 99 + i, dt, dt, device)
+            sets.append((g, r, torch.empty_like(g), torch.empty_like(r),
+                         torch.empty(n, dtype=f32, device=device)))
+        thr = torch.tensor([DELTA], dtype=f32, device=device)
+        turn = [0]
+
+        def next_set():
+            turn[0] += 1
+            return sets[turn[0] % n_sets]
+
+        def launch_split():
+            g, r, so, ro, _ = next_set()
+            build.check(fsplit(g.data_ptr(), r.data_ptr(), thr.data_ptr(),
+                               0.0, n, code, code, so.data_ptr(),
+                               ro.data_ptr(),
+                               torch.cuda.current_stream().cuda_stream),
+                        "thgs_sparsify")
+
+        def launch_mask():
+            g, _, so, _, mo = next_set()
+            build.check(fmask(g.data_ptr(), n, 1234, -1.5, 3.0, -0.75, 1.0,
+                              code, so.data_ptr(), mo.data_ptr(),
+                              torch.cuda.current_stream().cuda_stream),
+                        "mask_prng_apply")
+
+        g, r = sets[0][:2]
+        for name, launch, wrapper, plain, nbytes, nops in (
+                ("thgs_sparsify", launch_split,
+                 lambda: thgs.thgs_sparsify_cuda(g, r, thr),
+                 lambda: ref.thgs_sparsify_ref(g, r, thr),
+                 4 * esz * n + 4, 3 * n),
+                ("mask_prng_apply", launch_mask,
+                 lambda: mask_prng.mask_prng_apply_cuda(
+                     g, 1234, p=-1.5, q=3.0, sigma=-0.75),
+                 lambda: ref.mask_prng_ref(g, 1234, p=-1.5, q=3.0,
+                                           sigma=-0.75),
+                 (2 * esz + 4) * n, 24 * n)):
+            ms = graph_ms(launch, inner=4 * n_sets)
+            wrapper_ms = events_ms(wrapper)
+            plain_ms = events_ms(plain, reps=3, inner=3)
+            bound_ms, bound_by = bound(nbytes, nops)
+            rows[name].append(dict(
+                shape=f"{SPLIT_SIZES[0][0]}.{str(dt)[6:]}", n=n, ms=ms,
+                wrapper_ms=wrapper_ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=bound_ms, bound_by=bound_by,
+                max_abs_err=errs[name], bytes=nbytes))
+            print(f"[kernels] {name} {SPLIT_SIZES[0][0]} {str(dt)[6:]}: "
+                  f"n={n} graph_ms={ms:.6f} (cold: {n_sets} buffer sets) "
+                  f"wrapper_ms={wrapper_ms:.6f} plain_ms={plain_ms:.6f} "
+                  f"bound_ms={bound_ms:.6f} ({bound_by}: "
+                  f"{nbytes / 1e6:.2f} MB, {nbytes / ms / 1e9:.3f} TB/s) "
+                  f"library=none", flush=True)
+        del sets
+    return rows, counts
+
+
 # ------------------------------------------------------------------ phase 4
 def plain_unmasked_sum(info) -> "object":
     """The survivors' weighted sparse sum without masks, from the round's own
@@ -610,6 +890,200 @@ def dp_phase(kind: str) -> None:
     check(same, "an inactive DPConfig changed the off arm")
 
 
+# --------------------------------------------------------- phase 8: tree
+TREE_SURVIVORS = [5, 6, 4, 4, 4, 5, 5, 5]      # the reference's tree_quick
+REF_ACC = {"tree_quick": 0.941, "async_quick": 0.938}
+ACC_TOL = 0.02     # card vs the port's CPU run (f32 sums in another order)
+
+
+def flat_of(info, sa) -> "object":
+    """The flat decode of the streams a tree round decoded (same survivors,
+    same recovery seeds), on the card."""
+    from repro_torch.core import streams as se
+
+    size = info["size"]
+    dropped = bool(info.get("dropped"))
+    return se.decode_leaf_batch(
+        info["streams"], nb=1, m=size, size=size,
+        alive=info["alive"] if dropped else None,
+        pair_seeds=info["recovery_seeds"] if dropped else None,
+        pair_signs=info["pair_signs"] if dropped else None,
+        k_mask=info["k_mask"], mask_p=sa.p, mask_q=sa.q,
+        leaf_id=info["leaf_id"])
+
+
+def tree_phase(kind: str) -> dict:
+    """tree_quick on the card (tree == flat on every leaf of every round),
+    then 2 VGG16 rounds under the tree protocol."""
+    import torch
+
+    from repro_torch.core import streams as se
+    from repro_torch.kernels import ops
+    from repro_torch.sim import presets
+    from repro_torch.sim.engine import Simulation
+
+    cfg = presets.get("tree_quick").replace(out_json=None)
+    sim = Simulation(cfg, device="cuda")
+    n_leaves = len(sim.model.leaf_names())
+    kept = []
+
+    def keep(leaf_id, name, info):
+        kept.append(dict(clone_info(info), leaf_id=leaf_id))
+
+    sim.leaf_hook = keep
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    res = sim.run()
+    counts = ops.launch_counts()
+    same = all(bits_equal(k["dense"], flat_of(k, cfg.sa)) for k in kept)
+    del kept
+    cpu = Simulation(cfg, device="cpu").run()
+    tp = res.ledger.totals("paper")
+    surv = [e.n_survivors for e in res.ledger.entries]
+    dropout_rounds = sum(s < cfg.clients_per_round for s in surv)
+    print(f"[tree] tree_quick on {kind}: groups={cfg.tree_groups} "
+          f"survivors={surv} launches={counts} upload_vs_dense(paper)="
+          f"{tp['upload_vs_dense']:.6f} (total "
+          f"{tp['total_upload_vs_dense']:.6f}, tpu "
+          f"{res.ledger.totals('tpu')['upload_vs_dense']:.6f}) "
+          f"final_acc={res.final_acc:.4f} (the port on the CPU "
+          f"{cpu.final_acc:.4f}, the reference {REF_ACC['tree_quick']}) "
+          f"accs={res.accuracies} wall_s={res.wall_s:.4f}", flush=True)
+    print(f"[tree] every leaf of every round: tree decode bit-equal to the "
+          f"flat decode of the same streams on the card={same} "
+          f"({n_leaves} leaves x {cfg.rounds} rounds)", flush=True)
+    check(same, "a tree decode differs from the flat decode")
+    check(surv == TREE_SURVIVORS, f"survivors {surv} != {TREE_SURVIVORS}")
+    check(abs(tp["upload_vs_dense"] - 0.063) <= 0.005,
+          f"tree_quick upload {tp['upload_vs_dense']:.4f} outside 6.3% +- 0.5")
+    check(abs(res.final_acc - cpu.final_acc) <= ACC_TOL,
+          f"tree_quick accuracy {res.final_acc:.4f} vs the CPU's "
+          f"{cpu.final_acc:.4f}")
+    check(abs(res.final_acc - REF_ACC["tree_quick"]) <= ACC_TOL,
+          f"tree_quick accuracy {res.final_acc:.4f} vs the reference's")
+    check(counts["stream_scatter_add"] == 3 * n_leaves * cfg.rounds,
+          f"tree_quick launched the scatter {counts['stream_scatter_add']} "
+          f"times, expected 3 groups x {n_leaves} leaves x {cfg.rounds}")
+    check(counts["pair_mask_streams"]
+          == n_leaves * (cfg.rounds + dropout_rounds),
+          f"tree_quick launched the masks {counts['pair_mask_streams']} "
+          f"times, expected {n_leaves} x ({cfg.rounds} + {dropout_rounds})")
+
+    # VGG16 under the tree protocol: full-size _scatter_range launches, and
+    # the largest leaf also decoded over an uneven split
+    cfg = presets.get("table2").replace(
+        name="table2_vgg16_tree", model="cifar_vgg16", dataset="cifar10",
+        rounds=2, eval_every=1, out_json=None, topology="tree",
+        tree_groups=3)
+    sim = Simulation(cfg, device="cuda")
+    checked, probe = [0, 0], {}
+
+    def compare(leaf_id, name, info):
+        before = ops.launch_counts()
+        ok = bits_equal(info["dense"], flat_of(dict(info, leaf_id=leaf_id),
+                                               cfg.sa))
+        size = info["size"]
+        if size == 2359296 and ok:
+            uneven = (0, 1, 1_000_003, 1_999_999, size)
+            ok = bits_equal(info["dense"], se.decode_leaf_tree(
+                info["streams"], nb=1, m=size, size=size, splits=uneven,
+                k_mask=info["k_mask"], leaf_id=leaf_id))
+            checked[1] += 1
+        after = ops.launch_counts()
+        for k in after:
+            probe[k] = probe.get(k, 0) + after[k] - before[k]
+        check(ok, f"VGG16 tree decode differs from flat at {name}")
+        checked[0] += 1
+
+    sim.leaf_hook = compare
+    ops.reset_launch_counts()
+    res = sim.run()
+    counts = {k: v - probe.get(k, 0) for k, v in ops.launch_counts().items()}
+    finite = all(torch.isfinite(p).all() for p in sim.state.params.values())
+    print(f"[tree] cifar_vgg16 table2 protocol, topology=tree groups=3: "
+          f"rounds={cfg.rounds} launches={counts} (comparisons excluded) "
+          f"leaves checked={checked[0]} (tree == flat, bit-equal; "
+          f"{checked[1]} 2,359,296-element leaves also over the uneven "
+          f"split (0, 1, 1000003, 1999999, 2359296)) wall_s="
+          f"{res.wall_s:.4f} upload_vs_dense(paper)="
+          f"{res.ledger.totals('paper')['upload_vs_dense']:.6f} "
+          f"finite={finite}", flush=True)
+    check(finite, "non-finite VGG16 parameters under the tree protocol")
+    check(checked[1] > 0, "no 2,359,296-element leaf was checked")
+    check(counts["stream_scatter_add"] == 3 * checked[0],
+          f"VGG16 tree launched the scatter {counts['stream_scatter_add']} "
+          f"times for {checked[0]} leaf decodes")
+    return counts
+
+
+# -------------------------------------------------------- phase 9: async
+ASYNC_STALENESS = [[0, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 0], [0, 0, 3, 0],
+                   [3, 3, 1, 2], [1, 0, 0, 2], [2, 0, 1, 1], [2, 3, 2, 3]]
+
+
+def async_phase(kind: str) -> None:
+    """async_quick on the card, then an all-fresh buffer against the
+    synchronous round."""
+    import torch
+
+    from repro_torch.core import fedavg
+    from repro_torch.core.types import SecureAggConfig
+    from repro_torch.kernels import ops
+    from repro_torch.sim import presets
+    from repro_torch.sim.engine import AsyncSimulation
+
+    cfg = presets.get("async_quick").replace(out_json=None)
+    sim = AsyncSimulation(cfg, device="cuda")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    res = sim.run()
+    counts = ops.launch_counts()
+    cpu = AsyncSimulation(cfg, device="cpu").run()
+    taus = [list(e.staleness) for e in res.ledger.entries]
+    tp = res.ledger.totals("paper")
+    print(f"[async] async_quick on {kind}: buffer={sim.buffer} "
+          f"max_staleness={cfg.max_staleness} staleness={taus} "
+          f"launches={counts} upload_vs_dense(paper)="
+          f"{tp['upload_vs_dense']:.6f} (tpu "
+          f"{res.ledger.totals('tpu')['upload_vs_dense']:.6f}) "
+          f"final_acc={res.final_acc:.4f} (the port on the CPU "
+          f"{cpu.final_acc:.4f}, the reference {REF_ACC['async_quick']}) "
+          f"accs={res.accuracies} wall_s={res.wall_s:.4f}", flush=True)
+    check(taus == ASYNC_STALENESS, f"staleness {taus}")
+    check(abs(tp["upload_vs_dense"] - 0.070) <= 0.005,
+          f"async_quick upload {tp['upload_vs_dense']:.4f} outside "
+          "7.0% +- 0.5")
+    check(abs(res.final_acc - cpu.final_acc) <= ACC_TOL,
+          f"async_quick accuracy {res.final_acc:.4f} vs the CPU's "
+          f"{cpu.final_acc:.4f}")
+    check(abs(res.final_acc - REF_ACC["async_quick"]) <= 1.5 * ACC_TOL,
+          f"async_quick accuracy {res.final_acc:.4f} vs the reference's")
+    n_leaves = len(sim.model.leaf_names())
+    check(counts["stream_scatter_add"] == n_leaves * cfg.rounds,
+          f"async_quick launched the scatter {counts['stream_scatter_add']} "
+          "times")
+
+    # an all-fresh buffer (every tau 0) is the synchronous round, bit for bit
+    state = sim._fresh_state()
+    cohort = sim.sampler.cohort_for(0)
+    batches = sim._batches_for(0, cohort)
+    params = state.params
+    a = fedavg.run_async_update(
+        fedavg.init_state(params, sim.fed), batches,
+        {c: params for c in batches}, sim.loss_fn, sim.fed, cfg.thgs)
+    b = fedavg.run_round(fedavg.init_state(params, sim.fed), batches,
+                         sim.loss_fn, sim.fed, cfg.thgs,
+                         SecureAggConfig(enabled=False))
+    same = (all(bits_equal(a.params[n], b.params[n]) for n in params)
+            and all(bits_equal(a.residuals[c][n], b.residuals[c][n])
+                    for c in batches for n in params)
+            and a.losses == b.losses)
+    print(f"[async] all-fresh buffer {sorted(batches)} through "
+          f"run_async_update vs run_round on {kind}: parameters, residuals "
+          f"and losses bit-equal={same}", flush=True)
+    check(same, "an all-fresh async buffer differs from the sync round")
+
+
 # ------------------------------------------------------------------ phase 8
 # (tag, B, T = S, Hq, Hkv, hd, dtype, causal, window); the first two are timed
 FLASH_SHAPES = (
@@ -661,7 +1135,7 @@ def flash_phase(device) -> list:
             def launch():
                 build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                o.data_ptr(), B, T, T, H, Hkv, hd, 1, 0,
-                               flash.DTYPES[dtype],
+                               build.DTYPE_CODES[dtype],
                                torch.cuda.current_stream().cuda_stream),
                             "flash_attention")
 
@@ -908,6 +1382,8 @@ def main() -> int:
                    sa.k_mask_for(2359296, 5), 5))
     rows = kernel_phase(shapes, device)
     rows.update(pack_kernel_phase(device))
+    split_rows, split_counts = split_mask_kernel_phase(device)
+    rows.update(split_rows)
 
     # ------------------------------------------------------ 3. main path
     from repro_torch.sim import presets
@@ -1035,13 +1511,20 @@ def main() -> int:
     # ------------------------------------------------------------- 7. DP
     dp_phase(kind)
 
-    # ---------------------------------------------------------- 8. flash
+    # ---------------------------------------------------- 8-9. tree, async
+    t_phase = time.perf_counter()
+    tree_phase(kind)
+    async_phase(kind)
+    print(f"[async] phases 8-9 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # --------------------------------------------------------- 10. flash
     t_phase = time.perf_counter()
     rows["flash_attention"] = flash_phase(device)
 
-    # ------------------------------------------------------------- 9. LM
+    # ------------------------------------------------------------ 11. LM
     lm_counts = lm_phase(kind, card, rows["flash_attention"][0]["ms"])
-    print(f"[lm] phases 8-9 took {time.perf_counter() - t_phase:.1f} s",
+    print(f"[lm] phases 10-11 took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
     # ------------------------------------------------------------ report
@@ -1057,14 +1540,27 @@ def main() -> int:
                                   "src/repro/kernels/pack.py:65"),
                "flash_attention": ("src/repro_torch/kernels/csrc/"
                                    "flash_attention.cu",
-                                   "src/repro/kernels/flash_attention.py:77")}
+                                   "src/repro/kernels/flash_attention.py:77"),
+               "thgs_sparsify": ("src/repro_torch/kernels/csrc/"
+                                 "thgs_sparsify.cu",
+                                 "src/repro/kernels/thgs_sparsify.py:29"),
+               "mask_prng_apply": ("src/repro_torch/kernels/csrc/"
+                                   "pair_mask_streams.cu",
+                                   "src/repro/kernels/mask_prng.py:38")}
     # each kernel's launches come from the path that runs it: table2_quick
     # for the scatter and the masks, codec_sweep_quick for the bit packing,
-    # the served Yi-6B for the flash attention
+    # the served Yi-6B for the flash attention; no reference path calls the
+    # THGS split or the dense mask apply, whose path is the public ops API
+    # (the [kernels] phase's ops path over every leaf of two models)
     launches = {**main_counts,
                 "bitpack_rows": codec_counts["bitpack_rows"],
                 "bitunpack_rows": codec_counts["bitunpack_rows"],
-                "flash_attention": lm_counts["flash_attention"]}
+                "flash_attention": lm_counts["flash_attention"],
+                "thgs_sparsify": split_counts["thgs_sparsify"],
+                "mask_prng_apply": split_counts["mask_prng_apply"]}
+    notes = {name: "no reference path calls this kernel: launches are the "
+             "[kernels] phase's ops path over every leaf of mnist_mlp and "
+             "cifar_vgg16" for name in ("thgs_sparsify", "mask_prng_apply")}
     kernels = []
     for name in ops.KERNELS:
         main_row = rows[name][0]
@@ -1075,6 +1571,7 @@ def main() -> int:
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
+            **({"note": notes[name]} if name in notes else {}),
             "shapes": rows[name]})
     print(f"[done] all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)

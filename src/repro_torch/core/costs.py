@@ -83,6 +83,7 @@ def round_record(
     threshold: int = 0,
     codec: str = "f32",
     leaf_sizes: Sequence[int] = (),
+    staleness: Sequence[int] = (),
     dp_clip: float = 0.0,
     dp_sigma: float = 0.0,
     dp_delta: float = 0.0,
@@ -91,9 +92,10 @@ def round_record(
     streams toward ``n_clients - 1`` peers, every participant downloads the
     dense model; secure-aggregation control traffic (phase-1 shares, phase-3
     recovery shares) is charged separately when any ``k_masks`` > 0.
-    ``codec`` switches the upload to packed-word accounting; the ``dp_*``
-    facts (clip S, noise multiplier z, target δ; 0.0 = off) are stored
-    only: the noise rides existing slots and costs no bits."""
+    ``codec`` switches the upload to packed-word accounting. ``staleness``
+    (the per-report taus of an async update; empty on synchronous rounds)
+    and the ``dp_*`` facts (clip S, noise multiplier z, target δ; 0.0 =
+    off) are stored only: neither changes the bits."""
     if codec != "f32":
         codecs.reject_codec_with_masks(codec, any(km > 0 for km in k_masks))
     surv = n_clients if n_survivors is None else n_survivors
@@ -120,6 +122,7 @@ def round_record(
         k_masks=tuple(int(k) for k in k_masks),
         codec=codec,
         leaf_sizes=tuple(int(s) for s in leaf_sizes),
+        staleness=tuple(int(t) for t in staleness),
         dp_clip=float(dp_clip),
         dp_sigma=float(dp_sigma),
         dp_delta=float(dp_delta),

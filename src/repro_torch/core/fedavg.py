@@ -1,18 +1,22 @@
 """Federated optimization: FedAvg / FedProx clients + THGS/secure-agg server
-(port of the synchronous flat round of ``repro.core.fedavg``).
+(port of the serial rounds of ``repro.core.fedavg``: the synchronous round,
+flat or tree, and the async buffered update).
 
 A round is:
   1. ``batched_client_update`` — local SGD for every participant,
-     ``torch.func.vmap`` over the stacked client batches of
-     ``torch.func.grad_and_value`` (one batched program, as the reference's
-     ``jax.vmap``);
+     ``torch.func.vmap`` of ``torch.func.grad_and_value`` over the stacked
+     client batches and one stacked copy of the parameters per client (one
+     batched program, as the reference's ``jax.vmap``; the async update
+     runs the same program);
   2. ``streams.encode_leaf_batch`` per leaf — the unified top-k ∪
      mask-support encode for all clients (counter-based pair seeds from the
      secagg round protocol: one ``pair_mask_streams`` launch per leaf);
   3. ``streams.decode_leaf_batch`` per leaf — one ``stream_scatter_add``
      launch over every client's stream, survivor gating, and Bonawitz
      reconstruction of dropped clients' unpaired masks (a second
-     ``pair_mask_streams`` launch per leaf in a dropout round).
+     ``pair_mask_streams`` launch per leaf in a dropout round). With
+     ``topology='tree'`` it is ``streams.decode_leaf_tree``: one launch per
+     sub-aggregator's index range, bit-equal to the flat decode.
 
 Each stage runs under a ``torch.profiler.record_function`` span
 (``round.local_sgd``, ``round.secagg_setup``, ``round.encode``,
@@ -29,6 +33,11 @@ Parameters are ``{name: tensor}`` dicts in the reference's leaf order
 (``PaperModel.leaf_names``); the leaf's position is its ``leaf_id``.
 Weighted aggregation is client-side; the server divides by the survivors'
 total weight after the masks cancelled.
+
+``run_async_update`` is one FedBuff-style buffered server step: every report
+trains from its own stale parameter version (``torch.func.vmap`` over params
+and batches) and joins the aggregate with weight ``(1 + tau)^-1/2``; with
+every tau 0 it is ``run_round`` without secure aggregation, bit for bit.
 """
 from __future__ import annotations
 
@@ -78,14 +87,35 @@ def _client_update(params: Params, batches, loss_fn: LossFn,
 def batched_client_update(params: Params, batches_stacked, loss_fn: LossFn,
                           local_steps: int, lr: float,
                           prox_mu: float = 0.0) -> tuple[Params, torch.Tensor]:
-    """All participants' local SGD in one vmapped program.
+    """All participants' local SGD in one vmapped program, every client
+    from ``params``.
 
     ``batches_stacked = (x[C, steps, B, ...], y[C, steps, B])``. Returns
-    (deltas stacked ``{name: [C, ...]}``, losses [C])."""
+    (deltas stacked ``{name: [C, ...]}``, losses [C]). The parameters are
+    stacked, one copy per client, and run through
+    :func:`batched_client_update_multi`: a synchronous round and an async
+    update whose reports all trained from one version are then the same
+    program, bit-equal on every device. (Broadcast parameters would lower
+    the first step's products to one matmul and stacked ones to a batched
+    matmul, which cuBLAS rounds differently.)"""
+    C = batches_stacked[0].shape[0]
+    stacked = {n: torch.stack([p] * C) for n, p in params.items()}
+    return batched_client_update_multi(stacked, batches_stacked, loss_fn,
+                                       local_steps, lr, prox_mu)
+
+
+def batched_client_update_multi(params_stacked: Params, batches_stacked,
+                                loss_fn: LossFn, local_steps: int, lr: float,
+                                prox_mu: float = 0.0
+                                ) -> tuple[Params, torch.Tensor]:
+    """Every report's local SGD from its own parameters: params vmapped
+    beside the batches (``{name: [B, ...]}`` and ``(x[B, steps, ...],
+    y[B, steps, ...])``; the async update's reports are stale versions).
+    Returns (deltas ``{name: [B, ...]}``, losses [B])."""
     return torch.func.vmap(
-        lambda *b: _client_update(params, b, loss_fn, local_steps, lr,
-                                  prox_mu),
-        randomness="error")(*batches_stacked)
+        lambda p, *b: _client_update(p, b, loss_fn, local_steps, lr,
+                                     prox_mu),
+        randomness="error")(params_stacked, *batches_stacked)
 
 
 @dataclasses.dataclass
@@ -117,6 +147,30 @@ def _div(x: torch.Tensor, d: float) -> torch.Tensor:
     return x / torch.tensor(d, dtype=x.dtype, device=x.device)
 
 
+def _check_topology(topology: str, thgs) -> None:
+    if topology not in ("flat", "tree"):
+        raise ValueError(f"unknown topology {topology!r}")
+    if topology == "tree" and thgs is None:
+        raise ValueError("topology='tree' requires THGS sparse streams; "
+                         "dense rounds have no stream decode to shard")
+
+
+def _group_count(tree_groups: int, cohort: int) -> int:
+    """The tree's sub-aggregator count: ``tree_groups``, or for 0 about the
+    square root of the cohort (Python's ``round``, at least 2)."""
+    if tree_groups > 0:
+        return tree_groups
+    return max(2, int(round(cohort ** 0.5)))
+
+
+def _decode(streams_b, size: int, splits, **kw) -> torch.Tensor:
+    """The flat decode, or the tree decode over ``splits`` (not None)."""
+    if splits is not None:
+        return se.decode_leaf_tree(streams_b, nb=1, m=size, size=size,
+                                   splits=splits, **kw)
+    return se.decode_leaf_batch(streams_b, nb=1, m=size, size=size, **kw)
+
+
 def run_round(
     state: FederatedState,
     client_batches: dict[int, Any],
@@ -130,6 +184,8 @@ def run_round(
     leaf_hook: Callable[[int, str, dict], None] | None = None,
     codec: str = "f32",
     dp: DPConfig | None = None,
+    topology: str = "flat",
+    tree_groups: int = 0,
 ) -> FederatedState:
     """One synchronous aggregation round over the given participants.
 
@@ -147,11 +203,15 @@ def run_round(
     noised values on the round's public support; it needs THGS, the f32
     codec and uniform client weights. ``None`` or an inactive config leaves
     the round bit-identical to a round without DP.
+    ``topology='tree'`` decodes each leaf over ``tree_groups``
+    sub-aggregators (0: ``max(2, round(sqrt(C)))``), each owning a
+    contiguous index range; bit-equal to ``'flat'``. It needs THGS.
     ``leaf_hook(leaf_id, name, info)``
     is called after each leaf's decode with the leaf's encode inputs, its
     streams and its decoded sum (a probe for tests and smoke checks; None
     costs nothing).
     """
+    _check_topology(topology, thgs)
     dp_active = dp is not None and dp.active
     if dp_active:
         dp.validate()
@@ -236,6 +296,7 @@ def run_round(
                 {n: deltas[n].to(torch.float32) + res_st[n].to(torch.float32)
                  for n in names}, clip=float(dp.clip))
             res_st = {n: torch.zeros_like(r) for n, r in res_st.items()}
+        groups = _group_count(tree_groups, C)
 
         agg, new_res = {}, {}
         ks_acct, k_masks_acct = [], []
@@ -253,10 +314,12 @@ def run_round(
                     leaf_id=leaf_id, weights=w_vec, codec=codec,
                     dp_sigma=dp_sigma_c, dp_seeds=dp_seeds,
                     dp_support_seed=dp_sup_seed)
-            # ---- 3. scatter-add decode + dropout recovery ----
+            # ---- 3. scatter-add decode (flat or tree) + dropout recovery
+            splits = (se.tree_splits(size, groups) if topology == "tree"
+                      else None)
             with record_function("round.decode"):
-                dense = se.decode_leaf_batch(
-                    streams_b, nb=1, m=size, size=size,
+                dense = _decode(
+                    streams_b, size, splits,
                     alive=alive if dropped else None,
                     pair_seeds=recovery_seeds if dropped else None,
                     pair_signs=pair_signs if dropped else None,
@@ -313,6 +376,105 @@ def run_round(
 
     for ci, c in enumerate(participants):
         state.losses[c] = losses_list[ci]
+    state.params = {n: state.params[n] + fed.server_lr * agg[n]
+                    for n in names}
+    state.comm_log.append(rec)
+    state.round += 1
+    return state
+
+
+# ------------------------------------------ async (FedBuff-style) updates
+def staleness_weight(tau: int) -> float:
+    """FedBuff's polynomial staleness discount ``(1 + tau)^(-1/2)``: a
+    report trained on params ``tau`` server updates old; ``tau == 0`` gives
+    weight 1, so an all-fresh buffer is the synchronous round."""
+    return (1.0 + float(tau)) ** -0.5
+
+
+def run_async_update(
+    state: FederatedState,
+    client_batches: dict[int, Any],
+    client_params: Mapping[int, Params],
+    loss_fn: LossFn,
+    fed: FedConfig,
+    thgs: THGSConfig,
+    bits: costs.BitModel = costs.PAPER_BITS,
+    staleness: Mapping[int, int] | None = None,
+    client_weights: Mapping[int, float] | None = None,
+    codec: str = "f32",
+    topology: str = "flat",
+    tree_groups: int = 0,
+) -> FederatedState:
+    """One FedBuff-style buffered server update.
+
+    The buffer holds one report per client of ``client_batches``: client
+    ``c`` ran local SGD from ``client_params[c]``, ``staleness[c]`` server
+    updates old, and its THGS stream joins the aggregate with weight
+    ``staleness_weight(tau) * client_weights[c]``; the server divides by
+    the total weight. With every tau 0 this is ``run_round`` without secure
+    aggregation, bit for bit. No secure aggregation (pair masks need a
+    round-synchronous cohort) and THGS is required; the buffer's clients
+    are distinct (the residual write-back is per client)."""
+    if thgs is None:
+        raise ValueError("run_async_update requires THGS sparse streams")
+    _check_topology(topology, thgs)
+    participants = sorted(client_batches.keys())
+    B = len(participants)
+    staleness = staleness or {}
+    taus = [int(staleness.get(c, 0)) for c in participants]
+    w_list = [staleness_weight(t) *
+              (float(client_weights.get(c, 1.0)) if client_weights else 1.0)
+              for c, t in zip(participants, taus)]
+    names = list(state.params)
+    dev = state.params[names[0]].device
+    w_vec = torch.tensor(w_list, dtype=torch.float32, device=dev)
+    w_total = float(sum(w_list))
+    sizes = [state.params[n].numel() for n in names]
+    model_size = sum(sizes)
+
+    # ---- 1. every report's local SGD from its own stale params ----
+    batches_stacked = tuple(
+        torch.stack([client_batches[c][i] for c in participants])
+        for i in range(len(client_batches[participants[0]])))
+    params_stacked = {n: torch.stack([client_params[c][n]
+                                      for c in participants]) for n in names}
+    prox_mu = fed.prox_mu if fed.algorithm == "fedprox" else 0.0
+    with record_function("round.local_sgd"):
+        deltas, losses = batched_client_update_multi(
+            params_stacked, batches_stacked, loss_fn, fed.local_steps,
+            fed.local_lr, prox_mu)
+        losses_list = [float(x) for x in losses.tolist()]
+
+    loss_prev = _mean_or_none([state.losses.get(c) for c in participants])
+    loss_curr = _mean_or_none(losses_list)
+    ks = schedules.leaf_ks(thgs, sizes, t=state.round,
+                           total_rounds=fed.rounds, loss_prev=loss_prev,
+                           loss_curr=loss_curr)
+    groups = _group_count(tree_groups, B)
+
+    agg, new_res = {}, {}
+    for leaf_id, (name, k, size) in enumerate(zip(names, ks, sizes)):
+        d_st = deltas[name]
+        r_st = torch.stack([state.residuals[c][name] for c in participants])
+        # ---- 2. batched unified-stream encode, staleness-weighted ----
+        with record_function("round.encode"):
+            streams_b, nr = se.encode_leaf_batch(
+                d_st, r_st, k=k, nb=1, m=size, size=size, leaf_id=leaf_id,
+                weights=w_vec, codec=codec)
+        # ---- 3. decode, flat or tree ----
+        splits = se.tree_splits(size, groups) if topology == "tree" else None
+        with record_function("round.decode"):
+            dense = _decode(streams_b, size, splits)
+        agg[name] = _div(dense, w_total).reshape(state.params[name].shape)
+        new_res[name] = nr
+
+    for ci, c in enumerate(participants):
+        state.residuals[c] = {n: new_res[n][ci] for n in names}
+        state.losses[c] = losses_list[ci]
+    rec = costs.round_record(
+        state.round, model_size, [min(int(k), s) for k, s in zip(ks, sizes)],
+        [0] * len(ks), n_clients=B, bits=bits, n_survivors=B, threshold=0,
+        codec=codec, leaf_sizes=sizes, staleness=tuple(taus))
     state.params = {n: state.params[n] + fed.server_lr * agg[n]
                     for n in names}
     state.comm_log.append(rec)

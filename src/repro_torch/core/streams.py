@@ -1,6 +1,6 @@
-"""The unified sparse-stream engine (paper Alg. 1/2, Eq. 5) — port of the flat,
-serial path of ``repro.core.streams``, with the wire codecs and the DP
-release.
+"""The unified sparse-stream engine (paper Alg. 1/2, Eq. 5) — port of the
+serial path of ``repro.core.streams``: the encode, the flat and the
+hierarchical (tree) decode, the wire codecs and the DP release.
 
 A stream for one leaf is a static-shape pair ``(indices, values)``:
 
@@ -12,7 +12,9 @@ with a leading client axis. ``n_blocks == 1, m == size`` is the flat per-leaf
 stream of the paper's single-host protocol. The encode is written batched over
 the client axis (the reference vmaps a per-client program); the decode
 flattens every client's gated stream into one index/value vector and
-scatter-adds it in one pass through ``kernels/ops.stream_scatter_add``.
+scatter-adds it in one pass through ``kernels/ops.stream_scatter_add``; the
+tree decode splits that pass over sub-aggregators that each own a contiguous
+index range of the dense buffer, one launch each, combined by concatenation.
 
 Pairwise masks are counter-based: per-pair uint32 seeds (DH-derived,
 Shamir-recoverable; ``secagg/protocol.py``) drive the murmur streams of
@@ -472,4 +474,95 @@ def decode_leaf_batch(
             p=mask_p, q=mask_q, leaf_id=leaf_id)
     dense = decode_sum_blocks(streams, nb, m, alive=alive, weights=weights,
                               extra=extra)
+    return dense[:size]
+
+
+# ------------------------------------------- hierarchical (tree) decode
+def tree_splits(padded: int, n_groups: int) -> tuple[int, ...]:
+    """Near-even contiguous index-range boundaries ``(0, ..., padded)`` for
+    ``n_groups`` sub-aggregators (clamped to ``[1, padded]``); group ``g``
+    owns ``[splits[g], splits[g+1])``. Any monotone boundary tuple is a
+    valid partition for :func:`decode_sum_tree`."""
+    G = max(1, min(int(n_groups), int(padded)))
+    base, rem = divmod(int(padded), G)
+    bounds = [0]
+    for g in range(G):
+        bounds.append(bounds[-1] + base + (1 if g < rem else 0))
+    return tuple(bounds)
+
+
+def _scatter_range(flat_idx: torch.Tensor, flat_vals: torch.Tensor,
+                   lo: int, hi: int) -> torch.Tensor:
+    """One sub-aggregator's partial: the slots landing in ``[lo, hi)``,
+    folded in the round stream's slot order (one kernel launch).
+
+    Out-of-range slots are redirected to a dump slot at position ``width``
+    (buffer ``width + 1``, sliced off on return) with value +0.0, not zeroed
+    in place: an in-range position must never receive a redirected +0.0
+    (``-0.0 + 0.0 == +0.0`` would flip the sign of a -0.0 partial and break
+    bit-equality with the flat decode)."""
+    width = hi - lo
+    in_range = (flat_idx >= lo) & (flat_idx < hi)
+    local = torch.where(in_range, flat_idx - lo, width)
+    vals = torch.where(in_range, flat_vals, 0.0)
+    return _scatter_flat(local, vals, width + 1)[:width]
+
+
+def decode_sum_tree(
+    streams: StreamBatch,
+    nb: int,
+    m: int,
+    *,
+    splits,
+    alive: torch.Tensor | None = None,
+    weights: torch.Tensor | None = None,
+    extra: StreamBatch | None = None,
+) -> torch.Tensor:
+    """Hierarchical decode: each group of ``splits`` (``G + 1`` monotone
+    boundaries, :func:`tree_splits`) scatter-adds the round stream's slots
+    that land in its index range; the partials are concatenated. Each
+    position is owned by one group, which folds its contributions in the
+    flat decode's slot order, so the result is bit-equal to
+    :func:`decode_sum_blocks` for any partition: the combine adds nothing.
+    Returns f32[nb*m]."""
+    splits = tuple(int(b) for b in splits)
+    if len(splits) < 2 or splits[0] != 0 or splits[-1] != nb * m or \
+            any(b < a for a, b in zip(splits, splits[1:])):
+        raise ValueError(
+            f"splits must be monotone boundaries (0, ..., {nb * m}), "
+            f"got {splits}")
+    flat_idx, flat_vals = _flatten_round_stream(streams, alive, weights,
+                                                extra)
+    parts = [_scatter_range(flat_idx, flat_vals, lo, hi)
+             for lo, hi in zip(splits[:-1], splits[1:]) if hi > lo]
+    return torch.cat(parts) if len(parts) > 1 else parts[0]
+
+
+def decode_leaf_tree(
+    streams: StreamBatch,
+    *,
+    nb: int,
+    m: int,
+    size: int,
+    splits,
+    alive: torch.Tensor | None = None,
+    weights: torch.Tensor | None = None,
+    pair_seeds: torch.Tensor | None = None,
+    pair_signs: torch.Tensor | None = None,
+    k_mask: int = 0,
+    mask_p: float = -1.0,
+    mask_q: float = 2.0,
+    leaf_id: int = 0,
+) -> torch.Tensor:
+    """Hierarchical twin of :func:`decode_leaf_batch`: the same arguments
+    plus ``splits``, and a bit-equal result. Dropout recovery streams join
+    the round stream before the range routing, so each sub-aggregator
+    cancels the reconstruction masks landing in its own range."""
+    extra = None
+    if alive is not None and pair_seeds is not None and k_mask > 0:
+        extra = dropout_cancel_streams_seeded(
+            pair_seeds, pair_signs, alive, nb, k_mask, m,
+            p=mask_p, q=mask_q, leaf_id=leaf_id)
+    dense = decode_sum_tree(streams, nb, m, splits=splits, alive=alive,
+                            weights=weights, extra=extra)
     return dense[:size]

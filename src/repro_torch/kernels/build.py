@@ -22,6 +22,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -35,7 +37,12 @@ SOURCES = {
                                [_P, _P, _LL, _P, _LL, _P])},
     "pair_mask_streams.cu": {
         "pair_mask_streams": ("pair_mask_streams_launch",
-                              [_P, _P, _LL, _LL, _U, _F, _F, _P, _P, _P])},
+                              [_P, _P, _LL, _LL, _U, _F, _F, _P, _P, _P]),
+        "mask_prng_apply": ("mask_prng_apply_launch",
+                            [_P, _LL, _U, _F, _F, _F, _F, _I, _P, _P, _P])},
+    "thgs_sparsify.cu": {
+        "thgs_sparsify": ("thgs_sparsify_launch",
+                          [_P, _P, _P, _F, _LL, _I, _I, _P, _P, _P])},
     "bitpack.cu": {
         "bitpack_rows": ("bitpack_rows_launch",
                          [_P, _LL, _LL, _I, _P, _LL, _P]),
@@ -47,6 +54,8 @@ SOURCES = {
                              _I, _P])},
 }
 N_KERNELS = sum(len(entries) for entries in SOURCES.values())
+# the floating-point dtype code the launchers take
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _LOCK = threading.Lock()
 _FUNCS: dict = {}

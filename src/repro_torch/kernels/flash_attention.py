@@ -17,7 +17,6 @@ from repro_torch.kernels import build
 
 launches = 0
 
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
 
 
@@ -32,7 +31,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention_cuda needs q, k and v on one CUDA "
                          f"device, got {q.device}, {k.device}, {v.device}")
-    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if (q.dtype not in build.DTYPE_CODES or k.dtype != q.dtype
+            or v.dtype != q.dtype):
         raise ValueError(f"flash_attention_cuda takes float32 or bfloat16 "
                          f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, "
                          f"{v.dtype}")
@@ -61,7 +61,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fn = build.kernel("flash_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, S,
-            H, Hkv, hd, int(bool(causal)), int(window or 0), DTYPES[q.dtype],
+            H, Hkv, hd, int(bool(causal)), int(window or 0), build.DTYPE_CODES[q.dtype],
             stream)
     build.check(rc, "flash_attention")
     launches += 1

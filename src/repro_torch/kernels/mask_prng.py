@@ -1,10 +1,11 @@
-"""Counter-based pair-mask streams: the CUDA kernel's wrapper (port of
-``repro.kernels.mask_prng.pair_mask_streams``).
+"""Counter-based pair masks: the wrappers of the two CUDA kernels in
+``csrc/pair_mask_streams.cu`` (port of ``repro.kernels.mask_prng``).
 
-The kernel is ``csrc/pair_mask_streams.cu``, one thread per (pair, counter)
-slot; its plain version is ``kernels/ref.py::pair_mask_stream_ref``. A CPU
+``pair_mask_streams_cuda`` launches one thread per (pair, counter) slot (plain
+version ``kernels/ref.py::pair_mask_stream_ref``); ``mask_prng_apply_cuda``
+one thread per element of g (plain version ``ref.mask_prng_ref``). A CPU
 tensor takes the plain version, a CUDA tensor launches the kernel or raises.
-``launches`` counts kernel launches and nothing else.
+``launches`` and ``apply_launches`` count kernel launches and nothing else.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import torch
 from repro_torch.kernels import build, ref
 
 launches = 0
+apply_launches = 0
 
 
 def pair_mask_streams_cuda(seeds: torch.Tensor, signs: torch.Tensor, *,
@@ -46,3 +48,35 @@ def pair_mask_streams_cuda(seeds: torch.Tensor, signs: torch.Tensor, *,
     build.check(rc, "pair_mask_streams")
     launches += 1
     return idx, vals
+
+
+def mask_prng_apply_cuda(g: torch.Tensor, seed: int, *, p: float = -1.0,
+                         q: float = 2.0, sigma: float, sign: float = 1.0):
+    """Launch the kernel: f32 or bf16 ``g`` of any shape on a CUDA device,
+    a uint32 ``seed`` -> ``(g + mask`` in g's dtype, ``mask`` f32), both of
+    g's shape."""
+    global apply_launches
+    if g.device.type != "cuda":
+        raise ValueError(f"mask_prng_apply_cuda needs a CUDA tensor, got "
+                         f"{g.device}")
+    if g.dtype not in build.DTYPE_CODES:
+        raise ValueError("mask_prng_apply_cuda takes float32 or bfloat16, "
+                         f"got {g.dtype}")
+    if not 0 <= int(seed) < 2 ** 32:
+        raise ValueError(f"seed must be a uint32, got {seed}")
+    if g.numel() >= 2 ** 32:
+        raise ValueError("the position counter is 32 bits: g needs fewer "
+                         f"than 2**32 elements, got {g.numel()}")
+    gc = g.contiguous()
+    out = torch.empty_like(gc)
+    mask = torch.empty(gc.shape, dtype=torch.float32, device=g.device)
+    if g.numel() == 0:
+        return out, mask
+    fn = build.kernel("mask_prng_apply")
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    rc = fn(gc.data_ptr(), g.numel(), int(seed), float(p), float(q),
+            float(sigma), float(sign), build.DTYPE_CODES[g.dtype], out.data_ptr(),
+            mask.data_ptr(), stream)
+    build.check(rc, "mask_prng_apply")
+    apply_launches += 1
+    return out, mask

@@ -14,10 +14,11 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import (flash_attention as flash, mask_prng, pack,
-                                 ref, stream_decode)
+                                 ref, stream_decode, thgs_sparsify as thgs)
 
 KERNELS = ("stream_scatter_add", "pair_mask_streams", "bitpack_rows",
-           "bitunpack_rows", "flash_attention")
+           "bitunpack_rows", "flash_attention", "thgs_sparsify",
+           "mask_prng_apply")
 
 
 def stream_scatter_add(indices: torch.Tensor, values: torch.Tensor, *,
@@ -65,13 +66,36 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
 
 
+def thgs_sparsify(g: torch.Tensor, residual: torch.Tensor, threshold):
+    """THGS threshold split: ``acc = g + residual`` in f32, ``sparse =
+    acc * 1[|acc| > f32(threshold)]``, ``resid = acc - sparse``; returns
+    ``(sparse, resid)`` in g's and residual's dtypes. ``threshold`` is a
+    float or a one-element tensor on g's device."""
+    if g.device.type == "cuda":
+        return thgs.thgs_sparsify_cuda(g, residual, threshold)
+    return ref.thgs_sparsify_ref(g, residual, threshold)
+
+
+def mask_prng_apply(g: torch.Tensor, *, seed: int, p: float = -1.0,
+                    q: float = 2.0, sigma: float, sign: float = 1.0):
+    """Dense counter-based mask and apply (Eq. 3-5): ``(g + mask`` in g's
+    dtype, ``mask`` f32), the mask regenerated from ``seed`` and the flat
+    position, kept where ``u < sigma``."""
+    if g.device.type == "cuda":
+        return mask_prng.mask_prng_apply_cuda(g, seed, p=p, q=q, sigma=sigma,
+                                              sign=sign)
+    return ref.mask_prng_ref(g, seed, p=p, q=q, sigma=sigma, sign=sign)
+
+
 def launch_counts() -> dict:
     """Kernel launches since the last reset, by kernel name."""
     return {"stream_scatter_add": stream_decode.launches,
             "pair_mask_streams": mask_prng.launches,
             "bitpack_rows": pack.pack_launches,
             "bitunpack_rows": pack.unpack_launches,
-            "flash_attention": flash.launches}
+            "flash_attention": flash.launches,
+            "thgs_sparsify": thgs.launches,
+            "mask_prng_apply": mask_prng.apply_launches}
 
 
 def reset_launch_counts() -> None:
@@ -80,3 +104,5 @@ def reset_launch_counts() -> None:
     pack.pack_launches = 0
     pack.unpack_launches = 0
     flash.launches = 0
+    thgs.launches = 0
+    mask_prng.apply_launches = 0

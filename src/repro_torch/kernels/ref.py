@@ -1,6 +1,5 @@
 """Plain PyTorch versions of the port's CUDA kernels (port of
-``repro.kernels.ref``: the pair-mask, scatter-add, bit-pack and
-flash-attention part), and the counter-based DP streams, which no kernel
+``repro.kernels.ref``), and the counter-based DP streams, which no kernel
 computes.
 
 These are the functions the CPU tests hold against the JAX reference and the
@@ -17,6 +16,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 M32 = 0xFFFFFFFF
@@ -90,6 +90,69 @@ def pair_mask_stream_ref(seeds, signs, nb: int, k_mask: int, m: int,
     return idx, vals
 
 
+def thgs_sparsify_ref(g: torch.Tensor, residual: torch.Tensor,
+                     threshold) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused THGS threshold split: ``acc = f32(g) + f32(residual)``,
+    ``sparse = acc * 1[|acc| > f32(threshold)]``, ``resid = acc - sparse``,
+    cast back to g's and residual's dtypes. ``threshold`` is a float or a
+    one-element tensor.
+
+    The residual follows the Pallas kernel (``acc - sparse``), not the JAX
+    reference's oracle (``where(keep, 0, acc)``): the two differ only where a
+    kept accumulator is +-inf, which gives NaN here as in the kernel."""
+    acc = g.to(torch.float32) + residual.to(torch.float32)
+    thr = torch.as_tensor(threshold, device=acc.device).to(torch.float32)
+    sparse = torch.where(acc.abs() > thr.reshape(()), acc, 0.0)
+    return sparse.to(g.dtype), (acc - sparse).to(residual.dtype)
+
+
+def _fma_f32(a: float, x: torch.Tensor, b: float) -> torch.Tensor:
+    """``fma(f32(a), x, f32(b))`` for f32 ``x``, rounded once to f32.
+
+    In f64 the product of two f32 values is exact; the sum may round, so it
+    is rounded to odd (TwoSum gives the exact error; an inexact sum whose
+    last bit is even moves one f64 ulp toward the exact value), and 53 >=
+    24 + 2 bits makes the final round-to-nearest-even to f32 correct."""
+    f64 = torch.float64
+    a = torch.tensor(a, dtype=torch.float32).to(f64).to(x.device)
+    b = torch.tensor(b, dtype=torch.float32).to(f64).to(x.device)
+    prod = x.to(f64) * a
+    s = prod + b
+    bb = s - prod
+    err = (prod - (s - bb)) + (b - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(f64)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
+def mask_prng_ref(g: torch.Tensor, seed: int, *, p: float, q: float,
+                  sigma: float,
+                  sign: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Counter-based sparse mask generation and add (Eq. 3-5):
+    ``u(i) = p + q * f32(mix32(i ^ seed)) / 2**32`` for the flat position
+    ``i``, ``mask = where(u < sigma, u, 0) * sign``; returns ``(g + mask``
+    in g's dtype, ``mask`` f32), both of g's shape.
+
+    Rounds ``p + q * u`` once, as the JAX reference's jitted entry does in
+    the vectorized loop XLA compiles it to (one fused multiply-add),
+    emulated exactly by :func:`_fma_f32`. The reference's eager oracle, and
+    XLA's scalar loops (small arrays, some loop remainders), round the
+    product first; all agree at the default ``p = -1, q = 2``, where the
+    product is exact. The uint32 -> f32 conversion of the
+    int64 lane rounds to nearest even, as XLA's; ``sign = -1`` leaves -0.0
+    off the support."""
+    f32 = torch.float32
+    i = torch.arange(g.numel(), dtype=torch.int64, device=g.device)
+    x = _mix32(i ^ (int(seed) & M32))
+    u = _fma_f32(q, x.to(f32) * 2.0 ** -32, p)
+    keep = u < torch.tensor(sigma, dtype=f32, device=g.device)
+    mask = torch.where(keep, u, 0.0) * torch.tensor(sign, dtype=f32,
+                                                     device=g.device)
+    mask = mask.reshape(g.shape)
+    return (g.to(f32) + mask).to(g.dtype), mask
+
+
 def stream_scatter_add_ref(indices: torch.Tensor, values: torch.Tensor,
                            size: int) -> torch.Tensor:
     """Scatter-add a flat stream into dense f32[size]; out-of-range dropped.
@@ -98,14 +161,28 @@ def stream_scatter_add_ref(indices: torch.Tensor, values: torch.Tensor,
     as the JAX reference's scatter does on the CPU. PyTorch's accumulating
     scatters promise no order (``index_put_(accumulate=True)`` uses atomic
     adds across threads on a large CPU input, and sorts plus warp-reduces on
-    CUDA), so the fold is built from its definition: each slot's rank among
-    the earlier slots of its index (a stable sort), then one pass per rank,
-    each a plain add at distinct positions. Runs on the inputs' device.
-    """
+    CUDA), so the fold is built from its definition. On the CPU it is
+    numpy's unbuffered ``np.add.at``, which applies the slots one by one in
+    order in f32; on another device, :func:`scatter_fold_by_rank`. Both cost
+    little for any multiplicity on the CPU path, where the tree decode's
+    dump slot takes most of a stream."""
     idx = indices.reshape(-1).to(torch.int64)
     val = values.reshape(-1).to(torch.float32)
     valid = (idx >= 0) & (idx < size)
     idx, val = idx[valid], val[valid]
+    if val.device.type != "cpu":
+        return scatter_fold_by_rank(idx, val, size)
+    out = np.zeros(size, np.float32)
+    np.add.at(out, idx.numpy(), val.numpy())
+    return torch.from_numpy(out)
+
+
+def scatter_fold_by_rank(idx: torch.Tensor, val: torch.Tensor,
+                         size: int) -> torch.Tensor:
+    """The slot-order fold on any device, for in-range int64 ``idx``: each
+    slot's rank among the earlier slots of its index (a stable sort), then
+    one pass per rank, each a plain add at distinct positions. Its passes
+    grow with the largest multiplicity of an index."""
     out = torch.zeros(size, dtype=torch.float32, device=val.device)
     n = idx.numel()
     if n == 0:

@@ -5,6 +5,9 @@
     python -m repro_torch.sim --preset codec_sweep_quick --quick
     python -m repro_torch.sim --preset dp_quick
     python -m repro_torch.sim --preset table2_quick --codec int8
+    python -m repro_torch.sim --preset tree_quick
+    python -m repro_torch.sim --preset async_quick
+    python -m repro_torch.sim --preset ci_smoke --topology tree --tree-groups 4
     python -m repro_torch.sim --list
 
 Runs the named preset (with any overrides) on the CUDA device, prints
@@ -26,7 +29,8 @@ import sys
 from repro_torch.core.codecs import CODECS
 from repro_torch.core.dp import DPConfig
 from repro_torch.sim import presets
-from repro_torch.sim.engine import Simulation, resolve_device
+from repro_torch.sim.engine import (Simulation, resolve_device,
+                                    simulation_for)
 from repro_torch.sim.ledger import mib
 
 
@@ -148,6 +152,12 @@ def main(argv=None) -> int:
                     help="stream wire codec; a non-f32 codec on a secagg "
                          "preset turns secure aggregation off (masks cancel "
                          "only on the f32 grid)")
+    ap.add_argument("--topology", choices=("flat", "tree"), default=None,
+                    help="aggregation topology; 'tree' is bit-equal to "
+                         "'flat'")
+    ap.add_argument("--tree-groups", type=int, default=None,
+                    help="sub-aggregators for --topology tree (0 = auto, "
+                         "about the square root of the cohort)")
     ap.add_argument("--dp-sigma", type=float, default=None,
                     help="DP cohort-sum noise multiplier z (0: no noise)")
     ap.add_argument("--dp-clip", type=float, default=None,
@@ -193,6 +203,10 @@ def main(argv=None) -> int:
         over["rounds"] = args.rounds
     if args.out is not None:
         over["out_json"] = args.out
+    if args.topology is not None:
+        over["topology"] = args.topology
+    if args.tree_groups is not None:
+        over["tree_groups"] = args.tree_groups
     if (args.dp_sigma is not None or args.dp_clip is not None
             or args.dp_delta is not None):
         dp_over = {}
@@ -214,14 +228,20 @@ def main(argv=None) -> int:
         _quick(over, cfg)
     cfg = cfg.replace(**over)
 
-    sim = Simulation(cfg, device=device)
+    sim = simulation_for(cfg, device=device)
     codec_note = f" codec={cfg.codec}" if cfg.codec != "f32" else ""
+    mode_note = (f" mode=async buffer={sim.buffer} "
+                 f"max_staleness={cfg.max_staleness}"
+                 if cfg.mode == "async" else "")
+    topo_note = (f" topology=tree groups={cfg.tree_groups or 'auto'}"
+                 if cfg.topology == "tree" else "")
     dp_note = (f" dp=clip{cfg.dp.clip:g}/z{cfg.dp.sigma:g}"
                if cfg.dp is not None and cfg.dp.active else "")
     print(f"# preset={args.preset} model={cfg.model} dataset={cfg.dataset} "
           f"partition={cfg.partition} rounds={cfg.rounds} "
           f"cohort={cfg.clients_per_round}/{cfg.n_clients}"
-          f"{codec_note}{dp_note} device={device}", flush=True)
+          f"{codec_note}{mode_note}{topo_note}{dp_note} device={device}",
+          flush=True)
     res = sim.run(hooks=[_progress_hook])
 
     for acct in ("paper", "tpu"):

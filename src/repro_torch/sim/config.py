@@ -146,22 +146,50 @@ class SimConfig:
                     "weights scale each client's contribution past the clip "
                     "bound, breaking the sensitivity analysis (use uniform "
                     "weights)")
-        # what this slice refuses, and the slice that brings it
-        if self.topology == "tree":
-            raise _not_ported("topology='tree'",
-                              "slice D (tree and async aggregation)")
+        if self.topology == "tree" and self.thgs is None:
+            raise ValueError(
+                "topology='tree' requires THGS sparse streams (dense rounds "
+                "have no stream decode to shard across sub-aggregators)")
+        if self.tree_groups < 0:
+            raise ValueError(f"tree_groups must be >= 0 (0 = auto), "
+                             f"got {self.tree_groups}")
         if self.mode == "async":
-            raise _not_ported("mode='async'",
-                              "slice D (tree and async aggregation)")
-        if self.buffer_size:
+            if self.thgs is None:
+                raise ValueError(
+                    "mode='async' requires THGS sparse streams (the async "
+                    "path exercises the sparse-stream data plane)")
+            if self.sa.enabled:
+                raise ValueError(
+                    "mode='async' cannot run secure aggregation: pair masks "
+                    "are agreed round-synchronously among a known cohort, "
+                    "which a streaming buffer breaks")
+            if self.dropout_rate > 0:
+                raise ValueError(
+                    "mode='async' has no dropout: a buffer only ever holds "
+                    "reports that arrived (set dropout_rate=0)")
+            B = self.buffer_size or self.clients_per_round
+            if not (1 <= B <= self.n_clients):
+                raise ValueError(
+                    f"need 1 <= buffer_size <= n_clients, got {B} vs "
+                    f"{self.n_clients}")
+            if self.max_staleness < 0:
+                raise ValueError(
+                    f"max_staleness must be >= 0, got {self.max_staleness}")
+            if self.shard_clients == "on":
+                raise ValueError(
+                    "mode='async' runs the serial update path; "
+                    "shard_clients='on' cannot be honoured (use 'auto' or "
+                    "'off')")
+        elif self.buffer_size:
             raise ValueError("buffer_size is only meaningful with "
                              "mode='async'")
+        # what this slice refuses, and the slice that brings it
         if self.shard_clients == "on":
             raise _not_ported("shard_clients='on'",
                               "slice E (the client-sharded round)")
         if self.ckpt_dir is not None:
-            raise _not_ported("checkpoints and resume (ckpt_dir)",
-                              "slice F (checkpoint and serving)")
+            raise _not_ported("checkpoints and resume (ckpt_dir), sync or "
+                              "async", "slice F (checkpoint and serving)")
         if self.thgs is None and self.sa.enabled:
             raise _not_ported("dense secure aggregation (thgs=None with "
                               "sa.enabled)", "slice I (the datacenter layer)")

@@ -1,5 +1,6 @@
-"""The multi-round federated simulation engine — port of the synchronous
-``repro.sim.engine.Simulation``.
+"""The multi-round federated simulation engine — port of
+``repro.sim.engine``: the synchronous ``Simulation`` (flat or tree decode),
+the FedBuff-style ``AsyncSimulation`` and ``simulate()``.
 
 ``Simulation`` owns data synthesis and partitioning, the per-round cohort
 schedule and dropout injection (sampler.py), the round itself
@@ -13,6 +14,12 @@ explicit ``torch.Generator`` seeded with ``cfg.seed`` (drawn on the CPU, so
 the CPU and the card start from the same weights), or are injected with
 ``init_params`` — a reference-layout ``{outer: {inner: array}}`` tree, e.g.
 the JAX package's initial params, for parity runs.
+
+``AsyncSimulation`` drains a buffer of distinct client reports per server
+step; each report trained from a parameter version ``tau`` steps old, with
+``tau`` drawn counter-based from ``(seed, 0xA5, step)`` as the reference
+draws it, out of a ring of the last ``max_staleness + 1`` versions.
+Checkpoints (and the ring's) come with a later slice.
 """
 from __future__ import annotations
 
@@ -25,7 +32,8 @@ import torch
 
 from repro_torch.convert import params_from_jax
 from repro_torch.core import costs
-from repro_torch.core.fedavg import FederatedState, init_state, run_round
+from repro_torch.core.fedavg import (FederatedState, init_state,
+                                     run_async_update, run_round)
 from repro_torch.data.datasets import SPECS, make_dataset
 from repro_torch.data.federated import (client_batches, dirichlet, iid,
                                         noniid_label_k)
@@ -95,8 +103,15 @@ class Simulation:
     ``run_round`` — a probe on each leaf's streams and decoded sum.
     """
 
+    sim_mode = "sync"   # the cfg.mode this class runs (see simulate())
+
     def __init__(self, cfg: SimConfig, *, device="cuda", init_params=None):
         cfg.validate()
+        if cfg.mode != self.sim_mode:
+            raise ValueError(
+                f"{type(self).__name__} runs mode={self.sim_mode!r} but the "
+                f"config asks for mode={cfg.mode!r}; use simulate() (or "
+                "AsyncSimulation directly) for async configs")
         self.cfg = cfg
         self.device = resolve_device(device)
         if self.device.type == "cuda":
@@ -162,6 +177,24 @@ class Simulation:
                            .to(self.device))
         return out
 
+    def _step(self, r: int, state: FederatedState):
+        """One synchronous round: returns the new state and the hook info
+        of the round (cohort, dropped)."""
+        cfg = self.cfg
+        cohort = self.sampler.cohort_for(r)
+        assert len(cohort) == cfg.clients_per_round, (
+            "fixed-cohort contract violated: "
+            f"{len(cohort)} != {cfg.clients_per_round}")
+        dropped = self.sampler.dropouts_for(
+            r, cohort, min_survivors=self.min_survivors)
+        batches = self._batches_for(r, cohort)
+        state = run_round(
+            state, batches, self.loss_fn, self.fed, cfg.thgs, cfg.sa,
+            bits=self.bits, client_weights=self.client_weights,
+            dropped=dropped, leaf_hook=self.leaf_hook, codec=cfg.codec,
+            dp=cfg.dp, topology=cfg.topology, tree_groups=cfg.tree_groups)
+        return state, {"cohort": cohort, "dropped": dropped}
+
     def run(self, *, hooks: Sequence[RoundHook] = ()) -> SimResult:
         cfg = self.cfg
         self.ledger = CommLedger()
@@ -170,24 +203,13 @@ class Simulation:
         losses: list = []
         t0 = time.perf_counter()
         for r in range(cfg.rounds):
-            cohort = self.sampler.cohort_for(r)
-            assert len(cohort) == cfg.clients_per_round, (
-                "fixed-cohort contract violated: "
-                f"{len(cohort)} != {cfg.clients_per_round}")
-            dropped = self.sampler.dropouts_for(
-                r, cohort, min_survivors=self.min_survivors)
-            batches = self._batches_for(r, cohort)
-            state = run_round(
-                state, batches, self.loss_fn, self.fed, cfg.thgs, cfg.sa,
-                bits=self.bits, client_weights=self.client_weights,
-                dropped=dropped, leaf_hook=self.leaf_hook, codec=cfg.codec,
-                dp=cfg.dp)
+            state, step = self._step(r, state)
             rec = state.comm_log[-1]
             self.ledger.record(rec)
-            loss = float(np.mean([state.losses[c] for c in batches]))
+            loss = float(np.mean([state.losses[int(c)]
+                                  for c in step["cohort"]]))
             losses.append(loss)
-            info = {"state": state, "cohort": cohort, "dropped": dropped,
-                    "loss": loss, "record": rec}
+            info = {"state": state, **step, "loss": loss, "record": rec}
             if (r + 1) % max(1, cfg.eval_every) == 0:
                 acc = accuracy(self.model, state.params, self.xt, self.yt)
                 accs.append(acc)
@@ -208,3 +230,71 @@ class Simulation:
             config=cfg.to_dict(),
         )
 
+
+class AsyncSimulation(Simulation):
+    """FedBuff-style async simulation (module docstring): each server step
+    ``t`` drains ``B = cfg.buffer_size or cfg.clients_per_round`` distinct
+    reports through ``core.fedavg.run_async_update``; each update's taus
+    land on its ledger entry and in the hook info as ``staleness``. The
+    ``leaf_hook`` probe is the synchronous round's only."""
+
+    sim_mode = "async"
+    _STALENESS_TAG = 0xA5
+
+    def __init__(self, cfg: SimConfig, *, device="cuda", init_params=None):
+        super().__init__(cfg, device=device, init_params=init_params)
+        self.buffer = cfg.buffer_size or cfg.clients_per_round
+        # distinct reports per buffer (sampled like a cohort, without
+        # replacement): a duplicate would clobber the residual write-back
+        self.sampler = ClientSampler(
+            cfg.n_clients, self.buffer, mode=cfg.sampler,
+            weights=self.data_counts if cfg.sampler == "weighted" else None,
+            dropout_rate=0.0, seed=cfg.seed)
+        self.versions: list = []   # parameter ring, newest last
+
+    def _fresh_state(self) -> FederatedState:
+        state = super()._fresh_state()
+        self.versions = [state.params]
+        return state
+
+    def _staleness_for(self, round_t: int) -> list[int]:
+        """Counter-based staleness draws for server step ``round_t``:
+        uniform over ``[0, min(t, ring - 1, max_staleness)]``."""
+        hi = min(round_t, len(self.versions) - 1, self.cfg.max_staleness)
+        rng = np.random.default_rng(
+            [self.cfg.seed, self._STALENESS_TAG, round_t])
+        return [int(t) for t in rng.integers(0, hi + 1, size=self.buffer)]
+
+    def _step(self, r: int, state: FederatedState):
+        cfg = self.cfg
+        cohort = self.sampler.cohort_for(r)
+        assert len(cohort) == self.buffer, (
+            f"fixed-buffer contract violated: {len(cohort)} != {self.buffer}")
+        taus = self._staleness_for(r)
+        batches = self._batches_for(r, cohort)
+        client_params = {int(c): self.versions[-1 - tau]
+                         for c, tau in zip(cohort, taus)}
+        state = run_async_update(
+            state, batches, client_params, self.loss_fn, self.fed, cfg.thgs,
+            bits=self.bits,
+            staleness={int(c): tau for c, tau in zip(cohort, taus)},
+            client_weights=self.client_weights, codec=cfg.codec,
+            topology=cfg.topology, tree_groups=cfg.tree_groups)
+        self.versions = (self.versions
+                         + [state.params])[-(cfg.max_staleness + 1):]
+        return state, {"cohort": cohort, "dropped": (), "staleness": taus}
+
+
+def simulation_for(cfg: SimConfig, *, device="cuda",
+                   init_params=None) -> Simulation:
+    """The engine for ``cfg.mode``: ``Simulation`` (sync) or
+    ``AsyncSimulation``."""
+    cls = AsyncSimulation if cfg.mode == "async" else Simulation
+    return cls(cfg, device=device, init_params=init_params)
+
+
+def simulate(cfg: SimConfig, *, device="cuda", init_params=None,
+             **run_kw) -> SimResult:
+    """Build the engine for ``cfg.mode`` and run it."""
+    return simulation_for(cfg, device=device,
+                          init_params=init_params).run(**run_kw)

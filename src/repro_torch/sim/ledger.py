@@ -6,7 +6,8 @@ replays ``core.costs``'s Eq. 6-8 under both accountings (``PAPER_BITS``
 96-bit sparse elements, ``TPU_BITS`` the f32 wire), with the
 secure-aggregation control traffic reported beside the gradient upload. A
 quantized codec's rounds are charged their packed words; DP runs carry a
-``privacy`` block (per-round and composed (ε, δ)).
+``privacy`` block (per-round and composed (ε, δ)); an async run's entries
+carry each update's staleness taus.
 """
 from __future__ import annotations
 
@@ -30,9 +31,9 @@ def mib(bits: float) -> float:
 
 @dataclasses.dataclass(frozen=True)
 class LedgerEntry:
-    """Slot-level facts of one round, independent of any BitModel. The
-    staleness field keeps the reference's schema at its synchronous
-    default."""
+    """Slot-level facts of one round, independent of any BitModel.
+    ``staleness`` holds the per-report taus of an async update (empty on
+    synchronous rounds); it is a fact only and changes no bits."""
 
     round: int
     n_clients: int

@@ -1,6 +1,7 @@
 """Named experiment presets for ``python -m repro_torch.sim`` — the presets of
-``repro.sim.presets`` that the port runs (synchronous, flat), and the codec
-and DP sweeps. Each is the reference's configuration field for field.
+``repro.sim.presets`` that the port runs (synchronous flat and tree, async),
+and the codec and DP sweeps. Each is the reference's configuration field for
+field.
 """
 from __future__ import annotations
 
@@ -58,6 +59,24 @@ PRESETS: dict[str, SimConfig] = {
         eval_every=2, thgs=_THGS, sa=_SA, sampler="weighted",
         weight_by_data_count=True, dropout_rate=0.2,
         out_json="experiments/sim/dropout_quick.json"),
+    # FedBuff-style async: buffered staleness-weighted updates with
+    # counter-based staleness draws; the ledger carries the staleness facts
+    "async_quick": SimConfig(
+        name="async_quick", partition="noniid", noniid_k=4, n_clients=12,
+        clients_per_round=4, rounds=8, n_train=1200, n_test=400,
+        eval_every=2, local_steps=3, local_batch=32, thgs=_THGS,
+        sa=SecureAggConfig(enabled=False), mode="async", buffer_size=4,
+        max_staleness=3, seed=5,
+        out_json="experiments/sim/async_quick.json"),
+    # hierarchical decode over 3 sub-aggregators, bit-equal to flat, on a
+    # multi-round secagg + dropout path
+    "tree_quick": SimConfig(
+        name="tree_quick", partition="noniid", noniid_k=4, n_clients=12,
+        clients_per_round=6, rounds=8, n_train=1200, n_test=400,
+        eval_every=2, local_steps=3, local_batch=32, thgs=_THGS,
+        sa=SecureAggConfig(mask_ratio=0.01, threshold=0.6),
+        dropout_rate=0.25, seed=11, topology="tree", tree_groups=3,
+        out_json="experiments/sim/tree_quick.json"),
     # distributed DP under secure aggregation: the secagg_quick protocol with
     # per-client L2 clipping and grid-rounded Gaussian noise under the pair
     # masks; the ledger carries the composed (epsilon, delta)

@@ -5,6 +5,8 @@
     python -m repro_torch.sim.profile --preset table2 --model cifar_vgg16 \
         --dataset cifar10 --rounds 2
     python -m repro_torch.sim.profile --preset codec_sweep_quick --arm int8
+    python -m repro_torch.sim.profile --preset tree_quick
+    python -m repro_torch.sim.profile --preset async_quick
 
 Runs the preset once to warm up (kernel builds, cuBLAS, allocator), then
 again under ``torch.profiler`` with a per-round hook that synchronizes and
@@ -29,7 +31,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.sim import presets
-from repro_torch.sim.engine import Simulation
+from repro_torch.sim.engine import simulation_for
 
 
 def _device_us(evt, self_only: bool) -> float:
@@ -66,9 +68,9 @@ def main(argv=None) -> int:
     for field in ("rounds", "model", "dataset"):
         if getattr(args, field) is not None:
             cfg = cfg.replace(**{field: getattr(args, field)})
-    Simulation(cfg.replace(rounds=1), device="cuda").run()   # warm-up
+    simulation_for(cfg.replace(rounds=1), device="cuda").run()   # warm-up
 
-    sim = Simulation(cfg, device="cuda")
+    sim = simulation_for(cfg, device="cuda")
     round_s: list = []
     mark = [0.0]
 

@@ -92,8 +92,8 @@ def test_cli_without_cuda_exits_nonzero(tmp_path):
 @pytest.mark.parametrize("over,what", [
     ({"thgs": TTHGS(selector="sampled")}, "selector"),
     ({"thgs": TTHGS(selector="local")}, "selector"),
-    ({"topology": "tree"}, "tree"),
-    ({"mode": "async"}, "async"),
+    ({"mode": "async", "sa": tpresets.get("async_quick").sa,
+      "ckpt_dir": "ck"}, "checkpoints"),
     ({"shard_clients": "on"}, "shard_clients"),
     ({"ckpt_dir": "ck"}, "checkpoints"),
     ({"thgs": None}, "dense secure aggregation"),
