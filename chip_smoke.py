@@ -12,7 +12,13 @@ exits non-zero and no failure is caught:
   2. kernels: each CUDA kernel against its plain PyTorch version on the card,
      bit-equal, at the shapes of the main path (mnist_mlp leaf ``l0.w``) and
      at VGG16's 512x512x3x3 leaf, with duplicates, -1 padding, out-of-range
-     entries and the order-sensitive triple [1, 2^-24, -1]; the bit-pack
+     entries and the order-sensitive triple [1, 2^-24, -1]; the scatter
+     also at one tree group's ``width + 1`` buffer of tree_quick's ``l0.w``
+     (two thirds of the slots at the dump slot, +0.0) and on
+     correctness-only inputs (one tile, a position with 12,000 non-zero
+     entries, all zeros, +-inf and NaN, n = 0, size = 1, odd sizes, n below
+     a chunk, more than 8192 tiles), its two passes timed as one call in a
+     CUDA graph with the scratch allocated outside it; the bit-pack
      kernels at every width 1..32 and at the codec path's shapes (5 rows,
      k = 7,880 at 18 and 8 bits; VGG16's k = 60,199 at 22 and 1 bit);
      median times from CUDA events beside the bound and the library call;
@@ -129,13 +135,14 @@ def bits_equal(a, b) -> bool:
     return torch.equal(a, b)
 
 
-def events_ms(fn, *, reps: int = 5, inner: int = 20) -> float:
+def events_ms(fn, *, reps: int = 5, inner: int = 20,
+              warmup: int = 3) -> float:
     """Median over ``reps`` of the CUDA-event time of ``inner`` back-to-back
-    calls, per call, in ms (after a warm-up). Host time between launches is
-    counted when the host is the slower side."""
+    calls, per call, in ms (after ``warmup`` calls). Host time between
+    launches is counted when the host is the slower side."""
     import torch
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -212,11 +219,72 @@ def scatter_inputs(n: int, size: int, seed: int, *, adversarial: bool):
     return idx, vals, None
 
 
+def scatter_row(tag: str, it, vt, size: int, device, *,
+                plain_reps: int = 3) -> dict:
+    """The scatter's raw launch (both passes of one call in a CUDA graph,
+    scratch allocated outside it), its wrapper, its plain version and
+    ``zero_().index_add_`` timed on one stream; the bound counts the stream
+    read once and the output written once."""
+    import torch
+
+    from repro_torch.kernels import build, ref, stream_decode
+
+    n = it.numel()
+    scatter = build.kernel("stream_scatter_add")
+    out = torch.empty(size, device=device)
+    work = stream_decode.workspace(n, size, device)
+
+    def launch_scatter():
+        build.check(scatter(it.data_ptr(), vt.data_ptr(), n, out.data_ptr(),
+                            size, work.data_ptr(), work.numel(),
+                            torch.cuda.current_stream().cuda_stream),
+                    "stream_scatter_add")
+
+    ms = graph_ms(launch_scatter)
+    wrapper_ms = events_ms(lambda: stream_decode.stream_scatter_add_cuda(
+        it, vt, size))
+    plain_ms = events_ms(lambda: ref.stream_scatter_add_ref(it, vt, size),
+                         reps=plain_reps, inner=plain_reps,
+                         warmup=min(3, plain_reps))
+    i64 = it.to(torch.int64)
+    lib_out = torch.empty(size, device=device)
+    lib_ms = graph_ms(lambda: lib_out.zero_().index_add_(0, i64, vt))
+    bound_ms, bound_by = bound(8 * n + 4 * size, n)
+    print(f"[kernels] stream_scatter_add {tag}: n={n} size={size} "
+          f"ms={ms:.6f} wrapper_ms={wrapper_ms:.6f} "
+          f"plain_ms={plain_ms:.6f} zero+index_add_ms={lib_ms:.6f} "
+          f"bound_ms={bound_ms:.6f} scratch_bytes={work.numel()}",
+          flush=True)
+    return dict(shape=tag, n=n, size=size, ms=ms, wrapper_ms=wrapper_ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def scatter_check(tag: str, it, vt, size: int):
+    """The kernel against its plain version on the card, on the same inputs:
+    bit-equal (NaN lanes as NaN) and deterministic. Returns the kernel's
+    output and the max abs error over the finite lanes."""
+    import torch
+
+    from repro_torch.kernels import ref, stream_decode
+
+    out1 = stream_decode.stream_scatter_add_cuda(it, vt, size)
+    out2 = stream_decode.stream_scatter_add_cuda(it, vt, size)
+    torch.cuda.synchronize()
+    plain = ref.stream_scatter_add_ref(it, vt, size)
+    check(bits_equal_nan(out1, plain),
+          f"stream_scatter_add != plain at {tag} (max abs "
+          f"{max_err(out1, plain)})")
+    check(bits_equal(out1, out2), f"stream_scatter_add not deterministic at "
+          f"{tag}")
+    return out1, max_err(out1, plain)
+
+
 def kernel_phase(shapes, device) -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.kernels import build, mask_prng, ref, stream_decode
+    from repro_torch.kernels import build, mask_prng, ref
 
     rows = {"stream_scatter_add": [], "pair_mask_streams": []}
     for tag, size, k, k_mask, C in shapes:
@@ -224,53 +292,19 @@ def kernel_phase(shapes, device) -> dict:
         # ---- scatter-add: adversarial correctness, then main-path timing
         idx, vals, p0 = scatter_inputs(n, size, seed=size % 9973,
                                        adversarial=True)
-        it = torch.from_numpy(idx).to(device)
-        vt = torch.from_numpy(vals).to(device)
-        out1 = stream_decode.stream_scatter_add_cuda(it, vt, size)
-        out2 = stream_decode.stream_scatter_add_cuda(it, vt, size)
-        torch.cuda.synchronize()
-        plain = ref.stream_scatter_add_ref(it, vt, size)
-        check(bits_equal(out1, plain),
-              f"stream_scatter_add != plain at {tag} (max abs "
-              f"{(out1 - plain).abs().max().item()})")
-        check(bits_equal(out1, out2),
-              f"stream_scatter_add not deterministic at {tag}")
-        check(out1[p0].item() == 0.0,
+        out, err = scatter_check(tag, torch.from_numpy(idx).to(device),
+                                 torch.from_numpy(vals).to(device), size)
+        check(out[p0].item() == 0.0,
               f"order-sensitive triple folded out of order at {tag}")
-        err = (out1 - plain).abs().max().item()
         idx, vals, _ = scatter_inputs(n, size, seed=size % 9973 + 1,
                                       adversarial=False)
         it = torch.from_numpy(idx).to(device)
         vt = torch.from_numpy(vals).to(device)
-        check(bits_equal(stream_decode.stream_scatter_add_cuda(it, vt, size),
-                         ref.stream_scatter_add_ref(it, vt, size)),
-              f"stream_scatter_add != plain on the clean stream at {tag}")
-        scatter = build.kernel("stream_scatter_add")
-        out = torch.empty(size, device=device)
-
-        def launch_scatter():
-            build.check(scatter(it.data_ptr(), vt.data_ptr(), n, out.data_ptr(),
-                                size, torch.cuda.current_stream().cuda_stream),
-                        "stream_scatter_add")
-
-        ms = graph_ms(launch_scatter)
-        wrapper_ms = events_ms(lambda: stream_decode.stream_scatter_add_cuda(
-            it, vt, size))
-        plain_ms = events_ms(lambda: ref.stream_scatter_add_ref(it, vt, size),
-                             reps=3, inner=3)
-        i64 = it.to(torch.int64)
-        lib_out = torch.empty(size, device=device)
-        lib_ms = graph_ms(lambda: lib_out.zero_().index_add_(0, i64, vt))
-        bound_ms, bound_by = bound(8 * n + 4 * size, n)
+        scatter_check(f"{tag} (clean stream)", it, vt, size)
+        print(f"[kernels] stream_scatter_add {tag}: bit-equal=yes "
+              f"deterministic=yes triple=0.0", flush=True)
         rows["stream_scatter_add"].append(dict(
-            shape=tag, n=n, size=size, ms=ms, wrapper_ms=wrapper_ms,
-            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-            bound_by=bound_by, max_abs_err=err))
-        print(f"[kernels] stream_scatter_add {tag}: n={n} size={size} "
-              f"bit-equal=yes deterministic=yes triple=0.0 "
-              f"ms={ms:.6f} wrapper_ms={wrapper_ms:.6f} "
-              f"plain_ms={plain_ms:.6f} zero+index_add_ms={lib_ms:.6f} "
-              f"bound_ms={bound_ms:.6f}", flush=True)
+            scatter_row(tag, it, vt, size, device), max_abs_err=err))
 
         # ---- pair-mask streams: the 15 unordered pairs of a 5-client round
         n_pairs = C * (C + 1) // 2
@@ -318,6 +352,97 @@ def kernel_phase(shapes, device) -> dict:
               f"wrapper_ms={wrapper_ms:.6f} plain_ms={plain_ms:.6f} "
               f"bound_ms={bound_ms:.6f}", flush=True)
     return rows
+
+
+def scatter_tree_group_row(device) -> dict:
+    """One tree group's buffer at tree_quick's ``l0.w``, built as
+    ``core/streams.py::_scatter_range`` builds it: the round's stream with
+    the slots outside the middle group's range sent to position ``width`` of
+    a ``width + 1`` buffer with value +0.0 (about two thirds of the slots).
+    Bit-equal to the plain version, deterministic, the dump slot +0.0; then
+    timed as the other shapes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import schedules
+    from repro_torch.core import streams as se
+    from repro_torch.models.paper_models import build_model
+    from repro_torch.sim import presets
+
+    cfg = presets.get("tree_quick")
+    model = build_model(cfg.model)
+    names = model.leaf_names()
+    sizes = [model.params()[n].numel() for n in names]
+    i = names.index("l0.w")
+    C, size = cfg.clients_per_round, sizes[i]
+    k = schedules.leaf_ks(cfg.thgs, sizes, t=0, total_rounds=cfg.rounds)[i]
+    n = C * (k + C * cfg.sa.k_mask_for(size, C))
+    lo, hi = se.tree_splits(size, cfg.tree_groups)[1:3]
+    width = hi - lo
+    idx, vals, _ = scatter_inputs(n, size, seed=4242, adversarial=False)
+    inside = (idx >= lo) & (idx < hi)
+    idx = np.where(inside, idx - lo, width).astype(np.int32)
+    vals = np.where(inside, vals, np.float32(0.0)).astype(np.float32)
+    tag = f"tree_quick.l0.w.group1(width+1={width + 1})"
+    it = torch.from_numpy(idx).to(device)
+    vt = torch.from_numpy(vals).to(device)
+    out, err = scatter_check(tag, it, vt, width + 1)
+    check(out[width].view(torch.int32).item() == 0,
+          f"the dump slot is not +0.0 at {tag}")
+    print(f"[kernels] stream_scatter_add {tag}: slots={n} dumped="
+          f"{int((~inside).sum())} bit-equal=yes deterministic=yes "
+          f"dump slot=+0.0", flush=True)
+    # the plain version folds the dump slot's multiplicity one pass at a
+    # time (seconds a call): timed over one call
+    return dict(scatter_row(tag, it, vt, width + 1, device, plain_reps=1),
+                max_abs_err=err)
+
+
+def scatter_cases(device) -> None:
+    """Correctness-only inputs for the scatter, each against its plain
+    version on the card: a stream all in one tile, one position reached by
+    12,000 non-zero order-sensitive entries, an all-zero stream with -0.0
+    slots and padding, +-inf and NaN among zeros, n = 0, size = 1, a size
+    that is no multiple of any tile, n below one chunk, and an output of
+    more than 8192 tiles (the fold accumulates in the output)."""
+    import numpy as np
+    import torch
+
+    rs = np.random.RandomState(15)
+
+    def rand(n, lo, hi):
+        return (rs.randint(lo, hi, n).astype(np.int32),
+                rs.randn(n).astype(np.float32))
+
+    cases = [("one-tile", *rand(100_000, 0, 200), 156_800)]
+    idx, vals = rand(60_000, 0, 50_000)
+    hot = rs.choice(60_000, 12_000, replace=False)
+    idx[hot] = 777
+    vals[hot] = (rs.randn(12_000)
+                 * np.exp2(rs.randint(-20, 20, 12_000))).astype(np.float32)
+    cases.append(("hot-position", idx, vals, 50_000))
+    idx = rs.randint(-3, 1000, 9000).astype(np.int32)
+    vals = np.where(rs.rand(9000) < 0.5, 0.0, -0.0).astype(np.float32)
+    cases.append(("all-zero", idx, vals, 997))
+    idx, vals = rand(20_000, 0, 3000)
+    sp = rs.choice(20_000, 300, replace=False)
+    vals[sp] = rs.choice(np.array([np.inf, -np.inf, np.nan, 0.0, -0.0],
+                                  np.float32), 300)
+    cases.append(("inf-nan", idx, vals, 3000))
+    cases.append(("n0", np.zeros(0, np.int32), np.zeros(0, np.float32), 100))
+    cases.append(("size1", *rand(5000, -1, 2), 1))
+    cases.append(("size1000003", *rand(300_000, -1, 1_000_004), 1_000_003))
+    cases.append(("n100", *rand(100, -1, 700), 700))
+    idx, vals = rand(20_000, 0, 300)
+    cases.append(("size40M", idx * 100_003, vals, 40_000_000))
+    for tag, idx, vals, size in cases:
+        out, _ = scatter_check(tag, torch.from_numpy(idx).to(device),
+                               torch.from_numpy(vals).to(device), size)
+        check(tag != "all-zero" or not torch.signbit(out).any().item(),
+              "an all-zero stream gave a -0.0")
+    print(f"[kernels] stream_scatter_add correctness cases bit-equal to the "
+          f"plain version (NaN lanes as NaN) and deterministic: "
+          f"{', '.join(c[0] for c in cases)}", flush=True)
 
 
 def pack_fields(rs, R: int, k: int, width: int, device):
@@ -1381,6 +1506,8 @@ def main() -> int:
     shapes.append(("cifar_vgg16.512x512x3x3@k60199", 2359296, 60199,
                    sa.k_mask_for(2359296, 5), 5))
     rows = kernel_phase(shapes, device)
+    rows["stream_scatter_add"].append(scatter_tree_group_row(device))
+    scatter_cases(device)
     rows.update(pack_kernel_phase(device))
     split_rows, split_counts = split_mask_kernel_phase(device)
     rows.update(split_rows)

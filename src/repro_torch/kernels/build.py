@@ -28,13 +28,17 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-# each source's C entry points (one per kernel) and their ctypes signatures
+# each source's C entry points (one per kernel, and the scatter's scratch-size
+# helper) and their ctypes signatures; the result is a C int (a cudaError
+# code) unless a third element names another type
 _P, _LL, _U, _F, _I = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint,
                        ctypes.c_float, ctypes.c_int)
 SOURCES = {
     "stream_scatter_add.cu": {
         "stream_scatter_add": ("stream_scatter_add_launch",
-                               [_P, _P, _LL, _P, _LL, _P])},
+                               [_P, _P, _LL, _P, _LL, _P, _LL, _P]),
+        "stream_scatter_add_workspace_bytes": (
+            "stream_scatter_add_workspace_bytes", [_LL, _LL], _LL)},
     "pair_mask_streams.cu": {
         "pair_mask_streams": ("pair_mask_streams_launch",
                               [_P, _P, _LL, _LL, _U, _F, _F, _P, _P, _P]),
@@ -53,7 +57,7 @@ SOURCES = {
                             [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                              _I, _P])},
 }
-N_KERNELS = sum(len(entries) for entries in SOURCES.values())
+N_ENTRIES = sum(len(entries) for entries in SOURCES.values())
 # the floating-point dtype code the launchers take
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -93,7 +97,7 @@ def build_all(verbose: bool = False) -> dict:
     """
     global build_seconds
     with _LOCK:
-        if len(_FUNCS) == N_KERNELS:
+        if len(_FUNCS) == N_ENTRIES:
             return _FUNCS
         t0 = time.perf_counter()
         build_dir().mkdir(parents=True, exist_ok=True)
@@ -123,10 +127,10 @@ def build_all(verbose: bool = False) -> dict:
             raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
         for fname, entries in SOURCES.items():
             lib = ctypes.CDLL(str(_lib_path(fname)))
-            for name, (sym, argtypes) in entries.items():
+            for name, (sym, argtypes, *restype) in entries.items():
                 fn = getattr(lib, sym)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = restype[0] if restype else ctypes.c_int
                 _FUNCS[name] = fn
         build_seconds = time.perf_counter() - t0
         return _FUNCS

@@ -1,11 +1,13 @@
 """Slot-order stream scatter-add: the CUDA kernel's wrapper (port of
 ``repro.kernels.stream_decode.stream_scatter_add``).
 
-The kernel is ``csrc/stream_scatter_add.cu`` (CTA-owned output tiles, stream
-walked in order, no float atomics); its plain version is
+The kernel is ``csrc/stream_scatter_add.cu``: the stream bucketed by output
+tile in slot order, each tile's bucket folded by one CTA, zero values skipped
+(exactly), no float atomics. Its plain version is
 ``kernels/ref.py::stream_scatter_add_ref``. A CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises. ``launches`` counts
-kernel launches and nothing else.
+calls that launched the kernel: one per call, although a call runs four
+passes back to back on the current stream, and nothing else.
 """
 from __future__ import annotations
 
@@ -30,15 +32,26 @@ def stream_scatter_add_cuda(indices: torch.Tensor, values: torch.Tensor,
                          f"({values.numel()}) must have one entry each")
     if not 0 <= size < 2 ** 31:
         raise ValueError(f"size must be in [0, 2**31), got {size}")
+    if indices.numel() >= 2 ** 31:
+        raise ValueError(f"at most 2**31 - 1 stream entries, got "
+                         f"{indices.numel()}")
     idx = indices.reshape(-1).to(torch.int32).contiguous()
     val = values.reshape(-1).to(torch.float32).contiguous()
     out = torch.empty(size, dtype=torch.float32, device=indices.device)
     if size == 0:
         return out
     fn = build.kernel("stream_scatter_add")
+    work = workspace(idx.numel(), size, indices.device)
     stream = torch.cuda.current_stream(indices.device).cuda_stream
     rc = fn(idx.data_ptr(), val.data_ptr(), idx.numel(), out.data_ptr(), size,
-            stream)
+            work.data_ptr(), work.numel(), stream)
     build.check(rc, "stream_scatter_add")
     launches += 1
     return out
+
+
+def workspace(n: int, size: int, device) -> torch.Tensor:
+    """The scratch of one call on ``device`` (the count table, the tiles'
+    totals and the bucketed stream), sized by the kernel's own C helper."""
+    nbytes = build.kernel("stream_scatter_add_workspace_bytes")(n, size)
+    return torch.empty(max(nbytes, 1), dtype=torch.uint8, device=device)

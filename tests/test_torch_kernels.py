@@ -263,17 +263,39 @@ def test_bitpack_rows_ref_layout_and_high_bits():
 @pytest.mark.gpu
 def test_cuda_kernels_bit_equal_to_plain_versions():
     """On the card: both CUDA kernels equal their plain versions bit for bit,
-    the scatter is deterministic and folds in slot order."""
+    the scatter is deterministic and folds in slot order, also on a stream
+    all in one tile, at a position with 12,000 non-zero entries, on a tree
+    group's dump-slot buffer and on an all-zero stream; one launch counted
+    per scatter call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels are CUDA C++ for sm_90a "
                     "with no CPU mode")
     dev = torch.device("cuda")
     ops.reset_launch_counts()
+    cases = []
     for n, size, seed in ((47225, 156800, 1), (5000, 300, 2)):
         idx, vals = _scatter_case(n, size, seed)
         idx[idx == 17] = 18
         idx[[3, n // 2, n - 2]] = 17
         vals[[3, n // 2, n - 2]] = [1.0, 2.0 ** -24, -1.0]
+        cases.append((idx, vals, size, True))
+    rs = np.random.RandomState(3)
+    idx, vals = _scatter_case(100_000, 200, 3)          # one tile
+    cases.append((idx, vals, 156800, False))
+    idx, vals = _scatter_case(60_000, 50_000, 4)        # the serial owner
+    hot = rs.choice(60_000, 12_000, replace=False)
+    idx[hot] = 777
+    vals[hot] = rs.randn(12_000) * np.exp2(rs.randint(-20, 20, 12_000))
+    cases.append((idx, vals, 50_000, False))
+    idx, vals = _scatter_case(56_676, 156_800, 5)       # a tree group
+    inside = (idx >= 52_267) & (idx < 104_534)
+    cases.append((np.where(inside, idx - 52_267, 52_267).astype(np.int32),
+                  np.where(inside, vals, 0.0).astype(np.float32), 52_268,
+                  False))
+    idx, _ = _scatter_case(9000, 997, 6)                # zeros only
+    cases.append((idx, np.where(rs.rand(9000) < 0.5, 0.0, -0.0)
+                  .astype(np.float32), 997, False))
+    for idx, vals, size, triple in cases:
         it, vt = torch.from_numpy(idx).to(dev), torch.from_numpy(vals).to(dev)
         a = ops.stream_scatter_add(it, vt, size=size)
         b = ops.stream_scatter_add(it, vt, size=size)
@@ -281,7 +303,9 @@ def test_cuda_kernels_bit_equal_to_plain_versions():
         torch.cuda.synchronize()
         assert torch.equal(a.view(torch.int32), plain.view(torch.int32))
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
-        assert a[17].item() == 0.0
+        if triple:
+            assert a[17].item() == 0.0
+    assert not torch.signbit(a).any()
     seeds = torch.from_numpy(_seeds(7, 5).astype(np.int64)).to(dev)
     signs = torch.ones(len(seeds), device=dev)
     ki, kv = ops.pair_mask_streams(seeds, signs, nb=2, k_mask=313, m=156800)
@@ -291,7 +315,7 @@ def test_cuda_kernels_bit_equal_to_plain_versions():
                                                pv.view(torch.int32))
     counts = ops.launch_counts()
     assert (counts["stream_scatter_add"], counts["pair_mask_streams"]) == \
-        (4, 1)
+        (2 * len(cases), 1)
 
 
 @pytest.mark.gpu
