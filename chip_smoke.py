@@ -64,12 +64,21 @@ exits non-zero and no failure is caught:
      the reference's staleness vectors, upload 7.0% +- 0.5 pt, accuracy;
      then an all-fresh buffer through ``run_async_update`` bit-equal to
      ``run_round``.
- 10. flash: the flash-attention kernel against its plain version on the
-     card (2e-5 in f32, 2e-2 in bf16) at Yi-6B's prefill shape (B 4,
-     T = S = 1024, 32 heads, 4 kv heads, hd 128, bf16, causal), a 4096-token
-     prompt, f32, ragged tails (24, 1000), MQA and a 256-token window; for
-     the first two, the raw launch time beside the bound, the plain version
-     and ``scaled_dot_product_attention`` as the library yardstick.
+ 10. flash: the HGMMA instructions in the built flash library's SASS
+     (``cuobjdump -sass``: the bf16 instances run on the tensor cores); the
+     flash-attention kernel against its plain version on the card (2e-5 in
+     f32, 2e-2 in bf16; max abs error and error relative to max |plain|) at
+     Yi-6B's prefill shape (B 4, T = S = 1024, 32 heads, 4 kv heads, hd 128,
+     bf16, causal), a 4096-token prompt, f32, ragged tails (24, 1000), MQA, a
+     256-token window, and in bf16 hd 64, causal=False, T > S with rows that
+     have no key, T and S not multiples of 128, T != S, a window at hd 64,
+     and three needle cases (V = 1000 at a future key, at a key just outside
+     the window, and in the memory past S), where the rows that must not see
+     the needle are checked on their own; for the first two, the raw launch
+     time beside the bound, the plain version and
+     ``scaled_dot_product_attention`` as the library yardstick, and for the
+     two f32 rows the raw launch time beside its bound at the f32 CUDA-core
+     rate.
  11. lm: Yi-6B at full width (32 layers, d_model 4096, bf16, 12.1 GB of
      random weights drawn on the card from seed 0) served by
      ``InferenceServer(LMAdapter(max_batch=4, prompt_len=1024, n_new=16))``
@@ -81,7 +90,9 @@ exits non-zero and no failure is caught:
      the CPU's plain path: logits within 2e-4 and equal tokens.
 
 The second-to-last line is the kernel table as JSON; the last line is
-``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
+``{"ok": true, "device": {...}}``. ``--only flash`` runs phases 1 and 10
+alone, does not require HGMMA instructions, and prints no result line (the
+kernel's times on one tree, to compare two trees in one call). Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -1210,82 +1221,160 @@ def async_phase(kind: str) -> None:
 
 
 # ------------------------------------------------------------------ phase 8
-# (tag, B, T = S, Hq, Hkv, hd, dtype, causal, window); the first two are timed
+# (tag, B, T, S, Hq, Hkv, hd, dtype, causal, window, needle). The first two
+# are timed beside the bound, the plain version and SDPA; the f32 rows (the
+# CUDA-core instance) get a raw-launch time too. A needle is a key of V set to 1000.0
+# that the rows it names must not see: an int is a key position (the rows
+# before it under causal, the rows past its window), "pad" fills the memory
+# past S of a B = 1 view with it (no row may read past S). A mask or
+# descriptor fault then errs by hundreds.
 FLASH_SHAPES = (
-    ("yi_6b.prefill", 4, 1024, 32, 4, 128, "bfloat16", True, None),
-    ("yi_6b.long", 1, 4096, 32, 4, 128, "bfloat16", True, None),
-    ("f32", 2, 256, 8, 2, 64, "float32", True, None),
-    ("tail24", 2, 24, 32, 4, 128, "bfloat16", True, None),
-    ("tail1000", 1, 1000, 8, 2, 64, "float32", True, None),
-    ("mqa", 2, 512, 32, 1, 128, "bfloat16", True, None),
-    ("window256", 1, 1000, 32, 4, 128, "bfloat16", True, 256),
+    ("yi_6b.prefill", 4, 1024, 1024, 32, 4, 128, "bfloat16", True, None,
+     None),
+    ("yi_6b.long", 1, 4096, 4096, 32, 4, 128, "bfloat16", True, None, None),
+    ("f32", 2, 256, 256, 8, 2, 64, "float32", True, None, None),
+    ("tail24", 2, 24, 24, 32, 4, 128, "bfloat16", True, None, None),
+    ("tail1000", 1, 1000, 1000, 8, 2, 64, "float32", True, None, None),
+    ("mqa", 2, 512, 512, 32, 1, 128, "bfloat16", True, None, None),
+    ("window256", 1, 1000, 1000, 32, 4, 128, "bfloat16", True, 256, None),
+    ("hd64", 2, 512, 512, 8, 2, 64, "bfloat16", True, None, None),
+    ("noncausal", 2, 384, 384, 8, 2, 128, "bfloat16", False, None, None),
+    ("t_gt_s", 1, 100, 40, 4, 2, 64, "bfloat16", True, 8, None),
+    ("ragged", 2, 333, 333, 8, 2, 128, "bfloat16", True, None, None),
+    ("ragged.t_ne_s", 1, 700, 333, 8, 2, 128, "bfloat16", False, None,
+     None),
+    ("window256.hd64", 1, 700, 700, 8, 2, 64, "bfloat16", False, 256, None),
+    ("needle.causal", 1, 256, 256, 8, 2, 128, "bfloat16", True, None, 200),
+    ("needle.window", 1, 1000, 1000, 8, 2, 128, "bfloat16", True, 256, 300),
+    ("needle.pad", 1, 300, 300, 8, 2, 64, "bfloat16", False, None, "pad"),
 )
+NEEDLE = 1000.0
 
 
-def flash_phase(device) -> list:
-    import numpy as np
+def flash_inputs(B, T, S, H, Hkv, hd, dtype, causal, window, needle,
+                 seed: int, device):
+    """q, k, v from a seed, with the needle placed; and the rows that must
+    not see it (None: no needle)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    pad = 128 if needle == "pad" else 0
+    q = torch.randn((B, T, H, hd), generator=gen, device=device).to(dtype)
+    k, v = (torch.randn((B, S + pad, Hkv, hd), generator=gen,
+                        device=device).to(dtype) for _ in range(2))
+    if needle is None:
+        return q, k, v, None
+    if needle == "pad":
+        k[:, S:] = 30.0              # large scores, were the pad ever read
+        v[:, S:] = NEEDLE
+        k, v = k[:, :S], v[:, :S]    # B = 1: a prefix, so no copy is made
+        return q, k, v, torch.ones(T, dtype=torch.bool, device=device)
+    v[:, needle] = NEEDLE
+    pos = torch.arange(T, device=device)
+    blind = torch.zeros(T, dtype=torch.bool, device=device)
+    if causal:
+        blind |= needle > pos
+    if window is not None:
+        blind |= needle <= pos - window
+    return q, k, v, blind
+
+
+def flash_phase(device, require_hgmma: bool = True) -> list:
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import build, flash_attention as flash, ref
 
+    # the bf16 instances run on the tensor cores: count the HGMMA
+    # instructions in the built library
+    lib = build._lib_path("flash_attention.cu")
+    cuobjdump = Path(build.find_nvcc()).parent / "cuobjdump"
+    check(cuobjdump.exists(), f"no cuobjdump beside nvcc ({cuobjdump})")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=120).stdout
+    hgmma = sum("HGMMA" in line for line in sass.splitlines())
+    print(f"[flash] {lib.name}: {hgmma} HGMMA instructions in its SASS "
+          "(cuobjdump -sass)", flush=True)
+    check(hgmma > 0 or not require_hgmma,
+          "the flash library has no HGMMA instruction")
+
     rows = []
-    for i, (tag, B, T, H, Hkv, hd, dt, causal, window) in enumerate(
-            FLASH_SHAPES):
+    for i, (tag, B, T, S, H, Hkv, hd, dt, causal, window, needle) in (
+            enumerate(FLASH_SHAPES)):
         dtype = getattr(torch, dt)
-        gen = torch.Generator(device=device).manual_seed(100 + i)
-        q, k, v = (torch.randn(shape, generator=gen, device=device).to(dtype)
-                   for shape in ((B, T, H, hd), (B, T, Hkv, hd),
-                                 (B, T, Hkv, hd)))
+        q, k, v, blind = flash_inputs(B, T, S, H, Hkv, hd, dtype, causal,
+                                      window, needle, 100 + i, device)
         out = flash.flash_attention_cuda(q, k, v, causal=causal,
                                          window=window)
         torch.cuda.synchronize()
         plain = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
         tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
-        err = (out.float() - plain.float()).abs().max().item()
+        diff = (out.float() - plain.float()).abs()
+        err = diff.max().item()
+        rel = err / plain.float().abs().max().item()
         check(out.dtype == dtype and out.shape == q.shape
               and torch.allclose(out.float(), plain.float(), rtol=tol,
                                  atol=tol),
               f"flash_attention != plain at {tag} (max abs {err:.3e}, "
               f"tolerance {tol})")
-        row = dict(shape=tag, B=B, T=T, H=H, Hkv=Hkv, hd=hd, dtype=dt,
-                   causal=causal, window=window, max_abs_err=err)
-        line = (f"[flash] {tag}: B={B} T=S={T} H={H} Hkv={Hkv} hd={hd} {dt} "
-                f"causal={causal} window={window} max_abs_err={err:.3e} "
-                f"(tolerance {tol})")
-        if i < 2:
+        row = dict(shape=tag, B=B, T=T, S=S, H=H, Hkv=Hkv, hd=hd, dtype=dt,
+                   causal=causal, window=window, max_abs_err=err,
+                   rel_err=rel)
+        line = (f"[flash] {tag}: B={B} T={T} S={S} H={H} Hkv={Hkv} hd={hd} "
+                f"{dt} causal={causal} window={window} max_abs_err={err:.3e} "
+                f"rel_err={rel:.3e} (tolerance {tol})")
+        if blind is not None:
+            n_blind = int(blind.sum())
+            check(n_blind > 0, f"{tag}: no row is blind to the needle")
+            blind_err = diff[:, blind].max().item()
+            blind_max = plain.float()[:, blind].abs().max().item()
+            row.update(needle=needle, blind_rows=n_blind,
+                       blind_max_abs_err=blind_err)
+            line += (f" needle={needle}: {n_blind} rows blind to it, their "
+                     f"max_abs_err={blind_err:.3e} (max |plain| "
+                     f"{blind_max:.3f})")
+            check(blind_err <= tol * (1 + blind_max),
+                  f"{tag}: rows blind to the needle err by {blind_err:.3e}")
+        if i < 2 or dtype == torch.float32:
             fn = build.kernel("flash_attention")
             o = torch.empty_like(q)
 
             def launch():
                 build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                               o.data_ptr(), B, T, T, H, Hkv, hd, 1, 0,
-                               build.DTYPE_CODES[dtype],
+                               o.data_ptr(), B, T, S, H, Hkv, hd, int(causal),
+                               window or 0, build.DTYPE_CODES[dtype],
                                torch.cuda.current_stream().cuda_stream),
                             "flash_attention")
 
             ms = graph_ms(launch, reps=5, inner=10)
+            # the timed rows are causal, T = S, no window: each row q needs
+            # its q + 1 keys, 4 hd flops a key (two products)
+            check(causal and T == S and window is None,
+                  f"{tag}: the flop count below needs causal, T = S")
+            flops = 4 * B * H * hd * T * (T + 1) // 2
+            nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+            rate = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+            bound_ms, bound_by = bound(nbytes, flops, rate)
+            row.update(ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+                       flops=flops, bytes=nbytes)
+            line += (f" ms={ms:.6f} bound_ms={bound_ms:.6f} ({bound_by}: "
+                     f"{flops:.4g} flops, {nbytes / 1e6:.1f} MB) "
+                     f"TFLOP/s={flops / ms / 1e9:.2f}")
+        if i < 2:
             plain_ms = events_ms(lambda: ref.flash_attention_ref(q, k, v),
                                  reps=3, inner=2)
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-            lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                 enable_gqa=True)
-            lib_err = (lib.transpose(1, 2).float() - plain.float()
+            lib_out = F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+            lib_err = (lib_out.transpose(1, 2).float() - plain.float()
                        ).abs().max().item()
             lib_ms = events_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True), reps=5,
                 inner=10)
-            flops = 4 * B * H * hd * T * (T + 1) // 2
-            nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
-            bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS)
-            row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       bound_ms=bound_ms, bound_by=bound_by, flops=flops,
-                       bytes=nbytes)
-            line += (f" ms={ms:.6f} plain_ms={plain_ms:.6f} sdpa_ms="
-                     f"{lib_ms:.6f} (sdpa vs plain {lib_err:.3e}) bound_ms="
-                     f"{bound_ms:.6f} ({bound_by}: {flops:.4g} flops, "
-                     f"{nbytes / 1e6:.1f} MB) "
-                     f"TFLOP/s={flops / ms / 1e9:.2f}")
+            row.update(plain_ms=plain_ms, library_ms=lib_ms)
+            line += (f" plain_ms={plain_ms:.6f} sdpa_ms={lib_ms:.6f} (sdpa "
+                     f"vs plain {lib_err:.3e}) vs_bound="
+                     f"{ms / bound_ms:.2f}x vs_sdpa={ms / lib_ms:.2f}x")
         rows.append(row)
         print(line, flush=True)
         del q, k, v, out, plain
@@ -1454,6 +1543,17 @@ def lm_phase(kind: str, card: str, flash_main_ms: float) -> dict:
 
 
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA "
+                                 "port on one NVIDIA GPU (see the module "
+                                 "docstring).")
+    ap.add_argument("--only", choices=["flash"],
+                    help="run the device, build and [flash] phases alone "
+                    "(no result line; the HGMMA count is printed, not "
+                    "required): the kernel's times on a tree, for a "
+                    "comparison of two trees in one call")
+    args = ap.parse_args()
     try:
         import torch
     except ImportError:
@@ -1484,6 +1584,11 @@ def main() -> int:
     build.build_all(verbose=True)
     print(f"[build] {len(build.SOURCES)} CUDA sources built in "
           f"{build.build_seconds:.1f} s into {build.build_dir()}", flush=True)
+    if args.only == "flash":      # any tree, the parent's CUDA-core kernel too
+        flash_phase(device, require_hgmma=False)
+        print(f"[done] --only flash passed in "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
 
     # -------------------------------------------------------- 2. kernels
     from repro_torch.core import schedules

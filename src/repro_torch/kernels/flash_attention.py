@@ -1,11 +1,14 @@
 """Causal GQA flash attention: the CUDA kernel's wrapper (port of
 ``repro.kernels.flash_attention.flash_attention``).
 
-The kernel is ``csrc/flash_attention.cu`` (one CTA per 64 queries of one
-head, 64-key tiles in shared memory, online softmax in f32 on CUDA cores);
-its plain version is ``kernels/ref.py::flash_attention_ref``. A CPU tensor
-takes the plain version, a CUDA tensor launches the kernel or raises.
-``launches`` counts kernel launches and nothing else.
+The kernel is ``csrc/flash_attention.cu``: in bf16 a Hopper kernel on the
+tensor cores (one CTA per 128 queries of one head, K/V tiles of 128 keys
+brought by TMA into a two-stage ring, ``wgmma`` for both products, online
+softmax in f32 registers); in f32 a CUDA-core kernel (64 x 64 tiles, f32
+FMAs), since TF32 ``wgmma`` would not hold f32's tolerance. Its plain
+version is ``kernels/ref.py::flash_attention_ref``. A CPU tensor takes the
+plain version, a CUDA tensor launches the kernel or raises. ``launches``
+counts kernel launches and nothing else.
 """
 from __future__ import annotations
 
@@ -57,7 +60,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     if B * T * H == 0:
         return out
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # TMA reads from a 16-byte aligned base: a view that starts elsewhere is
+    # copied (a fresh allocation is aligned), never sent to the plain version
+    q, k, v = (x.contiguous() if x.data_ptr() % 16 == 0 else x.clone(
+        memory_format=torch.contiguous_format) for x in (q, k, v))
     fn = build.kernel("flash_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, S,

@@ -344,8 +344,11 @@ def test_cuda_pack_kernels_bit_equal_to_plain_versions():
 
 
 # the shapes chip_smoke.py holds the flash kernel to: (B, T, Hq, Hkv, hd,
-# dtype, causal, window) — Yi-6B's prefill, a long prompt, f32, ragged
-# tails, MQA, a sliding window, and a window that ends before the keys
+# dtype, causal, window[, S]) — Yi-6B's prefill, a long prompt, f32, ragged
+# tails, MQA, a sliding window, and a window that ends before the keys; then
+# the bf16 (tensor-core) instances at hd 64, without the causal mask, with
+# T > S and rows that have no key, with T and S not multiples of 128 (also
+# T != S), and with a window at hd 64
 FLASH_CASES = [
     (4, 1024, 32, 4, 128, torch.bfloat16, True, None),
     (1, 4096, 32, 4, 128, torch.bfloat16, True, None),
@@ -356,6 +359,12 @@ FLASH_CASES = [
     (1, 1000, 32, 4, 128, torch.bfloat16, True, 256),
     (1, 300, 4, 2, 64, torch.float32, False, 64),
     (1, 130, 4, 4, 64, torch.float32, False, None),
+    (2, 512, 8, 2, 64, torch.bfloat16, True, None),
+    (2, 384, 8, 2, 128, torch.bfloat16, False, None),
+    (1, 100, 4, 2, 64, torch.bfloat16, True, 8, 40),
+    (2, 333, 8, 2, 128, torch.bfloat16, True, None),
+    (1, 700, 8, 2, 128, torch.bfloat16, False, None, 333),
+    (1, 700, 8, 2, 64, torch.bfloat16, False, 256),
 ]
 
 
@@ -391,3 +400,49 @@ def test_cuda_flash_attention_close_to_plain_version():
         torch.testing.assert_close(out.float(), plain.float(), rtol=tol,
                                    atol=tol, msg=lambda m: f"{case}: {m}")
     assert ops.launch_counts()["flash_attention"] == len(cases)
+
+
+# (T, S, hd, causal, window, needle): V holds 1000.0 at a key the checked
+# rows must not see — a future key, a key just outside the window, or the
+# memory past S of a B = 1 view (no row may read it)
+FLASH_NEEDLES = [
+    (256, 256, 128, True, None, 200),
+    (1000, 1000, 128, True, 256, 300),
+    (300, 300, 64, False, None, "pad"),
+]
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_needles_stay_unseen():
+    """On the card, bf16: a key that a row must not see holds 1000.0, so a
+    mask, tile-skip or tensor-map fault errs by hundreds; the rows blind to
+    it stay within 2e-2 of the plain version, and so does every row."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel is CUDA C++ for sm_90a "
+                    "with no CPU mode")
+    dev = torch.device("cuda")
+    for i, (T, S, hd, causal, window, needle) in enumerate(FLASH_NEEDLES):
+        pad = 128 if needle == "pad" else 0
+        q, k, v = flash_inputs(1, T, 8, 2, hd, torch.bfloat16, seed=50 + i,
+                               S=S + pad)
+        q, k, v = q.to(dev), k.to(dev), v.to(dev)
+        pos = torch.arange(T, device=dev)
+        if needle == "pad":
+            k[:, S:], v[:, S:] = 30.0, 1000.0
+            k, v = k[:, :S], v[:, :S]            # a prefix: no copy is made
+            blind = torch.ones(T, dtype=torch.bool, device=dev)
+        else:
+            v[:, needle] = 1000.0
+            blind = (needle > pos) if causal else torch.zeros_like(pos) > 0
+            if window is not None:
+                blind |= needle <= pos - window
+        out = ops.flash_attention(q, k, v, causal=causal, window=window)
+        plain = tref.flash_attention_ref(q, k, v, causal=causal,
+                                         window=window)
+        torch.cuda.synchronize()
+        assert blind.any()
+        torch.testing.assert_close(out[:, blind].float(),
+                                   plain[:, blind].float(), rtol=2e-2,
+                                   atol=2e-2, msg=lambda m: f"{needle}: {m}")
+        torch.testing.assert_close(out.float(), plain.float(), rtol=2e-2,
+                                   atol=2e-2, msg=lambda m: f"{needle}: {m}")
