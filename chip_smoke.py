@@ -19,9 +19,11 @@ exits non-zero and no failure is caught:
      entries, all zeros, +-inf and NaN, n = 0, size = 1, odd sizes, n below
      a chunk, more than 8192 tiles), its two passes timed as one call in a
      CUDA graph with the scratch allocated outside it; the bit-pack
-     kernels at every width 1..32 and at the codec path's shapes (5 rows,
-     k = 7,880 at 18 and 8 bits; VGG16's k = 60,199 at 22 and 1 bit);
-     median times from CUDA events beside the bound and the library call;
+     kernels at every width 1..32, at the codec path's shapes one segment
+     at a time (5 rows, k = 7,880 at 18 and 8 bits; VGG16's k = 60,199 at
+     22 and 1 bit) and as the two-segment leaf launches the codec path
+     makes (18 + 8 bits, 22 + 1 bit; one launch a call); median times from
+     CUDA events beside the bound and the library call;
      ``thgs_sparsify`` and ``mask_prng_apply`` bit-equal (as bits) at
      VGG16's largest leaf (f32 and bf16), mnist_mlp's l0.w and odd sizes,
      with ties at f32(0.1), +-inf accumulators, both signs, three (p, q)
@@ -42,11 +44,14 @@ exits non-zero and no failure is caught:
      2 rounds.
   6. codecs: ``codec_sweep_quick`` (the table2 protocol without secagg, one
      arm per wire codec f32/int8/int4/1bit, 12 rounds each) on the card;
-     counts reset before the sweep and read after it (96 launches of each
-     bit-pack kernel per quantized arm); each arm's upload under both
+     counts reset before the sweep and read after it (48 launches of each
+     bit-pack kernel per quantized arm, one a leaf for both of its wire
+     streams: 144 a sweep); each arm's upload under both
      accountings against the f32 arm, its accuracy and launches; round 0's
      ``l0.w`` replayed on the CPU with the plain versions: bit-equal for
-     int8/int4, within the 1bit scale tolerance (4 ulp) for 1bit.
+     int8/int4, within the 1bit scale tolerance (4 ulp) for 1bit; the
+     CUDA kernels of one ``codec_wire_roundtrip`` call (``torch.profiler``)
+     and its time.
   7. DP: ``dp_quick`` (secagg, dropout 0.25, clip 1, z 0.6) and the four
      arms of ``dp_frontier_quick`` on the card: the composed epsilon of each
      arm against the reference's (40.1; 89.7 / 33.7 / 14.1), a dropout
@@ -92,8 +97,12 @@ exits non-zero and no failure is caught:
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. ``--only flash`` runs phases 1 and 10
 alone, does not require HGMMA instructions, and prints no result line (the
-kernel's times on one tree, to compare two trees in one call). Without a CUDA device, or outside a
-checkout, it exits non-zero and prints no result.
+kernel's times on one tree, to compare two trees in one call); ``--only
+pack`` runs phase 1, the bit-pack part of phase 2 and the round-trip probe
+of phase 6 the same way (on a tree without segmented launches, the parent
+of that design, a leaf pair is timed as its two single launches). Without a
+CUDA device, or outside a checkout, it exits non-zero and prints no
+result.
 """
 from __future__ import annotations
 
@@ -467,7 +476,146 @@ def pack_fields(rs, R: int, k: int, width: int, device):
     return torch.from_numpy(u.astype(np.int64)).to(device)
 
 
+# the codec path's two-segment leaves: (tag, R, k, index width, value width)
+PACK_LEAF_PAIRS = (("mnist_mlp.l0.w.int8", 5, 7880, 18, 8),
+                   ("cifar_vgg16.512x512x3x3.1bit", 5, 60199, 22, 1))
+
+
+def pack_pair_rows(rs, device) -> dict:
+    """Each leaf pair packed and unpacked as ONE segmented launch, bit-equal
+    to the plain versions with one launch counted a call; raw launch ms (a
+    CUDA graph), wrapper ms and plain ms beside the bound of both segments.
+    On a tree without the segmented launches (the parent, for a comparison
+    in one call) the pair is two single-segment launches, as its codec path
+    runs it."""
+    import torch
+
+    from repro_torch.kernels import build, ops, pack, ref
+
+    segmented = hasattr(ops, "bitpack_segments")
+    rows = {"bitpack_rows": [], "bitunpack_rows": []}
+    for tag, R, k, wi, wv in PACK_LEAF_PAIRS:
+        widths = [wi, wv]
+        fields = [pack_fields(rs, R, k, w, device) for w in widths]
+        plain_w = [ref.bitpack_rows_ref(u, w) for u, w in zip(fields, widths)]
+        words_n = [ref.packed_words(k, w) for w in widths]
+        f32 = [(u & ref.M32).to(torch.int32) for u in fields]
+        w32 = [(x & ref.M32).to(torch.int32) for x in plain_w]
+        if segmented:
+            n0, m0 = pack.pack_launches, pack.unpack_launches
+            words = ops.bitpack_segments(f32, widths=widths)
+            back = ops.bitunpack_segments(words, ks=[k, k], widths=widths)
+            torch.cuda.synchronize()
+            check((pack.pack_launches - n0, pack.unpack_launches - m0)
+                  == (1, 1), f"{tag}: a segmented call launched "
+                  f"{pack.pack_launches - n0} / {pack.unpack_launches - m0} "
+                  "times, expected 1 / 1")
+            words = [x.to(torch.int64) & ref.M32 for x in words]
+            back = [x.to(torch.int64) & ref.M32 for x in back]
+        else:
+            words = [pack.bitpack_rows_cuda(u, w)
+                     for u, w in zip(fields, widths)]
+            back = [pack.bitunpack_rows_cuda(x, k, w)
+                    for x, w in zip(words, widths)]
+            torch.cuda.synchronize()
+        for x, y, u, pw, w in zip(words, back, fields, plain_w, widths):
+            check(bits_equal(x, pw), f"bitpack {tag} w={w} != plain")
+            check(bits_equal(y, ref.bitunpack_rows_ref(pw, k, w))
+                  and bits_equal(y, u), f"bitunpack {tag} w={w} != plain "
+                  "or no round trip")
+        out_w = [torch.empty((R, W), dtype=torch.int32, device=device)
+                 for W in words_n]
+        out_u = [torch.empty((R, k), dtype=torch.int32, device=device)
+                 for _ in widths]
+        err = max(max((x - pw).abs().max().item() for x, pw in
+                      zip(words, plain_w)),
+                  max((y - u).abs().max().item() for y, u in
+                      zip(back, fields)))
+
+        def stream():                 # the capture stream inside a graph
+            return torch.cuda.current_stream().cuda_stream
+
+        if segmented:
+            import ctypes
+
+            def desc(srcs, outs, W_of):
+                d = []
+                for i, w in enumerate(widths):
+                    d += [srcs[i].data_ptr(), outs[i].data_ptr(), R, k, w,
+                          W_of[i]]
+                return (ctypes.c_longlong * len(d))(*d)
+
+            dp = desc(f32, out_w, words_n)
+            du = desc(w32, out_u, words_n)
+            fp = build.kernel("bitpack_segments")
+            fu = build.kernel("bitunpack_segments")
+
+            def launch_pack():
+                build.check(fp(dp, 2, stream()), "bitpack_segments")
+
+            def launch_unpack():
+                build.check(fu(du, 2, stream()), "bitunpack_segments")
+
+            def wrap_pack():
+                ops.bitpack_segments(f32, widths=widths)
+
+            def wrap_unpack():
+                ops.bitunpack_segments(w32, ks=[k, k], widths=widths)
+        else:
+            fp = build.kernel("bitpack_rows")
+            fu = build.kernel("bitunpack_rows")
+
+            def launch_pack():
+                for i, w in enumerate(widths):
+                    build.check(fp(f32[i].data_ptr(), R, k, w,
+                                   out_w[i].data_ptr(), words_n[i],
+                                   stream()),
+                                "bitpack_rows")
+
+            def launch_unpack():
+                for i, w in enumerate(widths):
+                    build.check(fu(w32[i].data_ptr(), R, words_n[i], k, w,
+                                   out_u[i].data_ptr(), stream()),
+                                "bitunpack_rows")
+
+            def wrap_pack():
+                for u, w in zip(fields, widths):
+                    pack.bitpack_rows_cuda(u, w)
+
+            def wrap_unpack():
+                for x, w in zip(plain_w, widths):
+                    pack.bitunpack_rows_cuda(x, k, w)
+
+        nbytes = sum(4 * R * k + 4 * R * W for W in words_n)
+        launches_per_call = 1 if segmented else 2
+        for name, launch, wrapper, plain_fn in (
+                ("bitpack_rows", launch_pack, wrap_pack,
+                 lambda: [ref.bitpack_rows_ref(u, w)
+                          for u, w in zip(fields, widths)]),
+                ("bitunpack_rows", launch_unpack, wrap_unpack,
+                 lambda: [ref.bitunpack_rows_ref(x, k, w)
+                          for x, w in zip(plain_w, widths)])):
+            ms = graph_ms(launch)
+            wrapper_ms = events_ms(wrapper)
+            plain_ms = events_ms(plain_fn, reps=3, inner=3)
+            bound_ms, bound_by = bound(nbytes, PACK_OPS_PER_FIELD * 2 * R * k)
+            rows[name].append(dict(
+                shape=tag, R=R, k=k, width=widths, words=words_n,
+                segments=2, launches_per_call=launches_per_call, ms=ms,
+                wrapper_ms=wrapper_ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err))
+            print(f"[kernels] {name} {tag} pair: R={R} k={k} w={widths} "
+                  f"W={words_n} launches_per_call={launches_per_call} "
+                  f"bit-equal=yes ms={ms:.6f} wrapper_ms={wrapper_ms:.6f} "
+                  f"plain_ms={plain_ms:.6f} bound_ms={bound_ms:.8f} "
+                  f"library=none", flush=True)
+    return rows
+
+
 def pack_kernel_phase(device) -> dict:
+    """The bit-pack kernels: every width 1..32, the four single-segment
+    shapes and the two leaf pairs (first in the returned rows: the pairs
+    are what the codec path launches)."""
     import numpy as np
     import torch
 
@@ -486,7 +634,7 @@ def pack_kernel_phase(device) -> dict:
               f"bitunpack_rows != plain or no round trip at w={width}")
     print("[kernels] bitpack_rows / bitunpack_rows: widths 1..32 at R=3 "
           "k=75 bit-equal=yes round-trip=yes", flush=True)
-    rows = {"bitpack_rows": [], "bitunpack_rows": []}
+    rows = pack_pair_rows(rs, device)
     for tag, R, k, width in (("mnist_mlp.l0.w.index", 5, 7880, 18),
                              ("mnist_mlp.l0.w.int8", 5, 7880, 8),
                              ("cifar_vgg16.512x512x3x3.index", 5, 60199, 22),
@@ -912,7 +1060,8 @@ def codec_phase(kind: str) -> dict:
         check(same, f"the card's round-0 l0.w {codec} encode differs from "
               "the CPU replay")
         n_leaves = len(res.ledger.entries[0].ks)
-        want = 0 if codec == "f32" else 2 * n_leaves * res.rounds
+        # one segmented pack and one unpack launch a leaf: both streams
+        want = 0 if codec == "f32" else n_leaves * res.rounds
         check(counts["bitpack_rows"] == want
               and counts["bitunpack_rows"] == want,
               f"{codec} arm launched the pack kernels {counts}, expected "
@@ -927,9 +1076,58 @@ def codec_phase(kind: str) -> dict:
           <= base["paper"], "int8 above a third of the f32 upload (paper)")
     print(f"[codec] codec_sweep_quick launches={sweep_counts}", flush=True)
     for name in ("bitpack_rows", "bitunpack_rows"):
-        check(sweep_counts[name] == 288,
-              f"{name} launched {sweep_counts[name]} times, expected 288")
+        check(sweep_counts[name] == 144,
+              f"{name} launched {sweep_counts[name]} times, expected 144")
+    wire_roundtrip_probe(torch.device("cuda:0"))
     return sweep_counts
+
+
+def wire_roundtrip_probe(device) -> dict:
+    """One ``codec_wire_roundtrip`` call at mnist_mlp's ``l0.w`` under the
+    int8 codec (5 clients, k = 7,880 of 156,800): the CUDA kernels it runs,
+    counted on the card with ``torch.profiler`` (copies apart), and its time
+    with the host's share (CUDA events). Runs on any tree of the port, so
+    a parent and a change can be counted in one call."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import streams as se
+
+    rs = np.random.RandomState(5)
+    C, k, m = 5, 7880, 156800
+    gidx = torch.from_numpy(np.stack([rs.choice(m, k, replace=False)
+                                      for _ in range(C)])
+                            .astype(np.int32)[:, None, :]).to(device)
+    vals = torch.from_numpy(rs.randn(C, 1, k).astype(np.float32)).to(device)
+    cols, q, scales, _ = se.codec_wire_stage(
+        gidx, vals, torch.zeros((C, 1, m), device=device), None, m, "int8")
+
+    def call():
+        return se.codec_wire_roundtrip(cols, q, scales, m, "int8")
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    device_events = [e.name for e in prof.events()
+                     if e.device_type == DeviceType.CUDA]
+    kernels = [n for n in device_events
+               if not n.startswith(("Memcpy", "Memset"))]
+    runtime = sum(1 for e in prof.events()
+                  if e.name in ("cudaLaunchKernel", "cuLaunchKernel",
+                                "cudaLaunchKernelExC", "cuLaunchKernelEx"))
+    ms = events_ms(call)
+    out = {"kernels": len(kernels), "copies": len(device_events)
+           - len(kernels), "launch_calls": runtime, "ms": ms}
+    print(f"[codec] one codec_wire_roundtrip (mnist_mlp l0.w, int8, C={C} "
+          f"k={k}): {len(kernels)} CUDA kernels, {out['copies']} copies, "
+          f"{runtime} launch calls, {ms:.6f} ms with the host; kernels: "
+          f"{'; '.join(kernels)}", flush=True)
+    return out
 
 
 # ------------------------------------------------------------------ phase 7
@@ -1548,11 +1746,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA "
                                  "port on one NVIDIA GPU (see the module "
                                  "docstring).")
-    ap.add_argument("--only", choices=["flash"],
-                    help="run the device, build and [flash] phases alone "
-                    "(no result line; the HGMMA count is printed, not "
-                    "required): the kernel's times on a tree, for a "
-                    "comparison of two trees in one call")
+    ap.add_argument("--only", choices=["flash", "pack"],
+                    help="run the device and build phases and then [flash] "
+                    "(the HGMMA count printed, not required) or the bit-pack "
+                    "kernels' checks and times and one codec_wire_roundtrip "
+                    "probe alone, with no result line: a kernel's times on a "
+                    "tree, for a comparison of two trees in one call")
     args = ap.parse_args()
     try:
         import torch
@@ -1587,6 +1786,12 @@ def main() -> int:
     if args.only == "flash":      # any tree, the parent's CUDA-core kernel too
         flash_phase(device, require_hgmma=False)
         print(f"[done] --only flash passed in "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
+    if args.only == "pack":       # any tree, the parent's unsegmented packs too
+        pack_kernel_phase(device)
+        wire_roundtrip_probe(device)
+        print(f"[done] --only pack passed in "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
         return 0
 

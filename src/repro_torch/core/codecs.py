@@ -8,7 +8,8 @@ as scale), the caller absorbs the quantization error into the error-feedback
 residuals, and both streams are packed dense: values as two's-complement
 fields of ``value_bits`` bits, indices sorted and delta-encoded at
 ``index_width(m)`` bits, into uint32 words through
-``kernels/ops.bitpack_rows`` (the CUDA kernel on the card). ``f32`` is the
+``kernels/ops.bitpack_segments`` (one launch of the CUDA kernel on the card
+packs both streams of a leaf, int32 lanes in and out). ``f32`` is the
 passthrough codec and the only one that composes with sparse-mask secure
 aggregation: pair masks cancel bit-exactly only on the f32 2^-24 grid.
 
@@ -30,7 +31,7 @@ import math
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import M32, packed_words
+from repro_torch.kernels.ref import packed_words
 
 CODECS = ("f32", "int8", "int4", "1bit")
 VALUE_BITS = {"int8": 8, "int4": 4, "1bit": 1}
@@ -94,8 +95,10 @@ def quantize_rows(vals: torch.Tensor, codec: str):
 
 
 def dequantize_rows(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
-    """int32[..., k] lattice points x f32[...] row scales -> f32[..., k]."""
-    return q.to(torch.float32) * scales[..., None]
+    """int32[..., k] lattice points x f32[...] row scales -> f32[..., k]. One
+    multiply: type promotion converts q to f32 inside it (exactly, |q| <
+    2^24), the same bits as ``q.to(f32) * scale``."""
+    return q * scales[..., None]
 
 
 # ----------------------------------------------------------- wire pack/unpack
@@ -105,38 +108,41 @@ def pack_stream_rows(cols: torch.Tensor, q: torch.Tensor, *, m: int,
 
     ``cols`` int[..., k] block-local indices, ascending per row; ``q``
     int[..., k] quantized values. Returns ``(iwords, vwords)``, uint32
-    words as int64 lanes: indices delta-encoded then packed at
+    words as int32 lanes (the same bits; ``.numpy().astype(np.uint32)``
+    reads them as words): indices delta-encoded then packed at
     ``index_width(m)`` bits, values two's-complement at
-    ``value_bits(codec)`` bits (1bit: the field is ``q > 0``).
+    ``value_bits(codec)`` bits (1bit: the field is ``q > 0``). Both streams
+    go through ONE ``ops.bitpack_segments`` call (one launch on the card),
+    whose kernel takes the low bits of every field: a sorted row's deltas
+    lie in ``[0, m)`` and a negative ``q`` is its own two's complement, so
+    nothing is masked here.
     """
     lead, k = cols.shape[:-1], cols.shape[-1]
-    c2 = cols.reshape(-1, k).to(torch.int64)
-    q2 = q.reshape(-1, k).to(torch.int64)
-    deltas = torch.cat([c2[:, :1], c2[:, 1:] - c2[:, :-1]], 1) & M32
-    iwords = ops.bitpack_rows(deltas, width=index_width(m))
-    vb = value_bits(codec)
-    if codec == "1bit":
-        u = (q2 > 0).to(torch.int64)
-    else:
-        u = q2 & ((1 << vb) - 1)              # two's-complement field
-    vwords = ops.bitpack_rows(u, width=vb)
+    c2 = cols.reshape(-1, k).to(torch.int32)
+    deltas = torch.cat([c2[:, :1], c2[:, 1:] - c2[:, :-1]], 1)
+    q2 = q.reshape(-1, k).to(torch.int32)
+    u = torch.clamp(q2, 0, 1) if codec == "1bit" else q2
+    iwords, vwords = ops.bitpack_segments(
+        [deltas, u], widths=[index_width(m), value_bits(codec)])
     return (iwords.reshape(*lead, iwords.shape[-1]),
             vwords.reshape(*lead, vwords.shape[-1]))
 
 
 def unpack_stream_rows(iwords: torch.Tensor, vwords: torch.Tensor, *,
                        k: int, m: int, codec: str):
-    """Inverse of :func:`pack_stream_rows`: words -> ``(cols int32[..., k]
-    sorted, q int32[..., k])``."""
+    """Inverse of :func:`pack_stream_rows`: words (int32 or int64 lanes) ->
+    ``(cols int32[..., k] sorted, q int32[..., k])``, both streams through
+    ONE ``ops.bitunpack_segments`` call."""
     lead = iwords.shape[:-1]
-    d = ops.bitunpack_rows(iwords.reshape(-1, iwords.shape[-1]), k=k,
-                           width=index_width(m))
-    cols = torch.cumsum(d, -1).to(torch.int32)
     vb = value_bits(codec)
-    u = ops.bitunpack_rows(vwords.reshape(-1, vwords.shape[-1]), k=k,
-                           width=vb)
+    d, u = ops.bitunpack_segments(
+        [iwords.reshape(-1, iwords.shape[-1]),
+         vwords.reshape(-1, vwords.shape[-1])],
+        ks=[k, k], widths=[index_width(m), vb])
+    cols = torch.cumsum(d, -1, dtype=torch.int32)
     if codec == "1bit":
         q = 2 * u - 1
     else:
-        q = torch.where(u >= (1 << (vb - 1)), u - (1 << vb), u)
-    return cols.reshape(*lead, k), q.to(torch.int32).reshape(*lead, k)
+        half = 1 << (vb - 1)              # sign-extend the vb-bit field
+        q = (u ^ half) - half
+    return cols.reshape(*lead, k), q.reshape(*lead, k)

@@ -24,7 +24,8 @@ Each stage runs under a ``torch.profiler.record_function`` span
 costs about a microsecond when no profiler is active.
 
 With a non-f32 ``codec`` the encode also quantizes and packs each leaf's
-streams (two ``bitpack_rows`` and two ``bitunpack_rows`` launches a leaf);
+streams (one ``bitpack_rows`` and one ``bitunpack_rows`` launch a leaf,
+each over both wire streams);
 with an active ``dp`` each client's accumulator is clipped before the
 encode and the streams carry grid-rounded noise on a public support
 (``core/dp.py``).

@@ -30,8 +30,9 @@ stably, and the decode folds each position in slot order.
 
 A non-f32 ``codec`` quantizes each client's stream values row-wise, absorbs
 the quantization error into the error feedback, and sends the stream
-through the packed uint32 word wire (``core/codecs.py``: two
-``bitpack_rows`` and two ``bitunpack_rows`` launches per leaf). ``dp_sigma
+through the packed uint32 word wire (``core/codecs.py``: one
+``bitpack_rows`` and one ``bitunpack_rows`` launch per leaf, each over the
+index and the value stream). ``dp_sigma
 > 0`` switches the encode to the DP release shape (``core/dp.py``): the
 data slots release the round's public common support, mask slots carry
 masks only, and grid-rounded noise is added to every released slot.
@@ -258,13 +259,14 @@ def codec_wire_stage(gidx, vals, new_acc, weights, m: int, codec: str):
     batched stream values row-wise, absorb the quantization error into the
     error-feedback accumulator (transmitted positions were just zeroed; they
     now carry ``(sent - wire) / weight``), and sort each row by column for
-    the delta-packed index wire. Returns ``(cols int64[C, nb, k] sorted,
-    q int32[C, nb, k], scales f32[C, nb], new_acc)``."""
+    the delta-packed index wire. Returns ``(cols int32[C, nb, k] sorted,
+    q int32[C, nb, k], scales f32[C, nb], new_acc)``: the wire path is int32
+    lanes from here to ``dequantize_rows``."""
     C = gidx.shape[0]
     w = (weights.to(vals.device, torch.float32) if weights is not None
          else torch.ones((C,), dtype=torch.float32, device=vals.device))
     q, scales = codecs.quantize_rows(vals, codec)
-    cols = gidx.to(torch.int64) % m
+    cols = gidx.to(torch.int32) % m
     # ``vals - q * scale`` with ONE rounding, as the reference's XLA fuses it
     # into an FMA: in f64 the product is exact (|q| < 2^8, a 24-bit scale)
     # and, for int8/int4, so is the difference (|vals - q*scale| <= scale/2
@@ -276,7 +278,7 @@ def codec_wire_stage(gidx, vals, new_acc, weights, m: int, codec: str):
     err = err / torch.where(w == 0.0, 1.0, w)[:, None, None]
     # a codec row is the top-k alone: its columns are distinct, so the
     # scatter_add is one add per position, as the reference's .at[].add
-    new_acc = new_acc.scatter_add(-1, cols, err)
+    new_acc = new_acc.scatter_add(-1, cols.to(torch.int64), err)
     order = torch.argsort(cols, dim=-1, stable=True)
     return (torch.gather(cols, -1, order), torch.gather(q, -1, order),
             scales, new_acc)

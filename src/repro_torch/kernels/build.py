@@ -28,9 +28,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-# each source's C entry points (one per kernel, and the scatter's scratch-size
-# helper) and their ctypes signatures; the result is a C int (a cudaError
-# code) unless a third element names another type
+# each source's C entry points (one per kernel, the packs' segmented twins,
+# and the scatter's scratch-size helper) and their ctypes signatures; the
+# result is a C int (a cudaError code) unless a third element names another
+# type
 _P, _LL, _U, _F, _I = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint,
                        ctypes.c_float, ctypes.c_int)
 SOURCES = {
@@ -51,7 +52,9 @@ SOURCES = {
         "bitpack_rows": ("bitpack_rows_launch",
                          [_P, _LL, _LL, _I, _P, _LL, _P]),
         "bitunpack_rows": ("bitunpack_rows_launch",
-                           [_P, _LL, _LL, _LL, _I, _P, _P])},
+                           [_P, _LL, _LL, _LL, _I, _P, _P]),
+        "bitpack_segments": ("bitpack_segments_launch", [_P, _I, _P]),
+        "bitunpack_segments": ("bitunpack_segments_launch", [_P, _I, _P])},
     "flash_attention.cu": {
         "flash_attention": ("flash_attention_launch",
                             [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,

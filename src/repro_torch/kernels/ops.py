@@ -55,6 +55,24 @@ def bitunpack_rows(words: torch.Tensor, *, k: int,
     return ref.bitunpack_rows_ref(words, k, width)
 
 
+def bitpack_segments(fields, *, widths) -> list:
+    """:func:`bitpack_rows` over up to 8 ``[R_i, k_i]`` field arrays, each
+    at its own width, in ONE launch on the card; int32 lanes holding the
+    uint32 bits in and out (the low ``w_i`` bits of each field taken)."""
+    if any(u.device.type == "cuda" for u in fields):
+        return pack.bitpack_segments_cuda(fields, widths)
+    return ref.bitpack_segments_ref(fields, widths)
+
+
+def bitunpack_segments(words, *, ks, widths) -> list:
+    """Inverse of :func:`bitpack_segments`: up to 8 ``[R_i, W_i]`` word
+    arrays -> ``[R_i, k_i]`` fields as int32 lanes, in ONE launch on the
+    card."""
+    if any(x.device.type == "cuda" for x in words):
+        return pack.bitunpack_segments_cuda(words, ks, widths)
+    return ref.bitunpack_segments_ref(words, ks, widths)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:

@@ -294,6 +294,46 @@ def bitunpack_rows_ref(words: torch.Tensor, k: int,
     return (bits << b).sum(-1)
 
 
+# one pack or unpack launch takes at most this many segments
+MAX_SEGMENTS = 8
+
+
+def check_segments(arrays, widths, name: str) -> None:
+    """Refuse a segment list the segmented launches do not take."""
+    if not 1 <= len(arrays) <= MAX_SEGMENTS or len(widths) != len(arrays):
+        raise ValueError(f"{name} takes 1..{MAX_SEGMENTS} arrays and one "
+                         f"width each, got {len(arrays)} and {len(widths)}")
+    for x in arrays:
+        if x.dim() != 2:
+            raise ValueError(f"{name} needs [rows, n] arrays, got shape "
+                             f"{tuple(x.shape)}")
+
+
+def i32_lanes(x: torch.Tensor) -> torch.Tensor:
+    """int64 lanes holding uint32 values -> int32 lanes with the same bits."""
+    return (x & M32).to(torch.int32)
+
+
+def bitpack_segments_ref(fields, widths) -> list:
+    """Plain version of the segmented pack: each ``[R_i, k_i]`` field array
+    through :func:`bitpack_rows_ref` at its width; words as int32 lanes
+    holding the uint32 bits."""
+    check_segments(fields, widths, "bitpack_segments")
+    return [i32_lanes(bitpack_rows_ref(u, w)) for u, w in zip(fields, widths)]
+
+
+def bitunpack_segments_ref(words, ks, widths) -> list:
+    """Plain version of the segmented unpack: each ``[R_i, W_i]`` word array
+    through :func:`bitunpack_rows_ref` to ``k_i`` fields at its width; fields
+    as int32 lanes holding the uint32 bits."""
+    check_segments(words, widths, "bitunpack_segments")
+    if len(ks) != len(words):
+        raise ValueError(f"bitunpack_segments needs one k per array, got "
+                         f"{len(ks)} for {len(words)}")
+    return [i32_lanes(bitunpack_rows_ref(x, k, w))
+            for x, k, w in zip(words, ks, widths)]
+
+
 # ------------------------------------------------------------ attention
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True,

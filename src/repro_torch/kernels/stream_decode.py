@@ -6,8 +6,9 @@ tile in slot order, each tile's bucket folded by one CTA, zero values skipped
 (exactly), no float atomics. Its plain version is
 ``kernels/ref.py::stream_scatter_add_ref``. A CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises. ``launches`` counts
-calls that launched the kernel: one per call, although a call runs four
-passes back to back on the current stream, and nothing else.
+calls that launched the kernel: one per call, although a call runs two
+passes back to back on the current stream (a split of each chunk by output
+tile, then a fold per tile), and nothing else.
 """
 from __future__ import annotations
 
@@ -51,7 +52,8 @@ def stream_scatter_add_cuda(indices: torch.Tensor, values: torch.Tensor,
 
 
 def workspace(n: int, size: int, device) -> torch.Tensor:
-    """The scratch of one call on ``device`` (the count table, the tiles'
-    totals and the bucketed stream), sized by the kernel's own C helper."""
+    """The scratch of one call on ``device`` (the ``[chunk][tile]`` run
+    table, then each chunk's entries sorted by output tile), sized by the
+    kernel's own C helper (``make_plan`` in the source)."""
     nbytes = build.kernel("stream_scatter_add_workspace_bytes")(n, size)
     return torch.empty(max(nbytes, 1), dtype=torch.uint8, device=device)

@@ -184,11 +184,12 @@ def test_codec_conservation(codec, weights):
 
 
 def test_codec_wire_roundtrip_is_lossless_and_launches_pack_ops(monkeypatch):
-    """Each quantized leaf encode runs two pack and two unpack calls through
-    ``ops`` (the CUDA kernels on the card), and the wire returns the same
-    sorted columns and lattice values."""
+    """Each quantized leaf encode runs one segmented pack and one segmented
+    unpack call through ``ops`` (one launch each of the CUDA kernels on the
+    card, over the index and the value stream), and the wire returns the
+    same sorted columns and lattice values."""
     calls = {"pack": 0, "unpack": 0}
-    pack, unpack = ops.bitpack_rows, ops.bitunpack_rows
+    pack, unpack = ops.bitpack_segments, ops.bitunpack_segments
 
     def count(name, fn):
         def wrapped(*a, **kw):
@@ -196,8 +197,8 @@ def test_codec_wire_roundtrip_is_lossless_and_launches_pack_ops(monkeypatch):
             return fn(*a, **kw)
         return wrapped
 
-    monkeypatch.setattr(ops, "bitpack_rows", count("pack", pack))
-    monkeypatch.setattr(ops, "bitunpack_rows", count("unpack", unpack))
+    monkeypatch.setattr(ops, "bitpack_segments", count("pack", pack))
+    monkeypatch.setattr(ops, "bitunpack_segments", count("unpack", unpack))
     rs = np.random.RandomState(3)
     vals = torch.from_numpy(rs.randn(3, 1, 50).astype(np.float32))
     gidx = torch.from_numpy(np.stack([rs.choice(400, 50, replace=False)
@@ -208,7 +209,7 @@ def test_codec_wire_roundtrip_is_lossless_and_launches_pack_ops(monkeypatch):
         cols2, vq = tse.codec_wire_roundtrip(cols, q, scales, 400, codec)
         assert torch.equal(cols2.to(torch.int64), cols)
         assert torch.equal(vq, tc.dequantize_rows(q, scales))
-    assert calls == {"pack": 6, "unpack": 6}
+    assert calls == {"pack": 3, "unpack": 3}
 
 
 def _costs_args():

@@ -322,7 +322,9 @@ def test_cuda_kernels_bit_equal_to_plain_versions():
 def test_cuda_pack_kernels_bit_equal_to_plain_versions():
     """On the card: both bit-pack kernels equal their plain versions bit for
     bit, at every width and at the main path's and VGG16's shapes, and
-    round-trip; each wrapper call launches once."""
+    round-trip; each wrapper call launches once, and so does each
+    segmented call over a leaf's two wire streams (18 + 8 and 22 + 1
+    bits, int32 lanes)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels are CUDA C++ for sm_90a "
                     "with no CPU mode")
@@ -341,6 +343,20 @@ def test_cuda_pack_kernels_bit_equal_to_plain_versions():
         assert torch.equal(back, u)
     counts = ops.launch_counts()
     assert counts["bitpack_rows"] == counts["bitunpack_rows"] == len(cases)
+    for R, k, wi, wv in ((5, 7880, 18, 8), (5, 60199, 22, 1)):
+        fields = [torch.from_numpy(_fields(R, k, w, seed=w + k)).to(dev)
+                  for w in (wi, wv)]
+        lanes = [tref.i32_lanes(u) for u in fields]
+        ops.reset_launch_counts()
+        words = ops.bitpack_segments(lanes, widths=[wi, wv])
+        back = ops.bitunpack_segments(words, ks=[k, k], widths=[wi, wv])
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["bitpack_rows"] == 1
+        assert ops.launch_counts()["bitunpack_rows"] == 1
+        for x, y, u, lane, w in zip(words, back, fields, lanes, (wi, wv)):
+            assert x.dtype == y.dtype == torch.int32
+            assert torch.equal(x, tref.i32_lanes(tref.bitpack_rows_ref(u, w)))
+            assert torch.equal(y, lane)
 
 
 # the shapes chip_smoke.py holds the flash kernel to: (B, T, Hq, Hkv, hd,
