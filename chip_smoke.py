@@ -23,9 +23,18 @@ exits non-zero and no failure is caught:
      at a time (5 rows, k = 7,880 at 18 and 8 bits; VGG16's k = 60,199 at
      22 and 1 bit) and as the two-segment leaf launches the codec path
      makes (18 + 8 bits, 22 + 1 bit; one launch a call); median times from
-     CUDA events beside the bound and the library call;
-     ``thgs_sparsify`` and ``mask_prng_apply`` bit-equal (as bits) at
-     VGG16's largest leaf (f32 and bf16), mnist_mlp's l0.w and odd sizes,
+     CUDA events beside the bound and the library call; the pair-mask
+     kernel's round launch at mnist_mlp's 4 leaves and VGG16's 54 (5
+     clients, the protocol's matrices, one client dropped): every leaf's
+     masks, then every leaf's recovery streams, one launch each, bit-equal
+     to the segmented plain version and to the per-leaf flat launches,
+     the raw launch timed in a CUDA graph beside the round function, the
+     plain version and the bound; the flat per-pair call (one segment) at
+     mnist_mlp's ``l0.w`` and VGG16's 512x512x3x3 (15 pairs); the CUDA
+     kernels and host-to-device copies of one round's mask path
+     (``torch.profiler``); ``thgs_sparsify`` and ``mask_prng_apply``
+     bit-equal (as bits) at VGG16's largest leaf (f32 and bf16), mnist_mlp's
+     l0.w and odd sizes,
      with ties at f32(0.1), +-inf accumulators, both signs, three (p, q)
      and the uint32 -> f32 rounding probes, then driven through ``ops`` over
      every leaf of mnist_mlp and VGG16 (counts reset before, read after)
@@ -34,14 +43,17 @@ exits non-zero and no failure is caught:
   3. main path: ``table2_quick`` (mnist_mlp 784-200-10 at full width, 12
      rounds of THGS + sparse-mask secure aggregation) through
      ``repro_torch.sim.Simulation`` on the card, after a one-round warm-up;
-     launch counts reset just before and read just after; the paper-accounting upload ratio and the
+     launch counts reset just before and read just after (the pair-mask
+     kernel once a round: 12); the paper-accounting upload ratio and the
      accuracy checked against the reference's numbers; round 0's ``l0.w``
      encode and decode replayed on the CPU with the plain versions, bit-equal.
-  4. recovery: ``secagg_quick`` (dropout 0.25) on the card; a dropped round's
-     decoded aggregate held against the survivors' unmasked weighted sparse
-     sum computed with the plain versions.
+  4. recovery: ``secagg_quick`` (dropout 0.25) on the card, the pair-mask
+     kernel launched once a round and twice a dropout round (masks, then
+     recovery streams, of every leaf); a dropped round's decoded aggregate
+     held against the survivors' unmasked weighted sparse sum computed with
+     the plain versions.
   5. full-size model: cifar_vgg16 on cifar10 under the table2 protocol,
-     2 rounds.
+     2 rounds (the 54 leaves' masks in one launch a round: 2).
   6. codecs: ``codec_sweep_quick`` (the table2 protocol without secagg, one
      arm per wire codec f32/int8/int4/1bit, 12 rounds each) on the card;
      counts reset before the sweep and read after it (48 launches of each
@@ -62,9 +74,10 @@ exits non-zero and no failure is caught:
      card: every leaf's tree decode bit-equal to the flat decode of the same
      streams, survivors [5, 6, 4, 4, 4, 5, 5, 5], upload 6.3% +- 0.5 pt,
      accuracy against the port's CPU run and the reference's 0.941, 96
-     scatter launches; then 2 VGG16 rounds under the tree protocol (G = 3),
-     each leaf bit-equal to flat, the 2,359,296-element leaves also over an
-     uneven split.
+     scatter launches, 8 + 7 pair-mask launches (one a round, one more a
+     dropout round; ``dp_quick`` likewise); then 2 VGG16 rounds under the
+     tree protocol (G = 3), each leaf bit-equal to flat, the
+     2,359,296-element leaves also over an uneven split.
   9. async: ``async_quick`` (FedBuff buffer 4, max staleness 3) on the card:
      the reference's staleness vectors, upload 7.0% +- 0.5 pt, accuracy;
      then an all-fresh buffer through ``run_async_update`` bit-equal to
@@ -100,9 +113,11 @@ alone, does not require HGMMA instructions, and prints no result line (the
 kernel's times on one tree, to compare two trees in one call); ``--only
 pack`` runs phase 1, the bit-pack part of phase 2 and the round-trip probe
 of phase 6 the same way (on a tree without segmented launches, the parent
-of that design, a leaf pair is timed as its two single launches). Without a
-CUDA device, or outside a checkout, it exits non-zero and prints no
-result.
+of that design, a leaf pair is timed as its two single launches); ``--only
+masks`` runs phase 1, the pair-mask kernel's round and flat rows of phase 2
+and the mask path probe the same way (on the parent of the round launch, a
+round is timed as its per-leaf flat launches). Without a CUDA device, or
+outside a checkout, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -301,12 +316,9 @@ def scatter_check(tag: str, it, vt, size: int):
 
 
 def kernel_phase(shapes, device) -> dict:
-    import numpy as np
     import torch
 
-    from repro_torch.kernels import build, mask_prng, ref
-
-    rows = {"stream_scatter_add": [], "pair_mask_streams": []}
+    rows = {"stream_scatter_add": []}
     for tag, size, k, k_mask, C in shapes:
         n = C * (k + C * k_mask)
         # ---- scatter-add: adversarial correctness, then main-path timing
@@ -326,7 +338,55 @@ def kernel_phase(shapes, device) -> dict:
         rows["stream_scatter_add"].append(dict(
             scatter_row(tag, it, vt, size, device), max_abs_err=err))
 
-        # ---- pair-mask streams: the 15 unordered pairs of a 5-client round
+    return rows
+
+
+def segmented_masks() -> bool:
+    """Whether this tree's pair-mask kernel takes a segment table (the
+    round launch); its parent launched once per leaf."""
+    from repro_torch.kernels import build
+
+    return build.SOURCES["pair_mask_streams.cu"]["pair_mask_streams"][0] \
+        == "pair_mask_round_launch"
+
+
+def raw_mask_launch(seeds32, signs, rows: int, peers: int, flags: int,
+                    alive, segs):
+    """The pair-mask kernel's C entry, called as the wrapper calls it:
+    ``segs`` one ``(idx, vals, nb, k_mask, m, leaf_id or -1)`` each, the
+    outputs preallocated. Returns a function that launches once."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import build
+
+    fn = build.kernel("pair_mask_streams")
+    desc = []
+    for oi, ov, nb, k_mask, m, leaf in segs:
+        desc += [oi.data_ptr(), ov.data_ptr(), nb, k_mask, m, leaf]
+    arr = (ctypes.c_longlong * len(desc))(*desc)
+
+    def launch():
+        build.check(fn(seeds32.data_ptr(), signs.data_ptr(),
+                       None if alive is None else alive.data_ptr(), peers,
+                       rows, peers, flags, -1.0, 2.0, arr, len(segs),
+                       torch.cuda.current_stream().cuda_stream),
+                    "pair_mask_streams")
+
+    return launch
+
+
+def flat_mask_rows(shapes, device) -> list:
+    """The flat per-pair call (one segment on a segmented tree) at the
+    main path's leaf shapes: the 15 unordered pairs of a 5-client round."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import build, mask_prng, ref
+
+    out = []
+    for tag, size, _, k_mask, C in shapes:
         n_pairs = C * (C + 1) // 2
         rs = np.random.RandomState(size % 7919)
         seeds = rs.randint(0, 2**32, size=n_pairs, dtype=np.int64)
@@ -343,18 +403,22 @@ def kernel_phase(shapes, device) -> dict:
         check(bits_equal(ki, pi) and bits_equal(kv, pv),
               f"pair_mask_streams != plain at {tag}")
         err = (kv - pv).abs().max().item()
-        masks = build.kernel("pair_mask_streams")
         s32 = (st & 0xFFFFFFFF).to(torch.int32)
         oi = torch.empty((n_pairs, 1, k_mask), dtype=torch.int32,
                          device=device)
         ov = torch.empty((n_pairs, 1, k_mask), device=device)
+        if segmented_masks():
+            launch_masks = raw_mask_launch(s32, sg, n_pairs, 1, 0, None,
+                                           [(oi, ov, 1, k_mask, size, -1)])
+        else:                         # the parent's per-pair entry
+            masks = build.kernel("pair_mask_streams")
 
-        def launch_masks():
-            build.check(masks(s32.data_ptr(), sg.data_ptr(), n_pairs, k_mask,
-                              size, -1.0, 2.0, oi.data_ptr(), ov.data_ptr(),
-                              torch.cuda.current_stream().cuda_stream),
-                        "pair_mask_streams")
-
+            def launch_masks():
+                build.check(masks(s32.data_ptr(), sg.data_ptr(), n_pairs,
+                                  k_mask, size, -1.0, 2.0, oi.data_ptr(),
+                                  ov.data_ptr(),
+                                  torch.cuda.current_stream().cuda_stream),
+                            "pair_mask_streams")
         ms = graph_ms(launch_masks)
         wrapper_ms = events_ms(lambda: mask_prng.pair_mask_streams_cuda(
             st, sg, nb=1, k_mask=k_mask, m=size))
@@ -363,15 +427,220 @@ def kernel_phase(shapes, device) -> dict:
         elems = n_pairs * k_mask
         bound_ms, bound_by = bound(8 * n_pairs + 8 * elems,
                                    MASK_OPS_PER_SLOT * elems)
-        rows["pair_mask_streams"].append(dict(
-            shape=tag, n=elems, size=size, ms=ms, wrapper_ms=wrapper_ms,
-            plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
-            bound_by=bound_by, max_abs_err=err))
-        print(f"[kernels] pair_mask_streams {tag}: pairs={n_pairs} "
+        out.append(dict(
+            shape=f"flat {tag}", n=elems, size=size, ms=ms,
+            wrapper_ms=wrapper_ms, plain_ms=plain_ms, library_ms=None,
+            bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err))
+        print(f"[kernels] pair_mask_streams flat {tag}: pairs={n_pairs} "
               f"k_mask={k_mask} m={size} bit-equal=yes ms={ms:.6f} "
               f"wrapper_ms={wrapper_ms:.6f} plain_ms={plain_ms:.6f} "
               f"bound_ms={bound_ms:.6f}", flush=True)
-    return rows
+    return out
+
+
+def model_round(model: str, C: int = 5):
+    """A round's mask inputs at a model's leaves: the protocol's seed and
+    sign matrices for clients 0..C-1 (round 3), client 1 dropped and its
+    seeds recovered, one ``(1, k_mask, size, leaf_id)`` per leaf under the
+    table2 protocol (mask ratio 0.01)."""
+    from repro_torch.core.types import SecureAggConfig
+    from repro_torch.models.paper_models import build_model
+    from repro_torch.secagg.protocol import RoundProtocol
+
+    sa = SecureAggConfig(mask_ratio=0.01)
+    sizes = [x.numel() for x in build_model(model, device="meta")
+             .params().values()]
+    proto = RoundProtocol.setup(sa, list(range(C)), 3)
+    seeds, signs = proto.pair_seed_matrix()
+    rec = proto.recover_seeds([c for c in range(C) if c != 1], [1])
+    alive = [c != 1 for c in range(C)]
+    leaves = [(1, sa.k_mask_for(n, C), n, leaf)
+              for leaf, n in enumerate(sizes)]
+    return seeds, signs, rec, alive, leaves
+
+
+def mask_round_rows(device) -> list:
+    """The round launch at mnist_mlp's 4 leaves and VGG16's 54: every
+    leaf's masks, then every leaf's recovery streams, each in one launch,
+    bit-equal to the segmented plain version and to the per-leaf flat
+    launches; the raw launch (CUDA graph), the round function with its
+    wrapper, the plain version and the bound. On a tree without the round
+    launch (its parent) the round is its per-leaf flat launches, timed the
+    same way."""
+    import torch
+
+    from repro_torch.core import streams as se
+    from repro_torch.kernels import mask_prng, ref
+
+    out = []
+    for model in ("mnist_mlp", "cifar_vgg16"):
+        seeds, signs, rec, alive, leaves = model_round(model)
+        C = seeds.shape[0]
+        slots = sum(C * C * nb * k for nb, k, _, _ in leaves)
+        bound_ms, bound_by = bound(8 * slots + 8 * C * C,
+                                   MASK_OPS_PER_SLOT * slots)
+        tag = f"{model} round ({len(leaves)} leaves)"
+        if not segmented_masks():
+            sd, gd = seeds.to(device), signs.to(device, torch.float32)
+
+            def per_leaf():
+                return [se.mask_streams_all_pairs(sd, gd, nb, k, m, p=-1.0,
+                                                  q=2.0, leaf_id=leaf)
+                        for nb, k, m, leaf in leaves]
+            iu, ju = torch.triu_indices(C, C).to(device)
+            flat = []
+            for nb, k, m, leaf in leaves:
+                tri = se._fold_seeds(sd, leaf)[iu, ju]
+                s32 = (tri & 0xFFFFFFFF).to(torch.int32)
+                ones = torch.ones(len(tri), device=device)
+                oi = torch.empty((len(tri), nb, k), dtype=torch.int32,
+                                 device=device)
+                flat.append((s32, ones, oi, torch.empty_like(oi,
+                             dtype=torch.float32), nb * k, m))
+            from repro_torch.kernels import build
+            fn = build.kernel("pair_mask_streams")
+
+            def launch():
+                for s32, ones, oi, ov, L, m in flat:
+                    build.check(fn(s32.data_ptr(), ones.data_ptr(), len(s32),
+                                   L, m, -1.0, 2.0, oi.data_ptr(),
+                                   ov.data_ptr(),
+                                   torch.cuda.current_stream().cuda_stream),
+                                "pair_mask_streams")
+            ms = graph_ms(launch)
+            wrapper_ms = events_ms(per_leaf)
+            out.append(dict(shape=tag, n=slots, ms=ms, wrapper_ms=wrapper_ms,
+                            plain_ms=None, library_ms=None, bound_ms=bound_ms,
+                            bound_by=bound_by, max_abs_err=0.0))
+            print(f"[kernels] pair_mask_streams {tag}, per-leaf launches "
+                  f"(parent): slots={slots} launches={len(leaves)} "
+                  f"ms={ms:.6f} wrapper_ms={wrapper_ms:.6f} "
+                  f"bound_ms={bound_ms:.6f}", flush=True)
+            continue
+        sd, gd = se.round_matrices(device, seeds, signs)
+        rd, ad = se.round_matrices(device, rec, alive)
+        before = mask_prng.launches
+        got = se.mask_streams_round(sd, gd, leaves, p=-1.0, q=2.0)
+        rgot = se.recovery_streams_round(rd, gd, ad, leaves, p=-1.0, q=2.0)
+        torch.cuda.synchronize()
+        check(mask_prng.launches - before == 2,
+              f"{tag}: {mask_prng.launches - before} launches for the masks "
+              f"and the recovery streams, expected 2")
+        plain = ref.pair_mask_segments_ref(sd, gd, leaves, mirror=True)
+        rplain = ref.pair_mask_segments_ref(rd, gd, leaves, alive=ad)
+        err = 0.0
+        for (nb, k, m, leaf), (i, v), (pi, pv), r, (ri, rv) in zip(
+                leaves, got, plain, rgot, rplain):
+            fi, fv = se.mask_streams_all_pairs(sd, gd, nb, k, m, p=-1.0,
+                                               q=2.0, leaf_id=leaf)
+            fr = se.dropout_cancel_streams_seeded(rd, gd, ad, nb, k, m,
+                                                  p=-1.0, q=2.0, leaf_id=leaf)
+            check(bits_equal(i, pi) and bits_equal(v, pv)
+                  and bits_equal(r.indices, ri) and bits_equal(r.values, rv),
+                  f"{tag}: the round launch != plain at leaf {leaf}")
+            check(bits_equal(i, fi) and bits_equal(v, fv)
+                  and bits_equal(r.indices, fr.indices)
+                  and bits_equal(r.values, fr.values),
+                  f"{tag}: the round launch != the flat launches at leaf "
+                  f"{leaf}")
+            err = max(err, (v - pv).abs().max().item(),
+                      (r.values - rv).abs().max().item())
+        for kind, flags, sdev, alive_d, args in (
+                ("masks", mask_prng.MIRROR, sd, None, dict(mirror=True)),
+                ("recovery", mask_prng.GATE | mask_prng.GLOBAL
+                 | mask_prng.PAIR_MAJOR, rd, ad,
+                 dict(alive=ad))):
+            outs = (got if kind == "masks" else
+                    [(r.indices, r.values) for r in rgot])
+            launch = raw_mask_launch(
+                sdev, gd, C, C, flags, alive_d,
+                [(i, v, nb, k, m, leaf) for (i, v), (nb, k, m, leaf)
+                 in zip(outs, leaves)])
+            ms = graph_ms(launch)
+            if kind == "masks":
+                wrapper_ms = events_ms(lambda: se.mask_streams_round(
+                    sd, gd, leaves, p=-1.0, q=2.0))
+            else:
+                wrapper_ms = events_ms(lambda: se.recovery_streams_round(
+                    rd, gd, ad, leaves, p=-1.0, q=2.0))
+            plain_ms = events_ms(lambda: ref.pair_mask_segments_ref(
+                sdev, gd, leaves, **args), reps=3, inner=3)
+            out.append(dict(shape=f"{tag} {kind}", n=slots, ms=ms,
+                            wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                            library_ms=None, bound_ms=bound_ms,
+                            bound_by=bound_by, max_abs_err=err))
+            print(f"[kernels] pair_mask_streams {tag} {kind}: slots={slots} "
+                  f"launches=1 bit-equal to plain and to {len(leaves)} flat "
+                  f"launches=yes ms={ms:.6f} wrapper_ms={wrapper_ms:.6f} "
+                  f"plain_ms={plain_ms:.6f} bound_ms={bound_ms:.6f}",
+                  flush=True)
+    return out
+
+
+def mask_path_probe(device) -> dict:
+    """The mask path of one table2_quick round at mnist_mlp's 4 leaves (5
+    clients), from the protocol's host matrices to the masks in the
+    per-client layout with the top-1 override of inactive slots, as the
+    encode runs it: the CUDA kernels and host-to-device copies
+    (``torch.profiler``) and the time with the host (CUDA events). On the
+    parent of the round launch: a copy, the masks and the override per
+    leaf."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import streams as se
+
+    seeds, signs, _, _, leaves = model_round("mnist_mlp")
+    C = seeds.shape[0]
+    gen = torch.Generator(device=device).manual_seed(0)
+    accs = [torch.randn((C, 1, m), device=device, generator=gen)
+            for _, _, m, _ in leaves]
+
+    def override(m_idx, sg, acc, k_mask):
+        top1 = torch.argmax(acc.abs(), -1).to(torch.int32)[..., None]
+        active = torch.repeat_interleave(sg != 0.0, k_mask,
+                                         dim=-1)[:, None, :]
+        return torch.where(active, m_idx, top1)
+
+    if hasattr(se, "mask_streams_round"):
+        def call():
+            sd, gd = se.round_matrices(device, seeds, signs)
+            masks = se.mask_streams_round(sd, gd, leaves, p=-1.0, q=2.0)
+            return [override(mi, gd, a, k) for (mi, _), a, (_, k, _, _)
+                    in zip(masks, accs, leaves)]
+    else:
+        def call():
+            out = []
+            for a, (nb, k, m, leaf) in zip(accs, leaves):
+                gd = signs.to(device, torch.float32)
+                mi, _ = se.mask_streams_all_pairs(
+                    seeds.to(device), gd, nb, k, m, p=-1.0, q=2.0,
+                    leaf_id=leaf)
+                out.append(override(mi, gd, a, k))
+            return out
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    device_events = [e.name for e in prof.events()
+                     if e.device_type == DeviceType.CUDA]
+    kernels = [n for n in device_events
+               if not n.startswith(("Memcpy", "Memset"))]
+    h2d = [n for n in device_events if "HtoD" in n]
+    mask_kernels = [n for n in kernels if "pair_mask" in n]
+    ms = events_ms(call)
+    out = {"kernels": len(kernels), "mask_kernels": len(mask_kernels),
+           "h2d_copies": len(h2d), "ms": ms}
+    print(f"[masks] one table2_quick round's mask path (mnist_mlp, "
+          f"{len(leaves)} leaves, C={C}, top-1 override included): "
+          f"{len(kernels)} CUDA kernels ({len(mask_kernels)} of the "
+          f"pair-mask kernel), {len(h2d)} host-to-device copies, {ms:.6f} "
+          f"ms with the host; kernels: {'; '.join(kernels)}", flush=True)
+    return out
 
 
 def scatter_tree_group_row(device) -> dict:
@@ -1193,6 +1462,12 @@ def dp_phase(kind: str) -> None:
     check(err <= tol, f"DP dropout round off by {err:.3e}")
     for name in ("stream_scatter_add", "pair_mask_streams"):
         check(counts[name] > 0, f"dp_quick never launched {name}")
+    dropout_rounds = sum(e.n_survivors < cfg.clients_per_round
+                         for e in res.ledger.entries)
+    check(counts["pair_mask_streams"] == cfg.rounds + dropout_rounds,
+          f"dp_quick launched the masks {counts['pair_mask_streams']} times, "
+          f"expected {cfg.rounds} + {dropout_rounds} (one a round, one more "
+          f"a dropout round)")
 
     want_eps = {"z0.3": 89.7, "z0.6": 33.7, "z1.2": 14.1}
     arms = presets.dp_sweep_configs("dp_frontier_quick")
@@ -1298,10 +1573,10 @@ def tree_phase(kind: str) -> dict:
     check(counts["stream_scatter_add"] == 3 * n_leaves * cfg.rounds,
           f"tree_quick launched the scatter {counts['stream_scatter_add']} "
           f"times, expected 3 groups x {n_leaves} leaves x {cfg.rounds}")
-    check(counts["pair_mask_streams"]
-          == n_leaves * (cfg.rounds + dropout_rounds),
+    check(counts["pair_mask_streams"] == cfg.rounds + dropout_rounds,
           f"tree_quick launched the masks {counts['pair_mask_streams']} "
-          f"times, expected {n_leaves} x ({cfg.rounds} + {dropout_rounds})")
+          f"times, expected {cfg.rounds} + {dropout_rounds} (one a round, "
+          f"one more a dropout round)")
 
     # VGG16 under the tree protocol: full-size _scatter_range launches, and
     # the largest leaf also decoded over an uneven split
@@ -1746,12 +2021,14 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA "
                                  "port on one NVIDIA GPU (see the module "
                                  "docstring).")
-    ap.add_argument("--only", choices=["flash", "pack"],
+    ap.add_argument("--only", choices=["flash", "pack", "masks"],
                     help="run the device and build phases and then [flash] "
-                    "(the HGMMA count printed, not required) or the bit-pack "
+                    "(the HGMMA count printed, not required), the bit-pack "
                     "kernels' checks and times and one codec_wire_roundtrip "
-                    "probe alone, with no result line: a kernel's times on a "
-                    "tree, for a comparison of two trees in one call")
+                    "probe, or the pair-mask kernel's flat and round rows "
+                    "and one round's mask path probe alone, with no result "
+                    "line: a kernel's times on a tree, for a comparison of "
+                    "two trees in one call")
     args = ap.parse_args()
     try:
         import torch
@@ -1783,19 +2060,6 @@ def main() -> int:
     build.build_all(verbose=True)
     print(f"[build] {len(build.SOURCES)} CUDA sources built in "
           f"{build.build_seconds:.1f} s into {build.build_dir()}", flush=True)
-    if args.only == "flash":      # any tree, the parent's CUDA-core kernel too
-        flash_phase(device, require_hgmma=False)
-        print(f"[done] --only flash passed in "
-              f"{time.perf_counter() - t_start:.1f} s", flush=True)
-        return 0
-    if args.only == "pack":       # any tree, the parent's unsegmented packs too
-        pack_kernel_phase(device)
-        wire_roundtrip_probe(device)
-        print(f"[done] --only pack passed in "
-              f"{time.perf_counter() - t_start:.1f} s", flush=True)
-        return 0
-
-    # -------------------------------------------------------- 2. kernels
     from repro_torch.core import schedules
     from repro_torch.core.types import SecureAggConfig, THGSConfig
     from repro_torch.models.paper_models import build_model
@@ -1815,7 +2079,31 @@ def main() -> int:
     # levels that an earlier leaf position would draw (a denser stream)
     shapes.append(("cifar_vgg16.512x512x3x3@k60199", 2359296, 60199,
                    sa.k_mask_for(2359296, 5), 5))
+    if args.only == "flash":      # any tree, the parent's CUDA-core kernel too
+        flash_phase(device, require_hgmma=False)
+        print(f"[done] --only flash passed in "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
+    if args.only == "pack":     # any tree, the parent's unsegmented packs too
+        pack_kernel_phase(device)
+        wire_roundtrip_probe(device)
+        print(f"[done] --only pack passed in "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
+    if args.only == "masks":    # any tree, the parent's per-leaf launches too
+        mask_round_rows(device)
+        flat_mask_rows(shapes[::2], device)
+        mask_path_probe(device)
+        print(f"[done] --only masks passed in "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
+
+    # -------------------------------------------------------- 2. kernels
     rows = kernel_phase(shapes, device)
+    # the round launch first: it is what the main path launches
+    rows["pair_mask_streams"] = (mask_round_rows(device)
+                                 + flat_mask_rows(shapes[::2], device))
+    mask_path_probe(device)
     rows["stream_scatter_add"].append(scatter_tree_group_row(device))
     scatter_cases(device)
     rows.update(pack_kernel_phase(device))
@@ -1852,6 +2140,10 @@ def main() -> int:
           flush=True)
     for name in ("stream_scatter_add", "pair_mask_streams"):
         check(main_counts[name] > 0, f"main path never launched {name}")
+    check(main_counts["pair_mask_streams"] == cfg.rounds,
+          f"table2_quick launched pair_mask_streams "
+          f"{main_counts['pair_mask_streams']} times, expected one a round "
+          f"({cfg.rounds})")
     check(abs(t2["upload_vs_dense"] - 0.091) <= 0.005,
           f"upload_vs_dense {t2['upload_vs_dense']:.4f} outside 9.1% +- 0.5")
     check(res.final_acc >= 0.98, f"final_acc {res.final_acc:.4f} < 0.98")
@@ -1901,11 +2193,12 @@ def main() -> int:
     dropped_rounds = 0
     for r, dropped, counts in per_round:
         pm = counts["pair_mask_streams"] - prev["pair_mask_streams"]
-        if dropped:
-            dropped_rounds += 1
-            check(pm == 2 * n_leaves,
-                  f"round {r}: dropout round launched pair_mask_streams "
-                  f"{pm} times, expected {2 * n_leaves} (encode + recovery)")
+        dropped_rounds += bool(dropped)
+        want = 2 if dropped else 1
+        check(pm == want,
+              f"round {r}: launched pair_mask_streams {pm} times for "
+              f"{n_leaves} leaves, expected {want} (the masks of every "
+              f"leaf{', then every recovery stream' if dropped else ''})")
         prev = counts
     check(dropped_rounds > 0, "secagg_quick dropped no client")
     check("info" in captured, "no dropout round reached the leaf hook")
@@ -1941,6 +2234,10 @@ def main() -> int:
     check(finite, "non-finite VGG16 parameters")
     for name in ("stream_scatter_add", "pair_mask_streams"):
         check(vgg_counts[name] > 0, f"VGG16 rounds never launched {name}")
+    check(vgg_counts["pair_mask_streams"] == cfg.rounds,
+          f"VGG16 launched pair_mask_streams "
+          f"{vgg_counts['pair_mask_streams']} times for "
+          f"{len(sim.model.leaf_names())} leaves, expected one a round")
 
     # --------------------------------------------------------- 6. codecs
     codec_counts = codec_phase(kind)

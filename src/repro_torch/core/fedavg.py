@@ -9,12 +9,15 @@ A round is:
      batched program, as the reference's ``jax.vmap``; the async update
      runs the same program);
   2. ``streams.encode_leaf_batch`` per leaf — the unified top-k ∪
-     mask-support encode for all clients (counter-based pair seeds from the
-     secagg round protocol: one ``pair_mask_streams`` launch per leaf);
+     mask-support encode for all clients. The pair masks of every leaf
+     come first, from ONE ``pair_mask_streams`` launch a round
+     (``streams.mask_streams_round``; counter-based pair seeds from the
+     secagg round protocol, copied to the card once);
   3. ``streams.decode_leaf_batch`` per leaf — one ``stream_scatter_add``
      launch over every client's stream, survivor gating, and Bonawitz
-     reconstruction of dropped clients' unpaired masks (a second
-     ``pair_mask_streams`` launch per leaf in a dropout round). With
+     reconstruction of dropped clients' unpaired masks (in a dropout round
+     a second ``pair_mask_streams`` launch makes every leaf's recovery
+     streams: ``streams.recovery_streams_round``). With
      ``topology='tree'`` it is ``streams.decode_leaf_tree``: one launch per
      sub-aggregator's index range, bit-equal to the flat decode.
 
@@ -298,6 +301,27 @@ def run_round(
                  for n in names}, clip=float(dp.clip))
             res_st = {n: torch.zeros_like(r) for n, r in res_st.items()}
         groups = _group_count(tree_groups, C)
+        k_masks = [sa.k_mask_for(size, C) if use_masks else 0
+                   for size in sizes]
+        signs_d = None
+        masks = recovery = [None] * len(names)
+        if use_masks:
+            # every leaf's pair masks (and, in a dropout round, recovery
+            # streams) in one launch each, from one copy of the matrices
+            leaves = [(1, km, size, leaf_id) for leaf_id, (km, size)
+                      in enumerate(zip(k_masks, sizes))]
+            with record_function("round.encode"):
+                seeds_d, signs_d = se.round_matrices(dev, pair_seeds,
+                                                     pair_signs)
+                masks = se.mask_streams_round(seeds_d, signs_d, leaves,
+                                              p=sa.p, q=sa.q)
+            if dropped:
+                with record_function("round.decode"):
+                    rec_d, alive_d = se.round_matrices(
+                        dev, recovery_seeds,
+                        [c not in dropped for c in participants])
+                    recovery = se.recovery_streams_round(
+                        rec_d, signs_d, alive_d, leaves, p=sa.p, q=sa.q)
 
         agg, new_res = {}, {}
         ks_acct, k_masks_acct = [], []
@@ -305,16 +329,16 @@ def run_round(
             shape = state.params[name].shape
             d_st = deltas[name]
             r_st = res_st[name]
-            k_mask = sa.k_mask_for(size, C) if use_masks else 0
+            k_mask = k_masks[leaf_id]
             # ---- 2. batched unified-stream encode ----
             with record_function("round.encode"):
                 streams_b, nr = se.encode_leaf_batch(
                     d_st, r_st, k=k, nb=1, m=size, size=size,
-                    pair_seeds=pair_seeds, pair_signs=pair_signs,
-                    k_mask=k_mask, mask_p=sa.p, mask_q=sa.q,
-                    leaf_id=leaf_id, weights=w_vec, codec=codec,
+                    pair_seeds=pair_seeds, pair_signs=signs_d,
+                    k_mask=k_mask, mask_p=sa.p, mask_q=sa.q, leaf_id=leaf_id,
+                    weights=w_vec, codec=codec,
                     dp_sigma=dp_sigma_c, dp_seeds=dp_seeds,
-                    dp_support_seed=dp_sup_seed)
+                    dp_support_seed=dp_sup_seed, masks=masks[leaf_id])
             # ---- 3. scatter-add decode (flat or tree) + dropout recovery
             splits = (se.tree_splits(size, groups) if topology == "tree"
                       else None)
@@ -323,8 +347,9 @@ def run_round(
                     streams_b, size, splits,
                     alive=alive if dropped else None,
                     pair_seeds=recovery_seeds if dropped else None,
-                    pair_signs=pair_signs if dropped else None,
-                    k_mask=k_mask, mask_p=sa.p, mask_q=sa.q, leaf_id=leaf_id)
+                    pair_signs=signs_d if dropped else None,
+                    k_mask=k_mask, mask_p=sa.p, mask_q=sa.q, leaf_id=leaf_id,
+                    recovery=recovery[leaf_id])
             if leaf_hook is not None:
                 leaf_hook(leaf_id, name, {
                     "updates": d_st, "residuals": r_st, "weights": w_vec,

@@ -17,11 +17,20 @@ tree decode splits that pass over sub-aggregators that each own a contiguous
 index range of the dense buffer, one launch each, combined by concatenation.
 
 Pairwise masks are counter-based: per-pair uint32 seeds (DH-derived,
-Shamir-recoverable; ``secagg/protocol.py``) drive the murmur streams of
-``kernels/ops.pair_mask_streams``. Client weights scale the gradient part of
-the values before masking, so weighted aggregation keeps mask cancellation
-exact. Dropout recovery regenerates every survivor->dropped pair mask from the
-reconstructed seeds and subtracts it.
+Shamir-recoverable; ``secagg/protocol.py``) drive the murmur streams of the
+pair-mask kernel. :func:`mask_streams_round` makes every leaf's masks of a
+round in one launch (``kernels/ops.pair_mask_segments``: the leaf-seed fold,
+the triangle mirror, the signs and the per-client layout inside the kernel)
+from the round's seed and sign matrices, copied to the card once
+(:func:`round_matrices`); the encode takes them through ``masks=``. Client
+weights scale the gradient part of the values before masking, so weighted
+aggregation keeps mask cancellation exact. Dropout recovery regenerates
+every survivor->dropped pair mask from the reconstructed seeds and subtracts
+it: :func:`recovery_streams_round`, one more launch a dropout round for every
+leaf, handed to the decode through ``recovery=``. The per-leaf functions
+(:func:`mask_streams_all_pairs`, :func:`dropout_cancel_streams_seeded`) are
+the counterparts of the reference's and the round functions' plain version
+on the CPU.
 
 Every operation keeps the reference's float order so the data plane is
 bit-equal to it on shared inputs: top-k ties resolve to the lower index
@@ -180,7 +189,7 @@ def mask_streams_all_pairs(
     q: float,
     leaf_id: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Every client's concatenated pair-mask streams in one kernel launch.
+    """Every client's concatenated pair-mask streams of one leaf.
 
     The seed matrix is symmetric and a stream's idx/|val| depend only on the
     seed, so each unordered pair (upper triangle with the diagonal) is
@@ -206,6 +215,67 @@ def mask_streams_all_pairs(
                                pair_signs.to(device), nb, k_mask)
 
 
+def round_matrices(device, seeds: torch.Tensor, *floats) -> tuple:
+    """A round's seed matrix and f32 tensors (the sign matrix, ``alive``)
+    on ``device`` in ONE host-to-device copy: ``(seeds as int32 lanes
+    holding the uint32 bits, *floats as f32)``, each of its own shape,
+    views into one buffer."""
+    host = [kref.i32_lanes(kref.as_u32(seeds))] + [
+        torch.as_tensor(x).to(torch.float32).view(torch.int32)
+        for x in floats]
+    buf = torch.cat([h.reshape(-1) for h in host]).to(device)
+    out, o = [], 0
+    for h in host:
+        view = buf[o:o + h.numel()].view(h.shape)
+        out.append(view.view(torch.float32) if out else view)
+        o += h.numel()
+    return tuple(out)
+
+
+def mask_streams_round(
+    pair_seeds: torch.Tensor,   # [C, C] uint32 counter seeds (0 on diagonal)
+    pair_signs: torch.Tensor,   # f32[C, C] Bonawitz signs (0 on diagonal)
+    leaves,                     # one (nb, k_mask, m, leaf_id) per leaf
+    *,
+    p: float,
+    q: float,
+) -> list:
+    """Every leaf's pair-mask streams of a round: one ``(m_idx, m_vals)``
+    per leaf, bit-equal to ``mask_streams_all_pairs(..., leaf_id=l)``. On
+    the card ONE launch of the pair-mask kernel (per 64 leaves) makes all of
+    them in the per-client layout; on the CPU the per-leaf function runs
+    for each leaf."""
+    if pair_seeds.device.type != "cuda":
+        return [mask_streams_all_pairs(pair_seeds, pair_signs, nb, k_mask, m,
+                                       p=p, q=q, leaf_id=leaf_id)
+                for nb, k_mask, m, leaf_id in leaves]
+    return ops.pair_mask_segments(pair_seeds, pair_signs, list(leaves), p=p,
+                                  q=q, mirror=True)
+
+
+def recovery_streams_round(
+    recovery_seeds: torch.Tensor,   # [C, C] uint32 (survivor<->dropped)
+    pair_signs: torch.Tensor,       # f32[C, C]
+    alive: torch.Tensor,            # bool or 0/1 [C]
+    leaves,                         # one (nb, k_mask, m, leaf_id) per leaf
+    *,
+    p: float,
+    q: float,
+) -> list:
+    """Every leaf's dropout-recovery streams of a round: one
+    :class:`StreamBatch` per leaf, bit-equal to
+    ``dropout_cancel_streams_seeded(..., leaf_id=l)``. On the card ONE
+    launch (per 64 leaves), the gate and the global indices inside the
+    kernel; on the CPU the per-leaf function runs for each leaf."""
+    if recovery_seeds.device.type != "cuda":
+        return [dropout_cancel_streams_seeded(
+            recovery_seeds, pair_signs, alive, nb, k_mask, m, p=p, q=q,
+            leaf_id=leaf_id) for nb, k_mask, m, leaf_id in leaves]
+    out = ops.pair_mask_segments(recovery_seeds, pair_signs, list(leaves),
+                                 p=p, q=q, alive=alive)
+    return [StreamBatch(indices=i, values=v) for i, v in out]
+
+
 # ------------------------------------------------------------- batched encode
 def encode_batch_blocks(
     acc: torch.Tensor,                       # f32[C, nb, m]
@@ -219,21 +289,24 @@ def encode_batch_blocks(
     leaf_id: int | None = None,
     weights: torch.Tensor | None = None,     # f32[C]
     dp_support: torch.Tensor | None = None,  # int[nb, k] public support
+    masks: tuple | None = None,              # (m_idx, m_vals) precomputed
 ) -> tuple[StreamBatch, torch.Tensor]:
-    """Batched client encode: pair masks of the round in one pass, then the
-    unified stream of every client. Returns (StreamBatch with global indices
-    row*m + col, new_acc [C, nb, m]). ``dp_support`` (one support for every
-    client) selects the DP release shape."""
+    """Batched client encode: the leaf's pair masks (``masks``, from
+    :func:`mask_streams_round`, or generated here from ``pair_seeds``), then
+    the unified stream of every client. Returns (StreamBatch with global
+    indices row*m + col, new_acc [C, nb, m]). ``dp_support`` (one support
+    for every client) selects the DP release shape."""
     C, nb, m = acc.shape
     dev = acc.device
     if weights is None:
         weights = torch.ones((C,), dtype=torch.float32, device=dev)
     m_idx = m_vals = None
-    if pair_seeds is not None and k_mask > 0 and C >= 2:
+    if (masks is not None or pair_seeds is not None) and k_mask > 0 \
+            and C >= 2:
         signs = pair_signs.to(dev, torch.float32)
-        m_idx, m_vals = mask_streams_all_pairs(
-            pair_seeds.to(dev), signs, nb, k_mask, m, p=mask_p, q=mask_q,
-            leaf_id=leaf_id)
+        m_idx, m_vals = masks if masks is not None else \
+            mask_streams_all_pairs(pair_seeds.to(dev), signs, nb, k_mask, m,
+                                   p=mask_p, q=mask_q, leaf_id=leaf_id)
         if dp_support is None:
             # Inactive (self) slots carry zero mask value; point their
             # support at the block's top-1 position so the first-occurrence
@@ -314,6 +387,7 @@ def encode_leaf_batch(
     dp_sigma: float = 0.0,
     dp_seeds: torch.Tensor | None = None,
     dp_support_seed: int = 0,
+    masks: tuple | None = None,
 ) -> tuple[StreamBatch, torch.Tensor]:
     """Leaf-level encode: accumulate -> block view -> batched encode.
 
@@ -322,6 +396,8 @@ def encode_leaf_batch(
     slots per pair per block, ``leaf_id`` folded into every pair seed), and
     the new error feedback with the transmitted positions zeroed. Returns
     ``(StreamBatch int32/f32[C, nb, k + C*k_mask], new_residuals)``.
+    ``masks`` (this leaf's entry of :func:`mask_streams_round`) replaces
+    the generation from ``pair_seeds``; ``pair_signs`` is still needed.
 
     ``codec`` (``core/codecs.py``): a non-f32 codec quantizes the values
     (error absorbed into the returned residuals) and runs the packed wire
@@ -350,7 +426,7 @@ def encode_leaf_batch(
     streams, new_acc = encode_batch_blocks(
         acc, k, pair_seeds=pair_seeds, pair_signs=pair_signs,
         k_mask=k_mask, mask_p=mask_p, mask_q=mask_q, leaf_id=leaf_id,
-        weights=weights, dp_support=dp_support)
+        weights=weights, dp_support=dp_support, masks=masks)
     if dp_on:
         streams = StreamBatch(
             indices=streams.indices,
@@ -429,9 +505,10 @@ def dropout_cancel_streams_seeded(
     q: float,
     leaf_id: int | None = None,
 ) -> StreamBatch:
-    """Bonawitz dropout recovery: regenerate every survivor->dropped pair
-    mask from the (Shamir-reconstructed) seeds in one kernel launch and emit
-    its negation; pairs outside ``alive[s] & ~alive[d]`` contribute zeros."""
+    """Bonawitz dropout recovery for one leaf: regenerate every
+    survivor->dropped pair mask from the (Shamir-reconstructed) seeds and
+    emit its negation; pairs outside ``alive[s] & ~alive[d]`` contribute
+    zeros."""
     dev = alive.device
     C = pair_seeds.shape[0]
     alive_f = alive.to(torch.float32)
@@ -459,18 +536,21 @@ def decode_leaf_batch(
     mask_p: float = -1.0,
     mask_q: float = 2.0,
     leaf_id: int = 0,
+    recovery: StreamBatch | None = None,
 ) -> torch.Tensor:
     """Server decode for one leaf: survivor-gated scatter-add, plus the
     cancellation of reconstructed masks when ``alive`` marks dropouts and
-    ``pair_seeds`` (the Shamir-recovered ones) are given.
+    ``pair_seeds`` (the Shamir-recovered ones) are given, or ``recovery``
+    (this leaf's entry of :func:`recovery_streams_round`).
 
     ``weights`` scales whole streams server-side — correct only for uniform
     protocols; weighted FL applies weights client-side at encode. Returns
     f32[size]: the survivors' weighted sparse sum, masks cancelled; the
     caller normalizes by the survivors' total weight.
     """
-    extra = None
-    if alive is not None and pair_seeds is not None and k_mask > 0:
+    extra = recovery
+    if extra is None and alive is not None and pair_seeds is not None \
+            and k_mask > 0:
         extra = dropout_cancel_streams_seeded(
             pair_seeds, pair_signs, alive, nb, k_mask, m,
             p=mask_p, q=mask_q, leaf_id=leaf_id)
@@ -555,13 +635,15 @@ def decode_leaf_tree(
     mask_p: float = -1.0,
     mask_q: float = 2.0,
     leaf_id: int = 0,
+    recovery: StreamBatch | None = None,
 ) -> torch.Tensor:
     """Hierarchical twin of :func:`decode_leaf_batch`: the same arguments
     plus ``splits``, and a bit-equal result. Dropout recovery streams join
     the round stream before the range routing, so each sub-aggregator
     cancels the reconstruction masks landing in its own range."""
-    extra = None
-    if alive is not None and pair_seeds is not None and k_mask > 0:
+    extra = recovery
+    if extra is None and alive is not None and pair_seeds is not None \
+            and k_mask > 0:
         extra = dropout_cancel_streams_seeded(
             pair_seeds, pair_signs, alive, nb, k_mask, m,
             p=mask_p, q=mask_q, leaf_id=leaf_id)

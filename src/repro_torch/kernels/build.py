@@ -28,10 +28,11 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-# each source's C entry points (one per kernel, the packs' segmented twins,
-# and the scatter's scratch-size helper) and their ctypes signatures; the
-# result is a C int (a cudaError code) unless a third element names another
-# type
+# each source's C entry points (one per kernel -- the pair masks' is the
+# segmented round launch, which the flat per-pair call uses as one segment
+# -- the packs' segmented twins, and the scatter's scratch-size helper) and
+# their ctypes signatures; the result is a C int (a cudaError code) unless a
+# third element names another type
 _P, _LL, _U, _F, _I = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint,
                        ctypes.c_float, ctypes.c_int)
 SOURCES = {
@@ -41,8 +42,9 @@ SOURCES = {
         "stream_scatter_add_workspace_bytes": (
             "stream_scatter_add_workspace_bytes", [_LL, _LL], _LL)},
     "pair_mask_streams.cu": {
-        "pair_mask_streams": ("pair_mask_streams_launch",
-                              [_P, _P, _LL, _LL, _U, _F, _F, _P, _P, _P]),
+        "pair_mask_streams": ("pair_mask_round_launch",
+                              [_P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _I,
+                               _P]),
         "mask_prng_apply": ("mask_prng_apply_launch",
                             [_P, _LL, _U, _F, _F, _F, _F, _I, _P, _P, _P])},
     "thgs_sparsify.cu": {

@@ -31,12 +31,29 @@ def stream_scatter_add(indices: torch.Tensor, values: torch.Tensor, *,
 
 def pair_mask_streams(seeds: torch.Tensor, signs: torch.Tensor, *, nb: int,
                       k_mask: int, m: int, p: float = -1.0, q: float = 2.0):
-    """All of a round's pair-mask streams in one pass (Eq. 3-4): one seed
-    and sign per pair -> ``(idx int32[N, nb, k_mask], vals f32)``."""
+    """Pair-mask streams of a flat list of pairs (Eq. 3-4): one seed and
+    sign per pair -> ``(idx int32[N, nb, k_mask], vals f32)``; one segment
+    of :func:`pair_mask_segments`' kernel on the card."""
     if seeds.device.type == "cuda":
         return mask_prng.pair_mask_streams_cuda(seeds, signs, nb=nb,
                                                 k_mask=k_mask, m=m, p=p, q=q)
     return ref.pair_mask_stream_ref(seeds, signs, nb, k_mask, m, p=p, q=q)
+
+
+def pair_mask_segments(seeds: torch.Tensor, signs: torch.Tensor, leaves, *,
+                       p: float = -1.0, q: float = 2.0, mirror: bool = False,
+                       alive: torch.Tensor | None = None) -> list:
+    """Every leaf's pair-mask streams of a round from one ``[rows, peers]``
+    seed and sign matrix, in ONE launch per 64 leaves on the card: each
+    leaf ``(nb, k_mask, m, leaf_id or None)`` -> ``(idx int32, vals f32)``
+    in the engine's per-client layout ``[rows, nb, peers * k_mask]``;
+    ``mirror`` and ``alive`` (the recovery streams: gated, global indices,
+    ``[rows * peers, nb, k_mask]``) as in ``ref.pair_mask_segments_ref``."""
+    if seeds.device.type == "cuda":
+        return mask_prng.pair_mask_segments_cuda(
+            seeds, signs, leaves, p=p, q=q, mirror=mirror, alive=alive)
+    return ref.pair_mask_segments_ref(seeds, signs, leaves, p=p, q=q,
+                                      mirror=mirror, alive=alive)
 
 
 def bitpack_rows(u: torch.Tensor, *, width: int) -> torch.Tensor:

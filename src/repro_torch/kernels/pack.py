@@ -32,13 +32,6 @@ unpack_launches = 0
 _ALIGN = 4        # int32 lanes: each segment's output starts on 16 bytes
 
 
-def _u32_bits(x: torch.Tensor) -> torch.Tensor:
-    """uint32 values in any integer dtype -> the same bits as int32."""
-    if x.dtype != torch.int32:
-        x = ref.i32_lanes(x.to(torch.int64))
-    return x.contiguous()
-
-
 def _check(x: torch.Tensor, name: str, width: int) -> None:
     if not x.is_cuda:
         raise ValueError(f"{name} needs a CUDA tensor, got {x.device}")
@@ -84,7 +77,7 @@ def bitpack_segments_cuda(fields, widths) -> list:
     ref.check_segments(fields, widths, "bitpack_segments_cuda")
     for u, w in zip(fields, widths):
         _check(u, "bitpack_segments_cuda", w)
-    srcs = [_u32_bits(u) for u in fields]
+    srcs = [ref.i32_bits(u) for u in fields]
     ks = [u.shape[1] for u in srcs]
     words = [ref.packed_words(k, w) for k, w in zip(ks, widths)]
     outs = _outputs([(u.shape[0], W) for u, W in zip(srcs, words)],
@@ -110,7 +103,7 @@ def bitunpack_segments_cuda(words, ks, widths) -> list:
         if 32 * x.shape[1] < k * w:
             raise ValueError(f"{x.shape[1]} words hold fewer than {k} "
                              f"fields of {w} bits")
-    srcs = [_u32_bits(x) for x in words]
+    srcs = [ref.i32_bits(x) for x in words]
     outs = _outputs([(x.shape[0], k) for x, k in zip(srcs, ks)],
                     srcs[0].device)
     if _launch("bitunpack_segments", srcs, outs, ks, widths,

@@ -90,6 +90,48 @@ def pair_mask_stream_ref(seeds, signs, nb: int, k_mask: int, m: int,
     return idx, vals
 
 
+def pair_mask_segments_ref(seeds, signs, leaves, *, p: float = -1.0,
+                           q: float = 2.0, mirror: bool = False,
+                           alive=None) -> list:
+    """Plain version of the segmented pair-mask kernel: for ``[rows,
+    peers]`` seeds and signs and each leaf ``(nb, k_mask, m, leaf_id or
+    None)``, the seed read at ``(min(i, j), max(i, j))`` under ``mirror``,
+    the leaf folded in, the streams drawn with sign 1 and multiplied by
+    ``signs[i, j]``. Returns one ``(idx int32, vals f32)`` per leaf,
+    ``[rows, nb, peers * k_mask]``; with ``alive``, the recovery streams:
+    values multiplied by ``-(alive[i] * (1 - alive[j]))``, ``b * m`` added
+    to the indices, ``[rows * peers, nb, k_mask]``."""
+    seeds = as_u32(seeds)
+    dev = seeds.device
+    rows, peers = seeds.shape
+    if mirror:
+        i = torch.arange(rows, device=dev)[:, None]
+        j = torch.arange(peers, device=dev)[None, :]
+        seeds = seeds[torch.minimum(i, j), torch.maximum(i, j)]
+    signs = torch.as_tensor(signs, dtype=torch.float32, device=dev)
+    ones = torch.ones((rows, peers), dtype=torch.float32, device=dev)
+    gate = None
+    if alive is not None:
+        a = torch.as_tensor(alive, device=dev).to(torch.float32)
+        gate = a[:, None] * (1.0 - a[None, :])
+    out = []
+    for nb, k_mask, m, leaf_id in leaves:
+        s = seeds if leaf_id is None else fold_leaf_seed(seeds, leaf_id)
+        idx, mag = pair_mask_stream_ref(s, ones, nb, k_mask, m, p=p, q=q)
+        vals = signs[:, :, None, None] * mag
+        if gate is not None:
+            vals = -gate[:, :, None, None] * vals
+            idx = torch.arange(nb, dtype=torch.int32,
+                               device=dev)[:, None] * m + idx
+            shape = (rows * peers, nb, k_mask)
+            out.append((idx.reshape(shape), vals.reshape(shape)))
+        else:
+            shape = (rows, nb, peers * k_mask)
+            out.append((idx.permute(0, 2, 1, 3).reshape(shape),
+                        vals.permute(0, 2, 1, 3).reshape(shape)))
+    return out
+
+
 def thgs_sparsify_ref(g: torch.Tensor, residual: torch.Tensor,
                      threshold) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused THGS threshold split: ``acc = f32(g) + f32(residual)``,
@@ -312,6 +354,14 @@ def check_segments(arrays, widths, name: str) -> None:
 def i32_lanes(x: torch.Tensor) -> torch.Tensor:
     """int64 lanes holding uint32 values -> int32 lanes with the same bits."""
     return (x & M32).to(torch.int32)
+
+
+def i32_bits(x: torch.Tensor) -> torch.Tensor:
+    """uint32 values in any integer dtype -> the same bits as contiguous
+    int32 lanes (int32 lanes are taken as they are)."""
+    if x.dtype != torch.int32:
+        x = i32_lanes(x.to(torch.int64))
+    return x.contiguous()
 
 
 def bitpack_segments_ref(fields, widths) -> list:

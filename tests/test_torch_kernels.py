@@ -266,7 +266,9 @@ def test_cuda_kernels_bit_equal_to_plain_versions():
     the scatter is deterministic and folds in slot order, also on a stream
     all in one tile, at a position with 12,000 non-zero entries, on a tree
     group's dump-slot buffer and on an all-zero stream; one launch counted
-    per scatter call."""
+    per scatter call. The pair-mask kernel's round launch over mnist_mlp's
+    4 and VGG16's 54 leaves, masks and recovery streams, is one launch each
+    and bit-equal to its plain version and to the per-leaf flat calls."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels are CUDA C++ for sm_90a "
                     "with no CPU mode")
@@ -316,6 +318,53 @@ def test_cuda_kernels_bit_equal_to_plain_versions():
     counts = ops.launch_counts()
     assert (counts["stream_scatter_add"], counts["pair_mask_streams"]) == \
         (2 * len(cases), 1)
+    # the round launch: every leaf of a mnist_mlp round (4) and of a VGG16
+    # round (54), and their recovery streams, one launch each, bit-equal to
+    # the segmented plain version and to the per-leaf flat launches
+    from repro_torch.core import streams as tse
+    from repro_torch.models.paper_models import build_model
+
+    C = 5
+    rs = np.random.RandomState(6)
+    s = np.triu(rs.randint(0, 2**32, (C, C), dtype=np.uint64)
+                .astype(np.int64), 1)
+    s[0, 4] = 2**32 - 1
+    s = s + s.T
+    g = np.triu(rs.choice([-1.0, 1.0], (C, C)), 1).astype(np.float32)
+    g = g - g.T
+    g[1, 3] = g[3, 1] = 0.0
+    alive = np.array([True, False, True, True, False])
+    rec = np.where(alive[:, None] != alive[None, :], s, 0)
+    seeds, sg = tse.round_matrices(dev, torch.from_numpy(s),
+                                   torch.from_numpy(g))
+    rseeds, al = tse.round_matrices(dev, torch.from_numpy(rec),
+                                    torch.from_numpy(alive))
+    with torch.device("meta"):
+        vgg = [x.numel() for x in build_model(
+            "cifar_vgg16", device="meta").params().values()]
+    for sizes in ([156800, 200, 2000, 10], vgg):
+        leaves = [(1, max(1, int(n * 0.01 / C)), n, leaf)
+                  for leaf, n in enumerate(sizes)]
+        ops.reset_launch_counts()
+        got = tse.mask_streams_round(seeds, sg, leaves, p=-1.0, q=2.0)
+        rgot = tse.recovery_streams_round(rseeds, sg, al, leaves, p=-1.0,
+                                          q=2.0)
+        assert ops.launch_counts()["pair_mask_streams"] == 2
+        plain = tref.pair_mask_segments_ref(seeds, sg, leaves, mirror=True)
+        rplain = tref.pair_mask_segments_ref(rseeds, sg, leaves, alive=al)
+        for (nb, km, m, leaf), (i, v), (pi_, pv_), r, (ri, rv) in zip(
+                leaves, got, plain, rgot, rplain):
+            fi, fv = tse.mask_streams_all_pairs(seeds, sg, nb, km, m, p=-1.0,
+                                                q=2.0, leaf_id=leaf)
+            fr = tse.dropout_cancel_streams_seeded(rseeds, sg, al, nb, km, m,
+                                                   p=-1.0, q=2.0,
+                                                   leaf_id=leaf)
+            for a_, b_ in ((i, pi_), (i, fi), (r.indices, ri),
+                           (r.indices, fr.indices)):
+                assert torch.equal(a_, b_)
+            for a_, b_ in ((v, pv_), (v, fv), (r.values, rv),
+                           (r.values, fr.values)):
+                assert torch.equal(a_.view(torch.int32), b_.view(torch.int32))
 
 
 @pytest.mark.gpu
