@@ -106,6 +106,31 @@ exits non-zero and no failure is caught:
      tokens/s, peak memory; then Yi-6B at full width and 2 layers in f32
      (TF32 off), one 256-token prompt and 4 new tokens, on the card against
      the CPU's plain path: logits within 2e-4 and equal tokens.
+ 12. resume: ``table2_quick`` killed by a round hook after round 6 and
+     resumed to 12 (a checkpoint every 6 rounds under ``build/smoke``), then
+     ``async_quick`` killed after round 4 of 8: ledger entries, accuracies,
+     losses, final params, residuals (and the async version ring) bit-equal
+     to an uninterrupted run in this process; counts reset before the
+     killed leg and read after the resumed one (the pair-mask kernel 12
+     times over the two legs of table2_quick); each killed checkpoint is
+     also resumed by ``python -m repro_torch.sim --ckpt-dir`` in a fresh
+     process, whose ledger, accuracies, losses and final checkpoint must be
+     bit-equal to the same uninterrupted run; then one VGG16 checkpoint
+     (its params and 10 clients' residuals, about 650 MB on disk): save and
+     restore times, restored bit-equal.
+ 13. serve: ``python -m repro_torch.serving --preset table2 --qps 1000``
+     through its ``main()`` on the card (training in the main thread, the
+     server, the load generator and the checkpoint watcher in threads;
+     counts reset before and read after): 0 errors, at least one swap, the
+     final published step active, a valid ``repro.serve/v1`` document, at
+     least 200 requests served before training ended; served count,
+     latency p50/p99, swap pauses and staleness printed; then
+     one VGG16 publish (14,728,266 parameters) staged through the
+     ``CheckpointWatcher`` while 120 large matmuls sit queued on the
+     default stream: host load ms, side-stream copy ms, swap pause, the
+     queued work still running when the staging ended (it waits on its own
+     stream's event only), logits after the swap bit-equal to a cold
+     restore.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. ``--only flash`` runs phases 1 and 10
@@ -122,6 +147,8 @@ outside a checkout, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -2015,6 +2042,318 @@ def lm_phase(kind: str, card: str, flash_main_ms: float) -> dict:
     return counts
 
 
+# ----------------------------------------------------- phase 12: resume
+RESUME_CUTS = (("table2_quick", 6), ("async_quick", 4))   # (preset, kill at)
+SMOKE_DIR = ROOT / "build" / "smoke"       # checkpoints, removed at the end
+
+
+class Killed(Exception):
+    """Raised by a round hook to kill a run after a given round."""
+
+
+def vgg16_tree(device, n_clients: int = 10) -> dict:
+    """VGG16's params (He-normal, seed 0) and ``n_clients`` residuals
+    (seeded normals) on the card: the tree a checkpoint of a VGG16 run
+    holds."""
+    import torch
+
+    from repro_torch.models.paper_models import build_model
+
+    model = build_model("cifar_vgg16").init_(
+        torch.Generator().manual_seed(0))
+    params = {n: p.detach().to(device) for n, p in model.params().items()}
+    g = torch.Generator(device=device).manual_seed(1)
+    residuals = {c: {n: 1e-3 * torch.randn(p.shape, generator=g,
+                                           device=device)
+                     for n, p in params.items()} for c in range(n_clients)}
+    return {"params": params, "residuals": residuals}
+
+
+def resume_in_fresh_process(preset: str, kind: str, ckpt_dir: str,
+                            kill_at: int, full_sim, full) -> None:
+    """Resume a killed leg's checkpoints with ``python -m repro_torch.sim``
+    in a new process (a crash resume always starts one; cuBLAS may choose
+    again there) and hold its JSON ledger, accuracies, losses and its final
+    checkpoint bit-equal to the uninterrupted run of this process."""
+    from repro_torch import checkpoint
+
+    out = os.path.join(ckpt_dir, "resumed.json")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.sim", "--preset", preset,
+         "--ckpt-dir", ckpt_dir, "--ckpt-every", str(kill_at),
+         "--out", out],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    t1 = time.perf_counter()
+    check(proc.returncode == 0,
+          f"python -m repro_torch.sim resuming {preset} exited "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    with open(out) as f:
+        doc = json.load(f)
+    want = json.loads(json.dumps(full.summary(), default=float))
+    rounds = [int(ln.split()[1]) for ln in proc.stdout.splitlines()
+              if ln.startswith("round ")]
+    ledger_eq = doc["ledger"]["entries"] == want["ledger"]["entries"]
+    accs_eq = doc["accuracies"] == want["accuracies"]
+    losses_eq = doc["losses"] == want["losses"]
+    like = full_sim._ckpt_tree(full_sim.state)
+    back = checkpoint.restore(ckpt_dir, full.rounds, like=like)
+    leaves_eq: list = []
+    checkpoint.map_leaves(lambda w, b: leaves_eq.append(bits_equal(b, w)),
+                          like, back)
+    state_eq = bool(leaves_eq) and all(leaves_eq)
+    print(f"[resume] {preset} on {kind}, resumed in a fresh process "
+          f"(python -m repro_torch.sim --ckpt-dir, {t1 - t0:.1f} s, eval "
+          f"rounds {rounds}): against the uninterrupted run: ledger entries "
+          f"equal={ledger_eq} accuracies equal={accs_eq} losses equal="
+          f"{losses_eq} final checkpoint ({len(leaves_eq)} leaves) "
+          f"bit-equal={state_eq}", flush=True)
+    check(bool(rounds) and rounds[0] > kill_at,
+          f"{preset}: the fresh process evaluated rounds {rounds}; it did "
+          f"not resume after round {kill_at}")
+    check(checkpoint.latest_step(ckpt_dir) == full.rounds,
+          f"{preset}: the fresh process saved no final checkpoint")
+    check(ledger_eq and accs_eq and losses_eq,
+          f"{preset}: the fresh-process resume's ledger, accuracies or "
+          "losses differ from the uninterrupted run")
+    check(state_eq, f"{preset}: the fresh-process resume's final params, "
+          "residuals or ring differ from the uninterrupted run")
+
+
+def resume_phase(kind: str) -> dict:
+    """Each of RESUME_CUTS killed by a hook after its round and resumed to
+    the end, against an uninterrupted run in this process; then one VGG16
+    checkpoint saved and restored. Returns the two legs' launch counts."""
+    import shutil
+
+    import torch
+
+    from repro_torch import checkpoint
+    from repro_torch.kernels import ops
+    from repro_torch.sim import presets
+    from repro_torch.sim.engine import simulation_for
+
+    shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    legs_counts = {}
+    for preset, kill_at in RESUME_CUTS:
+        cfg = presets.get(preset).replace(out_json=None)
+        full_sim = simulation_for(cfg, device="cuda")
+        full = full_sim.run()
+        ckcfg = cfg.replace(ckpt_dir=str(SMOKE_DIR / preset),
+                            ckpt_every=kill_at)
+
+        def die(r, info, kill_at=kill_at):
+            if r + 1 == kill_at:
+                raise Killed
+
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            simulation_for(ckcfg, device="cuda").run(hooks=[die])
+            fail(f"{preset}: the kill hook did not fire")
+        except Killed:
+            pass
+        t1 = time.perf_counter()
+        # a copy of the killed leg's checkpoints for the fresh-process resume
+        shutil.copytree(ckcfg.ckpt_dir, ckcfg.ckpt_dir + "_cli")
+        sim, seen = simulation_for(ckcfg, device="cuda"), []
+        res = sim.run(hooks=[lambda r, info: seen.append(r)])
+        t2 = time.perf_counter()
+        counts = ops.launch_counts()
+        legs_counts[preset] = counts
+        a, b = sim.state, full_sim.state
+        params_eq = all(bits_equal(a.params[n], b.params[n])
+                        for n in b.params)
+        resid_eq = (sorted(a.residuals) == sorted(b.residuals)
+                    and all(bits_equal(a.residuals[c][n], b.residuals[c][n])
+                            for c in b.residuals for n in b.params))
+        ring_eq = (not hasattr(sim, "versions")
+                   or (len(sim.versions) == len(full_sim.versions)
+                       and all(bits_equal(v[n], w[n]) for v, w in
+                               zip(sim.versions, full_sim.versions)
+                               for n in w)))
+        ledger_eq = res.ledger.entries == full.ledger.entries
+        print(f"[resume] {preset} on {kind}: killed after round {kill_at} "
+              f"({t1 - t0:.3f} s), resumed rounds {seen[0] + 1}-{seen[-1] + 1} "
+              f"({t2 - t1:.3f} s); against the uninterrupted run: ledger "
+              f"entries equal={ledger_eq} accuracies equal="
+              f"{res.accuracies == full.accuracies} losses equal="
+              f"{res.losses == full.losses} params bit-equal={params_eq} "
+              f"residuals bit-equal={resid_eq} ring bit-equal={ring_eq} "
+              f"launches over both legs={counts}", flush=True)
+        check(seen == list(range(kill_at, cfg.rounds)),
+              f"{preset} resumed at the wrong round: {seen}")
+        check(ledger_eq and res.accuracies == full.accuracies
+              and res.losses == full.losses,
+              f"{preset}: the resumed run's ledger, accuracies or losses "
+              "differ from the uninterrupted run")
+        check(params_eq and resid_eq and ring_eq,
+              f"{preset}: the resumed run's params, residuals or ring "
+              "differ from the uninterrupted run")
+        check(counts["stream_scatter_add"] > 0,
+              f"{preset}'s legs never launched the scatter")
+        if cfg.sa.enabled:
+            check(counts["pair_mask_streams"] == cfg.rounds,
+                  f"{preset}'s legs launched pair_mask_streams "
+                  f"{counts['pair_mask_streams']} times, expected one a "
+                  f"round ({cfg.rounds})")
+        resume_in_fresh_process(preset, kind, ckcfg.ckpt_dir + "_cli",
+                                kill_at, full_sim, full)
+
+    # one VGG16 checkpoint: params and 10 clients' residuals
+    device = torch.device("cuda")
+    tree = vgg16_tree(device)
+    d = str(SMOKE_DIR / "vgg16")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = checkpoint.save(d, 1, tree)
+    t1 = time.perf_counter()
+    back = checkpoint.restore(d, 1, like=tree)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    same = (all(bits_equal(back["params"][n], tree["params"][n])
+                for n in tree["params"])
+            and all(bits_equal(back["residuals"][c][n],
+                               tree["residuals"][c][n])
+                    for c in tree["residuals"] for n in tree["params"]))
+    n_params = sum(p.numel() for p in tree["params"].values())
+    print(f"[resume] cifar_vgg16 checkpoint on {kind}: {n_params} params + "
+          f"{len(tree['residuals'])} clients' residuals, "
+          f"{os.path.getsize(path) / 1e6:.1f} MB on disk: save "
+          f"{(t1 - t0) * 1e3:.1f} ms, restore {(t2 - t1) * 1e3:.1f} ms, "
+          f"bit-equal={same}", flush=True)
+    check(same, "the VGG16 checkpoint did not restore bit-equal")
+    del tree, back
+    shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    return legs_counts
+
+
+# ------------------------------------------------------ phase 13: serve
+SERVE_PRESET = "table2"   # the full Table 2 protocol, 28 rounds
+SERVE_QPS = 1000          # offered load while it trains (open loop)
+SERVE_MIN_TRAINING = 200  # requests served before training must end
+BUSY_MATMULS = 120        # 8192^3 f32 products, ~20 ms each on an H100
+
+
+def serve_phase(kind: str) -> dict:
+    """``python -m repro_torch.serving --preset table2 --qps 1000`` through
+    ``main()`` on the card, then one VGG16 publish staged through
+    the watcher while the default stream is busy. Returns the CLI run's
+    launch counts."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch import checkpoint, serving
+    from repro_torch.kernels import ops
+    from repro_torch.models.paper_models import build_model
+    from repro_torch.serving.__main__ import main as serve_main
+    from repro_torch.sim import presets
+
+    shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    out = SMOKE_DIR / "serve.json"
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = serve_main(["--preset", SERVE_PRESET, "--qps", str(SERVE_QPS),
+                         "--publish-dir", str(SMOKE_DIR / "pub"),
+                         "--out", str(out)])
+    counts = ops.launch_counts()
+    for line in text.getvalue().splitlines():
+        print(f"[serve] {line}", flush=True)
+    check(rc == 0, f"python -m repro_torch.serving exited {rc}")
+    trained = re.search(r"trained (\d+) rounds in ([\d.]+) s .* (\d+) of "
+                        r"them before training ended", text.getvalue())
+    check(trained is not None, "the serve CLI printed no training window")
+    train_s, in_training = float(trained.group(2)), int(trained.group(3))
+    rounds = presets.get(SERVE_PRESET).rounds
+    doc = serving.load_metrics(str(out))
+    req, lat, sw, st = (doc["requests"], doc["latency_us"], doc["swaps"],
+                        doc["staleness"])
+    print(f"[serve] {SERVE_PRESET} at {SERVE_QPS} qps on {kind}: served "
+          f"{req['served']} of {req['submitted']} ({in_training} while "
+          f"{rounds} rounds trained in {train_s:.3f} s; {req['errors']} "
+          f"errors), latency p50 "
+          f"{lat['p50']:.1f} us p99 {lat['p99']:.1f} us, swaps "
+          f"{sw['count']} at steps {sw['steps']} (pause p50 "
+          f"{sw['pause_us']['p50']:.2f} us max {sw['pause_us']['max']:.2f} "
+          f"us), staleness mean {st['mean']:.3f} max {st['max']} over "
+          f"{st['samples']} batches, launches={counts}", flush=True)
+    check(serving.validate_metrics(doc) == [], "invalid serve document")
+    check(req["errors"] == 0, f"{req['errors']} errored requests")
+    check(sw["count"] >= 1, "no hot swap happened")
+    check(in_training >= SERVE_MIN_TRAINING,
+          f"only {in_training} requests were served while training ran")
+    check(sw["steps"][-1] == rounds,
+          f"the server settled on step {sw['steps'][-1]}, not the final "
+          f"published step {rounds}")
+    check(counts["stream_scatter_add"] > 0
+          and counts["pair_mask_streams"] == rounds,
+          f"the serve loop's training launched {counts}")
+
+    # one VGG16 publish, staged through the watcher on its own stream while
+    # the default stream holds queued work, then swapped between batches
+    device = torch.device("cuda")
+    vgg = build_model("cifar_vgg16")
+    old = vgg16_tree(device, n_clients=0)["params"]
+    new = {n: p.detach().to(device) for n, p in build_model("cifar_vgg16")
+           .init_(torch.Generator().manual_seed(7)).params().items()}
+    pub = str(SMOKE_DIR / "vgg16_pub")
+    checkpoint.publish(pub, 1, new)
+    metrics = serving.ServingMetrics()
+    buffers = serving.WeightBuffers(old, step=0)
+    watcher = serving.CheckpointWatcher(pub, old, buffers, metrics=metrics)
+    server = serving.InferenceServer(serving.ClassifierAdapter(vgg, 8),
+                                     watcher=watcher, metrics=metrics)
+    x = np.random.RandomState(0).randn(*vgg.input_shape).astype(np.float32)
+    busy = torch.randn(8192, 8192, device=device)
+    torch.cuda.synchronize()
+    b0 = torch.cuda.Event(enable_timing=True)
+    b1 = torch.cuda.Event(enable_timing=True)
+    b0.record()
+    for _ in range(BUSY_MATMULS):             # queued on the default stream
+        busy = torch.tanh(busy @ busy)
+    b1.record()
+    t0 = time.perf_counter()
+    staged = watcher.poll_once()
+    t_stage = time.perf_counter() - t0
+    busy_left = not b1.query()                # still running at staging's end
+    torch.cuda.synchronize()
+    busy_ms = b0.elapsed_time(b1)
+    ticket = server.submit(x)
+    server.step(block=True)
+    after = ticket.wait(60.0)
+    cold = serving.InferenceServer(serving.ClassifierAdapter(vgg, 8),
+                                   checkpoint.restore(pub, 1, like=old))
+    ticket = cold.submit(x)
+    cold.step(block=True)
+    same = after.tobytes() == ticket.wait(60.0).tobytes()
+    n_params = sum(p.numel() for p in new.values())
+    stage = watcher.last_stage
+    print(f"[serve] cifar_vgg16 publish on {kind}: {n_params} params "
+          f"({4 * n_params / 1e6:.1f} MB) staged as step {staged}: host load "
+          f"{stage['load_ms']:.2f} ms, side-stream copy {stage['copy_ms']:.2f} "
+          f"ms (staging {t_stage * 1e3:.2f} ms while {busy_ms:.1f} ms of "
+          f"work sat queued on the default stream, still running at its "
+          f"end={busy_left}), swap pause {metrics.swap_pauses_us[-1]:.2f} "
+          f"us, logits after the swap bit-equal to a cold restore={same}",
+          flush=True)
+    check(staged == 1 and buffers.active_step == 1,
+          "the VGG16 publish was not staged and swapped in")
+    check(busy_left, "the staging ended only after the default stream's "
+          "queued work: it waited on the device, not on its own stream")
+    check(same, "logits after the VGG16 swap differ from a cold restore")
+    del busy, old, new, buffers, watcher, server, cold
+    shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    return counts
+
+
 def main() -> int:
     import argparse
 
@@ -2259,6 +2598,13 @@ def main() -> int:
     # ------------------------------------------------------------ 11. LM
     lm_counts = lm_phase(kind, card, rows["flash_attention"][0]["ms"])
     print(f"[lm] phases 10-11 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ------------------------------------------------ 12-13. resume, serve
+    t_phase = time.perf_counter()
+    resume_phase(kind)
+    serve_phase(kind)
+    print(f"[serve] phases 12-13 took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
     # ------------------------------------------------------------ report

@@ -2,9 +2,10 @@
 ``repro.serving.server``).
 
 Control plane (host threads): a request queue, fixed-shape batch assembly,
-the swap hook between batches, per-request latency accounting. Data plane
-(device): one adapter call per batch at the fixed ``[max_batch, ...]``
-shape — partial batches are padded with zero rows, discarded on the host.
+the checkpoint watcher's swap hook between batches, per-request latency
+accounting. Data plane (device): one adapter call per batch at the fixed
+``[max_batch, ...]`` shape — partial batches are padded with zero rows,
+discarded on the host.
 
 Two adapters:
 
@@ -14,9 +15,9 @@ Two adapters:
   with the KV cache written in place: request = a fixed-length prompt,
   response = ``n_new`` generated tokens.
 
-Weights live in :class:`~repro_torch.serving.hot_swap.WeightBuffers`; the
-checkpoint watcher that swaps in published weights waits for the port's
-checkpoint slice (slice F), so ``watcher=`` is refused.
+Weights live in :class:`~repro_torch.serving.hot_swap.WeightBuffers`. The
+server never blocks a request on training: weights change only through
+``watcher.maybe_swap()`` between batches.
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ import torch
 from repro_torch.launch.serve import (make_decode_step, make_prefill_step,
                                       next_token)
 from repro_torch.models.transformer import check_supported
-from repro_torch.serving.hot_swap import WeightBuffers
+from repro_torch.serving.hot_swap import CheckpointWatcher, WeightBuffers
 from repro_torch.serving.metrics import ServingMetrics
 
 
@@ -121,24 +122,23 @@ class InferenceServer:
     """Queue -> fixed-shape batch -> adapter -> per-request responses.
 
     Drive it synchronously with :meth:`step` (tests, benchmarks) or as a
-    background thread with :meth:`start`/:meth:`stop` (the load generator).
-    It serves its initial weights; a checkpoint ``watcher`` is not ported
-    yet.
+    background thread with :meth:`start`/:meth:`stop` (the load generator,
+    the train+serve CLI). ``watcher`` is optional — without one the server
+    serves its initial weights forever.
     """
 
     def __init__(self, adapter, params: Any = None, *, step: int = 0,
-                 watcher: Any = None,
+                 watcher: Optional[CheckpointWatcher] = None,
                  metrics: Optional[ServingMetrics] = None,
                  batch_wait_s: float = 0.002):
-        if watcher is not None:
-            raise NotImplementedError(
-                "InferenceServer(watcher=...): the checkpoint watcher and "
-                "hot swap from published checkpoints wait for the port's "
-                "checkpoint slice (ROADMAP Queue 1, slice F)")
-        if params is None:
-            raise ValueError("need initial params")
         self.adapter = adapter
-        self.buffers = WeightBuffers(params, step=step)
+        if watcher is not None:
+            self.buffers = watcher.buffers   # weights live with the watcher
+        elif params is not None:
+            self.buffers = WeightBuffers(params, step=step)
+        else:
+            raise ValueError("need initial params or a watcher")
+        self.watcher = watcher
         self.metrics = metrics if metrics is not None else ServingMetrics()
         self.batch_wait_s = batch_wait_s
         self._queue: "queue.Queue[_Ticket]" = queue.Queue()
@@ -171,8 +171,10 @@ class InferenceServer:
         return tickets
 
     def step(self, block: bool = False) -> int:
-        """Serve one batch: assemble, run, respond. Returns the number of
-        requests served."""
+        """Serve one batch: swap if a fresh buffer is staged, assemble, run,
+        respond. Returns the number of requests served."""
+        if self.watcher is not None:
+            self.watcher.maybe_swap()
         tickets = self._collect(block)
         if not tickets:
             return 0
@@ -180,7 +182,9 @@ class InferenceServer:
         rows = [t.payload for t in tickets] + [self._zero] * pad
         stack = torch.from_numpy(np.stack(rows))
         step_served = self.buffers.active_step
-        self.metrics.record_batch(len(tickets), step_served, None)
+        self.metrics.record_batch(
+            len(tickets), step_served,
+            self.watcher.latest_seen if self.watcher is not None else None)
         try:
             out = self.adapter.infer(self.buffers.active_params, stack)
         except Exception as e:

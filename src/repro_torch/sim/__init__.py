@@ -2,10 +2,11 @@
 (``python -m repro_torch.sim --preset table2_quick``)."""
 from repro_torch.sim.config import SimConfig
 from repro_torch.sim.engine import (AsyncSimulation, SimResult, Simulation,
-                                    simulate, simulation_for)
+                                    publish_params_hook, simulate,
+                                    simulation_for)
 from repro_torch.sim.ledger import CommLedger, LedgerEntry, mib
 from repro_torch.sim.sampler import ClientSampler
 
 __all__ = ["SimConfig", "SimResult", "Simulation", "AsyncSimulation",
-           "simulate", "simulation_for", "CommLedger", "LedgerEntry", "mib",
-           "ClientSampler"]
+           "simulate", "simulation_for", "publish_params_hook", "CommLedger",
+           "LedgerEntry", "mib", "ClientSampler"]

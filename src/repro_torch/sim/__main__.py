@@ -8,12 +8,16 @@
     python -m repro_torch.sim --preset tree_quick
     python -m repro_torch.sim --preset async_quick
     python -m repro_torch.sim --preset ci_smoke --topology tree --tree-groups 4
+    python -m repro_torch.sim --preset ci_smoke --ckpt-dir ck --ckpt-every 1
     python -m repro_torch.sim --list
 
 Runs the named preset (with any overrides) on the CUDA device, prints
 per-eval progress and the ledger under both bit accountings in the
 reference CLI's format (and the composed (ε, δ) of a DP run), and writes the
-JSON ledger to ``--out`` (or the preset's default path). A codec sweep
+JSON ledger to ``--out`` (or the preset's default path). With
+``--ckpt-dir`` it checkpoints every ``--ckpt-every`` rounds and, run again,
+resumes from the newest checkpoint there (``--no-resume`` starts over); the
+reference's checkpoints resume too. A codec sweep
 (``codec_sweep[_quick]``) or a DP sweep (``dp_frontier[_quick]``) runs every
 arm and writes one combined JSON. Without a CUDA device it exits non-zero
 unless ``--device cpu`` is given.
@@ -60,6 +64,10 @@ def _sweep_overrides(args, cfg) -> dict:
     over = {}
     if args.rounds is not None:
         over["rounds"] = args.rounds
+    if args.seed is not None:
+        over["seed"] = args.seed
+    if args.dropout is not None:
+        over["dropout_rate"] = args.dropout
     if args.quick:
         _quick(over, cfg)
     return over
@@ -84,7 +92,8 @@ def _run_arms(args, arms: dict, axis: str, device) -> dict:
         print(f"# sweep={args.preset} arm {axis}={label} rounds={cfg.rounds} "
               f"cohort={cfg.clients_per_round}/{cfg.n_clients} "
               f"device={device}", flush=True)
-        res = Simulation(cfg, device=device).run(hooks=[_progress_hook])
+        res = Simulation(cfg, device=device).run(resume=False,
+                                                 hooks=[_progress_hook])
         runs[label] = res.summary()
     return runs
 
@@ -143,6 +152,15 @@ def main(argv=None) -> int:
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "PyTorch versions of the kernels)")
     ap.add_argument("--rounds", type=int, default=None)
+    ap.add_argument("--seed", type=int, default=None)
+    ap.add_argument("--dropout", type=float, default=None,
+                    help="override dropout_rate")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint into (and resume from) this directory")
+    ap.add_argument("--ckpt-every", type=int, default=None,
+                    help="checkpoint every N rounds")
+    ap.add_argument("--no-resume", action="store_true",
+                    help="ignore existing checkpoints")
     ap.add_argument("--out", default=None,
                     help="JSON ledger path (default: the preset's out_json)")
     ap.add_argument("--quick", action="store_true",
@@ -201,6 +219,14 @@ def main(argv=None) -> int:
     over = {}
     if args.rounds is not None:
         over["rounds"] = args.rounds
+    if args.seed is not None:
+        over["seed"] = args.seed
+    if args.dropout is not None:
+        over["dropout_rate"] = args.dropout
+    if args.ckpt_dir is not None:
+        over["ckpt_dir"] = args.ckpt_dir
+    if args.ckpt_every is not None:
+        over["ckpt_every"] = args.ckpt_every
     if args.out is not None:
         over["out_json"] = args.out
     if args.topology is not None:
@@ -242,7 +268,7 @@ def main(argv=None) -> int:
           f"cohort={cfg.clients_per_round}/{cfg.n_clients}"
           f"{codec_note}{mode_note}{topo_note}{dp_note} device={device}",
           flush=True)
-    res = sim.run(hooks=[_progress_hook])
+    res = sim.run(resume=not args.no_resume, hooks=[_progress_hook])
 
     for acct in ("paper", "tpu"):
         t = res.ledger.totals(acct)

@@ -187,9 +187,6 @@ class SimConfig:
         if self.shard_clients == "on":
             raise _not_ported("shard_clients='on'",
                               "slice E (the client-sharded round)")
-        if self.ckpt_dir is not None:
-            raise _not_ported("checkpoints and resume (ckpt_dir), sync or "
-                              "async", "slice F (checkpoint and serving)")
         if self.thgs is None and self.sa.enabled:
             raise _not_ported("dense secure aggregation (thgs=None with "
                               "sa.enabled)", "slice I (the datacenter layer)")

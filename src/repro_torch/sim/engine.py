@@ -19,17 +19,30 @@ the JAX package's initial params, for parity runs.
 step; each report trained from a parameter version ``tau`` steps old, with
 ``tau`` drawn counter-based from ``(seed, 0xA5, step)`` as the reference
 draws it, out of a ring of the last ``max_staleness + 1`` versions.
-Checkpoints (and the ring's) come with a later slice.
+
+Checkpoint/resume: with ``cfg.ckpt_dir`` and ``cfg.ckpt_every``, every
+``ckpt_every`` rounds the engine saves params and residuals (and the async
+ring) through ``checkpoint.store`` in the reference's format, then a JSON
+sidecar ``sim_<round>.json`` (client losses, accuracies, losses, ledger
+entries). ``run(resume=True)`` picks up from the newest consistent (npz,
+sidecar) pair — one the reference wrote too — and, under the same
+``rounds`` horizon, replays the uninterrupted run bit for bit: every draw
+is a pure function of (seed, round, client). ``publish_params_hook``
+publishes the post-round params for a serving ``CheckpointWatcher``.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import time
+import warnings
 from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch import checkpoint
 from repro_torch.convert import params_from_jax
 from repro_torch.core import costs
 from repro_torch.core.fedavg import (FederatedState, init_state,
@@ -46,6 +59,20 @@ from repro_torch.sim.sampler import ClientSampler
 # hook(round_t, info) with info keys:
 #   state, cohort, dropped, loss, record, acc (only on eval rounds)
 RoundHook = Callable[[int, dict], None]
+
+
+def publish_params_hook(publish_dir: str, every: int = 1) -> RoundHook:
+    """A :data:`RoundHook` that publishes the post-round global params (the
+    bare ``{name: tensor}`` dict, not the training state) with
+    ``checkpoint.publish`` at step ``round + 1``, every ``every`` rounds:
+    the trainer only drops complete checkpoints, and the server's
+    ``CheckpointWatcher`` polls them up."""
+    def hook(round_t: int, info: dict) -> None:
+        if (round_t + 1) % max(1, every) == 0:
+            checkpoint.publish(publish_dir, round_t + 1,
+                               info["state"].params)
+
+    return hook
 
 
 def resolve_device(device) -> torch.device:
@@ -195,14 +222,99 @@ class Simulation:
             dp=cfg.dp, topology=cfg.topology, tree_groups=cfg.tree_groups)
         return state, {"cohort": cohort, "dropped": dropped}
 
-    def run(self, *, hooks: Sequence[RoundHook] = ()) -> SimResult:
+    # ------------------------------------------------------------ checkpoint
+    def _sidecar_path(self, step: int) -> str:
+        return os.path.join(self.cfg.ckpt_dir, f"sim_{step:08d}.json")
+
+    # the four hooks AsyncSimulation extends to keep its version ring
+    def _ckpt_tree(self, state: FederatedState) -> dict:
+        return {"params": state.params, "residuals": state.residuals}
+
+    def _ckpt_like(self, state: FederatedState, meta: dict) -> dict:
+        return {"params": state.params, "residuals": state.residuals}
+
+    def _load_ckpt_tree(self, state: FederatedState, tree: dict) -> None:
+        state.params = tree["params"]
+        state.residuals = tree["residuals"]
+
+    def _sidecar_extra(self) -> dict:
+        return {}
+
+    def _save_ckpt(self, round_done: int, state: FederatedState,
+                   accs: list, losses: list) -> None:
+        checkpoint.save(self.cfg.ckpt_dir, round_done, self._ckpt_tree(state))
+        sidecar = {
+            "round": round_done,
+            "client_losses": {str(c): float(v)
+                              for c, v in state.losses.items()},
+            "accuracies": [float(a) for a in accs],
+            "losses": [float(x) for x in losses],
+            "ledger_entries": self.ledger.summary()["entries"],
+        }
+        sidecar.update(self._sidecar_extra())
+        # tmp + rename: a crash mid-write never leaves a truncated sidecar
+        # shadowing the last good (npz, sidecar) pair
+        path = self._sidecar_path(round_done)
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(sidecar, f)
+        os.replace(tmp, path)
+
+    def _try_resume(self, state: FederatedState,
+                    accs: list, losses: list) -> int:
+        """Restore the newest consistent checkpoint; returns the round to
+        start from (0 without one)."""
+        cfg = self.cfg
+        if not cfg.ckpt_dir:
+            return 0
+        # newest (npz, sidecar) pair: an npz whose sidecar never got written
+        # is skipped, and a sidecar that does not parse counts as missing
+        step, meta = None, None
+        for s in sorted(checkpoint.saved_steps(cfg.ckpt_dir), reverse=True):
+            if not os.path.exists(self._sidecar_path(s)):
+                continue
+            try:
+                with open(self._sidecar_path(s)) as f:
+                    meta = json.load(f)
+            except (ValueError, OSError) as e:
+                warnings.warn(
+                    f"unreadable checkpoint sidecar {self._sidecar_path(s)} "
+                    f"({e}); falling back to an older checkpoint",
+                    RuntimeWarning, stacklevel=2)
+                continue
+            step = s
+            break
+        if step is None:
+            return 0
+        if step > cfg.rounds:
+            raise ValueError(
+                f"checkpoint at round {step} > rounds={cfg.rounds}; "
+                "refusing to resume past the configured horizon")
+        tree = checkpoint.restore(cfg.ckpt_dir, step,
+                                  like=self._ckpt_like(state, meta))
+        self._load_ckpt_tree(state, tree)
+        state.losses = {int(c): float(v)
+                        for c, v in meta["client_losses"].items()}
+        state.round = step
+        accs[:] = meta["accuracies"]
+        losses[:] = meta["losses"]
+        self.ledger.entries = CommLedger.from_entry_dicts(
+            meta["ledger_entries"]).entries
+        return step
+
+    # ------------------------------------------------------------------- run
+    def run(self, *, resume: bool = True,
+            hooks: Sequence[RoundHook] = ()) -> SimResult:
+        """Run to ``cfg.rounds``; with ``resume`` (the default) from the
+        newest checkpoint in ``cfg.ckpt_dir`` when there is one."""
         cfg = self.cfg
         self.ledger = CommLedger()
         state = self._fresh_state()
         accs: list = []
         losses: list = []
+        start = self._try_resume(state, accs, losses) if resume else 0
         t0 = time.perf_counter()
-        for r in range(cfg.rounds):
+        for r in range(start, cfg.rounds):
             state, step = self._step(r, state)
             rec = state.comm_log[-1]
             self.ledger.record(rec)
@@ -214,6 +326,9 @@ class Simulation:
                 acc = accuracy(self.model, state.params, self.xt, self.yt)
                 accs.append(acc)
                 info["acc"] = acc
+            if (cfg.ckpt_dir and cfg.ckpt_every
+                    and (r + 1) % cfg.ckpt_every == 0):
+                self._save_ckpt(r + 1, state, accs, losses)
             for hook in hooks:
                 hook(r, info)
         if self.device.type == "cuda":
@@ -256,6 +371,26 @@ class AsyncSimulation(Simulation):
         state = super()._fresh_state()
         self.versions = [state.params]
         return state
+
+    # ------------------------------------------------- checkpoint ring hooks
+    def _ckpt_tree(self, state: FederatedState) -> dict:
+        d = super()._ckpt_tree(state)
+        d["ring"] = {str(i): v for i, v in enumerate(self.versions)}
+        return d
+
+    def _ckpt_like(self, state: FederatedState, meta: dict) -> dict:
+        like = super()._ckpt_like(state, meta)
+        like["ring"] = {str(i): state.params
+                        for i in range(int(meta["ring_len"]))}
+        return like
+
+    def _load_ckpt_tree(self, state: FederatedState, tree: dict) -> None:
+        super()._load_ckpt_tree(state, tree)
+        ring = tree["ring"]
+        self.versions = [ring[str(i)] for i in range(len(ring))]
+
+    def _sidecar_extra(self) -> dict:
+        return {"ring_len": len(self.versions)}
 
     def _staleness_for(self, round_t: int) -> list[int]:
         """Counter-based staleness draws for server step ``round_t``:

@@ -15,7 +15,7 @@ import dataclasses
 import json
 import math
 import os
-from typing import Optional, Sequence
+from typing import Iterable, Optional, Sequence
 
 from repro_torch.core import costs
 from repro_torch.core import dp as dp_mod
@@ -100,6 +100,11 @@ class LedgerEntry:
         return costs.recovery_upload_bits(
             self.threshold, self.n_clients - self.n_survivors, bits)
 
+    def total_upload_bits(self, bits: costs.BitModel) -> int:
+        """Gradient upload plus the secure-aggregation control traffic."""
+        return (self.upload_bits(bits) + self.share_upload_bits(bits)
+                + self.recovery_upload_bits(bits))
+
     @classmethod
     def from_record(cls, rec: CommRecord) -> "LedgerEntry":
         return cls(round=rec.round, n_clients=rec.n_clients,
@@ -127,6 +132,10 @@ class CommLedger:
         entry = LedgerEntry.from_record(rec)
         self.entries.append(entry)
         return entry
+
+    def extend(self, recs: Iterable[CommRecord]) -> None:
+        for rec in recs:
+            self.record(rec)
 
     def __len__(self) -> int:
         return len(self.entries)
@@ -157,6 +166,34 @@ class CommLedger:
             "total_upload_vs_dense": total_up / dense if dense else 0.0,
             "compression_x": dense / up if up else 0.0,
         }
+
+    def upload_bits_through(self, n_rounds: int,
+                            accounting: str = "paper") -> int:
+        """Cumulative upload bits over the first ``n_rounds`` rounds (the
+        rounds-to-target-accuracy costing of Table 2)."""
+        bits = ACCOUNTINGS[accounting]
+        return sum(e.upload_bits(bits) for e in self.entries[:n_rounds])
+
+    def per_round(self, accounting: str = "paper") -> list[dict]:
+        """One row of bits a round under one accounting."""
+        bits = ACCOUNTINGS[accounting]
+        return [
+            {
+                "round": e.round,
+                "n_clients": e.n_clients,
+                "n_survivors": e.n_survivors,
+                "sparse": e.sparse,
+                "secagg": e.secagg,
+                "upload_bits": e.upload_bits(bits),
+                "download_bits": e.download_bits(bits),
+                "dense_upload_bits": e.dense_upload_bits(bits),
+                "share_upload_bits": e.share_upload_bits(bits),
+                "share_download_bits": e.share_download_bits(bits),
+                "recovery_upload_bits": e.recovery_upload_bits(bits),
+                "total_upload_bits": e.total_upload_bits(bits),
+            }
+            for e in self.entries
+        ]
 
     def privacy(self, delta: Optional[float] = None) -> Optional[dict]:
         """The run's privacy accounting, or None without DP: per-round
@@ -216,3 +253,24 @@ class CommLedger:
             json.dump(payload, f, indent=2, default=float)
         os.replace(tmp, path)
         return path
+
+    @classmethod
+    def from_entry_dicts(cls, dicts: Sequence[dict]) -> "CommLedger":
+        """Rebuild from ``summary()['entries']`` (the resume path); reads
+        the reference's entries too."""
+        return cls([LedgerEntry(round=int(d["round"]),
+                                n_clients=int(d["n_clients"]),
+                                n_survivors=int(d["n_survivors"]),
+                                model_size=int(d["model_size"]),
+                                ks=tuple(int(k) for k in d["ks"]),
+                                k_masks=tuple(int(k) for k in d["k_masks"]),
+                                threshold=int(d.get("threshold", 0)),
+                                codec=str(d.get("codec", "f32")),
+                                leaf_sizes=tuple(
+                                    int(s) for s in d.get("leaf_sizes", ())),
+                                staleness=tuple(
+                                    int(t) for t in d.get("staleness", ())),
+                                dp_clip=float(d.get("dp_clip", 0.0)),
+                                dp_sigma=float(d.get("dp_sigma", 0.0)),
+                                dp_delta=float(d.get("dp_delta", 0.0)))
+                    for d in dicts])

@@ -1,15 +1,22 @@
 """Port parity: the LM serving path (``InferenceServer`` + ``LMAdapter``
 driven by ``LoadGenerator``), its metrics document, the ``serve_llm`` entry
-point, and the rule that the serving modules import nothing of JAX or of
-``repro``.
+point, hot swap from published checkpoints (``CheckpointWatcher``) and the
+train+serve CLI, and the rule that the serving modules import nothing of JAX
+or of ``repro``.
 
 The responses are held to the port's own ``greedy_generate`` token for
 token (the model's parity with the reference is ``tests/test_torch_lm.py``);
-the metrics document must pass both packages' validators.
+the metrics document must pass both packages' validators. The hot-swap tests
+mirror the reference's ``tests/test_serving.py``: logits after a swap are
+bit-identical to a cold server restored from the same step, and a crash
+mid-publish leaves the server on the last good step. Every join and wait has
+a time limit.
 """
 import dataclasses
 import io
 import os
+import shutil
+import time
 import subprocess
 import sys
 from contextlib import redirect_stdout
@@ -23,7 +30,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from repro.serving import metrics as jmetrics  # noqa: E402
-from repro_torch import configs, serving  # noqa: E402
+from repro_torch import checkpoint, configs, serving  # noqa: E402
 from repro_torch.data import make_lm_tokens  # noqa: E402
 from repro_torch.launch.serve import greedy_generate  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
@@ -112,8 +119,6 @@ def test_classifier_adapter_serves_model_logits():
 def test_unported_parts_are_refused(yi):
     cfg, model, _ = yi
     adapter = serving.LMAdapter(cfg, max_batch=2, prompt_len=12, n_new=2)
-    with pytest.raises(NotImplementedError, match="slice F"):
-        serving.InferenceServer(adapter, model, watcher=object())
     moe = configs.reduced(configs.get("deepseek_moe_16b"))
     with pytest.raises(NotImplementedError):
         serving.LMAdapter(moe, max_batch=2, prompt_len=12, n_new=2)
@@ -165,3 +170,176 @@ def test_serving_modules_import_no_jax():
     p = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, env=ENV, timeout=300)
     assert p.returncode == 0, p.stdout + p.stderr
+
+
+# ------------------------------------------------------------- hot swap
+MLP = build_model("mnist_mlp")
+
+
+def _mlp_params(seed: int) -> dict:
+    model = build_model("mnist_mlp").init_(torch.Generator().manual_seed(seed))
+    return {n: p.detach().clone() for n, p in model.params().items()}
+
+
+def _payload(seed: int = 0) -> np.ndarray:
+    return np.random.RandomState(seed).randn(*MLP.input_shape).astype(
+        np.float32)
+
+
+def _served_logits(server, payload) -> np.ndarray:
+    t = server.submit(payload)
+    server.step(block=True)
+    return np.asarray(t.wait(30.0))
+
+
+def test_hot_swap_logits_bit_identical_to_a_cold_restore(tmp_path):
+    d = str(tmp_path)
+    p1, p2 = _mlp_params(1), _mlp_params(2)
+    checkpoint.publish(d, 1, p1)
+    x = _payload()
+    metrics = serving.ServingMetrics()
+    buffers = serving.WeightBuffers(p1, step=1)
+    watcher = serving.CheckpointWatcher(d, p1, buffers, metrics=metrics)
+    server = serving.InferenceServer(serving.ClassifierAdapter(MLP, 4),
+                                     watcher=watcher, metrics=metrics)
+    before = _served_logits(server, x)
+    checkpoint.publish(d, 2, p2)          # the trainer finishes round 2
+    assert watcher.poll_once() == 2       # staged off the serve path
+    assert watcher.last_stage["step"] == 2
+    assert buffers.active_step == 1       # the old weights still serve
+    after = _served_logits(server, x)     # step() swaps between batches
+    assert buffers.active_step == 2
+    assert metrics.swap_steps == [2]
+    assert watcher.poll_once() is None    # nothing newer
+    cold = serving.InferenceServer(serving.ClassifierAdapter(MLP, 4),
+                                   checkpoint.restore(d, 2, like=p1))
+    expect = _served_logits(cold, x)
+    assert after.tobytes() == expect.tobytes()       # bit-identical
+    assert before.tobytes() != after.tobytes()       # and really swapped
+
+
+def test_truncated_or_missing_manifest_keeps_the_last_good_step(tmp_path):
+    d = str(tmp_path)
+    p1, p2 = _mlp_params(1), _mlp_params(2)
+    checkpoint.publish(d, 1, p1)
+    buffers = serving.WeightBuffers(p1, step=0)
+    watcher = serving.CheckpointWatcher(d, p1, buffers)
+    assert watcher.poll_once() == 1
+    assert watcher.maybe_swap() == 1
+    assert watcher.maybe_swap() is None
+    # crash A: manifest truncated mid-dump (bypassing tmp + replace)
+    checkpoint.publish(d, 2, p2)
+    with open(os.path.join(d, "step_00000002.json"), "w") as f:
+        f.write('{"step": 2, "lea')
+    # crash B: the npz written, the manifest never
+    shutil.copy(os.path.join(d, "step_00000002.npz"),
+                os.path.join(d, "step_00000003.npz"))
+    assert watcher.poll_once() is None
+    assert watcher.maybe_swap() is None
+    assert buffers.active_step == 1       # still on the last good step
+    checkpoint.publish(d, 2, p2)          # the trainer retries
+    assert watcher.poll_once() == 2
+    assert watcher.maybe_swap() == 2
+    assert buffers.active_step == 2       # never goes back
+
+
+def test_server_needs_params_or_a_watcher():
+    with pytest.raises(ValueError, match="params or a watcher"):
+        serving.InferenceServer(serving.ClassifierAdapter(MLP, 2))
+
+
+def test_watcher_thread_retries_a_lost_race_and_staleness_is_filled(
+        tmp_path):
+    d = str(tmp_path)
+    p1, p2 = _mlp_params(1), _mlp_params(2)
+    checkpoint.publish(d, 1, p1)
+    calls = []
+
+    def racing_restore(step):
+        calls.append(step)
+        if len(calls) == 1:               # the reader loses one race
+            raise KeyError("checkpoint missing leaf (racing the publisher)")
+        return checkpoint.restore(d, step, like=p1)
+
+    metrics = serving.ServingMetrics()
+    buffers = serving.WeightBuffers(p1, step=1)
+    watcher = serving.CheckpointWatcher(d, p1, buffers, metrics=metrics,
+                                        restore_fn=racing_restore,
+                                        poll_interval_s=0.01)
+    server = serving.InferenceServer(serving.ClassifierAdapter(MLP, 2),
+                                     watcher=watcher, metrics=metrics)
+    checkpoint.publish(d, 2, p2)
+    with pytest.raises(KeyError):
+        watcher.poll_once()
+    assert watcher.latest_seen == 2 and buffers.active_step == 1
+    _served_logits(server, _payload())    # step 1 serves, step 2 is out
+    watcher.start()
+    try:
+        deadline = time.perf_counter() + 10.0
+        while not buffers.has_staged and time.perf_counter() < deadline:
+            time.sleep(0.01)
+    finally:
+        watcher.stop()
+    assert watcher._thread is None        # joined within its time limit
+    assert buffers.has_staged and calls == [2, 2]
+    _served_logits(server, _payload())    # swapped, then served
+    assert buffers.active_step == 2
+    doc = metrics.summary()
+    assert doc["staleness"] == {"mean": 0.5, "max": 1, "samples": 2}
+    assert doc["swaps"]["steps"] == [2]
+    assert serving.validate_metrics(doc) == []
+
+
+def test_train_serve_cli_smoke_on_the_cpu(tmp_path):
+    from repro_torch.serving.__main__ import main
+
+    out = str(tmp_path / "serve_metrics.json")
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        rc = main(["--device", "cpu", "--preset", "table2_quick", "--quick",
+                   "--rounds", "2", "--qps", "30", "--settle-s", "10",
+                   "--publish-dir", str(tmp_path / "pub"), "--out", out])
+    assert rc == 0, buf.getvalue()
+    doc = serving.load_metrics(out)
+    assert jmetrics.load_metrics(out) == doc
+    assert doc["requests"]["errors"] == 0
+    assert doc["requests"]["served"] > 0
+    assert doc["swaps"]["count"] >= 1
+    assert doc["swaps"]["steps"][-1] == 2          # settled on the last step
+    assert np.isfinite(doc["latency_us"]["p99"])
+    assert "active_step=2" in buf.getvalue()
+    assert sorted(os.listdir(tmp_path / "pub")) == [
+        "step_00000001.json", "step_00000001.npz",
+        "step_00000002.json", "step_00000002.npz"]
+
+
+def test_train_serve_cli_needs_a_card_unless_told_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.serving.__main__ import main
+
+    assert main(["--rounds", "1"]) == 1
+
+
+@pytest.mark.gpu
+def test_watcher_stages_on_its_own_stream_bit_equal_on_the_card(tmp_path):
+    """On the card: the watcher's side-stream staging gives the logits of a
+    cold restore, bit for bit, while the default stream is busy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the staging stream is CUDA's")
+    dev = torch.device("cuda")
+    d = str(tmp_path)
+    p1 = {n: t.to(dev) for n, t in _mlp_params(1).items()}
+    checkpoint.publish(d, 1, _mlp_params(2))
+    buffers = serving.WeightBuffers(p1, step=0)
+    watcher = serving.CheckpointWatcher(d, p1, buffers)
+    server = serving.InferenceServer(serving.ClassifierAdapter(MLP, 4),
+                                     watcher=watcher)
+    busy = torch.randn(4096, 4096, device=dev)
+    for _ in range(8):
+        busy = busy @ busy / 4096.0         # queued on the default stream
+    assert watcher.poll_once() == 1
+    got = _served_logits(server, _payload())
+    cold = serving.InferenceServer(serving.ClassifierAdapter(MLP, 4),
+                                   checkpoint.restore(d, 1, like=p1))
+    assert got.tobytes() == _served_logits(cold, _payload()).tobytes()

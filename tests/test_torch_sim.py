@@ -92,16 +92,18 @@ def test_cli_without_cuda_exits_nonzero(tmp_path):
 @pytest.mark.parametrize("over,what", [
     ({"thgs": TTHGS(selector="sampled")}, "selector"),
     ({"thgs": TTHGS(selector="local")}, "selector"),
-    ({"mode": "async", "sa": tpresets.get("async_quick").sa,
-      "ckpt_dir": "ck"}, "checkpoints"),
     ({"shard_clients": "on"}, "shard_clients"),
-    ({"ckpt_dir": "ck"}, "checkpoints"),
     ({"thgs": None}, "dense secure aggregation"),
 ])
 def test_config_refuses_what_this_slice_does_not_port(over, what):
     cfg = tpresets.get("table2_quick").replace(**over)
     with pytest.raises(NotImplementedError, match=what):
         cfg.validate()
+
+
+@pytest.mark.parametrize("preset", ["table2_quick", "async_quick"])
+def test_config_accepts_checkpoints_sync_and_async(preset):
+    tpresets.get(preset).replace(ckpt_dir="ck", ckpt_every=2).validate()
 
 
 def test_presets_match_reference():

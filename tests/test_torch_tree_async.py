@@ -292,8 +292,7 @@ def test_config_rejections_outside_async():
     with pytest.raises(ValueError, match="requires THGS"):
         tpresets.get("tree_quick").replace(
             thgs=None, sa=SecureAggConfig(enabled=False)).validate()
-    with pytest.raises(NotImplementedError, match="checkpoints"):
-        base.replace(ckpt_dir="ck").validate()
+    base.replace(ckpt_dir="ck", ckpt_every=1).validate()   # slice F runs it
 
 
 def test_simulate_routes_by_mode():
