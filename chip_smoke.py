@@ -131,6 +131,33 @@ exits non-zero and no failure is caught:
      queued work still running when the staging ended (it waits on its own
      stream's event only), logits after the swap bit-equal to a cold
      restore.
+ 14. sharded: the client-sharded round on shards that share the card
+     (``ClientsMesh((cuda:0,) * n)``; counts reset before each run, read a
+     round at a time by a round hook). The pair-mask kernel's row launch (a
+     shard's rows of the seed matrix, ``rows = C_loc < peers = C``, no
+     mirror) at mnist_mlp's 4 leaves (C 6, shards of 2 and 3) and VGG16's
+     54 (C 5, one client a shard), bit-equal to its plain version and to
+     the mirrored round launch's rows, timed beside them. The reference's
+     parity configuration (mnist_mlp at full width, 12 clients, cohort 6,
+     3 rounds, dropout 0.4, weights by data count, mask ratio 0.02, seed 1)
+     over 2, 3 and 6 shards against the serial run: params, every client's
+     residuals, ledger entries and accuracies bit-equal, at least one
+     dropout round, each round's pair-mask launches = shards (+1 in a
+     dropout round) and scatter launches = leaves; ``tree_quick`` over 3
+     shards, ``dp_quick`` over 2 and ``codec_sweep_quick``'s int8 arm over
+     5 (20 pack and 4 unpack launches a round) likewise, every leaf's
+     sharded encode/decode fed the serial run's deltas bit-equal to the
+     serial one. The one-client shard's local SGD with and without its
+     duplicated row, at the int8 arm's and VGG16's first round: bit-equal
+     to the cohort's batch or not, and timed. VGG16 under the table2
+     protocol, 2 rounds over 5 shards, under deterministic cuDNN: two
+     serial runs bit-equal; the per-leaf sharded encode/decode fed the
+     serial deltas bit-equal; the sharded run bit-equal to a serial run
+     whose local SGD runs at the shards' batch shape; against the plain
+     serial run, the first round and leaf that differ, and the params
+     within ``VGG_PARAM_ATOL``. Round wall times, serial against sharded,
+     and the bytes the stream gather and the residual return copy a round
+     are printed.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. ``--only flash`` runs phases 1 and 10
@@ -141,7 +168,8 @@ of phase 6 the same way (on a tree without segmented launches, the parent
 of that design, a leaf pair is timed as its two single launches); ``--only
 masks`` runs phase 1, the pair-mask kernel's round and flat rows of phase 2
 and the mask path probe the same way (on the parent of the round launch, a
-round is timed as its per-leaf flat launches). Without a CUDA device, or
+round is timed as its per-leaf flat launches); ``--only sharded`` runs
+phases 1 and 14. Without a CUDA device, or
 outside a checkout, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -2354,20 +2382,576 @@ def serve_phase(kind: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------- phase 14: sharded
+# the reference's sharded == serial parity configuration
+# (tests/test_client_sharded_round.py): mnist_mlp at full width, 12 clients,
+# cohort 6, 3 rounds, dropout 0.4, weights by data count, mask ratio 0.02
+PARITY_MESHES = (2, 3, 6)
+SHARDED_PRESETS = (("tree_quick", 3), ("dp_quick", 2))
+INT8_SHARDS = 5            # codec_sweep_quick's int8 arm, cohort 5
+VGG_SHARDS = 5             # table2 protocol, cohort 5: one client a shard
+# VGG16's sharded run against the plain serial one, under deterministic
+# cuDNN: cuDNN picks its convolution algorithm by batch shape, so a shard's
+# local SGD (2 rows) rounds otherwise than the cohort's (5 rows); the rest
+# of the round is held bit-exact apart. The limit on the largest param
+# difference after the 2 rounds is 1.5 times the reading that PERF.md
+# section 6 records for this script (1.579433e-02, the same in every run,
+# as the run is deterministic)
+VGG_PARAM_ATOL = 2.4e-2
+
+
+def parity_config():
+    from repro_torch.core.types import SecureAggConfig, THGSConfig
+    from repro_torch.sim.config import SimConfig
+
+    return SimConfig(
+        name="parity", model="mnist_mlp", dataset="mnist", rounds=3,
+        n_clients=12, clients_per_round=6, n_train=600, n_test=200,
+        local_steps=2, local_batch=16, eval_every=1,
+        thgs=THGSConfig(s0=0.05, alpha=0.9, s_min=0.01),
+        sa=SecureAggConfig(mask_ratio=0.02, seed=3), dropout_rate=0.4,
+        weight_by_data_count=True, seed=1, shard_clients="off")
+
+
+def row_launch_rows(device) -> list:
+    """The pair-mask kernel's row launch (a shard's rows of the seed
+    matrix, ``rows = C_loc < peers = C``, no mirror) at mnist_mlp's 4 leaves
+    (6 clients, shards of 2 and 3) and VGG16's 54 (5 clients, one a shard):
+    every shard's launch bit-equal to the plain version and to its rows of
+    the mirrored round launch; the raw launch of one shard (CUDA graph)
+    beside the wrapper, the plain version and the bound."""
+    import torch
+
+    from repro_torch.core import streams as se
+    from repro_torch.kernels import mask_prng, ref
+
+    out = []
+    for model, C, c_locs in (("mnist_mlp", 6, (2, 3)),
+                             ("cifar_vgg16", 5, (1,))):
+        seeds, signs, _, _, leaves = model_round(model, C)
+        sd, gd = se.round_matrices(device, seeds, signs)
+        whole = se.mask_streams_round(sd, gd, leaves, p=-1.0, q=2.0)
+        for c_loc in c_locs:
+            tag = f"{model} row launch ({len(leaves)} leaves, C_loc={c_loc} " \
+                  f"of C={C})"
+            before = mask_prng.launches
+            err = 0.0
+            for i0 in range(0, C, c_loc):
+                sr, gr = sd[i0:i0 + c_loc], gd[i0:i0 + c_loc]
+                got = se.mask_streams_rows_round(sr, gr, leaves, p=-1.0,
+                                                 q=2.0)
+                plain = ref.pair_mask_segments_ref(sr, gr, leaves)
+                for leaf, (i, v), (pi, pv), (wi, wv) in zip(
+                        leaves, got, plain, whole):
+                    check(bits_equal(i, pi) and bits_equal(v, pv),
+                          f"{tag}: shard at {i0} != plain at leaf {leaf[3]}")
+                    check(bits_equal(i, wi[i0:i0 + c_loc])
+                          and bits_equal(v, wv[i0:i0 + c_loc]),
+                          f"{tag}: shard at {i0} != its rows of the mirrored "
+                          f"round launch at leaf {leaf[3]}")
+                    err = max(err, (v - pv).abs().max().item())
+            torch.cuda.synchronize()
+            n_launch = mask_prng.launches - before
+            check(n_launch == C // c_loc,
+                  f"{tag}: {n_launch} launches for {C // c_loc} shards")
+            sr, gr = sd[:c_loc], gd[:c_loc]
+            outs = se.mask_streams_rows_round(sr, gr, leaves, p=-1.0, q=2.0)
+            launch = raw_mask_launch(
+                sr, gr, c_loc, C, 0, None,
+                [(i, v, nb, k, m, leaf) for (i, v), (nb, k, m, leaf)
+                 in zip(outs, leaves)])
+            ms = graph_ms(launch)
+            wrapper_ms = events_ms(lambda: se.mask_streams_rows_round(
+                sr, gr, leaves, p=-1.0, q=2.0))
+            plain_ms = events_ms(lambda: ref.pair_mask_segments_ref(
+                sr, gr, leaves), reps=3, inner=3)
+            slots = sum(c_loc * C * nb * k for nb, k, _, _ in leaves)
+            bound_ms, bound_by = bound(8 * slots + 8 * c_loc * C,
+                                       MASK_OPS_PER_SLOT * slots)
+            out.append(dict(shape=tag, n=slots, ms=ms, wrapper_ms=wrapper_ms,
+                            plain_ms=plain_ms, library_ms=None,
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            max_abs_err=err))
+            print(f"[sharded] pair_mask_streams {tag}: {C // c_loc} shard "
+                  f"launches, each bit-equal to plain and to its rows of the "
+                  f"mirrored launch=yes; one shard: slots={slots} "
+                  f"ms={ms:.6f} wrapper_ms={wrapper_ms:.6f} "
+                  f"plain_ms={plain_ms:.6f} bound_ms={bound_ms:.6f}",
+                  flush=True)
+    return out
+
+
+def states_equal(a, b) -> tuple[bool, bool]:
+    params = all(bits_equal(a.params[n], b.params[n]) for n in b.params)
+    resid = (sorted(a.residuals) == sorted(b.residuals)
+             and all(bits_equal(a.residuals[c][n], b.residuals[c][n])
+                     for c in b.residuals for n in b.params))
+    return params, resid
+
+
+def timed_run(cfg, shards: int, device, log: list | None = None):
+    """One run of ``cfg`` on the card, serial (0) or over ``shards``
+    shards of ``device``; counts reset before, and each round's launches
+    read by a round hook; ``log`` gets each leaf's (name, updates).
+    Returns (sim, result, per-round launches)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import ClientsMesh
+    from repro_torch.sim.engine import Simulation
+
+    sim = Simulation(cfg.replace(out_json=None, shard_clients="off"),
+                     device="cuda")
+    if shards:
+        sim.mesh = ClientsMesh((device,) * shards)
+    if log is not None:
+        sim.leaf_hook = lambda leaf_id, name, info: log.append(
+            (name, info["updates"].clone()))
+    per_round, prev = [], {}
+
+    def round_hook(r, info):
+        now = ops.launch_counts()
+        per_round.append((r, list(info["dropped"]),
+                          {n: now[n] - prev.get(n, 0) for n in now}))
+        prev.update(now)
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    res = sim.run(resume=False, hooks=[round_hook])
+    return sim, res, per_round
+
+
+def leafwise_check(cfg, shards: int, device, log: list | None = None
+                   ) -> dict:
+    """The serial run with a leaf hook that feeds each leaf's encode inputs
+    (the serial round's deltas and residuals, its masks' seeds and its
+    dropout) to ``encode_decode_leaf_sharded`` over ``shards`` shards of
+    ``device``, and holds the decoded sum and the new residuals bit-equal to
+    the serial round's. Returns the leaves checked, those that differ, the
+    run's final state (a second serial run) and the bytes the sharded round's gathers move a round (the stream or its
+    packed words, and the residuals), summed over the run. ``log`` gets
+    each leaf's (round, name, updates)."""
+    import torch
+
+    from repro_torch.core import codecs
+    from repro_torch.core import streams as se
+    from repro_torch.kernels import ref
+    from repro_torch.launch.mesh import ClientsMesh
+    from repro_torch.sim.engine import Simulation
+
+    mesh = ClientsMesh((device,) * shards)
+    sim = Simulation(cfg.replace(out_json=None, shard_clients="off"),
+                     device="cuda")
+    out = {"leaves": 0, "differ": [], "stream_bytes": 0, "residual_bytes": 0}
+
+    def hook(leaf_id, name, info):
+        size, C = info["size"], info["updates"].shape[0]
+        dropped = bool(info["dropped"])
+        dense, nr, st = se.encode_decode_leaf_sharded(
+            mesh, info["updates"], info["residuals"], k=info["k"], nb=1,
+            m=size, size=size, pair_seeds=info["pair_seeds"],
+            pair_signs=info["pair_signs"],
+            recovery_seeds=info["recovery_seeds"],
+            alive=info["alive"] if dropped else None,
+            k_mask=info["k_mask"], mask_p=cfg.sa.p, mask_q=cfg.sa.q,
+            leaf_id=leaf_id, weights=info["weights"], codec=info["codec"],
+            topology=cfg.topology, tree_groups=cfg.tree_groups,
+            dp_sigma=info["dp_sigma"], dp_seeds=info["dp_seeds"],
+            dp_support_seed=info["dp_support_seed"])
+        same = (bits_equal(dense, info["dense"])
+                and bits_equal(nr, info["new_residuals"])
+                and bits_equal(st.indices, info["streams"].indices)
+                and bits_equal(st.values, info["streams"].values))
+        if log is not None:
+            log.append((name, info["updates"].clone()))
+        out["leaves"] += 1
+        if not same:
+            out["differ"].append((out["leaves"] - 1, name))
+        if info["codec"] == "f32":
+            st = info["streams"]
+            out["stream_bytes"] += st.indices.nbytes + st.values.nbytes
+        else:
+            k = min(info["k"], size)
+            words = (ref.packed_words(k, codecs.index_width(size))
+                     + ref.packed_words(k, codecs.value_bits(info["codec"])))
+            out["stream_bytes"] += 4 * C * (words + 1)
+        out["residual_bytes"] += info["new_residuals"].nbytes
+
+    sim.leaf_hook = hook
+    sim.run(resume=False)
+    torch.cuda.synchronize()
+    out["state"] = sim.state
+    return out
+
+
+def first_divergence(cfg, shards: int, device) -> str:
+    """Where a sharded run first leaves the serial one: each leaf's local
+    SGD deltas, then its decoded sum, compared round by round."""
+    from repro_torch.launch.mesh import ClientsMesh
+    from repro_torch.sim.engine import Simulation
+
+    logs = []
+    for mesh in (None, ClientsMesh((device,) * shards)):
+        sim = Simulation(cfg.replace(out_json=None, shard_clients="off"),
+                         device="cuda")
+        sim.mesh = mesh
+        log = []
+        sim.leaf_hook = lambda leaf_id, name, info, log=log: log.append(
+            (name, info["updates"].clone(), info["dense"].clone()))
+        sim.run(resume=False)
+        logs.append(log)
+    n_leaves = len(Simulation(cfg.replace(out_json=None), device="cuda")
+                   .model.leaf_names())
+    for i, ((name, u0, d0), (_, u1, d1)) in enumerate(zip(*logs)):
+        r = i // n_leaves
+        if not bits_equal(u0, u1):
+            return (f"round {r} leaf {name}: the local SGD deltas differ "
+                    f"(max abs {(u0 - u1).abs().max().item():.3e})")
+        if not bits_equal(d0, d1):
+            return (f"round {r} leaf {name}: equal deltas, the decoded sum "
+                    f"differs (max abs {(d0 - d1).abs().max().item():.3e})")
+    return "no leaf differs"
+
+
+def compare_sharded(tag: str, cfg, serial, shards: int, device) -> dict:
+    """A sharded run of ``cfg`` against the serial one (``serial`` = (sim,
+    result, per-round launches)): params, every client's residuals, ledger
+    entries and accuracies bit-equal; where they are not, the first round
+    and leaf that differ are named and the phase fails. Returns the row
+    printed."""
+    sim0, res0, _ = serial
+    sim, res, per_round = timed_run(cfg, shards, device)
+    row = run_row(tag, shards, cfg, (sim, res, per_round), serial)
+    if not row["exact"]:
+        fail(f"{tag} over {shards} shards is not bit-equal: first "
+             f"divergence {first_divergence(cfg, shards, device)}")
+    return row
+
+
+def run_row(tag: str, shards: int, cfg, run, serial) -> dict:
+    """Hold one run against another (params, residuals, ledger entries,
+    accuracies, losses, bit for bit) and print the comparison beside both
+    runs' round times and the sharded run's launches a round."""
+    (sim, res, per_round), (sim0, res0, _) = run, serial
+    params_eq, resid_eq = states_equal(sim.state, sim0.state)
+    ledger_eq = res.ledger.entries == res0.ledger.entries
+    accs_eq = res.accuracies == res0.accuracies
+    row = dict(tag=tag, shards=shards,
+               exact=params_eq and resid_eq and ledger_eq and accs_eq,
+               params_eq=params_eq, resid_eq=resid_eq, ledger_eq=ledger_eq,
+               accs_eq=accs_eq, losses_eq=res.losses == res0.losses,
+               round_s=res.wall_s / cfg.rounds,
+               serial_round_s=res0.wall_s / cfg.rounds,
+               per_round=per_round)
+    print(f"[sharded] {tag} over {shards} shards of one card: params "
+          f"bit-equal={params_eq} residuals bit-equal={resid_eq} ledger "
+          f"entries equal={ledger_eq} accuracies equal={accs_eq} losses "
+          f"equal={row['losses_eq']}; round {row['round_s']:.4f} s (serial "
+          f"{row['serial_round_s']:.4f} s); launches a round "
+          f"{[(r, d, {n: c for n, c in x.items() if c}) for r, d, x in per_round]}",
+          flush=True)
+    return row
+
+
+def round_inputs(cfg, device):
+    """The first round's inputs of ``cfg``'s engine on the card: (params,
+    stacked client batches, loss, FedConfig)."""
+    import torch
+
+    from repro_torch.sim.engine import Simulation
+
+    sim = Simulation(cfg.replace(out_json=None, shard_clients="off"),
+                     device="cuda")
+    batches = sim._batches_for(0, sim.sampler.cohort_for(0))
+    parts = sorted(batches)
+    stacked = tuple(torch.stack([batches[c][i] for c in parts])
+                    for i in range(len(batches[parts[0]])))
+    return sim._fresh_state().params, stacked, sim.loss_fn, sim.fed
+
+
+def pad_readings(tag: str, cfg, device, reps: int) -> dict:
+    """The one-client shard's local SGD at ``cfg``'s first round, over one
+    shard a client of ``device``: with its duplicated row (``pad_one``, the
+    default) and without, each held against the serial cohort's deltas (bit
+    for bit or not, and the largest difference) and timed on the host clock
+    (median of ``reps``)."""
+    import torch
+
+    from repro_torch.core import fedavg
+    from repro_torch.core import streams as se
+    from repro_torch.launch.mesh import ClientsMesh
+
+    params, batches, loss_fn, fed = round_inputs(cfg, device)
+    C = batches[0].shape[0]
+    mesh = ClientsMesh((device,) * C)
+    whole, _ = fedavg.batched_client_update(params, batches, loss_fn,
+                                            fed.local_steps, fed.local_lr)
+    out = {}
+    for pad in (True, False):
+        def sgd():
+            return fedavg.batched_client_update_sharded(
+                mesh, params, batches, loss_fn, fed.local_steps,
+                fed.local_lr, pad_one=pad)[0]
+
+        got = se.all_gather_round(sgd(), device)
+        ts = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sgd()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        out[pad] = dict(
+            bit_equal=all(bits_equal(got[n], whole[n]) for n in whole),
+            max_abs=max((got[n] - whole[n]).abs().max().item()
+                        for n in whole),
+            ms=1e3 * statistics.median(ts))
+    print(f"[sharded] {tag}: local SGD of {C} one-client shards, first "
+          f"round: with the duplicated row bit-equal to the cohort's="
+          f"{out[True]['bit_equal']} (max abs {out[True]['max_abs']:.6e}) "
+          f"{out[True]['ms']:.3f} ms; without it bit-equal="
+          f"{out[False]['bit_equal']} (max abs {out[False]['max_abs']:.6e}) "
+          f"{out[False]['ms']:.3f} ms (median of {reps})", flush=True)
+    return out
+
+
+class deterministic_cudnn:
+    """cuDNN's deterministic algorithms, no autotuning, inside the block."""
+
+    def __enter__(self):
+        import torch
+
+        b = torch.backends.cudnn
+        self.old = (b.deterministic, b.benchmark)
+        b.deterministic, b.benchmark = True, False
+
+    def __exit__(self, *exc):
+        import torch
+
+        b = torch.backends.cudnn
+        b.deterministic, b.benchmark = self.old
+
+
+class sgd_at_shard_shape:
+    """Inside the block the serial round's local SGD runs shard by shard at
+    the sharded round's batch shapes: ``c_loc`` clients a call (a
+    one-client shard as two rows, keeping the first), each through the
+    unchanged ``batched_client_update``; the encode and the decode stay
+    serial. A sharded run must be bit-equal to such a run."""
+
+    def __init__(self, c_loc: int):
+        self.c_loc = c_loc
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.core import fedavg
+
+        self.real = real = fedavg.batched_client_update
+        c_loc = self.c_loc
+
+        def per_shard(params, batches, *a, **kw):
+            parts = []
+            for i0 in range(0, batches[0].shape[0], c_loc):
+                b = tuple(x[i0:i0 + c_loc] for x in batches)
+                if c_loc == 1:
+                    b = tuple(torch.cat([x, x]) for x in b)
+                d, losses = real(params, b, *a, **kw)
+                parts.append(({n: v[:c_loc] for n, v in d.items()},
+                              losses[:c_loc]))
+            return ({n: torch.cat([d[n] for d, _ in parts])
+                     for n in parts[0][0]},
+                    torch.cat([losses for _, losses in parts]))
+
+        fedavg.batched_client_update = per_shard
+
+    def __exit__(self, *exc):
+        from repro_torch.core import fedavg
+
+        fedavg.batched_client_update = self.real
+
+
+def vgg16_sharded(cfg, shards: int, device) -> dict:
+    """VGG16 over ``shards`` one-client shards under deterministic cuDNN
+    (module docstring, phase 14). Returns the row printed."""
+    import torch
+
+    with deterministic_cudnn():
+        serial = timed_run(cfg, 0, device)
+        serial_log = []
+        lw = leafwise_check(cfg, shards, device, log=serial_log)
+        print(f"[sharded] cifar_vgg16: the sharded encode/decode fed the "
+              f"serial run's deltas over {shards} shards: {lw['leaves']} "
+              f"leaves, bit-equal except {lw['differ']}; per round the "
+              f"gather moves {lw['stream_bytes'] / cfg.rounds:.0f} stream "
+              f"bytes and the residual return "
+              f"{lw['residual_bytes'] / cfg.rounds:.0f} bytes", flush=True)
+        check(not lw["differ"], f"VGG16: the sharded encode/decode fed the "
+              f"serial deltas differs at leaves {lw['differ']}")
+        check(states_equal(lw["state"], serial[0].state) == (True, True),
+              "VGG16: two serial runs under deterministic cuDNN differ")
+        shaped_log, sharded_log = [], []
+        with sgd_at_shard_shape(cfg.clients_per_round // shards):
+            shaped = timed_run(cfg, 0, device, log=shaped_log)
+        sharded = timed_run(cfg, shards, device, log=sharded_log)
+        exact = run_row("cifar_vgg16 table2 (serial local SGD at the "
+                        "shard shape)", shards, cfg, sharded, shaped)
+        sgd_eq = len(shaped_log) == len(sharded_log) and all(
+            bits_equal(a[1], b[1]) for a, b in zip(shaped_log, sharded_log))
+        check(exact["exact"] and sgd_eq,
+              "VGG16: the sharded run is not bit-equal to the serial run "
+              "whose local SGD runs at the shard shape (local SGD deltas "
+              f"bit-equal={sgd_eq})")
+        row = run_row("cifar_vgg16 table2", shards, cfg, sharded, serial)
+    p0, p1 = serial[0].state.params, sharded[0].state.params
+    first = next((f"round {i // len(p0)} leaf {n}" for i, ((n, a), (_, b))
+                  in enumerate(zip(serial_log, sharded_log))
+                  if not bits_equal(a, b)), "none")
+    init = serial[0]._fresh_state().params
+    diff = max((p1[n] - p0[n]).abs().max().item() for n in p0)
+    rel = (sum(((p1[n] - p0[n]) ** 2).sum().item() for n in p0)
+           / sum(((p0[n] - init[n]) ** 2).sum().item() for n in p0)) ** 0.5
+    row.update(first_divergence=first, max_param_diff=diff, rel_l2=rel)
+    print(f"[sharded] cifar_vgg16 over {shards} shards against the plain "
+          f"serial run (deterministic cuDNN): first difference in the local "
+          f"SGD deltas at {first}; after {cfg.rounds} rounds the params "
+          f"differ by max abs {diff:.6e} (limit {VGG_PARAM_ATOL:.1e}), "
+          f"||diff|| / ||serial update|| {rel:.6e}; the sharded run equals "
+          f"the serial run with local SGD at the shard shape bit for bit",
+          flush=True)
+    check(diff <= VGG_PARAM_ATOL, f"VGG16: params differ by {diff:.3e}, over "
+          f"the limit {VGG_PARAM_ATOL:.1e}")
+    del serial, lw, shaped, sharded, serial_log, shaped_log, sharded_log
+    torch.cuda.empty_cache()
+    return row
+
+
+def sharded_phase(kind: str, card: str, device) -> tuple[dict, list]:
+    """Phase 14 (module docstring). Returns the launches of the parity
+    runs over 2, 3 and 6 shards and of the int8 arm's sharded run (the
+    sharded main path), and the row launch's kernel rows."""
+    import torch
+
+    from repro_torch.sim import presets
+
+    t_phase = time.perf_counter()
+    rows = row_launch_rows(device)
+    counts = {}
+
+    def add(per_round):
+        for _, _, x in per_round:
+            for n, c in x.items():
+                counts[n] = counts.get(n, 0) + c
+
+    # the reference's parity config over 2, 3 and 6 shards
+    cfg = parity_config()
+    n_leaves = 4
+    timed_run(cfg.replace(rounds=1), 0, device)          # warm-up
+    serial = timed_run(cfg, 0, device)
+    lw = leafwise_check(cfg, 2, device)
+    check(not lw["differ"], f"parity: the sharded encode/decode fed the "
+          f"serial deltas differs at leaves {lw['differ']}")
+    dropout_rounds = sum(bool(d) for _, d, _ in serial[2])
+    check(dropout_rounds >= 1, "the parity config dropped no client")
+    results = []
+    for shards in PARITY_MESHES:
+        row = compare_sharded("parity (mnist_mlp, cohort 6)", cfg, serial,
+                              shards, device)
+        for r, dropped, x in row["per_round"]:
+            want = shards + (1 if dropped else 0)
+            check(x["pair_mask_streams"] == want,
+                  f"parity over {shards} shards, round {r}: "
+                  f"{x['pair_mask_streams']} pair-mask launches, expected "
+                  f"{want}")
+            check(x["stream_scatter_add"] == n_leaves,
+                  f"parity over {shards} shards, round {r}: "
+                  f"{x['stream_scatter_add']} scatter launches, expected "
+                  f"{n_leaves}")
+        add(row["per_round"])
+        results.append(row)
+    print(f"[sharded] parity: {dropout_rounds} dropout round(s); per "
+          f"round the gather moves {lw['stream_bytes'] / cfg.rounds:.0f} "
+          f"stream bytes and the residual return "
+          f"{lw['residual_bytes'] / cfg.rounds:.0f} bytes (each copied "
+          f"device to device on {card})", flush=True)
+
+    # tree_quick over 3 shards, dp_quick over 2
+    for preset, shards in SHARDED_PRESETS:
+        cfg = presets.get(preset)
+        serial = timed_run(cfg, 0, device)
+        lw = leafwise_check(cfg, shards, device)
+        check(not lw["differ"], f"{preset}: the sharded encode/decode fed "
+              f"the serial deltas differs at leaves {lw['differ']}")
+        row = compare_sharded(preset, cfg, serial, shards, device)
+        for r, dropped, x in row["per_round"]:
+            want = shards + (1 if dropped else 0)
+            check(x["pair_mask_streams"] == want,
+                  f"{preset} over {shards} shards, round {r}: "
+                  f"{x['pair_mask_streams']} pair-mask launches, expected "
+                  f"{want}")
+        results.append(row)
+
+    # codec_sweep_quick's int8 arm over 5 shards
+    cfg = presets.sweep_configs("codec_sweep_quick")["int8"]
+    serial = timed_run(cfg, 0, device)
+    lw = leafwise_check(cfg, INT8_SHARDS, device)
+    check(not lw["differ"], f"int8: the sharded encode/decode fed the "
+          f"serial deltas differs at leaves {lw['differ']}")
+    row = compare_sharded("codec_sweep_quick int8", cfg, serial, INT8_SHARDS,
+                          device)
+    for r, _, x in row["per_round"]:
+        check(x["bitpack_rows"] == INT8_SHARDS * n_leaves
+              and x["bitunpack_rows"] == n_leaves,
+              f"int8 over {INT8_SHARDS} shards, round {r}: "
+              f"{x['bitpack_rows']} pack and {x['bitunpack_rows']} unpack "
+              f"launches, expected {INT8_SHARDS * n_leaves} and {n_leaves}")
+    add(row["per_round"])
+    results.append(row)
+    print(f"[sharded] int8: per round the gather moves "
+          f"{lw['stream_bytes'] / cfg.rounds:.0f} bytes of packed words and "
+          f"scales and the residual return "
+          f"{lw['residual_bytes'] / cfg.rounds:.0f} bytes", flush=True)
+
+    pad = pad_readings("codec_sweep_quick int8", cfg, device, reps=7)
+    check(pad[True]["bit_equal"], "int8: the one-client shards' local SGD "
+          "with the duplicated row is not bit-equal to the cohort's")
+
+    # VGG16 under the table2 protocol, 2 rounds over 5 shards
+    cfg = presets.get("table2").replace(
+        name="table2_vgg16", model="cifar_vgg16", dataset="cifar10",
+        rounds=2, eval_every=1)
+    with deterministic_cudnn():
+        pad_readings("cifar_vgg16 table2 (deterministic cuDNN)", cfg, device,
+                     reps=3)
+    row = vgg16_sharded(cfg, VGG_SHARDS, device)
+    for r, dropped, x in row["per_round"]:
+        check(x["pair_mask_streams"] == VGG_SHARDS,
+              f"VGG16 round {r}: {x['pair_mask_streams']} pair-mask "
+              f"launches, expected {VGG_SHARDS}")
+    results.append(row)
+    torch.cuda.empty_cache()
+    print(f"[sharded] phase 14 took {time.perf_counter() - t_phase:.1f} s "
+          f"({card}): " + "; ".join(
+              f"{r['tag']} x{r['shards']}: round {r['round_s']:.4f} s vs "
+              f"serial {r['serial_round_s']:.4f} s exact={r['exact']}"
+              for r in results), flush=True)
+    return counts, rows
+
+
 def main() -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA "
                                  "port on one NVIDIA GPU (see the module "
                                  "docstring).")
-    ap.add_argument("--only", choices=["flash", "pack", "masks"],
+    ap.add_argument("--only", choices=["flash", "pack", "masks", "sharded"],
                     help="run the device and build phases and then [flash] "
                     "(the HGMMA count printed, not required), the bit-pack "
                     "kernels' checks and times and one codec_wire_roundtrip "
-                    "probe, or the pair-mask kernel's flat and round rows "
-                    "and one round's mask path probe alone, with no result "
-                    "line: a kernel's times on a tree, for a comparison of "
-                    "two trees in one call")
+                    "probe, the pair-mask kernel's flat and round rows "
+                    "and one round's mask path probe, or [sharded] alone, "
+                    "with no result line: a kernel's times on a tree, for a "
+                    "comparison of two trees in one call")
     args = ap.parse_args()
     try:
         import torch
@@ -2427,6 +3011,11 @@ def main() -> int:
         pack_kernel_phase(device)
         wire_roundtrip_probe(device)
         print(f"[done] --only pack passed in "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
+    if args.only == "sharded":
+        sharded_phase(kind, card, device)
+        print(f"[done] --only sharded passed in "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
         return 0
     if args.only == "masks":    # any tree, the parent's per-leaf launches too
@@ -2607,6 +3196,10 @@ def main() -> int:
     print(f"[serve] phases 12-13 took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
+    # ------------------------------------------------------- 14. sharded
+    sharded_counts, row_rows = sharded_phase(kind, card, device)
+    rows["pair_mask_streams"] += row_rows
+
     # ------------------------------------------------------------ report
     sources = {"stream_scatter_add": ("src/repro_torch/kernels/csrc/"
                                       "stream_scatter_add.cu",
@@ -2628,13 +3221,16 @@ def main() -> int:
                                    "pair_mask_streams.cu",
                                    "src/repro/kernels/mask_prng.py:38")}
     # each kernel's launches come from the path that runs it: table2_quick
-    # for the scatter and the masks, codec_sweep_quick for the bit packing,
-    # the served Yi-6B for the flash attention; no reference path calls the
+    # and the sharded parity runs for the scatter and the masks,
+    # codec_sweep_quick and its sharded int8 arm for the bit packing, the
+    # served Yi-6B for the flash attention; no reference path calls the
     # THGS split or the dense mask apply, whose path is the public ops API
     # (the [kernels] phase's ops path over every leaf of two models)
     launches = {**main_counts,
-                "bitpack_rows": codec_counts["bitpack_rows"],
-                "bitunpack_rows": codec_counts["bitunpack_rows"],
+                **{n: main_counts[n] + sharded_counts[n]
+                   for n in ("stream_scatter_add", "pair_mask_streams")},
+                **{n: codec_counts[n] + sharded_counts[n]
+                   for n in ("bitpack_rows", "bitunpack_rows")},
                 "flash_attention": lm_counts["flash_attention"],
                 "thgs_sparsify": split_counts["thgs_sparsify"],
                 "mask_prng_apply": split_counts["mask_prng_apply"]}

@@ -148,3 +148,9 @@ def dense_round_record(
         n_survivors=surv,
         model_size=model_size,
     )
+
+
+def total_upload_to_convergence(n_rounds: int, per_round_bits: int) -> int:
+    """Eq. 7: ``c = n_rounds * (C*K) * c_up``, with ``per_round_bits``
+    already summed over the C*K selected clients."""
+    return n_rounds * per_round_bits

@@ -1,6 +1,6 @@
 """Federated optimization: FedAvg / FedProx clients + THGS/secure-agg server
-(port of the serial rounds of ``repro.core.fedavg``: the synchronous round,
-flat or tree, and the async buffered update).
+(port of ``repro.core.fedavg``: the synchronous round, flat or tree, serial
+or client-sharded, and the async buffered update).
 
 A round is:
   1. ``batched_client_update`` — local SGD for every participant,
@@ -21,9 +21,16 @@ A round is:
      ``topology='tree'`` it is ``streams.decode_leaf_tree``: one launch per
      sub-aggregator's index range, bit-equal to the flat decode.
 
+With ``mesh`` (``launch/mesh.ClientsMesh``) the round is client-parallel
+(DESIGN.md §11): ``batched_client_update_sharded`` runs each shard's local
+SGD on its device, each shard encodes its clients (one pair-mask row launch
+a round), one gather brings the wire payload to the state's device, the
+decode runs once there, and the residuals come back to it; the state stays
+where it was.
+
 Each stage runs under a ``torch.profiler.record_function`` span
 (``round.local_sgd``, ``round.secagg_setup``, ``round.encode``,
-``round.decode``), which ``python -m repro_torch.sim.profile`` reads; a span
+``round.decode``, and in a sharded round ``round.gather``), which ``python -m repro_torch.sim.profile`` reads; a span
 costs about a microsecond when no profiler is active.
 
 With a non-f32 ``codec`` the encode also quantizes and packs each leaf's
@@ -58,7 +65,6 @@ from repro_torch.core.dp import (DPConfig, clip_client_updates,
                                  reject_codec_with_noise)
 from repro_torch.core.types import (CommRecord, FedConfig, SecureAggConfig,
                                     THGSConfig)
-from repro_torch.secagg.protocol import RoundProtocol
 
 Params = dict[str, torch.Tensor]
 LossFn = Callable[[Mapping[str, torch.Tensor], Any], torch.Tensor]
@@ -86,6 +92,16 @@ def _client_update(params: Params, batches, loss_fn: LossFn,
         losses.append(loss)
     delta = {n: p[n] - params[n] for n in params}
     return delta, torch.stack(losses).mean()
+
+
+def client_update(params: Params, batches, loss_fn: LossFn,
+                  local_steps: int, lr: float,
+                  prox_mu: float = 0.0) -> tuple[Params, torch.Tensor]:
+    """Single-client entry (for callers that step one client at a time):
+    local SGD over ``batches = (x[steps, B, ...], y[steps, B])``; returns
+    (delta, mean loss)."""
+    return _client_update(params, batches, loss_fn, local_steps, lr,
+                          prox_mu)
 
 
 def batched_client_update(params: Params, batches_stacked, loss_fn: LossFn,
@@ -120,6 +136,46 @@ def batched_client_update_multi(params_stacked: Params, batches_stacked,
         lambda p, *b: _client_update(p, b, loss_fn, local_steps, lr,
                                      prox_mu),
         randomness="error")(params_stacked, *batches_stacked)
+
+
+def batched_client_update_sharded(mesh, params: Params, batches_stacked,
+                                  loss_fn: LossFn, local_steps: int,
+                                  lr: float, prox_mu: float = 0.0, *,
+                                  device=None, pad_one: bool = True
+                                  ) -> tuple[list, torch.Tensor]:
+    """Client-parallel local SGD: the cohort split over the ``clients``
+    mesh (``launch/mesh.py``), each shard running the unchanged
+    :func:`batched_client_update` on its clients and its device.
+
+    ``batches_stacked = (x[C, steps, B, ...], y[C, steps, B])``, split
+    here over the shards. Returns (one deltas dict
+    ``{name: [C_loc, ...]}`` per shard, on the shard's device; the losses
+    ``[C]`` gathered in client order onto ``device``, default the params'
+    device). Per-client math is independent, so the deltas are bit-equal to
+    the serial program's where the batched products round alike. With
+    ``pad_one`` a one-client shard runs as two rows and keeps the first:
+    ATen computes a batch of ONE matrix product unbatched, which sums in
+    another order, on the CPU and on the card alike (PERF.md §6 has the
+    readings and the cost)."""
+    device = device if device is not None else \
+        next(iter(params.values())).device
+    C = batches_stacked[0].shape[0]
+    on_device = {}
+
+    def body(i0, dev, batches):
+        if dev not in on_device:
+            on_device[dev] = {n: x.to(dev) for n, x in params.items()}
+        c_loc = batches[0].shape[0]
+        if c_loc == 1 and pad_one:
+            batches = tuple(torch.cat([b, b]) for b in batches)
+        deltas, losses = batched_client_update(
+            on_device[dev], batches, loss_fn, local_steps, lr, prox_mu)
+        return {n: d[:c_loc] for n, d in deltas.items()}, losses[:c_loc]
+
+    out = se.shard_map_clients(body, mesh, C, se.shard_client_tree(
+        tuple(batches_stacked), mesh))
+    return ([o[0] for o in out],
+            se.all_gather_round([o[1] for o in out], device))
 
 
 @dataclasses.dataclass
@@ -159,14 +215,6 @@ def _check_topology(topology: str, thgs) -> None:
                          "dense rounds have no stream decode to shard")
 
 
-def _group_count(tree_groups: int, cohort: int) -> int:
-    """The tree's sub-aggregator count: ``tree_groups``, or for 0 about the
-    square root of the cohort (Python's ``round``, at least 2)."""
-    if tree_groups > 0:
-        return tree_groups
-    return max(2, int(round(cohort ** 0.5)))
-
-
 def _decode(streams_b, size: int, splits, **kw) -> torch.Tensor:
     """The flat decode, or the tree decode over ``splits`` (not None)."""
     if splits is not None:
@@ -190,6 +238,7 @@ def run_round(
     dp: DPConfig | None = None,
     topology: str = "flat",
     tree_groups: int = 0,
+    mesh=None,
 ) -> FederatedState:
     """One synchronous aggregation round over the given participants.
 
@@ -212,8 +261,17 @@ def run_round(
     contiguous index range; bit-equal to ``'flat'``. It needs THGS.
     ``leaf_hook(leaf_id, name, info)``
     is called after each leaf's decode with the leaf's encode inputs, its
-    streams and its decoded sum (a probe for tests and smoke checks; None
-    costs nothing).
+    streams, its decoded sum and its new residuals before the dropped
+    clients' carry, on the serial and the sharded round alike (a probe for
+    tests and smoke checks; None costs nothing).
+    ``mesh`` (``launch/mesh.ClientsMesh``) runs the round client-parallel
+    when ``streams.can_shard_clients(mesh, C)``: each shard's local SGD and
+    encode (its rows of the pair masks in one launch a round) on its
+    device, one gather of the wire payload, and the decode once, on the
+    state's device, over the gathered stream; the residuals come back to
+    the state's device. Bit-equal to the serial round where the shards'
+    batched products round as the cohort's do (DESIGN.md §11). A mesh that
+    cannot shard the cohort runs the serial round.
     """
     _check_topology(topology, thgs)
     dp_active = dp is not None and dp.active
@@ -233,6 +291,7 @@ def run_round(
                 "the accountant calibrates noise against")
     participants = sorted(client_batches.keys())
     C = len(participants)
+    sharded = se.can_shard_clients(mesh, C)
     dropped = set(dropped)
     assert dropped <= set(participants), "dropped must be participants"
     survivors = [c for c in participants if c not in dropped]
@@ -255,10 +314,21 @@ def run_round(
         for i in range(len(client_batches[participants[0]])))
     prox_mu = fed.prox_mu if fed.algorithm == "fedprox" else 0.0
     with record_function("round.local_sgd"):
-        deltas, losses = batched_client_update(
-            state.params, batches_stacked, loss_fn, fed.local_steps,
-            fed.local_lr, prox_mu)
+        if sharded:
+            # per shard [C_loc, ...] on its device; losses gathered in
+            # client order (they feed Eq. 2's beta)
+            delta_shards, losses = batched_client_update_sharded(
+                mesh, state.params, batches_stacked, loss_fn,
+                fed.local_steps, fed.local_lr, prox_mu, device=dev)
+            deltas = None
+        else:
+            deltas, losses = batched_client_update(
+                state.params, batches_stacked, loss_fn, fed.local_steps,
+                fed.local_lr, prox_mu)
         losses_list = [float(x) for x in losses.tolist()]
+    if sharded and thgs is None:
+        with record_function("round.gather"):
+            deltas = se.all_gather_round(delta_shards, dev)
 
     if thgs is not None:
         # per-(round, client) noise seeds and the round's public support
@@ -280,6 +350,10 @@ def run_round(
         reject_codec_with_masks(codec, use_masks)
         if use_masks:
             with record_function("round.secagg_setup"):
+                # secagg sits beside core: this local import is the one
+                # upward edge (the reference's layering, DESIGN.md §10)
+                from repro_torch.secagg.protocol import RoundProtocol
+
                 proto = RoundProtocol.setup(sa, participants, state.round)
                 pair_seeds, pair_signs = proto.pair_seed_matrix()
                 recovery_seeds = (
@@ -295,12 +369,21 @@ def run_round(
             # clip the ENCODER INPUT, the accumulator residual + delta, so
             # the bound S holds for the full stream a client emits; the
             # clipped accumulator becomes the encode's update over a zeroed
-            # residual (compliant clients scale by exactly 1.0)
+            # residual (compliant clients scale by exactly 1.0). A sharded
+            # round clips the stacked cohort too, then splits it again: the
+            # norm's reduction runs at the serial round's shape
+            if sharded:
+                with record_function("round.gather"):
+                    deltas = se.all_gather_round(delta_shards, dev)
             deltas = clip_client_updates(
                 {n: deltas[n].to(torch.float32) + res_st[n].to(torch.float32)
                  for n in names}, clip=float(dp.clip))
             res_st = {n: torch.zeros_like(r) for n, r in res_st.items()}
-        groups = _group_count(tree_groups, C)
+            if sharded:
+                delta_shards = se.shard_client_tree(deltas, mesh)
+        if sharded:
+            res_shards = se.shard_client_tree(res_st, mesh)
+        groups = se.tree_group_count(tree_groups, C)
         k_masks = [sa.k_mask_for(size, C) if use_masks else 0
                    for size in sizes]
         signs_d = None
@@ -308,13 +391,27 @@ def run_round(
         if use_masks:
             # every leaf's pair masks (and, in a dropout round, recovery
             # streams) in one launch each, from one copy of the matrices
+            # per device; a sharded round makes each shard's rows of them
+            # in one launch of its own
             leaves = [(1, km, size, leaf_id) for leaf_id, (km, size)
                       in enumerate(zip(k_masks, sizes))]
             with record_function("round.encode"):
-                seeds_d, signs_d = se.round_matrices(dev, pair_seeds,
-                                                     pair_signs)
-                masks = se.mask_streams_round(seeds_d, signs_d, leaves,
-                                              p=sa.p, q=sa.q)
+                mats = {dev: se.round_matrices(dev, pair_seeds, pair_signs)}
+                seeds_d, signs_d = mats[dev]
+                if sharded:
+                    for d in mesh.devices:
+                        if d not in mats:
+                            mats[d] = se.round_matrices(d, pair_seeds,
+                                                        pair_signs)
+                    rows = se.shard_map_clients(
+                        lambda i0, d: se.mask_streams_rows_round(
+                            *(x[i0:i0 + C // mesh.size] for x in mats[d]),
+                            leaves, p=sa.p, q=sa.q), mesh, C)
+                    masks = [[r[leaf_id] for r in rows]
+                             for leaf_id in range(len(names))]
+                else:
+                    masks = se.mask_streams_round(seeds_d, signs_d, leaves,
+                                                  p=sa.p, q=sa.q)
             if dropped:
                 with record_function("round.decode"):
                     rec_d, alive_d = se.round_matrices(
@@ -327,33 +424,49 @@ def run_round(
         ks_acct, k_masks_acct = [], []
         for leaf_id, (name, k, size) in enumerate(zip(names, ks, sizes)):
             shape = state.params[name].shape
-            d_st = deltas[name]
             r_st = res_st[name]
             k_mask = k_masks[leaf_id]
-            # ---- 2. batched unified-stream encode ----
-            with record_function("round.encode"):
-                streams_b, nr = se.encode_leaf_batch(
-                    d_st, r_st, k=k, nb=1, m=size, size=size,
-                    pair_seeds=pair_seeds, pair_signs=signs_d,
-                    k_mask=k_mask, mask_p=sa.p, mask_q=sa.q, leaf_id=leaf_id,
-                    weights=w_vec, codec=codec,
-                    dp_sigma=dp_sigma_c, dp_seeds=dp_seeds,
-                    dp_support_seed=dp_sup_seed, masks=masks[leaf_id])
-            # ---- 3. scatter-add decode (flat or tree) + dropout recovery
-            splits = (se.tree_splits(size, groups) if topology == "tree"
-                      else None)
-            with record_function("round.decode"):
-                dense = _decode(
-                    streams_b, size, splits,
+            enc_kw = dict(
+                k=k, nb=1, m=size, size=size, pair_signs=signs_d,
+                k_mask=k_mask, leaf_id=leaf_id, weights=w_vec, codec=codec,
+                dp_sigma=dp_sigma_c, dp_seeds=dp_seeds,
+                dp_support_seed=dp_sup_seed, masks=masks[leaf_id])
+            if sharded:
+                # ---- 2+3. client-parallel encode, the gather, the decode
+                d_sh = [d[name] for d in delta_shards]
+                dense, nr, streams_b = se.encode_decode_leaf_sharded(
+                    mesh, d_sh, [r[name] for r in res_shards],
                     alive=alive if dropped else None,
-                    pair_seeds=recovery_seeds if dropped else None,
-                    pair_signs=signs_d if dropped else None,
-                    k_mask=k_mask, mask_p=sa.p, mask_q=sa.q, leaf_id=leaf_id,
-                    recovery=recovery[leaf_id])
+                    recovery=recovery[leaf_id], topology=topology,
+                    tree_groups=groups, device=dev, **enc_kw)
+                if deltas is not None:
+                    d_st = deltas[name]
+                elif dropped or leaf_hook is not None:
+                    with record_function("round.gather"):
+                        d_st = se.all_gather_round(d_sh, dev)
+            else:
+                # ---- 2. batched unified-stream encode ----
+                d_st = deltas[name]
+                with record_function("round.encode"):
+                    streams_b, nr = se.encode_leaf_batch(
+                        d_st, r_st, pair_seeds=pair_seeds, mask_p=sa.p,
+                        mask_q=sa.q, **enc_kw)
+                # ---- 3. scatter-add decode (flat or tree) + recovery ----
+                splits = (se.tree_splits(size, groups)
+                          if topology == "tree" else None)
+                with record_function("round.decode"):
+                    dense = _decode(
+                        streams_b, size, splits,
+                        alive=alive if dropped else None,
+                        pair_seeds=recovery_seeds if dropped else None,
+                        pair_signs=signs_d if dropped else None,
+                        k_mask=k_mask, mask_p=sa.p, mask_q=sa.q,
+                        leaf_id=leaf_id, recovery=recovery[leaf_id])
             if leaf_hook is not None:
                 leaf_hook(leaf_id, name, {
                     "updates": d_st, "residuals": r_st, "weights": w_vec,
-                    "alive": alive, "streams": streams_b, "dense": dense,
+                    "shards": mesh.size if sharded else 1, "alive": alive,
+                    "streams": streams_b, "dense": dense,
                     "new_residuals": nr, "k": k, "k_mask": k_mask,
                     "size": size, "pair_seeds": pair_seeds,
                     "pair_signs": pair_signs,
@@ -476,7 +589,7 @@ def run_async_update(
     ks = schedules.leaf_ks(thgs, sizes, t=state.round,
                            total_rounds=fed.rounds, loss_prev=loss_prev,
                            loss_curr=loss_curr)
-    groups = _group_count(tree_groups, B)
+    groups = se.tree_group_count(tree_groups, B)
 
     agg, new_res = {}, {}
     for leaf_id, (name, k, size) in enumerate(zip(names, ks, sizes)):

@@ -1,6 +1,6 @@
-"""The unified sparse-stream engine (paper Alg. 1/2, Eq. 5) — port of the
-serial path of ``repro.core.streams``: the encode, the flat and the
-hierarchical (tree) decode, the wire codecs and the DP release.
+"""The unified sparse-stream engine (paper Alg. 1/2, Eq. 5) — port of
+``repro.core.streams``: the encode, the flat and the hierarchical (tree)
+decode, the wire codecs, the DP release and the client-sharded leaf.
 
 A stream for one leaf is a static-shape pair ``(indices, values)``:
 
@@ -45,6 +45,15 @@ index and the value stream). ``dp_sigma
 > 0`` switches the encode to the DP release shape (``core/dp.py``): the
 data slots release the round's public common support, mask slots carry
 masks only, and grid-rounded noise is added to every released slot.
+
+The client-parallel round (:func:`encode_decode_leaf_sharded`, DESIGN.md
+§11) splits the cohort over a 1-D ``clients`` mesh of devices driven by one
+process (``launch/mesh.py``): each shard encodes its clients on its device,
+its rows of the pair masks from ONE row launch of the pair-mask kernel a
+round (:func:`mask_streams_rows_round`) and, under a codec, its packed
+words from one ``bitpack_rows`` launch a leaf; the wire payload is gathered
+in client order onto the decode device (:func:`all_gather_round`, the one
+collective) and decoded once there, bit-equal to the serial round.
 """
 from __future__ import annotations
 
@@ -52,11 +61,16 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch.core import codecs
 from repro_torch.core import dp as dp_mod
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
+
+
+# the 1-D mesh axis of the client-parallel round (``launch/mesh.py``)
+CLIENT_AXIS = "clients"
 
 
 class StreamBatch(NamedTuple):
@@ -253,6 +267,45 @@ def mask_streams_round(
                                   q=q, mirror=True)
 
 
+def mask_streams_rows_round(
+    seeds_rows: torch.Tensor,   # [C_loc, C] a shard's rows of the seed matrix
+    signs_rows: torch.Tensor,   # f32[C_loc, C] the matching sign rows
+    leaves,                     # one (nb, k_mask, m, leaf_id) per leaf
+    *,
+    p: float,
+    q: float,
+) -> list:
+    """One shard's pair-mask streams of every leaf of a round: one
+    ``(m_idx, m_vals)`` per leaf, ``[C_loc, nb, C * k_mask]``, the rows of
+    :func:`mask_streams_round`'s output for the shard's clients. On the card
+    ONE launch of the pair-mask kernel (per 64 leaves) with ``rows = C_loc``
+    and ``peers = C``, no mirror: each seed is read at its own (global)
+    pair, so the stream is the one the mirrored square launch draws for
+    it."""
+    return ops.pair_mask_segments(seeds_rows, signs_rows, list(leaves), p=p,
+                                  q=q, mirror=False)
+
+
+def mask_streams_rows(
+    seeds_rows: torch.Tensor,   # [C_loc, C] a shard's rows of the seed matrix
+    signs_rows: torch.Tensor,   # f32[C_loc, C] the matching sign rows
+    nb: int,
+    k_mask: int,
+    m: int,
+    *,
+    p: float,
+    q: float,
+    leaf_id: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """A row slice of :func:`mask_streams_all_pairs` for one leaf: the
+    shard's clients' pair-mask streams in the per-client layout
+    ``(idx int32[C_loc, nb, C*k_mask], vals f32[C_loc, nb, C*k_mask])``.
+    A stream depends only on its seed and the seed matrix is symmetric, so
+    the rows are bit-equal to the mirrored full-matrix pass."""
+    return mask_streams_rows_round(seeds_rows, signs_rows,
+                                   [(nb, k_mask, m, leaf_id)], p=p, q=q)[0]
+
+
 def recovery_streams_round(
     recovery_seeds: torch.Tensor,   # [C, C] uint32 (survivor<->dropped)
     pair_signs: torch.Tensor,       # f32[C, C]
@@ -301,8 +354,11 @@ def encode_batch_blocks(
     if weights is None:
         weights = torch.ones((C,), dtype=torch.float32, device=dev)
     m_idx = m_vals = None
+    # a shard's rows pair its clients with the whole cohort: the mask
+    # streams exist when the cohort (the peers), not the shard, has two
+    peers = C if pair_signs is None else pair_signs.shape[-1]
     if (masks is not None or pair_seeds is not None) and k_mask > 0 \
-            and C >= 2:
+            and peers >= 2:
         signs = pair_signs.to(dev, torch.float32)
         m_idx, m_vals = masks if masks is not None else \
             mask_streams_all_pairs(pair_seeds.to(dev), signs, nb, k_mask, m,
@@ -368,6 +424,74 @@ def codec_wire_roundtrip(cols_s, q_s, scales, m: int, codec: str):
     return cols2, codecs.dequantize_rows(q2, scales)
 
 
+def _encode_accumulators(
+    updates: torch.Tensor,
+    residuals: torch.Tensor,
+    *,
+    k: int,
+    nb: int,
+    m: int,
+    pair_seeds: torch.Tensor | None,
+    pair_signs: torch.Tensor | None,
+    k_mask: int,
+    mask_p: float,
+    mask_q: float,
+    leaf_id: int,
+    weights: torch.Tensor | None,
+    codec: str,
+    dp_sigma: float,
+    dp_seeds: torch.Tensor | None,
+    dp_support_seed: int,
+    masks: tuple | None,
+) -> tuple[StreamBatch, torch.Tensor]:
+    """The encode of :func:`encode_leaf_batch` before its codec stage, for
+    the rows it is given (the whole cohort, or one shard's clients with
+    their rows of the sign matrix): ``acc = residuals + updates`` in f32,
+    the unified stream of every row, the DP noise. Returns (the f32
+    StreamBatch, new_acc ``[rows, nb, m]``). The callers reject a codec
+    under masks."""
+    dp_on = dp_sigma > 0.0
+    dp_support = None
+    C = updates.shape[0]
+    if dp_on:
+        dp_mod.reject_codec_with_noise(codec, dp_sigma)
+        if dp_seeds is None:
+            raise ValueError("dp_sigma > 0 requires dp_seeds")
+        dp_support = dp_mod.common_support(
+            dp_support_seed, nb, min(int(k), m), m, leaf_id,
+            device=updates.device)
+    acc = (residuals.to(torch.float32) + updates.to(torch.float32))
+    acc = torch.stack([to_blocks(acc[c], nb, m) for c in range(C)])
+    streams, new_acc = encode_batch_blocks(
+        acc, k, pair_seeds=pair_seeds, pair_signs=pair_signs,
+        k_mask=k_mask, mask_p=mask_p, mask_q=mask_q, leaf_id=leaf_id,
+        weights=weights, dp_support=dp_support, masks=masks)
+    if dp_on:
+        streams = StreamBatch(
+            indices=streams.indices,
+            values=dp_mod.add_stream_noise(
+                streams.values, dp_seeds, sigma=dp_sigma, leaf_id=leaf_id,
+                k_data=min(int(k), m)))
+    return streams, new_acc
+
+
+def _global_stream(cols: torch.Tensor, vals: torch.Tensor, nb: int,
+                   m: int) -> StreamBatch:
+    """Block-local columns ``[C, nb, k]`` -> the global ``row * m + col``
+    stream."""
+    rows = torch.arange(nb, dtype=torch.int32,
+                        device=cols.device)[None, :, None]
+    return StreamBatch(indices=(rows * m + cols).to(torch.int32),
+                       values=vals)
+
+
+def _residual_rows(new_acc: torch.Tensor, size: int, leaf_shape: tuple,
+                   dtype) -> torch.Tensor:
+    """``[C, nb, m]`` block views -> ``[C, *leaf_shape]`` residuals."""
+    return torch.stack([from_blocks(new_acc[c], size, leaf_shape)
+                        for c in range(new_acc.shape[0])]).to(dtype)
+
+
 def encode_leaf_batch(
     updates: torch.Tensor,        # [C, *leaf_shape] stacked client updates
     residuals: torch.Tensor,      # [C, *leaf_shape] stacked error feedback
@@ -410,40 +534,18 @@ def encode_leaf_batch(
     """
     # the codec x secagg rejection lives in ONE place (repro.lint RPL003)
     codecs.reject_codec_with_masks(codec, k_mask)
-    dp_on = dp_sigma > 0.0
-    dp_support = None
-    C = updates.shape[0]
-    if dp_on:
-        dp_mod.reject_codec_with_noise(codec, dp_sigma)
-        if dp_seeds is None:
-            raise ValueError("dp_sigma > 0 requires dp_seeds")
-        dp_support = dp_mod.common_support(
-            dp_support_seed, nb, min(int(k), m), m, leaf_id,
-            device=updates.device)
-    leaf_shape = tuple(updates.shape[1:])
-    acc = (residuals.to(torch.float32) + updates.to(torch.float32))
-    acc = torch.stack([to_blocks(acc[c], nb, m) for c in range(C)])
-    streams, new_acc = encode_batch_blocks(
-        acc, k, pair_seeds=pair_seeds, pair_signs=pair_signs,
-        k_mask=k_mask, mask_p=mask_p, mask_q=mask_q, leaf_id=leaf_id,
-        weights=weights, dp_support=dp_support, masks=masks)
-    if dp_on:
-        streams = StreamBatch(
-            indices=streams.indices,
-            values=dp_mod.add_stream_noise(
-                streams.values, dp_seeds, sigma=dp_sigma, leaf_id=leaf_id,
-                k_data=min(int(k), m)))
+    streams, new_acc = _encode_accumulators(
+        updates, residuals, k=k, nb=nb, m=m, pair_seeds=pair_seeds,
+        pair_signs=pair_signs, k_mask=k_mask, mask_p=mask_p, mask_q=mask_q,
+        leaf_id=leaf_id, weights=weights, codec=codec, dp_sigma=dp_sigma,
+        dp_seeds=dp_seeds, dp_support_seed=dp_support_seed, masks=masks)
     if codec != "f32":
         cols, q, scales, new_acc = codec_wire_stage(
             streams.indices, streams.values, new_acc, weights, m, codec)
         cols, vq = codec_wire_roundtrip(cols, q, scales, m, codec)
-        rows = torch.arange(nb, dtype=torch.int32,
-                            device=acc.device)[None, :, None]
-        streams = StreamBatch(indices=(rows * m + cols).to(torch.int32),
-                              values=vq)
-    new_res = torch.stack([from_blocks(new_acc[c], size, leaf_shape)
-                           for c in range(C)])
-    return streams, new_res.to(residuals.dtype)
+        streams = _global_stream(cols, vq, nb, m)
+    return streams, _residual_rows(new_acc, size, tuple(updates.shape[1:]),
+                                   residuals.dtype)
 
 
 # ------------------------------------------------------------- server decode
@@ -573,6 +675,14 @@ def tree_splits(padded: int, n_groups: int) -> tuple[int, ...]:
     return tuple(bounds)
 
 
+def tree_group_count(tree_groups: int, cohort: int) -> int:
+    """The tree's sub-aggregator count: ``tree_groups``, or for 0 about the
+    square root of the cohort (Python's ``round``, at least 2)."""
+    if tree_groups > 0:
+        return tree_groups
+    return max(2, int(round(cohort ** 0.5)))
+
+
 def _scatter_range(flat_idx: torch.Tensor, flat_vals: torch.Tensor,
                    lo: int, hi: int) -> torch.Tensor:
     """One sub-aggregator's partial: the slots landing in ``[lo, hi)``,
@@ -650,3 +760,259 @@ def decode_leaf_tree(
     dense = decode_sum_tree(streams, nb, m, splits=splits, alive=alive,
                             weights=weights, extra=extra)
     return dense[:size]
+
+
+# ----------------------------------------------------- the stream exchange
+def _tree_map(fn, *trees):
+    """``fn`` over the tensors of trees of one structure (dicts, tuples,
+    named tuples, lists; None stays None)."""
+    t = trees[0]
+    if t is None:
+        return None
+    if isinstance(t, dict):
+        return {k: _tree_map(fn, *(x[k] for x in trees)) for k in t}
+    if isinstance(t, tuple) and hasattr(t, "_fields"):
+        return type(t)(*(_tree_map(fn, *xs) for xs in zip(*trees)))
+    if isinstance(t, (tuple, list)):
+        return type(t)(_tree_map(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
+
+
+def all_gather_round(shards: list, device):
+    """Gather one round's wire payload: every shard's tree (one structure,
+    leading axis its clients), concatenated leaf by leaf in shard order onto
+    ``device`` — the ONE collective of the sparse exchange. Shard 0's
+    clients come first, so the result is the serial round's client order."""
+    return _tree_map(lambda *xs: torch.cat([x.to(device) for x in xs]),
+                     *shards)
+
+
+def gather_streams(streams: list, device) -> StreamBatch:
+    """Gather every shard's stream into the round's stacked
+    :class:`StreamBatch` on ``device``."""
+    idx, vals = all_gather_round([(s.indices, s.values) for s in streams],
+                                 device)
+    return StreamBatch(indices=idx, values=vals)
+
+
+# ----------------------------------------- client-parallel (sharded) round
+def can_shard_clients(mesh, n_clients: int) -> bool:
+    """True iff ``mesh`` can host a client-parallel round for this cohort:
+    a ``clients`` mesh of more than one shard whose size divides the cohort
+    (shards are equal). Callers run the serial round otherwise."""
+    if mesh is None or getattr(mesh, "axis_name", None) != CLIENT_AXIS:
+        return False
+    return mesh.size > 1 and n_clients % mesh.size == 0
+
+
+def shard_client_tree(tree, mesh) -> list:
+    """Split a client-stacked tree (leading axis = clients) into the mesh's
+    shards: one tree per shard, in shard order, each leaf its shard's
+    ``C / size`` rows on the shard's device (a view where the device is the
+    leaf's own)."""
+    sizes = []
+    _tree_map(lambda x: sizes.append(x.shape[0]), tree)
+    C = sizes[0]
+    if any(n != C for n in sizes) or C % mesh.size:
+        raise ValueError(f"cannot split leading axes {sorted(set(sizes))} "
+                         f"over {mesh.size} shards")
+    c_loc = C // mesh.size
+    return [_tree_map(lambda x, s=s, d=d: x[s * c_loc:(s + 1) * c_loc].to(d),
+                      tree) for s, d in enumerate(mesh.devices)]
+
+
+def shard_map_clients(f, mesh, n_clients: int, *shards) -> list:
+    """Run the per-shard body ``f(i0, device, *args)`` for every shard, in
+    shard order: ``i0 = s * C_loc`` is the shard's first client in the
+    cohort, ``args`` its entries of each list in ``shards`` (from
+    :func:`shard_client_tree`). Returns the bodies' results in shard order.
+    The shards run one after the other from this process; shards on
+    distinct devices overlap, as each launches onto its own device's
+    stream."""
+    c_loc = n_clients // mesh.size
+    return [f(s * c_loc, dev, *(sh[s] for sh in shards))
+            for s, dev in enumerate(mesh.devices)]
+
+
+def encode_leaf_shards(
+    mesh,
+    update_shards: list,       # per shard [C_loc, *leaf_shape]
+    residual_shards: list,     # per shard [C_loc, *leaf_shape]
+    *,
+    k: int,
+    nb: int,
+    m: int,
+    size: int,
+    pair_signs: torch.Tensor | None = None,
+    masks: list | None = None,
+    k_mask: int = 0,
+    leaf_id: int = 0,
+    weights: torch.Tensor | None = None,
+    codec: str = "f32",
+    dp_sigma: float = 0.0,
+    dp_seeds: torch.Tensor | None = None,
+    dp_support_seed: int = 0,
+) -> tuple[list, list]:
+    """The client side of the sharded leaf: each shard encodes its
+    ``C_loc`` clients on its device — top-k ∪ its rows of the pair masks
+    (``masks[s]``, this leaf's entry of the shard's
+    :func:`mask_streams_rows_round`, with its rows of ``pair_signs``), the
+    first-occurrence gate, the weights, under DP the shared public support
+    and its clients' noise (``dp_seeds[i0:i0 + C_loc]``), and under a
+    quantized codec the wire stage and ONE ``bitpack_rows`` launch for both
+    wire streams. Returns (the wire payload of each shard: its
+    :class:`StreamBatch`, or ``(index words, value words, scales)`` under a
+    codec; each shard's new residuals ``[C_loc, *leaf_shape]``)."""
+    C = sum(u.shape[0] for u in update_shards)
+    if masks is None or k_mask <= 0:
+        masks, k_mask = None, 0
+    codecs.reject_codec_with_masks(codec, k_mask)
+
+    def body(i0, dev, upd, res):
+        c_loc = upd.shape[0]
+        rows = slice(i0, i0 + c_loc)
+        w = None if weights is None else weights[rows].to(dev)
+        signs = None if masks is None else \
+            pair_signs[rows].to(dev, torch.float32)
+        streams, new_acc = _encode_accumulators(
+            upd, res, k=k, nb=nb, m=m, pair_seeds=None, pair_signs=signs,
+            k_mask=k_mask, mask_p=-1.0, mask_q=2.0, leaf_id=leaf_id,
+            weights=w, codec=codec, dp_sigma=dp_sigma,
+            dp_seeds=None if dp_seeds is None else dp_seeds[rows].to(dev),
+            dp_support_seed=dp_support_seed,
+            masks=None if masks is None else masks[i0 // c_loc])
+        if codec != "f32":
+            # the per-row quantize is shard-local and the same on both
+            # paths; the packed words themselves travel
+            cols, q, scales, new_acc = codec_wire_stage(
+                streams.indices, streams.values, new_acc, w, m, codec)
+            iw, vw = codecs.pack_stream_rows(cols, q, m=m, codec=codec)
+            payload = (iw, vw, scales)
+        else:
+            payload = streams
+        return payload, _residual_rows(new_acc, size, tuple(upd.shape[1:]),
+                                       res.dtype)
+
+    out = shard_map_clients(body, mesh, C, update_shards, residual_shards)
+    return [o[0] for o in out], [o[1] for o in out]
+
+
+def gather_payload(payloads: list, device, *, k: int, nb: int, m: int,
+                   codec: str = "f32") -> StreamBatch:
+    """The server side of the exchange: gather every shard's wire payload
+    onto ``device`` in client order and, under a codec, unpack the gathered
+    words (ONE ``bitunpack_rows`` launch for both wire streams) and
+    dequantize. Returns the round's stacked stream, bit-equal to the serial
+    encode's."""
+    if codec == "f32":
+        return gather_streams(payloads, device)
+    iw, vw, scales = all_gather_round(payloads, device)
+    cols, q = codecs.unpack_stream_rows(iw, vw, k=min(int(k), m), m=m,
+                                        codec=codec)
+    return _global_stream(cols, codecs.dequantize_rows(q, scales), nb, m)
+
+
+def encode_decode_leaf_sharded(
+    mesh,
+    updates,                   # [C, *leaf_shape], or one [C_loc, ...] a shard
+    residuals,                 # the same, the error feedback
+    *,
+    k: int,
+    nb: int,
+    m: int,
+    size: int,
+    pair_seeds: torch.Tensor | None = None,
+    pair_signs: torch.Tensor | None = None,
+    recovery_seeds: torch.Tensor | None = None,
+    alive: torch.Tensor | None = None,
+    k_mask: int = 0,
+    mask_p: float = -1.0,
+    mask_q: float = 2.0,
+    leaf_id: int = 0,
+    weights: torch.Tensor | None = None,
+    codec: str = "f32",
+    topology: str = "flat",
+    tree_groups: int = 0,
+    dp_sigma: float = 0.0,
+    dp_seeds: torch.Tensor | None = None,
+    dp_support_seed: int = 0,
+    masks: list | None = None,
+    recovery: StreamBatch | None = None,
+    device=None,
+) -> tuple[torch.Tensor, torch.Tensor, StreamBatch]:
+    """Client-parallel encode + decode for one leaf: the sharded twin of
+    the ``encode_leaf_batch`` -> ``decode_leaf_batch`` pair, and the leaf
+    step of ``run_round(mesh=...)``.
+
+    Clients are split over the ``clients`` mesh (``updates`` and
+    ``residuals`` stacked, or already one tensor a shard); each shard runs
+    the encode for its clients (:func:`encode_leaf_shards`), and the server
+    reduction is ONE gather of the sparse streams (the packed words under a
+    codec) followed by the decode, run once on ``device`` (default the
+    mesh's first). The reference replicates that decode on every device only
+    because a shard_map output is replicated; in one process a copy per
+    device buys nothing. The same flat stream in the same client order
+    reaches the same slot-order scatter, so the result is bit-equal to the
+    serial pair.
+
+    The pair masks are ``masks`` (one entry a shard, this leaf's of the
+    shard's :func:`mask_streams_rows_round`), or else made here from each
+    shard's rows of ``pair_seeds`` by the same row launch. A dropout round
+    (``alive``) gates the survivors and cancels the dropped clients' masks
+    with ``recovery`` (this leaf's entry of :func:`recovery_streams_round`),
+    or else with the streams that function makes from ``recovery_seeds``.
+    ``topology='tree'`` decodes over :func:`tree_group_count` groups. An
+    absent operand is None: no placeholder is needed.
+
+    Requires ``can_shard_clients(mesh, C)``. Returns ``(dense f32[size],
+    new_residuals [C, *leaf_shape], the gathered stream)``, all on
+    ``device``; the caller normalizes by the survivors' total weight and
+    carries the dropped clients' accumulators, as with the serial pair.
+    """
+    device = mesh.devices[0] if device is None else device
+    if isinstance(updates, torch.Tensor):
+        updates = shard_client_tree(updates, mesh)
+        residuals = shard_client_tree(residuals, mesh)
+    C = sum(u.shape[0] for u in updates)
+    assert can_shard_clients(mesh, C), (
+        f"mesh {mesh} cannot shard {C} clients; use encode_leaf_batch")
+    if topology not in ("flat", "tree"):
+        raise ValueError(f"unknown topology {topology!r}")
+    with_masks = (masks is not None or pair_seeds is not None) \
+        and k_mask > 0 and C >= 2
+    codecs.reject_codec_with_masks(codec, k_mask if with_masks else 0)
+    leaf = [(nb, k_mask, m, leaf_id)]
+    with record_function("round.encode"):
+        if with_masks and masks is None:
+            masks = shard_map_clients(
+                lambda i0, d, u: mask_streams_rows_round(
+                    pair_seeds[i0:i0 + u.shape[0]].to(d),
+                    pair_signs[i0:i0 + u.shape[0]].to(d, torch.float32),
+                    leaf, p=mask_p, q=mask_q)[0], mesh, C, updates)
+        payloads, new_res = encode_leaf_shards(
+            mesh, updates, residuals, k=k, nb=nb, m=m, size=size,
+            pair_signs=pair_signs, masks=masks if with_masks else None,
+            k_mask=k_mask if with_masks else 0, leaf_id=leaf_id,
+            weights=weights, codec=codec, dp_sigma=dp_sigma,
+            dp_seeds=dp_seeds, dp_support_seed=dp_support_seed)
+    with record_function("round.gather"):
+        gathered = gather_payload(payloads, device, k=k, nb=nb, m=m,
+                                  codec=codec)
+    with record_function("round.decode"):
+        if recovery is None and alive is not None and with_masks \
+                and recovery_seeds is not None:
+            recovery = recovery_streams_round(
+                recovery_seeds.to(device),
+                pair_signs.to(device, torch.float32), alive.to(device),
+                leaf, p=mask_p, q=mask_q)[0]
+        alive_d = None if alive is None else alive.to(device)
+        if topology == "tree":
+            dense = decode_sum_tree(
+                gathered, nb, m, alive=alive_d, extra=recovery,
+                splits=tree_splits(nb * m, tree_group_count(tree_groups, C)))
+        else:
+            dense = decode_sum_blocks(gathered, nb, m, alive=alive_d,
+                                      extra=recovery)
+    with record_function("round.gather"):
+        new_res = all_gather_round(new_res, device)
+    return dense[:size], new_res, gathered

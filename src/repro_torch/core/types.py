@@ -9,6 +9,25 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseStream:
+    """Static-shape sparse encoding of one tensor (one THGS layer/leaf).
+
+    ``indices`` index into the flattened tensor; ``values`` carry
+    ``acc[idx] * first_occurrence + mask`` per slot (``core/streams.py``).
+    Duplicate indices are allowed; scatter-add semantics resolve them.
+    """
+
+    indices: torch.Tensor  # int32[k_total]
+    values: torch.Tensor   # f32[k_total]
+
+    @property
+    def k(self) -> int:
+        return self.indices.shape[-1]
+
 
 @dataclasses.dataclass(frozen=True)
 class THGSConfig:
@@ -126,3 +145,28 @@ def quantize_k(k: int, size: int, levels: int) -> int:
     pos = math.log(k) / math.log(size)  # in (0, 1)
     snapped = round(pos * levels) / levels
     return max(1, min(size, int(round(size ** snapped))))
+
+
+def _tree_leaves(tree) -> list:
+    """The tensors of a tree of dicts, lists and tuples, in order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _tree_leaves(v)]
+    return [tree]
+
+
+def tree_size(tree) -> int:
+    """Elements over every tensor of a tree (e.g. a ``{name: tensor}``
+    parameter dict)."""
+    return sum(x.numel() for x in _tree_leaves(tree))
+
+
+def tree_zeros_like(tree, dtype=None):
+    """A tree of zeros of the tree's shapes and devices, in ``dtype`` or
+    each tensor's own."""
+    if isinstance(tree, dict):
+        return {k: tree_zeros_like(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_zeros_like(v, dtype) for v in tree)
+    return torch.zeros_like(tree, dtype=dtype or tree.dtype)

@@ -9,7 +9,8 @@ The build runs at first CUDA use, never at import: importing ``repro_torch``
 on a machine without ``nvcc`` builds nothing. A failed build raises. Outputs
 go to ``build/repro_torch_ext/`` at the root of the checkout (ignored by git),
 or to ``$REPRO_TORCH_BUILD_DIR``; each library's file name carries a digest
-of its source and flags, so an edited source is rebuilt.
+of its source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source or header is rebuilt.
 """
 from __future__ import annotations
 
@@ -91,7 +92,10 @@ def find_nvcc() -> str:
 
 def _lib_path(fname: str) -> Path:
     src = CSRC / fname
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    # the shared headers are part of every source's digest
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS).encode())
     return build_dir() / f"{src.stem}-{digest.hexdigest()[:16]}.so"
 
 
@@ -145,6 +149,14 @@ def kernel(name: str):
     """The loaded C launcher of one kernel, building on first use."""
     fn = _FUNCS.get(name)
     return fn if fn is not None else build_all()[name]
+
+
+def on_device(device):
+    """The guard every launch runs under: ``device`` made the current CUDA
+    device for the launch, so the kernel runs on the device whose stream it
+    is handed (a launch into another device's stream is refused) and the
+    launcher's per-device set-up reads the right device."""
+    return torch.cuda.device(device)
 
 
 def check(rc: int, name: str) -> None:

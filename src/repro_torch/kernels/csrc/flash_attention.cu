@@ -103,6 +103,8 @@
 #include <dlfcn.h>
 #include <math_constants.h>
 
+#include "smem_attr.cuh"
+
 namespace {
 
 constexpr float NEG_INF = -1e30f;
@@ -282,15 +284,11 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
            cudaStream_t stream) {
     constexpr size_t smem = smem_bytes<HD>();
     auto kern = flash_attention_f32_kernel<HD>;
-    // above 48 KB of shared memory only on request; made once per instance,
-    // so a launch inside a CUDA graph capture makes no such call
-    static bool configured = false;
-    if (!configured) {
-        cudaError_t err = cudaFuncSetAttribute(
-            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) return (int)err;
-        configured = true;
-    }
+    // above 48 KB of shared memory only on request, once per instance and
+    // device
+    static bool configured[kMaxDevices] = {};
+    const cudaError_t err = set_smem_once(configured, kern, (int)smem);
+    if (err != cudaSuccess) return (int)err;
     const dim3 grid((Tq + BQ - 1) / BQ, H, B);
     const float sm_scale = (float)(1.0 / sqrt((double)HD));   // f32(hd^-0.5)
     kern<<<grid, NT, smem, stream>>>(
@@ -699,14 +697,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
         || !encode(fn, &tv, v, B, S, Hkv, HD))
         return (int)cudaErrorInvalidValue;
     auto kern = flash_attention_bf16_kernel<HD>;
-    static bool configured = false;
-    if (!configured) {
-        cudaError_t err = cudaFuncSetAttribute(
-            kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            Layout<HD>::ALLOC);
-        if (err != cudaSuccess) return (int)err;
-        configured = true;
-    }
+    static bool configured[kMaxDevices] = {};
+    const cudaError_t err = set_smem_once(configured, kern, Layout<HD>::ALLOC);
+    if (err != cudaSuccess) return (int)err;
     const int nqb = (Tq + BQ - 1) / BQ;
     const long long blocks = (long long)nqb * H * B;
     if (blocks >= (1ll << 31)) return (int)cudaErrorInvalidConfiguration;

@@ -67,6 +67,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "smem_attr.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -393,16 +395,11 @@ extern "C" int stream_scatter_add_launch(const void* idx, const void* vals,
     if (size <= 0) return 0;
     const Plan p = make_plan(n, size);
     if (workspace_bytes < p.bytes) return (int)cudaErrorInvalidValue;
-    // above 48 KB of shared memory only on request; made once, so a launch
-    // inside a CUDA graph capture makes no such call
-    static bool configured = false;
-    if (!configured) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            stream_scatter_add_split_kernel,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, kSplitSmemMax);
-        if (err != cudaSuccess) return (int)err;
-        configured = true;
-    }
+    // above 48 KB of shared memory only on request, once per device
+    static bool configured[kMaxDevices] = {};
+    const cudaError_t err = set_smem_once(
+        configured, stream_scatter_add_split_kernel, kSplitSmemMax);
+    if (err != cudaSuccess) return (int)err;
     cudaStream_t s = (cudaStream_t)stream;
     int* table = (int*)workspace;
     int2* sorted = (int2*)((char*)workspace + p.sorted_off);

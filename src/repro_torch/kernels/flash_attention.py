@@ -65,10 +65,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v = (x.contiguous() if x.data_ptr() % 16 == 0 else x.clone(
         memory_format=torch.contiguous_format) for x in (q, k, v))
     fn = build.kernel("flash_attention")
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, S,
-            H, Hkv, hd, int(bool(causal)), int(window or 0), build.DTYPE_CODES[q.dtype],
-            stream)
+    with build.on_device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
+                T, S, H, Hkv, hd, int(bool(causal)), int(window or 0),
+                build.DTYPE_CODES[q.dtype], stream)
     build.check(rc, "flash_attention")
     launches += 1
     return out

@@ -92,24 +92,32 @@ def pair_mask_segments_cuda(seeds: torch.Tensor, signs: torch.Tensor,
                  else (rows, nb, peers * k))
         out.append((ibuf[o:o + n].view(shape), vbuf[o:o + n].view(shape)))
     fn = build.kernel("pair_mask_streams")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    for lo in range(0, len(leaves), MAX_SEGMENTS):
-        desc = []
-        for (nb, k, m, leaf_id), o, n in zip(
-                leaves[lo:lo + MAX_SEGMENTS], offsets[lo:lo + MAX_SEGMENTS],
-                n_slots[lo:lo + MAX_SEGMENTS]):
-            if n:
-                desc += [ibuf.data_ptr() + 4 * o, vbuf.data_ptr() + 4 * o,
-                         nb, k, m, -1 if leaf_id is None else int(leaf_id)]
-        if not desc:
-            continue
-        build.check(fn(s32.data_ptr(), sg.data_ptr(),
-                       None if al is None else al.data_ptr(), peers, rows,
-                       peers, flags, float(p), float(q),
-                       (ctypes.c_longlong * len(desc))(*desc), len(desc) // 6,
-                       stream), "pair_mask_streams")
-        launches += 1
+    with build.on_device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for lo in range(0, len(leaves), MAX_SEGMENTS):
+            desc = _segment_table(leaves[lo:lo + MAX_SEGMENTS],
+                                  offsets[lo:lo + MAX_SEGMENTS],
+                                  n_slots[lo:lo + MAX_SEGMENTS], ibuf, vbuf)
+            if not desc:
+                continue
+            build.check(fn(s32.data_ptr(), sg.data_ptr(),
+                           None if al is None else al.data_ptr(), peers,
+                           rows, peers, flags, float(p), float(q),
+                           (ctypes.c_longlong * len(desc))(*desc),
+                           len(desc) // 6, stream), "pair_mask_streams")
+            launches += 1
     return out
+
+
+def _segment_table(leaves, offsets, n_slots, ibuf, vbuf) -> list:
+    """The launch's segment table: six entries per leaf with work (its two
+    output pointers, nb, k_mask, m, leaf id or -1)."""
+    desc = []
+    for (nb, k, m, leaf_id), o, n in zip(leaves, offsets, n_slots):
+        if n:
+            desc += [ibuf.data_ptr() + 4 * o, vbuf.data_ptr() + 4 * o,
+                     nb, k, m, -1 if leaf_id is None else int(leaf_id)]
+    return desc
 
 
 def pair_mask_streams_cuda(seeds: torch.Tensor, signs: torch.Tensor, *,
@@ -158,10 +166,11 @@ def mask_prng_apply_cuda(g: torch.Tensor, seed: int, *, p: float = -1.0,
     if g.numel() == 0:
         return out, mask
     fn = build.kernel("mask_prng_apply")
-    stream = torch.cuda.current_stream(g.device).cuda_stream
-    rc = fn(gc.data_ptr(), g.numel(), int(seed), float(p), float(q),
-            float(sigma), float(sign), build.DTYPE_CODES[g.dtype], out.data_ptr(),
-            mask.data_ptr(), stream)
+    with build.on_device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        rc = fn(gc.data_ptr(), g.numel(), int(seed), float(p), float(q),
+                float(sigma), float(sign), build.DTYPE_CODES[g.dtype],
+                out.data_ptr(), mask.data_ptr(), stream)
     build.check(rc, "mask_prng_apply")
     apply_launches += 1
     return out, mask

@@ -61,10 +61,11 @@ def _launch(entry: str, srcs, outs, ks, widths, words, device) -> bool:
             desc += [src.data_ptr(), out.data_ptr(), src.shape[0], k, w, W]
     if not desc:
         return False
-    stream = torch.cuda.current_stream(device).cuda_stream
-    build.check(build.kernel(entry)(
-        (ctypes.c_longlong * len(desc))(*desc), len(desc) // 6, stream),
-        entry)
+    fn = build.kernel(entry)
+    with build.on_device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        build.check(fn((ctypes.c_longlong * len(desc))(*desc),
+                       len(desc) // 6, stream), entry)
     return True
 
 

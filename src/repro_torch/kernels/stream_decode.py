@@ -43,9 +43,10 @@ def stream_scatter_add_cuda(indices: torch.Tensor, values: torch.Tensor,
         return out
     fn = build.kernel("stream_scatter_add")
     work = workspace(idx.numel(), size, indices.device)
-    stream = torch.cuda.current_stream(indices.device).cuda_stream
-    rc = fn(idx.data_ptr(), val.data_ptr(), idx.numel(), out.data_ptr(), size,
-            work.data_ptr(), work.numel(), stream)
+    with build.on_device(indices.device):
+        stream = torch.cuda.current_stream(indices.device).cuda_stream
+        rc = fn(idx.data_ptr(), val.data_ptr(), idx.numel(), out.data_ptr(),
+                size, work.data_ptr(), work.numel(), stream)
     build.check(rc, "stream_scatter_add")
     launches += 1
     return out

@@ -47,11 +47,11 @@ def thgs_sparsify_cuda(g: torch.Tensor, residual: torch.Tensor, threshold):
     if g.numel() == 0:
         return sparse, resid
     fn = build.kernel("thgs_sparsify")
-    stream = torch.cuda.current_stream(g.device).cuda_stream
-    rc = fn(g_in.data_ptr(), r_in.data_ptr(), thr_ptr, thr, g.numel(),
-             build.DTYPE_CODES[g.dtype], build.DTYPE_CODES[residual.dtype],
-            sparse.data_ptr(),
-             resid.data_ptr(), stream)
+    with build.on_device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        rc = fn(g_in.data_ptr(), r_in.data_ptr(), thr_ptr, thr, g.numel(),
+                build.DTYPE_CODES[g.dtype], build.DTYPE_CODES[residual.dtype],
+                sparse.data_ptr(), resid.data_ptr(), stream)
     build.check(rc, "thgs_sparsify")
     launches += 1
     return sparse, resid

@@ -9,6 +9,7 @@
     python -m repro_torch.sim --preset async_quick
     python -m repro_torch.sim --preset ci_smoke --topology tree --tree-groups 4
     python -m repro_torch.sim --preset ci_smoke --ckpt-dir ck --ckpt-every 1
+    python -m repro_torch.sim --preset table2_quick --shard-clients on
     python -m repro_torch.sim --list
 
 Runs the named preset (with any overrides) on the CUDA device, prints
@@ -17,7 +18,10 @@ reference CLI's format (and the composed (ε, δ) of a DP run), and writes the
 JSON ledger to ``--out`` (or the preset's default path). With
 ``--ckpt-dir`` it checkpoints every ``--ckpt-every`` rounds and, run again,
 resumes from the newest checkpoint there (``--no-resume`` starts over); the
-reference's checkpoints resume too. A codec sweep
+reference's checkpoints resume too. ``--shard-clients`` (default: the
+preset's, 'auto') splits the cohort over the local CUDA devices when more
+than one divides it; the header then names ``clients_mesh=<n>dev``, and 'on'
+without such a mesh exits 1. A codec sweep
 (``codec_sweep[_quick]``) or a DP sweep (``dp_frontier[_quick]``) runs every
 arm and writes one combined JSON. Without a CUDA device it exits non-zero
 unless ``--device cpu`` is given.
@@ -68,6 +72,8 @@ def _sweep_overrides(args, cfg) -> dict:
         over["seed"] = args.seed
     if args.dropout is not None:
         over["dropout_rate"] = args.dropout
+    if args.shard_clients is not None:
+        over["shard_clients"] = args.shard_clients
     if args.quick:
         _quick(over, cfg)
     return over
@@ -166,6 +172,10 @@ def main(argv=None) -> int:
     ap.add_argument("--quick", action="store_true",
                     help="shrink the run (3 rounds, 600 train / 200 test "
                          "samples, eval every round)")
+    ap.add_argument("--shard-clients", choices=("auto", "on", "off"),
+                    default=None,
+                    help="client-parallel rounds over the local devices "
+                         "(default: the preset's setting)")
     ap.add_argument("--codec", choices=CODECS, default=None,
                     help="stream wire codec; a non-f32 codec on a secagg "
                          "preset turns secure aggregation off (masks cancel "
@@ -214,7 +224,11 @@ def main(argv=None) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 1
     if sweep is not None:
-        return sweep(args, device)
+        try:
+            return sweep(args, device)
+        except RuntimeError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
 
     over = {}
     if args.rounds is not None:
@@ -233,6 +247,8 @@ def main(argv=None) -> int:
         over["topology"] = args.topology
     if args.tree_groups is not None:
         over["tree_groups"] = args.tree_groups
+    if args.shard_clients is not None:
+        over["shard_clients"] = args.shard_clients
     if (args.dp_sigma is not None or args.dp_clip is not None
             or args.dp_delta is not None):
         dp_over = {}
@@ -254,7 +270,13 @@ def main(argv=None) -> int:
         _quick(over, cfg)
     cfg = cfg.replace(**over)
 
-    sim = simulation_for(cfg, device=device)
+    try:
+        sim = simulation_for(cfg, device=device)
+    except RuntimeError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    mesh_note = (f" clients_mesh={sim.mesh.size}dev"
+                 if sim.mesh is not None else "")
     codec_note = f" codec={cfg.codec}" if cfg.codec != "f32" else ""
     mode_note = (f" mode=async buffer={sim.buffer} "
                  f"max_staleness={cfg.max_staleness}"
@@ -266,7 +288,8 @@ def main(argv=None) -> int:
     print(f"# preset={args.preset} model={cfg.model} dataset={cfg.dataset} "
           f"partition={cfg.partition} rounds={cfg.rounds} "
           f"cohort={cfg.clients_per_round}/{cfg.n_clients}"
-          f"{codec_note}{mode_note}{topo_note}{dp_note} device={device}",
+          f"{mesh_note}{codec_note}{mode_note}{topo_note}{dp_note} "
+          f"device={device}",
           flush=True)
     res = sim.run(resume=not args.no_resume, hooks=[_progress_hook])
 

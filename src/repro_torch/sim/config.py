@@ -183,10 +183,7 @@ class SimConfig:
         elif self.buffer_size:
             raise ValueError("buffer_size is only meaningful with "
                              "mode='async'")
-        # what this slice refuses, and the slice that brings it
-        if self.shard_clients == "on":
-            raise _not_ported("shard_clients='on'",
-                              "slice E (the client-sharded round)")
+        # what the port refuses, and the slice that brings it
         if self.thgs is None and self.sa.enabled:
             raise _not_ported("dense secure aggregation (thgs=None with "
                               "sa.enabled)", "slice I (the datacenter layer)")

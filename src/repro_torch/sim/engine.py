@@ -4,7 +4,10 @@ the FedBuff-style ``AsyncSimulation`` and ``simulate()``.
 
 ``Simulation`` owns data synthesis and partitioning, the per-round cohort
 schedule and dropout injection (sampler.py), the round itself
-(``core.fedavg.run_round``), the communication ledger and eval hooks. It runs
+(``core.fedavg.run_round``), the communication ledger and eval hooks. With
+``shard_clients`` ('auto' by default) it splits the fixed-shape cohort over a
+1-D ``clients`` mesh of local devices (``launch/mesh.py``) when more than one
+device divides the cohort; 'on' insists, 'off' runs the serial round. It runs
 on ``cuda`` unless the caller passes ``device="cpu"``; it never falls back
 from one to the other. Every float in the round is f32: on the card, TF32 is
 switched off for matmuls and convolutions.
@@ -50,6 +53,7 @@ from repro_torch.core.fedavg import (FederatedState, init_state,
 from repro_torch.data.datasets import SPECS, make_dataset
 from repro_torch.data.federated import (client_batches, dirichlet, iid,
                                         noniid_label_k)
+from repro_torch.launch.mesh import clients_mesh_for, local_device_count
 from repro_torch.models.paper_models import (accuracy, build_model,
                                              cross_entropy_loss)
 from repro_torch.sim.config import SimConfig
@@ -181,6 +185,21 @@ class Simulation:
         self.min_survivors = (
             cfg.sa.t_for(cfg.clients_per_round)
             if cfg.thgs is not None and cfg.sa.enabled else 1)
+        # client-parallel rounds: the cohort split over a 1-D clients mesh
+        # of local devices when they allow it ('auto'), or must ('on');
+        # tests may assign ``sim.mesh`` directly (e.g. shards that share
+        # one device, launch/mesh.py)
+        self.mesh = None
+        if cfg.shard_clients != "off":
+            self.mesh = clients_mesh_for(cfg.clients_per_round,
+                                         self.device.type)
+            if cfg.shard_clients == "on" and self.mesh is None:
+                raise RuntimeError(
+                    "shard_clients='on' but no usable clients mesh: "
+                    f"{local_device_count(self.device.type)} "
+                    f"{self.device.type} device(s) for a cohort of "
+                    f"{cfg.clients_per_round} (need more than one device "
+                    "and a device count dividing the cohort)")
         self.ledger = CommLedger()
         self.leaf_hook = None
 
@@ -219,7 +238,8 @@ class Simulation:
             state, batches, self.loss_fn, self.fed, cfg.thgs, cfg.sa,
             bits=self.bits, client_weights=self.client_weights,
             dropped=dropped, leaf_hook=self.leaf_hook, codec=cfg.codec,
-            dp=cfg.dp, topology=cfg.topology, tree_groups=cfg.tree_groups)
+            dp=cfg.dp, topology=cfg.topology, tree_groups=cfg.tree_groups,
+            mesh=self.mesh)
         return state, {"cohort": cohort, "dropped": dropped}
 
     # ------------------------------------------------------------ checkpoint
@@ -366,6 +386,7 @@ class AsyncSimulation(Simulation):
             weights=self.data_counts if cfg.sampler == "weighted" else None,
             dropout_rate=0.0, seed=cfg.seed)
         self.versions: list = []   # parameter ring, newest last
+        self.mesh = None           # async runs the serial update path
 
     def _fresh_state(self) -> FederatedState:
         state = super()._fresh_state()

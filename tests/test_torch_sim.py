@@ -92,7 +92,6 @@ def test_cli_without_cuda_exits_nonzero(tmp_path):
 @pytest.mark.parametrize("over,what", [
     ({"thgs": TTHGS(selector="sampled")}, "selector"),
     ({"thgs": TTHGS(selector="local")}, "selector"),
-    ({"shard_clients": "on"}, "shard_clients"),
     ({"thgs": None}, "dense secure aggregation"),
 ])
 def test_config_refuses_what_this_slice_does_not_port(over, what):
