@@ -115,9 +115,15 @@ exits non-zero and no failure is caught:
      times over the two legs of table2_quick); each killed checkpoint is
      also resumed by ``python -m repro_torch.sim --ckpt-dir`` in a fresh
      process, whose ledger, accuracies, losses and final checkpoint must be
-     bit-equal to the same uninterrupted run; then one VGG16 checkpoint
-     (its params and 10 clients' residuals, about 650 MB on disk): save and
-     restore times, restored bit-equal.
+     bit-equal to the same uninterrupted run; then VGG16 under the table2
+     protocol, 2 rounds: two serial engine runs, each started with cuDNN
+     left non-deterministic and autotuning (the engine must set
+     deterministic cuDNN itself), bit-equal to each other, and the run
+     killed after round 1 and resumed, bit-equal to them (2 mask launches
+     over both legs); VGG16's local SGD timed with and without
+     deterministic cuDNN, in turns; then one VGG16 checkpoint (its params
+     and 10 clients' residuals, about 650 MB on disk): save and restore
+     times, restored bit-equal.
  13. serve: ``python -m repro_torch.serving --preset table2 --qps 1000``
      through its ``main()`` on the card (training in the main thread, the
      server, the load generator and the checkpoint watcher in threads;
@@ -158,6 +164,26 @@ exits non-zero and no failure is caught:
      within ``VGG_PARAM_ATOL``. Round wall times, serial against sharded,
      and the bytes the stream gather and the residual return copy a round
      are printed.
+ 15. bench: ``python -m repro_torch.bench --quick --out`` through its
+     ``main()`` on the card (the ``round``, ``agg``, ``cohort`` and ``serve``
+     suites; counts reset before, read after): the document valid, its env
+     naming the card and the power limit ``nvidia-smi`` gives, every
+     suite's entry names equal to the reference's quick names, each of the
+     scatter, pair-mask, both bit-pack and the flash kernels launched; the
+     run gated against the committed ``BENCH_torch_*.json`` (exit 0, at
+     least one entry compared); then, at the suites' ``--quick`` shapes and
+     on their inputs (launches not counted): ``pair_mask`` for every
+     ordered pair of the agg cohort, ``client_masks`` and ``encode_leaf``
+     for each of its clients bit-equal to the same calls on the CPU; the
+     agg micro's 64-pair flat mask launch, the cohort streams' flat and
+     tree decodes (C = 64, 256, 1,024) and the codec packs and unpacks at
+     8 x 163 fields (int8, int4, 1bit widths) bit-equal to their plain
+     versions on the same card tensors; the loop round's dense sum
+     bit-equal to the CPU's and within ``LOOP_BATCHED_ATOL`` of the
+     batched round's; the flash kernel's f32 instance at the reduced
+     Yi-6B prefill (B 4, T 16, 4 heads, 2 kv, hd 64) within 2e-5 of its
+     plain version; then ``--csv --only table1,table2,fig1,fig3 --quick``
+     (the paper-table drivers on the card) and its rows printed.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. ``--only flash`` runs phases 1 and 10
@@ -169,7 +195,7 @@ of that design, a leaf pair is timed as its two single launches); ``--only
 masks`` runs phase 1, the pair-mask kernel's round and flat rows of phase 2
 and the mask path probe the same way (on the parent of the round launch, a
 round is timed as its per-leaf flat launches); ``--only sharded`` runs
-phases 1 and 14. Without a CUDA device, or
+phases 1 and 14, ``--only bench`` phases 1 and 15. Without a CUDA device, or
 outside a checkout, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -1635,10 +1661,8 @@ def tree_phase(kind: str) -> dict:
 
     # VGG16 under the tree protocol: full-size _scatter_range launches, and
     # the largest leaf also decoded over an uneven split
-    cfg = presets.get("table2").replace(
-        name="table2_vgg16_tree", model="cifar_vgg16", dataset="cifar10",
-        rounds=2, eval_every=1, out_json=None, topology="tree",
-        tree_groups=3)
+    cfg = vgg16_table2().replace(name="table2_vgg16_tree", topology="tree",
+                                 tree_groups=3)
     sim = Simulation(cfg, device="cuda")
     checked, probe = [0, 0], {}
 
@@ -2149,6 +2173,143 @@ def resume_in_fresh_process(preset: str, kind: str, ckpt_dir: str,
           "residuals or ring differ from the uninterrupted run")
 
 
+def vgg16_table2(rounds: int = 2):
+    """cifar_vgg16 on cifar10 under the table2 protocol (the config of
+    phase 5)."""
+    from repro_torch.sim import presets
+
+    return presets.get("table2").replace(
+        name="table2_vgg16", model="cifar_vgg16", dataset="cifar10",
+        rounds=rounds, eval_every=1, out_json=None)
+
+
+def nondeterministic_cudnn() -> None:
+    """Leave cuDNN as far from deterministic as PyTorch allows
+    (``deterministic`` off, autotuning on), so that only the engine's own
+    setting can make a conv run repeatable."""
+    import torch
+
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+
+
+def vgg16_sgd_times(kind: str, reps: int = 5) -> dict:
+    """VGG16's local SGD (the table2 protocol's first round, 5 clients, one
+    ``batched_client_update``) timed with and without deterministic cuDNN,
+    in turns, on the host clock after ``synchronize`` (median of ``reps``
+    each, after one warm-up call each); autotuning off in both."""
+    import torch
+
+    from repro_torch.core import fedavg
+
+    params, batches, loss_fn, fed = round_inputs(vgg16_table2(), "cuda")
+    b = torch.backends.cudnn
+    old = (b.deterministic, b.benchmark)
+    ts = {True: [], False: []}
+    deltas = {}
+    try:
+        for rep in range(reps + 1):
+            for det in (True, False):
+                b.deterministic, b.benchmark = det, False
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                d, _ = fedavg.batched_client_update(
+                    params, batches, loss_fn, fed.local_steps, fed.local_lr)
+                torch.cuda.synchronize()
+                if rep:
+                    ts[det].append(time.perf_counter() - t0)
+                deltas.setdefault(det, []).append(d)
+    finally:
+        b.deterministic, b.benchmark = old
+    same = {det: all(bits_equal(x[n], deltas[det][0][n])
+                     for x in deltas[det][1:] for n in x) for det in ts}
+    ms = {det: 1e3 * statistics.median(ts[det]) for det in ts}
+    print(f"[resume] cifar_vgg16 local SGD (5 clients x {fed.local_steps} "
+          f"steps of {batches[0].shape[2]}) on {kind}: deterministic cuDNN "
+          f"{ms[True]:.3f} ms, its {reps + 1} calls bit-equal={same[True]}; "
+          f"without it {ms[False]:.3f} ms, bit-equal={same[False]} "
+          f"(median of {reps}, in turns; ratio "
+          f"{ms[True] / ms[False]:.3f})", flush=True)
+    check(same[True], "VGG16's local SGD under deterministic cuDNN differs "
+          "call to call")
+    del deltas, params, batches
+    torch.cuda.empty_cache()
+    return ms
+
+
+def vgg16_resume_leg(kind: str) -> None:
+    """Two plain serial VGG16 engine runs (table2 protocol, 2 rounds), each
+    started with cuDNN left non-deterministic, bit-equal: the engine sets
+    deterministic cuDNN itself; then the run killed after round 1 and
+    resumed, bit-equal to them; then its local SGD timed with and without
+    deterministic cuDNN."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.sim.engine import Simulation
+
+    cfg = vgg16_table2()
+    runs = []
+    for _ in range(2):
+        nondeterministic_cudnn()
+        sim = Simulation(cfg, device="cuda")
+        flags = (torch.backends.cudnn.deterministic,
+                 torch.backends.cudnn.benchmark)
+        check(flags == (True, False), f"the engine left cuDNN at "
+              f"deterministic={flags[0]} benchmark={flags[1]}")
+        runs.append((sim, sim.run()))
+    (a_sim, a), (b_sim, b) = runs
+    two_eq = states_equal(a_sim.state, b_sim.state)
+    same_log = (a.ledger.entries == b.ledger.entries
+                and a.accuracies == b.accuracies and a.losses == b.losses)
+    print(f"[resume] cifar_vgg16 table2 on {kind}: two serial runs, each "
+          f"started with cuDNN non-deterministic and autotuning: params, "
+          f"residuals bit-equal={two_eq}, ledger, accuracies, losses "
+          f"equal={same_log} (losses {a.losses})", flush=True)
+    check(two_eq == (True, True) and same_log,
+          "two serial VGG16 runs of one config and seed differ")
+    del runs, b_sim, b
+    ckcfg = cfg.replace(ckpt_dir=str(SMOKE_DIR / "vgg16_run"), ckpt_every=1)
+
+    def die(r, info):
+        if r + 1 == 1:
+            raise Killed
+
+    nondeterministic_cudnn()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        Simulation(ckcfg, device="cuda").run(hooks=[die])
+        fail("cifar_vgg16: the kill hook did not fire")
+    except Killed:
+        pass
+    t1 = time.perf_counter()
+    nondeterministic_cudnn()
+    sim, seen = Simulation(ckcfg, device="cuda"), []
+    res = sim.run(hooks=[lambda r, info: seen.append(r)])
+    t2 = time.perf_counter()
+    counts = ops.launch_counts()
+    eq = states_equal(sim.state, a_sim.state)
+    same_log = (res.ledger.entries == a.ledger.entries
+                and res.accuracies == a.accuracies and res.losses == a.losses)
+    print(f"[resume] cifar_vgg16 table2 on {kind}: killed after round 1 "
+          f"({t1 - t0:.3f} s, checkpoint included), resumed rounds "
+          f"{[r + 1 for r in seen]} ({t2 - t1:.3f} s); against the "
+          f"uninterrupted run: params, residuals bit-equal={eq}, ledger, "
+          f"accuracies, losses equal={same_log}; launches over both legs="
+          f"{counts}", flush=True)
+    check(seen == [1], f"cifar_vgg16 resumed at the wrong round: {seen}")
+    check(eq == (True, True) and same_log, "the resumed VGG16 run differs "
+          "from the uninterrupted run")
+    check(counts["pair_mask_streams"] == cfg.rounds,
+          f"the VGG16 legs launched pair_mask_streams "
+          f"{counts['pair_mask_streams']} times, expected one a round")
+    del sim, a_sim, a, res
+    torch.cuda.empty_cache()
+    vgg16_sgd_times(kind)
+
+
 def resume_phase(kind: str) -> dict:
     """Each of RESUME_CUTS killed by a hook after its round and resumed to
     the end, against an uninterrupted run in this process; then one VGG16
@@ -2229,6 +2390,8 @@ def resume_phase(kind: str) -> dict:
                   f"round ({cfg.rounds})")
         resume_in_fresh_process(preset, kind, ckcfg.ckpt_dir + "_cli",
                                 kill_at, full_sim, full)
+
+    vgg16_resume_leg(kind)
 
     # one VGG16 checkpoint: params and 10 clients' residuals
     device = torch.device("cuda")
@@ -2715,23 +2878,6 @@ def pad_readings(tag: str, cfg, device, reps: int) -> dict:
     return out
 
 
-class deterministic_cudnn:
-    """cuDNN's deterministic algorithms, no autotuning, inside the block."""
-
-    def __enter__(self):
-        import torch
-
-        b = torch.backends.cudnn
-        self.old = (b.deterministic, b.benchmark)
-        b.deterministic, b.benchmark = True, False
-
-    def __exit__(self, *exc):
-        import torch
-
-        b = torch.backends.cudnn
-        b.deterministic, b.benchmark = self.old
-
-
 class sgd_at_shard_shape:
     """Inside the block the serial round's local SGD runs shard by shard at
     the sharded round's batch shapes: ``c_loc`` clients a call (a
@@ -2776,33 +2922,32 @@ def vgg16_sharded(cfg, shards: int, device) -> dict:
     (module docstring, phase 14). Returns the row printed."""
     import torch
 
-    with deterministic_cudnn():
-        serial = timed_run(cfg, 0, device)
-        serial_log = []
-        lw = leafwise_check(cfg, shards, device, log=serial_log)
-        print(f"[sharded] cifar_vgg16: the sharded encode/decode fed the "
-              f"serial run's deltas over {shards} shards: {lw['leaves']} "
-              f"leaves, bit-equal except {lw['differ']}; per round the "
-              f"gather moves {lw['stream_bytes'] / cfg.rounds:.0f} stream "
-              f"bytes and the residual return "
-              f"{lw['residual_bytes'] / cfg.rounds:.0f} bytes", flush=True)
-        check(not lw["differ"], f"VGG16: the sharded encode/decode fed the "
-              f"serial deltas differs at leaves {lw['differ']}")
-        check(states_equal(lw["state"], serial[0].state) == (True, True),
-              "VGG16: two serial runs under deterministic cuDNN differ")
-        shaped_log, sharded_log = [], []
-        with sgd_at_shard_shape(cfg.clients_per_round // shards):
-            shaped = timed_run(cfg, 0, device, log=shaped_log)
-        sharded = timed_run(cfg, shards, device, log=sharded_log)
-        exact = run_row("cifar_vgg16 table2 (serial local SGD at the "
-                        "shard shape)", shards, cfg, sharded, shaped)
-        sgd_eq = len(shaped_log) == len(sharded_log) and all(
-            bits_equal(a[1], b[1]) for a, b in zip(shaped_log, sharded_log))
-        check(exact["exact"] and sgd_eq,
-              "VGG16: the sharded run is not bit-equal to the serial run "
-              "whose local SGD runs at the shard shape (local SGD deltas "
-              f"bit-equal={sgd_eq})")
-        row = run_row("cifar_vgg16 table2", shards, cfg, sharded, serial)
+    serial = timed_run(cfg, 0, device)
+    serial_log = []
+    lw = leafwise_check(cfg, shards, device, log=serial_log)
+    print(f"[sharded] cifar_vgg16: the sharded encode/decode fed the "
+          f"serial run's deltas over {shards} shards: {lw['leaves']} "
+          f"leaves, bit-equal except {lw['differ']}; per round the "
+          f"gather moves {lw['stream_bytes'] / cfg.rounds:.0f} stream "
+          f"bytes and the residual return "
+          f"{lw['residual_bytes'] / cfg.rounds:.0f} bytes", flush=True)
+    check(not lw["differ"], f"VGG16: the sharded encode/decode fed the "
+          f"serial deltas differs at leaves {lw['differ']}")
+    check(states_equal(lw["state"], serial[0].state) == (True, True),
+          "VGG16: two serial runs under deterministic cuDNN differ")
+    shaped_log, sharded_log = [], []
+    with sgd_at_shard_shape(cfg.clients_per_round // shards):
+        shaped = timed_run(cfg, 0, device, log=shaped_log)
+    sharded = timed_run(cfg, shards, device, log=sharded_log)
+    exact = run_row("cifar_vgg16 table2 (serial local SGD at the "
+                    "shard shape)", shards, cfg, sharded, shaped)
+    sgd_eq = len(shaped_log) == len(sharded_log) and all(
+        bits_equal(a[1], b[1]) for a, b in zip(shaped_log, sharded_log))
+    check(exact["exact"] and sgd_eq,
+          "VGG16: the sharded run is not bit-equal to the serial run "
+          "whose local SGD runs at the shard shape (local SGD deltas "
+          f"bit-equal={sgd_eq})")
+    row = run_row("cifar_vgg16 table2", shards, cfg, sharded, serial)
     p0, p1 = serial[0].state.params, sharded[0].state.params
     first = next((f"round {i // len(p0)} leaf {n}" for i, ((n, a), (_, b))
                   in enumerate(zip(serial_log, sharded_log))
@@ -2917,12 +3062,9 @@ def sharded_phase(kind: str, card: str, device) -> tuple[dict, list]:
           "with the duplicated row is not bit-equal to the cohort's")
 
     # VGG16 under the table2 protocol, 2 rounds over 5 shards
-    cfg = presets.get("table2").replace(
-        name="table2_vgg16", model="cifar_vgg16", dataset="cifar10",
-        rounds=2, eval_every=1)
-    with deterministic_cudnn():
-        pad_readings("cifar_vgg16 table2 (deterministic cuDNN)", cfg, device,
-                     reps=3)
+    cfg = vgg16_table2()
+    pad_readings("cifar_vgg16 table2 (deterministic cuDNN)", cfg, device,
+                 reps=3)
     row = vgg16_sharded(cfg, VGG_SHARDS, device)
     for r, dropped, x in row["per_round"]:
         check(x["pair_mask_streams"] == VGG_SHARDS,
@@ -2938,20 +3080,246 @@ def sharded_phase(kind: str, card: str, device) -> tuple[dict, list]:
     return counts, rows
 
 
+# ------------------------------------------------------- phase 15: bench
+BENCH_KERNELS = ("stream_scatter_add", "pair_mask_streams", "bitpack_rows",
+                 "bitunpack_rows", "flash_attention")
+# the single-device rows of the reference's BENCH_round.json
+BENCH_ROUND_NAMES = ["round/model_size_c8", "round/serial_c8",
+                     "round/serial_dropout_c8", "round/sharded_c8"]
+
+
+def bench_names() -> dict:
+    """Each suite's expected ``--quick`` entry names: the reference's
+    committed quick names (``BENCH_<suite>.json``; for ``round`` its
+    single-device rows)."""
+    out = {"round": BENCH_ROUND_NAMES}
+    for suite in ("agg", "cohort", "serve"):
+        with open(ROOT / f"BENCH_{suite}.json") as f:
+            out[suite] = [e["name"] for e in json.load(f)["entries"]]
+    return out
+
+
+# the agg suite's loop round (per-client means, summed client by client)
+# against its batched round (one sum, then / C): the same slots added in
+# another order. The limit is 2 times the reading that PERF.md section 6
+# records for this script (2.980232e-08 on an H100, the same bits as the
+# plain versions give on the CPU)
+LOOP_BATCHED_ATOL = 6e-8
+
+
+def bench_path_checks(device) -> None:
+    """Phase 15's kernel and helper checks at the suites' ``--quick`` shapes,
+    on the suites' own inputs (module docstring)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.bench import agg_bench, cohort_bench
+    from repro_torch.core import codecs, streams
+    from repro_torch.core.masks import client_masks, pair_mask
+    from repro_torch.core.secure_agg import encode_leaf
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.mesh import default_tree_groups
+
+    cpu = torch.device("cpu")
+    size, C = agg_bench.QUICK_SIZE, agg_bench.QUICK_CLIENTS
+    x = agg_bench.round_inputs(size, C, device)
+    xc = agg_bench.round_inputs(size, C, cpu)
+    sa, P, k, km, thgs = x["sa"], x["participants"], x["k"], x["k_mask"], \
+        x["thgs"]
+
+    def mask_eq(a, b) -> bool:
+        return (bits_equal(a.indices.cpu(), b.indices)
+                and bits_equal(a.values.cpu(), b.values))
+
+    for a in P:
+        for b in P:
+            if a != b:
+                check(mask_eq(pair_mask(sa, a, b, 0, 0, size, km,
+                                        device=device),
+                              pair_mask(sa, a, b, 0, 0, size, km,
+                                        device=cpu)),
+                      f"pair_mask({a}, {b}) on the card != on the CPU")
+    for ci, c in enumerate(P):
+        mg = client_masks(sa, c, P, 0, 0, size, km, device=device)
+        mc = client_masks(sa, c, P, 0, 0, size, km, device=cpu)
+        check(mask_eq(mg, mc), f"client_masks({c}) on the card != on the CPU")
+        eg = encode_leaf(x["grads"][ci], x["residuals"][ci], k, thgs, mg)
+        ec = encode_leaf(xc["grads"][ci], xc["residuals"][ci], k, thgs, mc)
+        check(bits_equal(eg.stream.indices.cpu(), ec.stream.indices)
+              and bits_equal(eg.stream.values.cpu(), ec.stream.values)
+              and bits_equal(eg.residual.cpu(), ec.residual),
+              f"encode_leaf of client {c} on the card != on the CPU")
+    print(f"[bench] agg inputs (C={C}, m={size}, k={k}, k_mask={km}): "
+          f"pair_mask x{C * (C - 1)}, client_masks and encode_leaf x{C} "
+          f"bit-equal to the CPU's", flush=True)
+
+    seeds = torch.arange(1, C * C + 1, dtype=torch.int64, device=device)
+    signs = torch.ones((C * C,), dtype=torch.float32, device=device)
+    got = ops.pair_mask_streams(seeds, signs, nb=1, k_mask=km, m=size,
+                                p=sa.p, q=sa.q)
+    plain = ref.pair_mask_stream_ref(seeds, signs, 1, km, size, p=sa.p,
+                                     q=sa.q)
+    check(all(bits_equal(g, w) for g, w in zip(got, plain)),
+          f"the agg micro's {C * C}-pair mask launch != plain")
+
+    loop = agg_bench._loop_round(x["grads"], x["residuals"], k, thgs, sa, P,
+                                 size, device)
+    loop_cpu = agg_bench._loop_round(xc["grads"], xc["residuals"], k, thgs,
+                                     sa, P, size, cpu)
+    st, _ = streams.encode_leaf_batch(
+        x["grads"], x["residuals"], k=k, nb=1, m=size, size=size,
+        pair_seeds=x["pair_seeds"], pair_signs=x["pair_signs"], k_mask=km,
+        mask_p=sa.p, mask_q=sa.q, leaf_id=0)
+    batched = streams.decode_leaf_batch(st, nb=1, m=size, size=size)
+    gap = (loop - batched / C).abs().max().item()
+    print(f"[bench] agg loop round: bit-equal to the CPU's="
+          f"{bits_equal(loop.cpu(), loop_cpu)}; max |loop - batched / C| "
+          f"{gap:.6e} (limit {LOOP_BATCHED_ATOL:.1e}, max |loop| "
+          f"{loop.abs().max().item():.4f})", flush=True)
+    check(bits_equal(loop.cpu(), loop_cpu),
+          "the agg loop round on the card != on the CPU")
+    check(gap <= LOOP_BATCHED_ATOL, f"the agg loop round is {gap:.3e} from "
+          "the batched round's mean")
+
+    csize, ck, _ = cohort_bench.leaf(quick=True)
+    for n in cohort_bench.COHORTS:
+        cs = cohort_bench.cohort_streams(n, csize, ck, device)
+        plain = ref.stream_scatter_add_ref(cs.indices.reshape(-1),
+                                           cs.values.reshape(-1), csize)
+        splits = streams.tree_splits(csize, default_tree_groups(n))
+        check(bits_equal(streams.decode_sum_blocks(cs, 1, csize), plain)
+              and bits_equal(streams.decode_sum_tree(cs, 1, csize,
+                                                     splits=splits), plain),
+              f"cohort c{n}: the flat or tree decode != plain")
+    print(f"[bench] cohort streams c{cohort_bench.COHORTS} ({ck} slots a "
+          f"client into {csize}): flat and tree decodes bit-equal to plain",
+          flush=True)
+
+    rs = np.random.RandomState(21)
+    for codec in ("int8", "int4", "1bit"):
+        widths = [codecs.index_width(size), codecs.value_bits(codec)]
+        fields = [pack_fields(rs, C, k, w, device).to(torch.int32)
+                  for w in widths]
+        words = ops.bitpack_segments(fields, widths=widths)
+        back = ops.bitunpack_segments(words, ks=[k, k], widths=widths)
+        check(all(bits_equal(g, w) for g, w in
+                  zip(words, ref.bitpack_segments_ref(fields, widths)))
+              and all(bits_equal(g, w) for g, w in
+                      zip(back, ref.bitunpack_segments_ref(words, [k, k],
+                                                           widths)))
+              and all(bits_equal(g, u) for g, u in zip(back, fields)),
+              f"the {codec} packs at {C}x{k} != plain or no round trip")
+    print(f"[bench] codec packs at {C}x{k} (widths {codecs.index_width(size)}"
+          f" + 8 / 4 / 1): bit-equal to plain, round trip exact", flush=True)
+
+    cfg = configs.reduced(configs.get("yi_6b"))
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_model // cfg.n_heads
+    q, kk, v, _ = flash_inputs(4, 16, 16, H, Hkv, hd, torch.float32, True,
+                               None, None, 121, device)
+    out = ops.flash_attention(q, kk, v, causal=True)
+    plain = ref.flash_attention_ref(q, kk, v, causal=True)
+    err = (out - plain).abs().max().item()
+    print(f"[bench] flash f32 at the reduced Yi-6B prefill (B 4, T 16, H {H},"
+          f" Hkv {Hkv}, hd {hd}): max abs err {err:.3e} (tolerance 2e-5)",
+          flush=True)
+    check(out.shape == q.shape and torch.allclose(out, plain, rtol=2e-5,
+                                                  atol=2e-5),
+          f"flash f32 at the reduced Yi-6B prefill off by {err:.3e}")
+
+
+def bench_phase(kind: str, card: str) -> dict:
+    """Phase 15 (module docstring): ``python -m repro_torch.bench --quick
+    --out`` through its ``main()`` on the card, counts reset before and read
+    after; the document, its env and names; the gate against the committed
+    ``BENCH_torch_*.json``; the paper-table drivers' CSV rows. Returns the
+    suites' launch counts."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+
+    from repro_torch.bench import JSON_SUITES, schema
+    from repro_torch.bench.__main__ import main as bench_main
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    out_dir = SMOKE_DIR / "bench"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    out = str(out_dir / "bench_quick.json")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    rc = bench_main(["--quick", "--out", out])
+    counts = ops.launch_counts()
+    t_suites = time.perf_counter() - t_phase
+    check(rc == 0, f"python -m repro_torch.bench --quick exited {rc}")
+    doc = schema.load_doc(out)
+    env = doc["env"]
+    name, limit = (x.strip() for x in card.rsplit(",", 1))
+    print(f"[bench] repro_torch.bench --quick on {kind}: {t_suites:.1f} s, "
+          f"env={env}, launches={counts}", flush=True)
+    check(doc["quick"] and env["backend"] == "cuda",
+          f"the bench document is not a --quick CUDA run: {env}")
+    check(env["device_name"] == name and env["power_limit"] == limit,
+          f"the bench env names {env['device_name']!r} at "
+          f"{env['power_limit']!r}, nvidia-smi says {card!r}")
+    for kname in BENCH_KERNELS:
+        check(counts[kname] >= 1, f"the bench suites never launched {kname}")
+    want = bench_names()
+    for suite, entries in doc["suites"].items():
+        got = [e["name"] for e in entries]
+        check(got == want[suite], f"bench suite {suite}: entry names {got}, "
+              f"expected the reference's {want[suite]}")
+        for e in entries:
+            print(f"[bench]   {e['name']} {e['us_per_call']} us "
+                  f"{e['derived']}", flush=True)
+    check(list(doc["suites"]) == list(JSON_SUITES),
+          f"the bench document holds suites {list(doc['suites'])}")
+    # the CLI prints the count compared and any regression; it exits 1 on
+    # a regression and when nothing was compared
+    baselines = [str(ROOT / f) for _, f in JSON_SUITES.values()]
+    gate_rc = bench_main(["--gate", out] + [
+        a for p in baselines for a in ("--baseline", p)])
+    check(gate_rc == 0, f"the gate against the committed BENCH_torch_*.json "
+          f"exited {gate_rc}")
+    bench_path_checks(torch.device("cuda"))
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        csv_rc = bench_main(["--csv", "--only", "table1,table2,fig1,fig3",
+                             "--quick"])
+    rows = buf.getvalue().splitlines()
+    for row in rows:
+        print(f"[bench] csv {row}", flush=True)
+    check(csv_rc == 0 and not any("/ERROR," in r for r in rows),
+          f"the paper-table drivers failed (rc {csv_rc})")
+    check(len(rows) == 1 + 4 + 6 + 6 + 2,
+          f"the paper-table drivers printed {len(rows) - 1} rows, expected "
+          "table1 4, table2 6, fig1 6, fig3 2")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"[bench] phase 15 took {time.perf_counter() - t_phase:.1f} s "
+          f"(suites {t_suites:.1f} s, paper tables "
+          f"{time.perf_counter() - t0:.1f} s) on {card}", flush=True)
+    return counts
+
+
 def main() -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA "
                                  "port on one NVIDIA GPU (see the module "
                                  "docstring).")
-    ap.add_argument("--only", choices=["flash", "pack", "masks", "sharded"],
+    ap.add_argument("--only",
+                    choices=["flash", "pack", "masks", "sharded", "bench"],
                     help="run the device and build phases and then [flash] "
                     "(the HGMMA count printed, not required), the bit-pack "
                     "kernels' checks and times and one codec_wire_roundtrip "
                     "probe, the pair-mask kernel's flat and round rows "
-                    "and one round's mask path probe, or [sharded] alone, "
-                    "with no result line: a kernel's times on a tree, for a "
-                    "comparison of two trees in one call")
+                    "and one round's mask path probe, [sharded] or [bench] "
+                    "alone, with no result line: a kernel's times on a "
+                    "tree, for a comparison of two trees in one call")
     args = ap.parse_args()
     try:
         import torch
@@ -3011,6 +3379,11 @@ def main() -> int:
         pack_kernel_phase(device)
         wire_roundtrip_probe(device)
         print(f"[done] --only pack passed in "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
+    if args.only == "bench":
+        bench_phase(kind, card)
+        print(f"[done] --only bench passed in "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
         return 0
     if args.only == "sharded":
@@ -3143,9 +3516,7 @@ def main() -> int:
     check(err <= tol, f"recovered aggregate off by {err:.3e}")
 
     # ------------------------------------------------- 5. full-size model
-    cfg = presets.get("table2").replace(
-        name="table2_vgg16", model="cifar_vgg16", dataset="cifar10",
-        rounds=2, eval_every=1, out_json=None)
+    cfg = vgg16_table2()
     sim = Simulation(cfg, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -3199,6 +3570,9 @@ def main() -> int:
     # ------------------------------------------------------- 14. sharded
     sharded_counts, row_rows = sharded_phase(kind, card, device)
     rows["pair_mask_streams"] += row_rows
+
+    # --------------------------------------------------------- 15. bench
+    bench_phase(kind, card)
 
     # ------------------------------------------------------------ report
     sources = {"stream_scatter_add": ("src/repro_torch/kernels/csrc/"

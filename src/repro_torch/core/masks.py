@@ -1,20 +1,30 @@
-"""Pairwise-mask key agreement and pair seeds (paper §3.2) — port of the
-control-plane part of ``repro.core.masks``.
+"""Pairwise encryption masks with sparse support (paper §3.2, Eq. 3-5) —
+port of ``repro.core.masks``.
 
 Clients a<b agree through a toy-parameter Diffie-Hellman exchange over
 GF(2^61-1) on a pair secret; each round both derive the same uint32 counter
 seed from it, which drives the counter-based mask streams
-(``kernels/ops.pair_mask_streams``). Host-side Python integers throughout.
+(``kernels/ops.pair_mask_streams``). The key agreement is host-side Python
+integers throughout.
+
+:func:`pair_mask` and :func:`client_masks` are the *single-pair reference*:
+one pair's sparse mask (``k_mask`` index/value slots, the leaf id folded into
+the seed, the Bonawitz sign by id order) drawn by one flat per-pair launch
+on the card or by its plain version on the CPU, bit-exact against the
+reference's draws. The production data plane draws every pair of every
+client in one launch (``streams.mask_streams_round``).
 """
 from __future__ import annotations
 
 import hashlib
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core.types import SecureAggConfig
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as kref
 
 # toy-parameter DH group (not a secure choice; the arithmetic is real)
 DH_PRIME = (1 << 61) - 1   # Mersenne prime; also the Shamir field (secagg)
@@ -71,3 +81,54 @@ def seed_matrix_from_keys(ids: Sequence[int], privs: Sequence[int],
             signs[i, j] = sgn
             signs[j, i] = -sgn
     return torch.from_numpy(seeds), torch.from_numpy(signs)
+
+
+class PairMask(NamedTuple):
+    """One pair's sparse mask: ``k_mask`` (index, signed value) slots.
+
+    ``indices`` are flat positions and MAY repeat (mod-size collisions of
+    the counter stream): both endpoints draw identical duplicates, so each
+    slot cancels against its twin, and the unified-stream encode transmits
+    the gradient value only at a position's first occurrence.
+    """
+
+    indices: torch.Tensor  # int32[k_mask] support positions (may repeat)
+    values: torch.Tensor   # f32[k_mask] signed mask values in +-[p, p+q)
+
+
+def pair_mask(cfg: SecureAggConfig, a: int, b: int, round_t: int,
+              leaf_id: int, size: int, k_mask: int, *,
+              device="cuda") -> PairMask:
+    """Mask of client ``a`` towards client ``b`` for one leaf, one round,
+    on ``device``.
+
+    Deterministic in (unordered pair, round, leaf): both endpoints draw the
+    same (indices, |values|); the endpoint with the smaller id adds +values,
+    the other -values, so the sums cancel.
+    """
+    dev = torch.device(device)
+    seed = kref.fold_leaf_seed(
+        torch.tensor([pair_seed(cfg, a, b, round_t)], dtype=torch.int64,
+                     device=dev), leaf_id)
+    sign = torch.tensor([1.0 if a < b else -1.0], dtype=torch.float32,
+                        device=dev)
+    idx, vals = ops.pair_mask_streams(seed, sign, nb=1, k_mask=k_mask,
+                                      m=size, p=cfg.p, q=cfg.q)
+    return PairMask(indices=idx[0, 0], values=vals[0, 0])
+
+
+def client_masks(cfg: SecureAggConfig, client: int, others: Sequence[int],
+                 round_t: int, leaf_id: int, size: int, k_mask: int, *,
+                 device="cuda") -> PairMask:
+    """Concatenated masks of ``client`` towards every other participant,
+    one :func:`pair_mask` (one launch on the card) a peer, in ``others``'
+    order."""
+    parts = [pair_mask(cfg, client, b, round_t, leaf_id, size, k_mask,
+                       device=device)
+             for b in others if b != client]
+    if not parts:
+        z = torch.zeros((0,), dtype=torch.int32, device=device)
+        return PairMask(indices=z, values=torch.zeros(
+            (0,), dtype=torch.float32, device=device))
+    return PairMask(indices=torch.cat([p.indices for p in parts]),
+                    values=torch.cat([p.values for p in parts]))

@@ -65,6 +65,7 @@ from torch.profiler import record_function
 
 from repro_torch.core import codecs
 from repro_torch.core import dp as dp_mod
+from repro_torch.core import masks
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
 
@@ -173,6 +174,19 @@ def unified_stream_rows(
 
 
 # ------------------------------------------------------------- pairwise masks
+def pair_seed_matrix(sa, participant_ids, round_t: int):
+    """Host-side ``[C, C]`` counter seeds and Bonawitz signs of the round's
+    pairs, derived from the federation seed without the round protocol:
+    ``seeds[i, j] = masks.pair_seed(sa, ids[i], ids[j], round_t)``, one key
+    derivation per participant and one modexp per unordered pair. The
+    diagonal is seed 0 with sign 0. Returns ``(seeds int64 holding uint32
+    values, signs f32)`` on the CPU."""
+    ids = list(participant_ids)
+    privs = [masks.dh_private(sa.seed, u) for u in ids]
+    pubs = [masks.dh_public(x) for x in privs]
+    return masks.seed_matrix_from_keys(ids, privs, pubs, round_t)
+
+
 def _fold_seeds(seeds: torch.Tensor, leaf_id: int | None) -> torch.Tensor:
     seeds = kref.as_u32(seeds)
     return kref.fold_leaf_seed(seeds, leaf_id) if leaf_id is not None \

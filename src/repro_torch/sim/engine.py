@@ -10,7 +10,13 @@ schedule and dropout injection (sampler.py), the round itself
 device divides the cohort; 'on' insists, 'off' runs the serial round. It runs
 on ``cuda`` unless the caller passes ``device="cpu"``; it never falls back
 from one to the other. Every float in the round is f32: on the card, TF32 is
-switched off for matmuls and convolutions.
+switched off for matmuls and convolutions, and cuDNN runs its deterministic
+algorithms without autotuning, so two runs of one config and seed are
+bit-identical for the conv models too. These are process-wide PyTorch flags
+that the engine sets when it is built and never restores: every later matmul
+and convolution in the process runs under them, a serving path or a
+benchmark too (deterministic cuDNN makes VGG16's convolutions slower; see
+PERF.md).
 
 Initial parameters come from the port's own ``PaperModel.init_`` under an
 explicit ``torch.Generator`` seeded with ``cfg.seed`` (drawn on the CPU, so
@@ -40,7 +46,7 @@ import json
 import os
 import time
 import warnings
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -109,6 +115,14 @@ class SimResult:
         """Mean of the last three eval points (the Table 2 convergence acc)."""
         return float(np.mean(self.accuracies[-3:])) if self.accuracies else 0.0
 
+    def rounds_to_reach(self, target_acc: float) -> Optional[int]:
+        """First round (1-indexed, eval-cadence resolution) whose test
+        accuracy reached ``target_acc``; None if never reached."""
+        for i, a in enumerate(self.accuracies):
+            if a >= target_acc:
+                return (i + 1) * max(1, self.eval_every)
+        return None
+
     def summary(self) -> dict:
         return {
             "name": self.name,
@@ -146,8 +160,13 @@ class Simulation:
         self.cfg = cfg
         self.device = resolve_device(device)
         if self.device.type == "cuda":
+            # two runs of one config and seed are bit-identical (the
+            # reference's promise): no TF32, and cuDNN's deterministic
+            # algorithms without autotuning for the conv models
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cudnn.deterministic = True
+            torch.backends.cudnn.benchmark = False
         self.model = build_model(cfg.model)
         if init_params is not None:
             self.model = params_from_jax(init_params, cfg.model)
