@@ -1,6 +1,7 @@
 """Assigned-architecture registry: ``get(name)`` / ``--arch <id>`` (copy of
-``repro.configs``). The port builds only the ``dense`` family so far
-(``models/transformer.py`` refuses the others).
+``repro.configs``). The port builds and serves every family of the ten
+(``models/transformer.py``): dense, MoE, VLM cross-attention, the audio
+encoder, the hybrid Mamba2 model and xLSTM.
 """
 from __future__ import annotations
 

@@ -56,20 +56,24 @@ def lm_params_from_jax(tree: Mapping, cfg: ArchConfig,
                        device="cpu") -> tf.TransformerLM:
     """A ``TransformerLM`` holding the arrays of the reference's
     ``transformer.init_params(cfg, key)`` tree (numpy or any array that
-    ``np.asarray`` converts). The reference stacks the blocks on a leading
-    layer axis; layer ``i`` of ``params["blocks"]`` loads into
-    ``blocks[i]``. Every name and shape is checked; weights keep the
-    ``[d_in, d_out]`` layout."""
+    ``np.asarray`` converts), for every family.
+
+    The reference stacks repeated blocks on leading axes: ``blocks`` and the
+    xLSTM ``slstm`` / ``mlstm`` on one (the layer), the VLM's
+    ``self_blocks`` and the hybrid's ``ssm_blocks`` on two (super-block,
+    layer in it), ``cross_blocks`` on one; ``shared_block`` is one block.
+    The port's name ``self_blocks.1.2.attn.wq`` loads
+    ``tree["self_blocks"]["attn"]["wq"][1, 2]``. A MoE expert leaf keeps its
+    E axis after the layer axis. Every name and every shape is checked;
+    weights keep the ``[d_in, d_out]`` layout."""
     model = tf.init_params(cfg, device=device)
     flat = _flat_tree(tree)
-    targets = {}                     # reference name -> [(layer, param)]
+    targets = {}            # reference name -> [(index tuple, param)]
     for name, p in model.named_parameters():
         parts = name.split(".")
-        if parts[0] == "blocks":
-            targets.setdefault("blocks." + ".".join(parts[2:]), []).append(
-                (int(parts[1]), p))
-        else:
-            targets[name] = [(None, p)]
+        index = tuple(int(x) for x in parts if x.isdigit())
+        ref_name = ".".join(x for x in parts if not x.isdigit())
+        targets.setdefault(ref_name, []).append((index, p))
     if sorted(flat) != sorted(targets):
         missing = sorted(set(targets) - set(flat))
         extra = sorted(set(flat) - set(targets))
@@ -78,12 +82,13 @@ def lm_params_from_jax(tree: Mapping, cfg: ArchConfig,
     with torch.no_grad():
         for name, dests in targets.items():
             arr = np.asarray(flat[name], dtype=np.float32)
-            for layer, p in dests:
-                want = tuple(p.shape) if layer is None else \
-                    (cfg.n_layers,) + tuple(p.shape)
-                if tuple(arr.shape) != want:
-                    raise ValueError(f"{cfg.name}: {name} has shape "
-                                     f"{tuple(arr.shape)}, expected {want}")
-                src = arr if layer is None else arr[layer]
-                p.copy_(torch.from_numpy(np.array(src)))
+            # the stacked axes: one past the largest index on each
+            lead = tuple(max(ix[a] for ix, _ in dests) + 1
+                         for a in range(len(dests[0][0])))
+            want = lead + tuple(dests[0][1].shape)
+            if tuple(arr.shape) != want:
+                raise ValueError(f"{cfg.name}: {name} has shape "
+                                 f"{tuple(arr.shape)}, expected {want}")
+            for index, p in dests:
+                p.copy_(torch.from_numpy(np.array(arr[index])))
     return model

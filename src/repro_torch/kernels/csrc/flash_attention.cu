@@ -38,7 +38,7 @@
 // index is the reversed query block).
 //
 //   * Warpgroup 2 is the producer. It drops to 40 registers (setmaxnreg) and
-//     one of its threads starts every TMA load: Q once (hd/64 boxes of
+//     one of its threads starts every TMA load: Q once (ceil(hd/64) boxes of
 //     64 columns x 128 rows, 128-byte swizzle: a bf16 hd-128 row is 256 bytes
 //     and a swizzled box row at most 128), then K and V tiles of BK = 128 keys
 //     into a ring of 2 stages. A stage's K and V complete one `full` mbarrier
@@ -66,18 +66,36 @@
 //     accumulator's fragment is the register-A fragment of the next wgmma,
 //     pair for pair), V is the MN-major B operand (transpose flag set; LBO
 //     16 KB between 64-column boxes, SBO 1024 bytes between 8-key groups,
-//     2 KB a k16 step), m64n{hd}k16. P in bf16 is the one rounding the Pallas
-//     kernel does not have: tests/test_torch_flash_tiles.py emulates this
-//     order of operations on the CPU and bounds its error.
+//     2 KB a k16 step), m64n{PD}k16 (PD: hd padded to a multiple of 64,
+//     below). P in bf16 is the one rounding the Pallas kernel does not
+//     have: tests/test_torch_flash_tiles.py emulates this order of
+//     operations on the CPU and bounds its error.
 //   * The epilogue multiplies by the reciprocal of max(l, 1e-30) (within an
 //     ulp of the f32 division), rounds once to bf16 and stores the rows below
 //     T from registers.
 //
-// On the H100 (ptxas -v of CUDA 12.8, sm_90a): both instances report 168
-// registers, the launch bound of 384 threads; ptxas allocates the consumers
-// within it although setmaxnreg grants them 232, so hd 128 spills 64 bytes
-// (loop invariants, reloaded once a tile) and hd 64 nothing. The SASS holds
-// 28 HGMMA (cuobjdump -sass; chip_smoke.py counts them). Measured there and
+// Head widths 80 and 112 (HuBERT-XLarge's 1280/16, Zamba2-7B's shared block's
+// 3584/32). Both instances are templated on the true width HD; the f32 one
+// needs nothing more (NC = HD / 16 columns a thread). The bf16 one runs on
+// a padded width PD = 64 * ceil(HD / 64), 128 for both: the tensor maps
+// keep dim 0 = HD, so TMA zero-fills the box columns at and past HD in Q,
+// K and V (and still counts them in expect_tx). Q K^T steps over HD only
+// (5 or 7 k16 steps: a box of 64 columns holds whole k16 steps, and the
+// zero columns past HD are never read); P V runs m64n128k16 over all PD
+// columns, whose columns past HD come out 0 and are not stored; the scale
+// is f32(HD^-0.5) of the true width. Chosen over native m64n80k16 /
+// m64n112k16 for P V: those N are valid, but an N that is not a multiple of
+// 64 splits the MN-major, 128-byte-swizzled V operand mid-atom, while the
+// padding reuses the hd-128 path as it is. It costs P V 1.6x (hd 80) and
+// 1.14x (hd 112) its tensor-core work, the whole kernel 1.3x and 1.07x
+// (PERF.md, section 6, times it).
+//
+// On the H100 (ptxas -v of CUDA 12.8, sm_90a): every bf16 instance reports
+// 168 registers, the launch bound of 384 threads; ptxas allocates the
+// consumers within it although setmaxnreg grants them 232, so hd 128 and
+// 112 spill 64 bytes, hd 80 48 (loop invariants, reloaded once a tile) and
+// hd 64 nothing. The SASS holds 56 HGMMA over the four widths (28 for hd
+// 64 and 128; cuobjdump -sass; chip_smoke.py counts them). Measured there and
 // dropped (PERF.md, section 6): ping-pong of the two consumers on named
 // barriers, P V left in flight behind the next tile's Q K^T, a third stage;
 // each was slower or no faster.
@@ -312,7 +330,8 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 template <int HD>
 struct Layout {                      // byte offsets from the 1024-aligned base
-    static constexpr int NB = HD / 64;          // 64-column boxes a tile
+    static constexpr int NB = (HD + 63) / 64;   // 64-column boxes a tile
+    static constexpr int PD = 64 * NB;          // the padded head width
     static constexpr int TILE = NB * BOX;       // one Q, K or V tile
     static constexpr int Q = 0;
     static constexpr int K = Q + TILE;          // stage s at K + s * TILE
@@ -532,10 +551,11 @@ __global__ void __launch_bounds__(NT, 1) flash_attention_bf16_kernel(
         const int row0 = q_lo + 16 * warp + lane / 4;  // and row0 + 8
         const int col0 = 2 * (lane % 4);
         // accumulator fragment of m64nNk16: d[4 j + 2 r + c] is row
-        // row0 + 8 r, column 8 j + col0 + c
-        float o[HD / 2];
+        // row0 + 8 r, column 8 j + col0 + c; N = PD, the columns past HD
+        // stay 0 (V's are zero-filled)
+        float o[L::PD / 2];
 #pragma unroll
-        for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+        for (int i = 0; i < L::PD / 2; ++i) o[i] = 0.f;
         float m[2] = {NEG_INF, NEG_INF};
         float l[2] = {0.f, 0.f};                      // this lane's columns
         const uint32_t qaddr = base + L::Q + wg * 64 * 128;
@@ -548,7 +568,7 @@ __global__ void __launch_bounds__(NT, 1) flash_attention_bf16_kernel(
             const uint32_t vaddr = base + L::V + s * L::TILE;
             mbar_wait(full + 8 * s, (i / NSTAGE) & 1);
 
-            // S = Q K^T, f32, over hd in k16 steps
+            // S = Q K^T, f32, over the true hd in k16 steps
             float sc[64];
             wg_fence();
 #pragma unroll
@@ -613,7 +633,8 @@ __global__ void __launch_bounds__(NT, 1) flash_attention_bf16_kernel(
                 pa[t] = pack_bf16(p0, p1);
             }
 #pragma unroll
-            for (int i2 = 0; i2 < HD / 2; ++i2) o[i2] *= alpha[(i2 / 2) % 2];
+            for (int i2 = 0; i2 < L::PD / 2; ++i2)
+                o[i2] *= alpha[(i2 / 2) % 2];
 
             // O += P V over the tile's keys in k16 steps
             reg_fence(o);
@@ -668,7 +689,8 @@ EncodeTiled encoder() {
 }
 
 // a bf16 [B, len, heads, hd] tensor as a 4-D map {hd, heads, len, B}, box
-// {64, 1, 128, 1}, 128-byte swizzle, out-of-bounds rows read as zeros
+// {64, 1, 128, 1}, 128-byte swizzle, out-of-bounds rows (and columns past an
+// hd that is not a multiple of 64) read as zeros
 bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int B,
             int len, int heads, int hd) {
     const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
@@ -715,26 +737,27 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 }  // namespace
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (wgmma + TMA; q, k, v 16-byte
-// aligned); hd: 64 or 128; window <= 0 = none. Returns cudaGetLastError()
-// after the launch (cudaErrorInvalidValue for a dtype or head width without
-// an instance, or a tensor the tensor-map encoder refuses).
+// aligned); hd: 64, 80, 112 or 128; window <= 0 = none. Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for a dtype or
+// head width without an instance, or a tensor the tensor-map encoder
+// refuses).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int Tq,
                                       int S, int H, int Hkv, int hd,
                                       int causal, int window, int dtype,
                                       void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (dtype == 0 && hd == 64)
-        return cores::launch<64>(q, k, v, out, B, Tq, S, H, Hkv, causal,
-                                 window, st);
-    if (dtype == 0 && hd == 128)
-        return cores::launch<128>(q, k, v, out, B, Tq, S, H, Hkv, causal,
-                                  window, st);
-    if (dtype == 1 && hd == 64)
-        return tc::launch<64>(q, k, v, out, B, Tq, S, H, Hkv, causal, window,
-                              st);
-    if (dtype == 1 && hd == 128)
-        return tc::launch<128>(q, k, v, out, B, Tq, S, H, Hkv, causal, window,
-                               st);
+#define FLASH_HD(W)                                                          \
+    if (hd == W)                                                             \
+        return dtype == 0 ? cores::launch<W>(q, k, v, out, B, Tq, S, H, Hkv, \
+                                             causal, window, st)             \
+             : dtype == 1 ? tc::launch<W>(q, k, v, out, B, Tq, S, H, Hkv,    \
+                                          causal, window, st)                \
+                          : (int)cudaErrorInvalidValue;
+    FLASH_HD(64)
+    FLASH_HD(80)
+    FLASH_HD(112)
+    FLASH_HD(128)
+#undef FLASH_HD
     return (int)cudaErrorInvalidValue;
 }

@@ -5,8 +5,10 @@ The kernel is ``csrc/flash_attention.cu``: in bf16 a Hopper kernel on the
 tensor cores (one CTA per 128 queries of one head, K/V tiles of 128 keys
 brought by TMA into a two-stage ring, ``wgmma`` for both products, online
 softmax in f32 registers); in f32 a CUDA-core kernel (64 x 64 tiles, f32
-FMAs), since TF32 ``wgmma`` would not hold f32's tolerance. Its plain
-version is ``kernels/ref.py::flash_attention_ref``. A CPU tensor takes the
+FMAs), since TF32 ``wgmma`` would not hold f32's tolerance. Head widths
+64, 80, 112 and 128 have instances (in bf16, 80 and 112 run P V at the width
+padded to 128, TMA zero-filling the columns past hd); any other width
+raises. Its plain version is ``kernels/ref.py::flash_attention_ref``. A CPU tensor takes the
 plain version, a CUDA tensor launches the kernel or raises. ``launches``
 counts kernel launches and nothing else.
 """
@@ -20,14 +22,14 @@ from repro_torch.kernels import build
 
 launches = 0
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 80, 112, 128)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          window: Optional[int] = None) -> torch.Tensor:
     """Launch the kernel: q ``[B,T,H,hd]``, k and v ``[B,S,Hkv,hd]`` (f32 or
-    bf16, one dtype, one CUDA device; Hkv divides H; hd 64 or 128) ->
+    bf16, one dtype, one CUDA device; Hkv divides H; hd in ``HEAD_DIMS``) ->
     ``[B,T,H,hd]`` in q's dtype. Positions count from 0 for both q and k;
     ``window`` keeps keys with ``k_pos > q_pos - window``."""
     global launches

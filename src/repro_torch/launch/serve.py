@@ -16,8 +16,9 @@ from repro_torch.models import transformer as tf
 
 
 def make_prefill_step(cfg: ArchConfig, cache_len: int) -> Callable:
-    def step(params, tokens):
-        return tf.prefill(params, cfg, tokens, cache_len)
+    def step(params, tokens, image_embeds=None):
+        return tf.prefill(params, cfg, tokens, cache_len,
+                          image_embeds=image_embeds)
 
     return step
 

@@ -1,5 +1,6 @@
-"""GQA attention: causal/sliding-window prefill and single-token decode (port
-of ``repro.models.attention``, self-attention part).
+"""GQA attention: causal/sliding-window/non-causal self-attention,
+cross-attention, prefill and single-token decode (port of
+``repro.models.attention``).
 
 GQA is computed natively: queries are grouped ``[B,T,kv,group,hd]`` against
 the un-repeated K/V. The prefill's attention product goes through
@@ -110,6 +111,37 @@ def self_attention(
     # the reference applies no mask, so no window, when not causal
     out = ops.flash_attention(q, k, v, causal=causal,
                               window=window if causal else None)
+    return out.reshape(b, t, n_heads * hd) @ p["wo"]
+
+
+def cross_kv(p: Params, kv_src: torch.Tensor, *, n_kv: int,
+             hd: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The K/V a cross-attention layer projects from ``kv_src`` (e.g. image
+    embeddings), ``[B, S, kv, hd]`` each: what the decode state caches."""
+    return (_split_heads(kv_src @ p["wk"], n_kv, hd),
+            _split_heads(kv_src @ p["wv"], n_kv, hd))
+
+
+def cross_attention(p: Params, x: torch.Tensor, kv_src: torch.Tensor, *,
+                    n_heads: int, n_kv: int, hd: int,
+                    kv: Optional[tuple] = None) -> torch.Tensor:
+    """x attends to kv_src with no mask and no positional rotation; the
+    product goes through the flash kernel (non-causal). ``kv``: the K/V
+    already projected from ``kv_src`` (``cross_kv``)."""
+    b, t, _ = x.shape
+    q = _split_heads(x @ p["wq"], n_heads, hd)
+    k, v = kv if kv is not None else cross_kv(p, kv_src, n_kv=n_kv, hd=hd)
+    out = ops.flash_attention(q, k, v, causal=False)
+    return out.reshape(b, t, n_heads * hd) @ p["wo"]
+
+
+def decode_cross_attention(p: Params, x: torch.Tensor, kv: tuple, *,
+                           n_heads: int, hd: int) -> torch.Tensor:
+    """One decode step's cross read: ``attend`` over the cached image K/V
+    with no mask, as the reference's decode does."""
+    b, t, _ = x.shape
+    q = _split_heads(x @ p["wq"], n_heads, hd)
+    out = attend(q, kv[0], kv[1], None, hd)
     return out.reshape(b, t, n_heads * hd) @ p["wo"]
 
 

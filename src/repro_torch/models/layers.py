@@ -45,6 +45,29 @@ def dense_init(generator: Optional[torch.Generator], d_in: int, d_out: int,
                     (2.0 / (d_in + d_out)) ** 0.5, generator)
 
 
+def stacked_dense_init(generator: Optional[torch.Generator], n: int,
+                       d_in: int, d_out: int, dtype, device) -> nn.Parameter:
+    """``[n, d_in, d_out]``: n independent ``dense_init`` draws."""
+    return _normal_(_param((n, d_in, d_out), dtype, device),
+                    (2.0 / (d_in + d_out)) ** 0.5, generator)
+
+
+def normal_init(generator: Optional[torch.Generator], shape, scale: float,
+                dtype, device) -> nn.Parameter:
+    """``scale * N(0, 1)`` of ``shape``, cast to ``dtype``."""
+    return _normal_(_param(tuple(shape), dtype, device), scale, generator)
+
+
+def const_init(values: torch.Tensor, dtype, device) -> nn.Parameter:
+    """A parameter holding ``values`` (computed in f32, cast once); on the
+    meta device shapes only."""
+    p = _param(tuple(values.shape), dtype, device)
+    if p.device.type != "meta":
+        with torch.no_grad():
+            p.copy_(values)
+    return p
+
+
 def embed_init(generator: Optional[torch.Generator], vocab: int, d: int, dtype,
                device) -> nn.Parameter:
     """``[vocab, d]`` with std 0.02."""

@@ -12,7 +12,10 @@ reduced config the JAX example serves.
 
 Run:  PYTHONPATH=src python -m repro_torch.serving.serve_llm --arch yi-6b
 (``--device cpu`` takes the plain PyTorch versions of the kernels; without
-it the run needs a CUDA device and exits 1 when there is none).
+it the run needs a CUDA device and exits 1 when there is none). Any arch
+whose prompts are tokens serves (``--arch deepseek-moe-16b``, ``zamba2-7b``,
+``xlstm-125m``, ...); the encoder-only ``hubert-xlarge`` is refused, as the
+reference's example refuses it.
 """
 from __future__ import annotations
 

@@ -65,6 +65,10 @@ class LMAdapter:
     Requests are fixed-length int32 prompts (``prompt_len``); a batch runs
     one prefill plus ``n_new - 1`` decode steps (``launch/serve.py``) on the
     device that holds ``params`` (a ``models.transformer.TransformerLM``).
+    It serves what the reference's adapter serves: the families whose
+    prompts are tokens (the audio encoder has no decode step and the VLM's
+    prefill needs image embeddings a token request does not carry; both
+    fail their batch as in the reference).
     """
 
     request_dtype = np.int32
@@ -83,7 +87,8 @@ class LMAdapter:
 
     def infer(self, params, stack: torch.Tensor) -> np.ndarray:
         """stack: int32 [max_batch, prompt_len] -> np int32 [max_batch, n_new]."""
-        tokens = stack.to(device=params.embed.device, dtype=torch.int32)
+        tokens = stack.to(device=next(params.parameters()).device,
+                          dtype=torch.int32)
         logits, state = self._prefill(params, tokens)
         tok = next_token(logits)
         out = [tok]

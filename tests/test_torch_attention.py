@@ -23,6 +23,7 @@ torch = pytest.importorskip("torch")
 # several test workers share the cores: one intra-op thread each
 torch.set_num_threads(1)
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
@@ -77,6 +78,22 @@ def test_flash_attention_matches_pallas_kernel(b, t, h, hkv, hd, causal,
     got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
                               torch.from_numpy(v), causal=causal,
                               window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("hd,hkv,causal", [(80, 4, False), (112, 4, True),
+                                            (80, 2, True)])
+def test_flash_attention_other_head_widths_match_pallas_kernel(hd, hkv,
+                                                               causal):
+    """The plain version takes any head width: at hd 80 (HuBERT-XLarge)
+    and 112 (Zamba2-7B's shared block) it matches the Pallas kernel in
+    interpret mode, the kernel's own wrapper and scale f32(hd^-0.5)."""
+    q, k, v = _qkv(1, 256, 256, 4, hkv, hd, seed=hd + hkv)
+    want = jops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), causal=causal)
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), causal=causal)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
                                atol=2e-5)
 
@@ -278,6 +295,40 @@ def test_decode_self_attention_matches_reference(cache):
     else:
         _close(jc.k, tc.k, _tol(dtype))
         _close(jc.v, tc.v, _tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cross_attention_matches_reference(dtype):
+    """The VLM's cross-attention (the prefill's through the flash kernel's
+    plain version, non-causal) and the decode's cached read (``attend``
+    with no mask) against the reference's."""
+    rs = np.random.RandomState(9)
+    d, h, hkv, hd = 64, 4, 2, 16
+    jp = jattn.init_attention(jax.random.key(3), d, h, hkv, hd, jnp.float32,
+                              cross=True)
+    x, img = rs.randn(2, 5, d).astype(np.float32), rs.randn(
+        2, 7, d).astype(np.float32)
+    jd, td = DT[dtype]
+    jp = {k: v.astype(jd) for k, v in jp.items()}
+    tp = {k: torch.from_numpy(np.array(v.astype(jnp.float32))).to(td)
+          for k, v in jp.items()}
+    (jx, tx), (ji, ti) = _both(x, dtype), _both(img, dtype)
+    want = jattn.cross_attention(jp, jx, ji, n_heads=h, n_kv=hkv, hd=hd)
+    got = tattn.cross_attention(tp, tx, ti, n_heads=h, n_kv=hkv, hd=hd)
+    tol = 3e-2 if dtype == "bfloat16" else F32_TOL
+    _close(want, got, tol)
+    kv = tattn.cross_kv(tp, ti, n_kv=hkv, hd=hd)
+    assert tuple(kv[0].shape) == (2, 7, hkv, hd)
+    _close(want, tattn.cross_attention(tp, tx, None, n_heads=h, n_kv=hkv,
+                                       hd=hd, kv=kv), tol)
+    # one decode step's read of the cached image K/V
+    jq = jattn._split_heads(jx[:, :1] @ jp["wq"], h, hd)
+    jk = jattn._split_heads(ji @ jp["wk"], hkv, hd)
+    jv = jattn._split_heads(ji @ jp["wv"], hkv, hd)
+    want = (jattn.attend(jq, jk, jv, None, hd).reshape(2, 1, h * hd)
+            @ jp["wo"])
+    got = tattn.decode_cross_attention(tp, tx[:, :1], kv, n_heads=h, hd=hd)
+    _close(want, got, tol)
 
 
 def test_decode_into_a_full_cache_writes_nothing():

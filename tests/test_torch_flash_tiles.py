@@ -9,6 +9,10 @@ plain version, on shared numpy inputs:
 
 * 128 x 128 tiles: a CTA's 128 query rows against key tiles of 128, the key
   columns past S zero-filled (as TMA fills them) and masked to -inf;
+* head widths 80 and 112: Q K^T over the true hd (the scale f32(hd^-0.5)
+  of it), P V at the width padded to 128 with V's columns past hd
+  zero-filled (as TMA fills them), so the output's columns past hd come out
+  exactly 0 and are not stored;
 * bf16 inputs, f32 scores, kept in log2 units (``s * f32(hd^-0.5) *
   f32(log2 e)``) and exponentiated with exp2 (the kernel's ``ex2.approx.ftz``
   is within 2^-22 of it and flushes results below 2^-126 to 0); masked
@@ -24,12 +28,13 @@ plain version, on shared numpy inputs:
 What it shows, measured over the cases below: the skip rule is exact (a
 skipped tile and a computed one give equal f32 bits); rows with no key get
 the uniform average; with f32 inputs and P in f32 the emulation is within
-7.2e-7 of the references (tolerance 2e-5), so the tiling, the log2 units and
-exp2 cost nothing measurable; P's rounding to bf16 alone moves the output by
-at most 3.8e-3 (1.4e-3 of max |out|) against the f32 references on the same
-bf16 inputs, under its bound 2^-9 max |v| and 5x under 2e-2; and the bf16
-output errs by at most 7.8e-3 (2^-7) against the bf16 references, 2.6x under
-2e-2.
+9.6e-7 of the references (tolerance 2e-5), so the tiling, the log2 units,
+exp2 and the padded P V of hd 80 and 112 cost nothing measurable; P's
+rounding to bf16 alone moves the output by at most 3.8e-3 (1.4e-3 of max
+|out|) against the f32 references on the same bf16 inputs, under its bound
+2^-9 max |v| and 5x under 2e-2; and the bf16 output errs by at most 1.6e-2
+(2^-6: one bf16 ulp of an output in [2, 4), where the two sides round
+apart) against the bf16 references, under 2e-2.
 """
 import functools
 
@@ -51,9 +56,9 @@ NEG_INF = -1e30
 LOG2E = np.float32(1.4426950408889634)
 
 # (B, T, S, H, Hkv, hd, causal, window), small: every rule of the kernel at
-# least once — GQA and MQA, both head widths, no causal mask, a window that
-# skips leading tiles, T > S with rows that have no key, T and S not
-# multiples of 128, T != S
+# least once — GQA and MQA, every head width (80 and 112 padded to 128), no
+# causal mask, a window that skips leading tiles, T > S with rows that have
+# no key, T and S not multiples of 128, T != S
 CASES = {
     "causal.hd64": (1, 256, 256, 4, 2, 64, True, None),
     "causal.hd128.mqa": (1, 256, 256, 4, 1, 128, True, None),
@@ -63,6 +68,10 @@ CASES = {
     "t_gt_s.rows_without_keys": (1, 100, 40, 4, 2, 64, True, 8),
     "ragged": (2, 333, 333, 2, 1, 64, True, None),
     "ragged.t_ne_s": (1, 200, 333, 4, 2, 128, False, None),
+    "noncausal.hd80": (2, 256, 256, 4, 4, 80, False, None),
+    "causal.hd112": (1, 256, 256, 4, 4, 112, True, None),
+    "ragged.t_ne_s.hd80": (1, 200, 333, 4, 2, 80, False, None),
+    "ragged.window100.hd112.mqa": (1, 333, 333, 4, 1, 112, True, 100),
 }
 
 
@@ -84,12 +93,15 @@ def emulate(q, k, v, *, causal, window, skip=True, p_bf16=True):
     B, T, H, hd = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     s_pad = -(-S // BK) * BK
+    pd = -(-hd // 64) * 64                                    # padded width
     qf = q.float().permute(0, 2, 1, 3)                       # B, H, T, hd
+    # TMA zero-fills the keys past S, and V's columns past hd (Q K^T steps
+    # over the true hd only)
     kf, vf = (torch.nn.functional.pad(
         x.float().repeat_interleave(H // Hkv, dim=2).permute(0, 2, 1, 3),
-        (0, 0, 0, s_pad - S)) for x in (k, v))               # TMA zero fill
+        (0, pad, 0, s_pad - S)) for x, pad in ((k, 0), (v, pd - hd)))
     scale = torch.tensor(np.float32(hd ** -0.5) * LOG2E)
-    out = torch.empty(B, H, T, hd)
+    out = torch.empty(B, H, T, pd)
     for q0 in range(0, T, BQ):
         q1 = min(q0 + BQ, T)
         lo, hi = (key_range(q0, q1 - 1, S, causal, window) if skip
@@ -97,7 +109,7 @@ def emulate(q, k, v, *, causal, window, skip=True, p_bf16=True):
         qpos = torch.arange(q0, q1)[:, None]
         m = torch.full((B, H, q1 - q0, 1), NEG_INF)
         l = torch.zeros(B, H, q1 - q0, 1)
-        acc = torch.zeros(B, H, q1 - q0, hd)
+        acc = torch.zeros(B, H, q1 - q0, pd)
         for k0 in range(lo // BK * BK, hi // BK * BK + 1, BK):
             kpos = torch.arange(k0, k0 + BK)[None, :]
             s = qf[:, :, q0:q1] @ kf[:, :, k0:k0 + BK].transpose(-1, -2)
@@ -117,7 +129,9 @@ def emulate(q, k, v, *, causal, window, skip=True, p_bf16=True):
                 p = p.bfloat16().float()
             acc = acc * alpha + p @ vf[:, :, k0:k0 + BK]
         out[:, :, q0:q1] = acc * (1 / l.clamp_min(1e-30))
-    return out.permute(0, 2, 1, 3)
+    # the columns past hd hold exactly 0: the kernel does not store them
+    assert not out[..., hd:].any()
+    return out[..., :hd].permute(0, 2, 1, 3)
 
 
 def _inputs(case: str, dtype):

@@ -511,3 +511,62 @@ def test_cuda_flash_attention_needles_stay_unseen():
                                    atol=2e-2, msg=lambda m: f"{needle}: {m}")
         torch.testing.assert_close(out.float(), plain.float(), rtol=2e-2,
                                    atol=2e-2, msg=lambda m: f"{needle}: {m}")
+
+
+# (B, T, S, H, Hkv, hd, dtype, causal, window, needle): the head widths of
+# HuBERT-XLarge (80) and Zamba2-7B's shared block (112), which the bf16
+# kernel runs with P V padded to 128 (TMA zero-fills V's columns past hd)
+FLASH_WIDTH_CASES = [
+    (4, 1024, 1024, 16, 16, 80, torch.bfloat16, False, None, None),
+    (2, 1024, 1024, 32, 32, 112, torch.bfloat16, True, None, None),
+    (2, 256, 256, 8, 8, 80, torch.float32, False, None, None),
+    (2, 256, 256, 8, 8, 112, torch.float32, True, None, None),
+    (2, 24, 24, 16, 16, 80, torch.bfloat16, False, None, None),
+    (1, 333, 333, 32, 32, 112, torch.bfloat16, True, None, None),
+    (1, 1000, 1000, 8, 8, 80, torch.bfloat16, True, 256, 300),
+    (1, 256, 256, 8, 8, 112, torch.bfloat16, True, None, 200),
+    (1, 300, 300, 8, 8, 80, torch.bfloat16, False, None, "pad"),
+]
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_head_widths_80_and_112():
+    """On the card: the kernel at hd 80 and 112 (bf16 and f32, ragged
+    lengths, needles at a future key, outside the window and past S) within
+    2e-2 (bf16) / 2e-5 (f32) of its plain version, one launch a call; no
+    width falls back to the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel is CUDA C++ for sm_90a "
+                    "with no CPU mode")
+    dev = torch.device("cuda")
+    ops.reset_launch_counts()
+    for i, (B, T, S, H, Hkv, hd, dtype, causal, window, needle) in (
+            enumerate(FLASH_WIDTH_CASES)):
+        pad = 128 if needle == "pad" else 0
+        q, k, v = (x.to(dev) for x in flash_inputs(B, T, H, Hkv, hd, dtype,
+                                                    seed=70 + i, S=S + pad))
+        pos = torch.arange(T, device=dev)
+        blind = None
+        if needle == "pad":
+            k[:, S:], v[:, S:] = 30.0, 1000.0
+            k, v = k[:, :S], v[:, :S]            # a prefix: no copy is made
+            blind = torch.ones(T, dtype=torch.bool, device=dev)
+        elif needle is not None:
+            v[:, needle] = 1000.0
+            blind = needle > pos
+            if window is not None:
+                blind |= needle <= pos - window
+        out = ops.flash_attention(q, k, v, causal=causal, window=window)
+        plain = tref.flash_attention_ref(q, k, v, causal=causal,
+                                         window=window)
+        torch.cuda.synchronize()
+        tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+        assert out.dtype == dtype and out.shape == q.shape
+        torch.testing.assert_close(out.float(), plain.float(), rtol=tol,
+                                   atol=tol, msg=lambda m: f"{hd}: {m}")
+        if blind is not None:
+            assert blind.any()
+            torch.testing.assert_close(out[:, blind].float(),
+                                       plain[:, blind].float(), rtol=tol,
+                                       atol=tol)
+    assert ops.launch_counts()["flash_attention"] == len(FLASH_WIDTH_CASES)

@@ -117,14 +117,44 @@ def test_classifier_adapter_serves_model_logits():
 
 
 def test_unported_parts_are_refused(yi):
-    cfg, model, _ = yi
-    adapter = serving.LMAdapter(cfg, max_batch=2, prompt_len=12, n_new=2)
+    """The LM families are served now (slice G2a lifted their refusals):
+    what the adapter refuses is a dtype the port has no path for; an
+    encoder-only model, whose decode step raises as the reference's does,
+    fails its batch, recorded as an error."""
+    cfg, _, prompts = yi
     moe = configs.reduced(configs.get("deepseek_moe_16b"))
-    with pytest.raises(NotImplementedError):
-        serving.LMAdapter(moe, max_batch=2, prompt_len=12, n_new=2)
-    with pytest.raises(NotImplementedError):
-        serving.LMAdapter(dataclasses.replace(cfg, encoder_only=True),
+    serving.LMAdapter(moe, max_batch=2, prompt_len=12, n_new=2)
+    with pytest.raises(ValueError, match="dtype"):
+        serving.LMAdapter(dataclasses.replace(cfg, dtype="float16"),
                           max_batch=2, prompt_len=12, n_new=2)
+    hubert = configs.reduced(configs.get("hubert_xlarge"))
+    server = serving.InferenceServer(
+        serving.LMAdapter(hubert, max_batch=2, prompt_len=12, n_new=2),
+        tf.init_params(hubert, torch.Generator().manual_seed(0)))
+    ticket = server.submit(prompts[0])
+    assert server.step() == 1
+    with pytest.raises(Exception):
+        ticket.wait(1.0)
+    assert server.metrics.summary()["requests"]["errors"] == 1
+
+
+@pytest.mark.parametrize("arch", ["deepseek_moe_16b", "zamba2_7b",
+                                  "xlstm_125m"])
+def test_lm_families_served_greedy_tokens(arch):
+    """MoE, the hybrid and xLSTM through the adapter: each response is the
+    greedy loop's tokens for its prompt."""
+    cfg = configs.reduced(configs.get(arch))
+    model = tf.init_params(cfg, torch.Generator().manual_seed(0))
+    prompts = np.asarray(make_lm_tokens(cfg.vocab, 3, 12, seed=4)[0],
+                         np.int32)
+    adapter = serving.LMAdapter(cfg, max_batch=2, prompt_len=12, n_new=3)
+    server = serving.InferenceServer(adapter, model)
+    tickets = [server.submit(p) for p in prompts]
+    assert server.drain() == 3
+    for prompt, ticket in zip(prompts, tickets):
+        want = greedy_generate(model, cfg, torch.from_numpy(prompt[None]), 3,
+                               adapter.cache_len)
+        np.testing.assert_array_equal(ticket.wait(0), want[0].numpy())
 
 
 def test_weight_buffers_swap_between_batches():
@@ -151,6 +181,23 @@ def test_serve_llm_entry_point_on_the_cpu():
     assert "arch=yi-6b (reduced)  max_batch=4 prompt=24 new=3" in text
     assert "12 tokens for 4 requests" in text and "0 errors" in text
     assert text.count("-> generated=") == 4
+
+
+def test_serve_llm_serves_a_moe_model_on_the_cpu():
+    out = io.StringIO()
+    with redirect_stdout(out):
+        rc = serve_llm.main(["--arch", "deepseek-moe-16b", "--device", "cpu",
+                             "--requests", "4", "--n-new", "3", "--qps",
+                             "200"])
+    text = out.getvalue()
+    assert rc == 0, text
+    assert "arch=deepseek-moe-16b (reduced)" in text
+    assert "12 tokens for 4 requests" in text and "0 errors" in text
+
+
+def test_serve_llm_refuses_the_encoder_only_model():
+    with pytest.raises(SystemExit, match="encoder-only"):
+        serve_llm.main(["--arch", "hubert-xlarge", "--device", "cpu"])
 
 
 def test_serve_llm_needs_a_card_unless_told_cpu():
