@@ -208,6 +208,28 @@ exits non-zero and no failure is caught:
      same inputs on the CPU (equal experts and slots, some token dropped, y
      within ``MOE_CAP_ATOL``); the encoder's decode step raises. Prefill and
      decode times, peak memory, one profiled prefill and decode step.
+ 17. train (run after 16): LM training, which launches no kernel (counts
+     reset and read: no flash launch; attention is ``attend_chunked``).
+     Yi-6B at full width and 2 layers in f32 (TF32 off), B 2 x T 2048
+     (two attention chunks): loss, every gradient leaf and the params
+     after one ``make_dense_train_step`` step on the card against the CPU
+     (``TRAIN_LOSS_TOL``, ``TRAIN_GRAD_REL``, ``TRAIN_PARAM_TOL``); the
+     gradients without the per-block and per-chunk checkpoints bit-equal
+     to those with them; two steps from one state bit-equal; n_micro 2
+     against 1 within ``TRAIN_MICRO_REL``. Then Yi-6B at full width and
+     depth in bf16 (seed 0): 5 SGD steps at lr 0.01 on one batch of
+     ``make_lm_tokens(64000, 4, 4096, seed=0)`` as the dry run's
+     microbatch rule splits it (2 of 2 rows), then one profiled step: every
+     loss finite and the last below the first, every gradient leaf of the
+     first step finite and not all zero; step ms (median of steps 2-5),
+     tokens/s, peak memory, the step's floating-point operations against
+     989 TFLOP/s, busy share and top kernels. Then one step of every config
+     of phase 16 at its depth and batch, bf16, T 1,024 (frames, bf16 image
+     embeddings): finite loss and gradients, no all-zero gradient leaf (the
+     MoE experts no kept assignment reached named), a second step's ms
+     and peak memory; and each family at ``configs.reduced`` width in f32
+     on the card against the CPU, within the CPU parity tests'
+     tolerances.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. ``--only flash`` runs phases 1 and 10
@@ -220,7 +242,7 @@ masks`` runs phase 1, the pair-mask kernel's round and flat rows of phase 2
 and the mask path probe the same way (on the parent of the round launch, a
 round is timed as its per-leaf flat launches); ``--only sharded`` runs
 phases 1 and 14, ``--only bench`` phases 1 and 15, ``--only families``
-phases 1 and 16. Without a CUDA device, or outside a checkout, it exits
+phases 1 and 16, ``--only train`` phases 1 and 17. Without a CUDA device, or outside a checkout, it exits
 non-zero and prints no result.
 """
 from __future__ import annotations
@@ -1860,9 +1882,10 @@ FLASH_SHAPES = (
      "pad"),
 )
 # rows timed beside the bound and SDPA (with the f32 rows, timed beside
-# their bound): the first is the kernel's main row in the report
+# their bound; the two f32 rows at B 2, T 256, 8 heads beside SDPA in f32
+# too): the first is the kernel's main row in the report
 FLASH_TIMED = ("yi_6b.prefill", "yi_6b.long", "hubert.encode",
-               "zamba2.shared")
+               "zamba2.shared", "f32.hd80", "f32.hd112")
 NEEDLE = 1000.0
 
 
@@ -2187,11 +2210,12 @@ MOE_F32_RTOL, MOE_F32_ATOL = 2e-2, 2e-3   # the reference test's allclose
 MOE_CAP_ATOL = 5.4e-5
 
 
-def profiled(fn) -> dict:
+def profiled(fn, top: int = 3, name_len: int = 48) -> dict:
     """Wall ms, CUDA kernel launches and device ms of one call of fn
     (``torch.profiler``, device activity only: the host's op events would
     cost a long trace on a prefill of 100,000+ launches; one stream, so
-    kernels do not overlap)."""
+    kernels do not overlap); the ``top`` kernels by device time, names cut
+    to ``name_len``."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CUDA]
@@ -2206,12 +2230,12 @@ def profiled(fn) -> dict:
            if "CUDA" in str(getattr(e, "device_type", ""))]
     dev = [d for d in dev if d[2] > 0]
     dev_ms = sum(d[2] for d in dev) / 1e3
-    top = sorted(dev, key=lambda d: -d[2])[:3]
+    top = sorted(dev, key=lambda d: -d[2])[:top]
     return {"wall_ms": wall_ms, "kernels": sum(d[1] for d in dev),
             "device_ms": dev_ms, "busy": dev_ms / wall_ms,
             "flash_ms": sum(d[2] for d in dev
                             if "flash_attention" in d[0]) / 1e3,
-            "top": [(k[:48], c, t / 1e3) for k, c, t in top]}
+            "top": [(k[:name_len], c, t / 1e3) for k, c, t in top]}
 
 
 @contextlib.contextmanager
@@ -2521,6 +2545,405 @@ def families_phase(card: str) -> dict:
           f"{card}; flash launches {total['flash_attention']} over "
           f"{len(FAMILY_CELLS)} first prefills", flush=True)
     return total
+
+
+# ------------------------------------------------------ phase 17: train
+TRAIN_LR = 0.01
+TRAIN_PARITY_B, TRAIN_PARITY_T = 2, 2048    # two attend_chunked chunks
+TRAIN_B, TRAIN_T = 4, 4096      # Yi-6B: train_4k's length, 4 rows a card
+TRAIN_STEPS = 5
+TRAIN_FAMILY_T = 1024           # the families' tokens (frames) a row,
+TRAIN_XLSTM_T = 512             # but xLSTM's: its sLSTM steps on the host
+# Yi-6B at full width and 2 layers in f32 (TF32 off), card vs CPU: the loss,
+# each gradient leaf's max |diff| over its max |g|, the params after one
+# step; n_micro = 2 against 1 on the card, per leaf likewise. About 2x the
+# readings on an H100 80GB HBM3 at 700 W: 9.537e-07, 1.281e-05 (wq),
+# 1.192e-07 (an ulp of the norm scales at 1.0), 1.069e-05 (wq)
+TRAIN_LOSS_TOL = 2e-6
+TRAIN_GRAD_REL = 2.6e-5
+TRAIN_PARAM_TOL = 2.4e-7
+TRAIN_MICRO_REL = 2.2e-5
+# the families at reduced width in f32, card vs CPU: the CPU parity tests'
+# tolerances (tests/test_torch_train_families.py)
+FAMILY_TRAIN_LOSS_TOL, FAMILY_TRAIN_GRAD_REL = 2e-5, 1e-4
+
+
+@contextlib.contextmanager
+def no_checkpoints():
+    """Within the block the training forward saves every activation: the
+    ``checkpoint`` that models.attention and models.transformer call runs
+    the function directly."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer as tf
+
+    saved = attn.checkpoint, tf.checkpoint
+
+    def direct(fn, *args, use_reentrant=None):
+        return fn(*args)
+
+    attn.checkpoint = tf.checkpoint = direct
+    try:
+        yield
+    finally:
+        attn.checkpoint, tf.checkpoint = saved
+
+
+def grad_gap(got: dict, want: dict) -> tuple[float, str]:
+    """The largest per-leaf max |got - want| over the leaf's max |want|,
+    and the leaf; ``got`` may lie on the card."""
+    worst, where = 0.0, ""
+    for name, w in want.items():
+        w = w.float().cpu()
+        err = (got[name].float().cpu() - w).abs().max().item()
+        rel = err / max(w.abs().max().item(), 1e-30)
+        if rel > worst:
+            worst, where = rel, name
+    return worst, where
+
+
+def lm_batch(cfg, B: int, T: int, seed: int, device) -> dict:
+    """A training batch on ``device``: ``make_lm_tokens`` tokens and labels
+    (audio: seeded bf16-able frames instead of tokens; VLM: seeded image
+    embeddings in the model dtype)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import make_lm_tokens
+    from repro_torch.models import transformer as tf
+
+    toks, labels = make_lm_tokens(cfg.vocab, B, T, seed=seed)
+    batch = {"labels": torch.from_numpy(np.asarray(labels, np.int32))}
+    gen = torch.Generator().manual_seed(seed)
+    dtype = tf.DTYPES[cfg.dtype]
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((B, T, cfg.d_model),
+                                      generator=gen).to(dtype)
+    else:
+        batch["tokens"] = torch.from_numpy(np.asarray(toks, np.int32))
+    if cfg.family == "vlm":
+        batch["image_embeds"] = torch.randn(
+            (B, cfg.n_image_tokens, cfg.d_model), generator=gen).to(dtype)
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def train_parity(card: str) -> None:
+    """Yi-6B at full width and 2 layers, f32, TF32 off, B 2 x T 2048: the
+    card against the CPU (loss, every gradient leaf, the params after one
+    step), remat numerics-neutral, two steps from one state bit-equal,
+    n_micro 2 against 1."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models import transformer as tf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(configs.get("yi_6b"), n_layers=2,
+                              dtype="float32")
+    B, T = TRAIN_PARITY_B, TRAIN_PARITY_T
+    model = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    cpu_model = tf.init_params(cfg, device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    cpu_batch = lm_batch(cfg, B, T, 3, "cpu")
+    batch = {k: v.cuda() for k, v in cpu_batch.items()}
+    state0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss, grads = ttrain.step_gradients(model, cfg, batch)
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    check(ops.launch_counts()["flash_attention"] == 0,
+          "a training step launched the flash kernel")
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads = ttrain.step_gradients(cpu_model, cfg, cpu_batch)
+    cpu_s = time.perf_counter() - t0
+    loss_err = abs(loss.item() - cpu_loss.item())
+    grad_rel, grad_at = grad_gap(grads, cpu_grads)
+
+    # without the per-block and per-chunk checkpoints: the same numbers
+    with no_checkpoints():
+        loss_r, grads_r = ttrain.step_gradients(model, cfg, batch)
+    remat_same = (bits_equal(loss_r, loss)
+                  and all(bits_equal(grads_r[n], g) for n, g in grads.items()))
+    del grads_r
+    # n_micro = 2: the f32 sums of two halves against one batch
+    loss_m, grads_m = ttrain.step_gradients(model, cfg, batch, 2)
+    micro_loss = abs(loss_m.item() - loss.item())
+    micro_rel, micro_at = grad_gap(grads_m, grads)
+    del grads_m, grads
+
+    # two make_dense_train_step steps from one state
+    step = ttrain.make_dense_train_step(cfg, lr=TRAIN_LR)
+    _, l1 = step(model, batch)
+    after = {n: p.detach().clone() for n, p in model.named_parameters()}
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(state0[n])
+    _, l2 = step(model, batch)
+    steps_same = bits_equal(l1, l2) and all(
+        bits_equal(after[n], p) for n, p in model.named_parameters())
+    # the CPU's step: the same two parts on its gradient
+    ttrain.sgd_update(cpu_model, cpu_grads, TRAIN_LR)
+    param_err = max((p.cpu() - q).abs().max().item() for p, q in zip(
+        model.parameters(), cpu_model.parameters()))
+    moved = sum(int((p.cpu() != state0[n].cpu()).sum())
+                for n, p in model.named_parameters())
+    print(f"[train] parity on {card}: {cfg.name} full width, 2 layers, f32 "
+          f"(TF32 off), B={B} T={T} (2 attention chunks): loss card "
+          f"{loss.item():.7f} CPU {cpu_loss.item():.7f} |diff| "
+          f"{loss_err:.3e} (tolerance {TRAIN_LOSS_TOL}); gradients max "
+          f"|diff| / max |g| {grad_rel:.3e} at {grad_at} (tolerance "
+          f"{TRAIN_GRAD_REL}); params after one step max |diff| "
+          f"{param_err:.3e} (tolerance {TRAIN_PARAM_TOL}, {moved} of "
+          f"{tf.param_count(model)} elements moved); remat bit-equal "
+          f"{remat_same}; two steps from one state bit-equal {steps_same}; "
+          f"n_micro 2 vs 1: loss |diff| {micro_loss:.3e}, gradients "
+          f"{micro_rel:.3e} at {micro_at} (tolerance {TRAIN_MICRO_REL}); "
+          f"card gradient {card_ms:.1f} ms, CPU {cpu_s:.1f} s", flush=True)
+    check(loss_err <= TRAIN_LOSS_TOL, f"train loss card vs CPU {loss_err:.3e}")
+    check(grad_rel <= TRAIN_GRAD_REL,
+          f"gradient {grad_at} card vs CPU {grad_rel:.3e} of its max |g|")
+    check(param_err <= TRAIN_PARAM_TOL,
+          f"params after one step card vs CPU {param_err:.3e}")
+    check(remat_same, "the step without checkpoints differs from the "
+          "step with them")
+    check(steps_same, "two steps from one state differ on the card")
+    check(micro_loss <= TRAIN_LOSS_TOL and micro_rel <= TRAIN_MICRO_REL,
+          f"n_micro 2 vs 1: loss {micro_loss:.3e}, gradient {micro_at} "
+          f"{micro_rel:.3e}")
+    del model, cpu_model, state0, after, cpu_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_flops(cfg, n_params: int, B: int, T: int) -> dict:
+    """A step's floating-point operations: 6 N tokens (N every parameter,
+    the embedding table included), the remat's second forward of the blocks
+    and the head (2 per parameter a token), and ``attend``'s score and PV
+    products over the full [T, T] square it computes before masking: a
+    forward, two recomputes (block and chunk) and a backward of twice the
+    forward."""
+    tokens = B * T
+    outside = cfg.vocab * cfg.d_model + cfg.d_model          # embed, norm
+    attn_fwd = 4 * B * T * T * cfg.n_heads * cfg.hd * cfg.n_layers
+    out = {"model": 6 * n_params * tokens,
+           "recompute": 2 * (n_params - outside) * tokens,
+           "attention": 5 * attn_fwd}
+    out["total"] = sum(out.values())
+    return out
+
+
+def train_yi6b(card: str) -> None:
+    """Yi-6B at full width and depth in bf16: TRAIN_STEPS SGD steps on one
+    ``train_4k``-length batch of TRAIN_B rows, as the dry run's microbatch
+    rule splits it."""
+    import math
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models import transformer as tf
+
+    cfg = configs.get("yi_6b")
+    B, T = TRAIN_B, TRAIN_T
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    n_params = tf.param_count(params)
+    n_micro = ttrain.micro_batches(n_params)
+    batch = lm_batch(cfg, B, T, 0, "cuda")
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    watched = ("embed", "lm_head", "final_norm.scale", "blocks.0.attn.wq",
+               f"blocks.{cfg.n_layers - 1}.mlp.wo")
+    named = dict(params.named_parameters())
+    before = {n: named[n].detach().clone() for n in watched}
+
+    # step 1 as the step's two parts, so every gradient leaf can be held
+    ops.reset_launch_counts()
+    losses, times = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = ttrain.step_gradients(params, cfg, batch, n_micro)
+    ttrain.sgd_update(params, grads, TRAIN_LR)
+    torch.cuda.synchronize()
+    times.append((time.perf_counter() - t0) * 1e3)
+    losses.append(loss.item())
+    bad = [n for n, g in grads.items() if not bool(torch.isfinite(g).all())]
+    zero = [n for n, g in grads.items() if not bool(g.any())]
+    del grads
+    step = ttrain.make_dense_train_step(cfg, lr=TRAIN_LR, n_micro=n_micro)
+    for _ in range(TRAIN_STEPS - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, loss = step(params, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    # one more step, profiled: its loss is the loss after TRAIN_STEPS steps
+    out = {}
+    prof = profiled(lambda: out.update(loss=step(params, batch)[1]), top=8,
+                    name_len=160)
+    losses.append(out["loss"].item())
+    counts = ops.launch_counts()
+    moved = {n: int((named[n] != before[n]).sum()) for n in watched}
+    step_ms = statistics.median(times[1:])
+    flops = train_flops(cfg, n_params, B, T)
+    bound_ms = flops["total"] / BF16_FLOPS * 1e3
+    print(f"[train] {cfg.name} on {card}: {cfg.n_layers} layers d_model "
+          f"{cfg.d_model} bf16, {n_params} parameters drawn in "
+          f"{draw_s:.1f} s; B={B} T={T} as n_micro={n_micro} "
+          f"(micro_batches), lr {TRAIN_LR}: losses {losses} (steps "
+          f"1-{TRAIN_STEPS}, then the profiled step {TRAIN_STEPS + 1}); step "
+          f"ms {[round(t, 3) for t in times]}, median of steps 2-"
+          f"{TRAIN_STEPS} {step_ms:.3f} ms ({B * T / step_ms * 1e3:.1f} "
+          f"tokens/s), peak memory {peak_gib:.2f} GiB; flops a step "
+          f"{flops['total']:.4e} (6NT {flops['model']:.4e} + remat "
+          f"{flops['recompute']:.4e} + attention {flops['attention']:.4e}) "
+          f"= {bound_ms:.1f} ms at {BF16_FLOPS / 1e12:.0f} TFLOP/s, "
+          f"{bound_ms / step_ms:.1%} of it reached; launches {counts}; "
+          f"elements moved after {TRAIN_STEPS + 1} steps: {moved}",
+          flush=True)
+    print(f"[train] {cfg.name} profiled step on {card}: wall "
+          f"{prof['wall_ms']:.3f} ms, {prof['kernels']} kernels, device "
+          f"{prof['device_ms']:.3f} ms (busy {prof['busy']:.1%}); top: "
+          + "; ".join(f"{k} x{c} {t:.3f} ms" for k, c, t in prof["top"]),
+          flush=True)
+    check(counts["flash_attention"] == 0, "training launched flash")
+    check(not bad, f"non-finite gradients: {bad}")
+    check(not zero, f"all-zero gradients: {zero}")
+    check(all(map(math.isfinite, losses)), f"a non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall over "
+          f"{TRAIN_STEPS} steps: {losses}")
+    del params, before, batch, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_idle_experts(cfg, grads: dict) -> str:
+    """Per MoE layer, the experts whose whole gradient is zero: no kept
+    assignment reached them."""
+    idle = {}
+    for i in range(cfg.n_layers):
+        g = grads.get(f"blocks.{i}.moe.wo")
+        if g is not None:
+            ids = (g.flatten(1).abs().amax(1) == 0).nonzero().flatten()
+            if ids.numel():
+                idle[i] = ids.tolist()
+    return f"experts with no gradient (no kept assignment): {idle or 'none'}"
+
+
+def train_family(arch: str, layers, B: int, card: str) -> None:
+    """One config of phase 16 at full width, bf16, one SGD step at T =
+    TRAIN_FAMILY_T (TRAIN_XLSTM_T for xLSTM; one batch: the f32
+    accumulator of the microbatch rule would not fit beside the VLM's
+    weights and gradients), then a second step timed."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models import transformer as tf
+
+    full = configs.get(arch)
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                          n_layers=layers)
+    torch.cuda.reset_peak_memory_stats()
+    t_cell = time.perf_counter()
+    params = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    T = TRAIN_XLSTM_T if cfg.xlstm else TRAIN_FAMILY_T
+    batch = lm_batch(cfg, B, T, 1, "cuda")
+    ops.reset_launch_counts()
+    loss, grads = ttrain.step_gradients(params, cfg, batch)
+    ttrain.sgd_update(params, grads, TRAIN_LR)
+    bad = [n for n, g in grads.items() if not bool(torch.isfinite(g).all())]
+    zero = [n for n, g in grads.items() if not bool(g.any())]
+    idle = moe_idle_experts(cfg, grads) if cfg.family == "moe" else ""
+    del grads
+    step = ttrain.make_dense_train_step(cfg, lr=TRAIN_LR)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, loss2 = step(params, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    flash = ops.launch_counts()["flash_attention"]
+    print(f"[train] {cfg.name} on {card}: {cfg.n_layers} of {full.n_layers} "
+          f"layers at full width, bf16, B={B} T={T}: losses "
+          f"{loss.item():.6f} then {loss2.item():.6f}; second step "
+          f"{step_ms:.3f} ms, peak memory {peak_gib:.2f} GiB; flash "
+          f"launches {flash}; leaves with a non-finite gradient "
+          f"{bad or 'none'}; all-zero gradient leaves {zero or 'none'}"
+          + (f"; {idle}" if idle else "")
+          + f"; the cell took {time.perf_counter() - t_cell:.1f} s",
+          flush=True)
+    check(flash == 0, f"{arch}: training launched flash")
+    check(bool(torch.isfinite(loss)) and bool(torch.isfinite(loss2)),
+          f"{arch}: non-finite loss")
+    check(not bad, f"{arch}: non-finite gradients {bad}")
+    check(not zero, f"{arch}: all-zero gradient leaves {zero}")
+    del params, batch
+
+
+def train_reduced_parity(arch: str) -> str:
+    """The config at ``configs.reduced`` width in f32 (TF32 off): loss and
+    every gradient leaf on the card against the CPU."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models import transformer as tf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.reduced(configs.get(arch))
+    cpu_model = tf.init_params(cfg, torch.Generator().manual_seed(2))
+    model = tf.init_params(cfg, device="cuda")
+    model.load_state_dict(cpu_model.state_dict())
+    cpu_batch = lm_batch(cfg, 2, 32, 4, "cpu")
+    loss, grads = ttrain.value_and_grad(
+        model, cfg, {k: v.cuda() for k, v in cpu_batch.items()})
+    cpu_loss, cpu_grads = ttrain.value_and_grad(cpu_model, cfg, cpu_batch)
+    loss_err = abs(loss.item() - cpu_loss.item())
+    rel, at = grad_gap(grads, cpu_grads)
+    check(loss_err <= FAMILY_TRAIN_LOSS_TOL and rel <= FAMILY_TRAIN_GRAD_REL,
+          f"{arch} reduced, card vs CPU: loss {loss_err:.3e}, gradient {at} "
+          f"{rel:.3e} of its max |g|")
+    return f"{arch} loss {loss_err:.3e} gradients {rel:.3e} ({at})"
+
+
+def train_phase(card: str) -> None:
+    """Phase 17: LM training on the card."""
+    import torch
+
+    t0 = time.perf_counter()
+    train_parity(card)
+    t1 = time.perf_counter()
+    train_yi6b(card)
+    t2 = time.perf_counter()
+    for arch, layers, B in FAMILY_CELLS:
+        train_family(arch, layers, B, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    lines = [train_reduced_parity(arch) for arch, _, _ in FAMILY_CELLS]
+    print(f"[train] families at reduced width, f32 (TF32 off), card vs CPU "
+          f"(tolerances {FAMILY_TRAIN_LOSS_TOL} on the loss, "
+          f"{FAMILY_TRAIN_GRAD_REL} of each leaf's max |g|): "
+          + "; ".join(lines), flush=True)
+    print(f"[train] phase 17 took {time.perf_counter() - t0:.1f} s on {card} "
+          f"(parity {t1 - t0:.1f} s, Yi-6B {t2 - t1:.1f} s, families "
+          f"{t3 - t2:.1f} s)", flush=True)
 
 
 # ----------------------------------------------------- phase 12: resume
@@ -3742,13 +4165,14 @@ def main() -> int:
                                  "docstring).")
     ap.add_argument("--only",
                     choices=["flash", "pack", "masks", "sharded", "bench",
-                             "families"],
+                             "families", "train"],
                     help="run the device and build phases and then [flash] "
                     "(the HGMMA count printed, not required), the bit-pack "
                     "kernels' checks and times and one codec_wire_roundtrip "
                     "probe, the pair-mask kernel's flat and round rows "
-                    "and one round's mask path probe, [sharded], [bench] "
-                    "or [families] alone, with no result line: a kernel's "
+                    "and one round's mask path probe, [sharded], [bench], "
+                    "[families] or [train] alone, with no result line: a "
+                    "kernel's "
                     "times on a "
                     "tree, for a comparison of two trees in one call")
     args = ap.parse_args()
@@ -3820,6 +4244,11 @@ def main() -> int:
     if args.only == "families":
         families_phase(card)
         print(f"[done] --only families passed in "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
+    if args.only == "train":
+        train_phase(card)
+        print(f"[done] --only train passed in "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
         return 0
     if args.only == "sharded":
@@ -3998,6 +4427,9 @@ def main() -> int:
 
     # ------------------------------------------------------ 16. families
     family_counts = families_phase(card)
+
+    # --------------------------------------------------------- 17. train
+    train_phase(card)
 
     # ------------------------------------------------ 12-13. resume, serve
     t_phase = time.perf_counter()

@@ -29,6 +29,25 @@ def _flat_tree(tree: Mapping, prefix: str = "") -> dict:
     return out
 
 
+def _stacks(named) -> dict:
+    """``(port name, leaf)`` pairs -> ``{reference name: [(index, leaf)]}``:
+    the numeric parts of ``self_blocks.1.2.attn.wq`` index the reference's
+    stacked axes of ``self_blocks.attn.wq``."""
+    groups: dict = {}
+    for name, leaf in named:
+        parts = name.split(".")
+        index = tuple(int(x) for x in parts if x.isdigit())
+        ref_name = ".".join(x for x in parts if not x.isdigit())
+        groups.setdefault(ref_name, []).append((index, leaf))
+    return groups
+
+
+def _lead(items) -> tuple:
+    """The stacked axes' sizes: one past the largest index on each."""
+    return tuple(max(ix[a] for ix, _ in items) + 1
+                 for a in range(len(items[0][0])))
+
+
 def params_from_jax(tree: Mapping, model_name: str) -> PaperModel:
     """A ``model_name`` module holding the arrays of ``tree`` (numpy or any
     array convertible by ``np.asarray``), checked leaf by leaf: the names
@@ -68,12 +87,7 @@ def lm_params_from_jax(tree: Mapping, cfg: ArchConfig,
     weights keep the ``[d_in, d_out]`` layout."""
     model = tf.init_params(cfg, device=device)
     flat = _flat_tree(tree)
-    targets = {}            # reference name -> [(index tuple, param)]
-    for name, p in model.named_parameters():
-        parts = name.split(".")
-        index = tuple(int(x) for x in parts if x.isdigit())
-        ref_name = ".".join(x for x in parts if not x.isdigit())
-        targets.setdefault(ref_name, []).append((index, p))
+    targets = _stacks(model.named_parameters())
     if sorted(flat) != sorted(targets):
         missing = sorted(set(targets) - set(flat))
         extra = sorted(set(flat) - set(targets))
@@ -82,13 +96,40 @@ def lm_params_from_jax(tree: Mapping, cfg: ArchConfig,
     with torch.no_grad():
         for name, dests in targets.items():
             arr = np.asarray(flat[name], dtype=np.float32)
-            # the stacked axes: one past the largest index on each
-            lead = tuple(max(ix[a] for ix, _ in dests) + 1
-                         for a in range(len(dests[0][0])))
-            want = lead + tuple(dests[0][1].shape)
+            want = _lead(dests) + tuple(dests[0][1].shape)
             if tuple(arr.shape) != want:
                 raise ValueError(f"{cfg.name}: {name} has shape "
                                  f"{tuple(arr.shape)}, expected {want}")
             for index, p in dests:
                 p.copy_(torch.from_numpy(np.array(arr[index])))
     return model
+
+
+def lm_tree_to_numpy(model_or_grads, cfg: ArchConfig) -> dict:
+    """The inverse of ``lm_params_from_jax``: a ``TransformerLM`` (or a
+    ``{name: tensor}`` mapping with its parameter names, such as the
+    gradients of ``launch.train.value_and_grad``) as the reference's nested
+    tree of numpy arrays, repeated blocks stacked on their leading axes
+    (``self_blocks.1.2.attn.wq`` at ``tree["self_blocks"]["attn"]["wq"][1,
+    2]``, a MoE expert axis after the layer axis). Values are float32 (numpy
+    has no bfloat16; the widening is exact), so
+    ``lm_params_from_jax(lm_tree_to_numpy(m, cfg), cfg)`` holds ``m``'s
+    values bit for bit."""
+    named = (model_or_grads.named_parameters()
+             if isinstance(model_or_grads, torch.nn.Module)
+             else model_or_grads.items())
+    tree: dict = {}
+    for ref_name, items in _stacks(named).items():
+        lead = _lead(items)
+        arr = np.zeros(lead + tuple(items[0][1].shape), np.float32)
+        if len(items) != int(np.prod(lead, dtype=np.int64)):
+            raise ValueError(f"{cfg.name}: {ref_name} has {len(items)} "
+                             f"blocks for a stack of {lead}")
+        for index, t in items:
+            arr[index] = t.detach().float().cpu().numpy()
+        node = tree
+        *path, leaf = ref_name.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = arr
+    return tree

@@ -94,7 +94,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
     """GQA attention ``[B,T,H,hd] x [B,S,Hkv,hd] -> [B,T,H,hd]`` with an
-    f32 online softmax, causal and/or banded to ``window``."""
+    f32 online softmax, causal and/or banded to ``window``.
+
+    Forward only: the kernel has no backward, so inputs that require grad
+    (with grad mode on) raise ``RuntimeError`` on every device, rather than
+    give a result with no gradient on the card; training attends through
+    ``models.attention.attend_chunked``."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise RuntimeError("flash_attention has no backward: inputs that "
+                           "require grad go through "
+                           "models.attention.attend_chunked")
     if q.device.type == "cuda":
         return flash.flash_attention_cuda(q, k, v, causal=causal,
                                           window=window)

@@ -9,6 +9,11 @@ where the reference calls ``attend_chunked``, its XLA stand-in for the
 Pallas flash kernel. The decode attends over the whole pre-allocated cache
 with a validity mask in plain PyTorch (``attend``), as the reference does.
 
+Training (``train=True``) runs the reference's own ``attend_chunked`` in
+plain PyTorch under autograd: neither the flash kernel nor the Pallas one
+has a backward, and ``ops.flash_attention`` refuses inputs that require
+grad.
+
 The flash kernel keeps scores and probabilities in f32, as the Pallas kernel
 does; the reference's ``attend`` computes the scores in the model dtype and
 casts the probabilities to it before the PV product. In f32 the two agree to
@@ -22,6 +27,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import Params, apply_rope, dense_init
@@ -89,6 +95,44 @@ def causal_mask(t: int, s: int, window: Optional[int] = None,
     return m
 
 
+# Query-chunk size above which training never materializes the full [T, S]
+# scores: the reference's XLA stand-in for the flash kernel.
+CHUNK_Q = 1024
+
+
+def attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   hd: int, causal: bool,
+                   window: Optional[int]) -> torch.Tensor:
+    """Memory-bounded GQA attention for training: ``attend`` over query
+    chunks of ``CHUNK_Q``, each under a non-reentrant ``checkpoint`` (the
+    backward recomputes a chunk's scores instead of saving them). A chunk's
+    query positions start at its offset, keys at 0 (T = S, as in the
+    reference); the window applies only when causal."""
+    b, t, h, _ = q.shape
+    s = k.shape[1]
+    if t <= CHUNK_Q:
+        mask = (causal_mask(t, s, window, device=q.device)[None, None, None]
+                if causal else None)
+        return attend(q, k, v, mask, hd)
+    if t % CHUNK_Q:
+        raise ValueError(f"T={t} must divide by CHUNK_Q={CHUNK_Q}")
+    k_pos = torch.arange(s, device=q.device)[None, :]
+
+    def one(qi: torch.Tensor, start: int) -> torch.Tensor:
+        m = None
+        if causal:
+            q_pos = start + torch.arange(CHUNK_Q, device=q.device)[:, None]
+            m = k_pos <= q_pos
+            if window is not None:
+                m &= k_pos > q_pos - window
+            m = m[None, None, None]
+        return attend(qi, k, v, m, hd)
+
+    return torch.cat([checkpoint(one, q[:, start:start + CHUNK_Q], start,
+                                 use_reentrant=False)
+                      for start in range(0, t, CHUNK_Q)], 1)
+
+
 def _qkv(p: Params, x: torch.Tensor, positions: torch.Tensor, *,
          n_heads: int, n_kv: int, hd: int, rope: str):
     q = _split_heads(x @ p["wq"], n_heads, hd)
@@ -100,17 +144,21 @@ def _qkv(p: Params, x: torch.Tensor, positions: torch.Tensor, *,
 def self_attention(
     p: Params, x: torch.Tensor, *, n_heads: int, n_kv: int, hd: int,
     rope: str = "default", causal: bool = True, window: Optional[int] = None,
-    positions: Optional[torch.Tensor] = None,
+    positions: Optional[torch.Tensor] = None, train: bool = False,
 ) -> torch.Tensor:
-    """Full-sequence self attention (prefill without a cache)."""
+    """Full-sequence self attention: the flash kernel (a prefill without a
+    cache), or ``attend_chunked`` under autograd when ``train``."""
     b, t, _ = x.shape
     if positions is None:
         positions = torch.arange(t, device=x.device)[None, :]
     q, k, v = _qkv(p, x, positions, n_heads=n_heads, n_kv=n_kv, hd=hd,
                    rope=rope)
-    # the reference applies no mask, so no window, when not causal
-    out = ops.flash_attention(q, k, v, causal=causal,
-                              window=window if causal else None)
+    if train:
+        out = attend_chunked(q, k, v, hd=hd, causal=causal, window=window)
+    else:
+        # the reference applies no mask, so no window, when not causal
+        out = ops.flash_attention(q, k, v, causal=causal,
+                                  window=window if causal else None)
     return out.reshape(b, t, n_heads * hd) @ p["wo"]
 
 
@@ -124,14 +172,19 @@ def cross_kv(p: Params, kv_src: torch.Tensor, *, n_kv: int,
 
 def cross_attention(p: Params, x: torch.Tensor, kv_src: torch.Tensor, *,
                     n_heads: int, n_kv: int, hd: int,
-                    kv: Optional[tuple] = None) -> torch.Tensor:
+                    kv: Optional[tuple] = None,
+                    train: bool = False) -> torch.Tensor:
     """x attends to kv_src with no mask and no positional rotation; the
-    product goes through the flash kernel (non-causal). ``kv``: the K/V
+    product goes through the flash kernel (non-causal), or
+    ``attend_chunked`` under autograd when ``train``. ``kv``: the K/V
     already projected from ``kv_src`` (``cross_kv``)."""
     b, t, _ = x.shape
     q = _split_heads(x @ p["wq"], n_heads, hd)
     k, v = kv if kv is not None else cross_kv(p, kv_src, n_kv=n_kv, hd=hd)
-    out = ops.flash_attention(q, k, v, causal=False)
+    if train:
+        out = attend_chunked(q, k, v, hd=hd, causal=False, window=None)
+    else:
+        out = ops.flash_attention(q, k, v, causal=False)
     return out.reshape(b, t, n_heads * hd) @ p["wo"]
 
 

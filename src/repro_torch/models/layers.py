@@ -101,6 +101,13 @@ def apply_norm(p: Params, x: torch.Tensor, kind: str,
     return out.to(x.dtype)
 
 
+def floor_at(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``jnp.maximum(x, c)``: at a tie the gradient splits in two, as XLA's
+    does (``clamp_min`` would give the input all of it); the same values as
+    ``clamp_min``."""
+    return torch.maximum(x, torch.tensor(c, dtype=x.dtype, device=x.device))
+
+
 # ------------------------------------------------------------------------ RoPE
 def rope_freqs(hd: int, positions: torch.Tensor, theta: float = 10000.0):
     """positions: int[...]; returns f32 (cos, sin) of shape

@@ -29,7 +29,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import MoESpec
-from repro_torch.models.layers import Params, dense_init, stacked_dense_init
+from repro_torch.models.layers import (Params, dense_init, floor_at,
+                                       stacked_dense_init)
 
 
 class MoEOut(NamedTuple):
@@ -125,7 +126,7 @@ def apply_moe(p: Params, x: torch.Tensor, spec: MoESpec) -> MoEOut:
     logits = x.float() @ p["router"]                          # [B, T, E]
     probs = torch.softmax(logits, -1)
     gate_vals, eidx = route(probs, k)                         # [B, T, k]
-    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    gate_vals = gate_vals / floor_at(gate_vals.sum(-1, keepdim=True), 1e-9)
 
     # load-balance aux loss (mean prob * fraction routed, Switch-style)
     me = probs.mean((0, 1))                                   # [E]

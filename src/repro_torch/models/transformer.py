@@ -21,6 +21,15 @@ The reference stacks the blocks on leading axes and scans over them; the
 port holds ``nn.ModuleList``s and loops. Every prefill self- and
 cross-attention runs through the flash kernel (``models/attention.py``).
 Serving runs under ``torch.inference_mode()``.
+
+Training (``train_loss``; ``forward(..., train=True)``) runs under autograd
+with the reference's remat: every block (dense, MoE, audio), every VLM self
+block and super-block and every hybrid SSM block and super-block under a
+non-reentrant ``checkpoint``, attention through ``attend_chunked``, and the
+cross-entropy per 128-token chunk (``chunked_ce_loss``). The xLSTM stack is
+unrolled without a checkpoint, as in the reference. Parameters are created
+with ``requires_grad=False`` (serving); ``launch.train.value_and_grad``
+turns it on for the gradient it takes.
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
@@ -181,21 +191,23 @@ def _mlp_or_moe(p: nn.ModuleDict, cfg: ArchConfig, h: torch.Tensor):
 
 
 def _self_block(p: nn.ModuleDict, cfg: ArchConfig, x: torch.Tensor, *,
-                causal: bool, window: Optional[int]):
+                causal: bool, window: Optional[int], train: bool = False):
     """Pre-norm attention + MLP/MoE. Returns (x, aux_loss or None)."""
     h = apply_norm(p["attn_norm"], x, cfg.norm)
     x = x + attn.self_attention(
         p["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=cfg.hd,
-        rope=cfg.rope, causal=causal, window=window)
+        rope=cfg.rope, causal=causal, window=window, train=train)
     y, aux = _mlp_or_moe(p, cfg, apply_norm(p["mlp_norm"], x, cfg.norm))
     return x + y, aux
 
 
 def _cross_block(p: nn.ModuleDict, cfg: ArchConfig, x: torch.Tensor,
-                 kv_src: torch.Tensor, kv: Optional[tuple] = None):
+                 kv_src: torch.Tensor, kv: Optional[tuple] = None,
+                 train: bool = False):
     h = apply_norm(p["attn_norm"], x, cfg.norm)
     x = x + attn.cross_attention(p["attn"], h, kv_src, n_heads=cfg.n_heads,
-                                 n_kv=cfg.n_kv_heads, hd=cfg.hd, kv=kv)
+                                 n_kv=cfg.n_kv_heads, hd=cfg.hd, kv=kv,
+                                 train=train)
     h = apply_norm(p["mlp_norm"], x, cfg.norm)
     return x + apply_mlp(p["mlp"], h, cfg.act)
 
@@ -213,44 +225,101 @@ def _xlstm_layer(params: TransformerLM, i: int):
 
 
 # --------------------------------------------------------------- full forward
-@torch.inference_mode()
 def forward(params: TransformerLM, cfg: ArchConfig, h: torch.Tensor, *,
             window: Optional[int] = None,
-            image_embeds: Optional[torch.Tensor] = None):
+            image_embeds: Optional[torch.Tensor] = None,
+            train: bool = False):
     """Full-stack forward of an embedded input h [B,T,d]. Returns
     (final-normed hidden, total MoE aux loss, f32). ``encoder_only``
-    configurations attend without the causal mask."""
-    causal = not cfg.encoder_only
-    window = window if window is not None else cfg.window
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    configurations attend without the causal mask.
 
-    def add(a):
-        return aux if a is None else aux + a
+    Serving (the default) runs under ``torch.inference_mode()`` with the
+    flash kernel. ``train=True`` runs under autograd, attention through
+    ``attend_chunked``, each block under a non-reentrant ``checkpoint``
+    where the reference remats a scan body."""
+    with torch.inference_mode(not train):
+        causal = not cfg.encoder_only
+        window = window if window is not None else cfg.window
 
-    if cfg.xlstm:
-        for i in range(cfg.n_layers):
-            is_s, p = _xlstm_layer(params, i)
-            run = xlstm_mod.slstm_forward if is_s else xlstm_mod.mlstm_forward
-            h = h + run(p, h, cfg.n_heads)[0]
-    elif cfg.family == "vlm":
-        img = _image_embeds(cfg, image_embeds, h)
-        for self_ps, cross_p in zip(params.self_blocks, params.cross_blocks):
-            for bp in self_ps:
-                h, a = _self_block(bp, cfg, h, causal=causal, window=window)
-                aux = add(a)
-            h = _cross_block(cross_p, cfg, h, img)
-    elif cfg.family == "hybrid":
-        for ssm_ps in params.ssm_blocks:
-            for bp in ssm_ps:
-                h = _ssm_block(bp, cfg, h)
-            h, a = _self_block(params.shared_block, cfg, h, causal=causal,
-                               window=window)
-            aux = add(a)
+        def ckpt(fn, *args):
+            return checkpoint(fn, *args, use_reentrant=False) if train \
+                else fn(*args)
+
+        def self_block(bp, x, aux):
+            x, a = _self_block(bp, cfg, x, causal=causal, window=window,
+                               train=train)
+            return x, aux if a is None else aux + a
+
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        if cfg.xlstm:
+            for i in range(cfg.n_layers):
+                is_s, p = _xlstm_layer(params, i)
+                run = (xlstm_mod.slstm_forward if is_s
+                       else xlstm_mod.mlstm_forward)
+                h = h + run(p, h, cfg.n_heads)[0]
+        elif cfg.family == "vlm":
+            img = _image_embeds(cfg, image_embeds, h)
+
+            def vlm_super(x, aux, self_ps, cross_p):
+                for bp in self_ps:
+                    x, aux = ckpt(self_block, bp, x, aux)
+                return _cross_block(cross_p, cfg, x, img, train=train), aux
+
+            for self_ps, cross_p in zip(params.self_blocks,
+                                        params.cross_blocks):
+                h, aux = ckpt(vlm_super, h, aux, self_ps, cross_p)
+        elif cfg.family == "hybrid":
+            def hybrid_super(x, aux, ssm_ps):
+                for bp in ssm_ps:
+                    x = ckpt(_ssm_block, bp, cfg, x)
+                return self_block(params.shared_block, x, aux)
+
+            for ssm_ps in params.ssm_blocks:
+                h, aux = ckpt(hybrid_super, h, aux, ssm_ps)
+        else:
+            for bp in params.blocks:
+                h, aux = ckpt(self_block, bp, h, aux)
+        return apply_norm(params.final_norm, h, cfg.norm), aux
+
+
+# ----------------------------------------------------------------------- loss
+def chunked_ce_loss(h: torch.Tensor, w_head: torch.Tensor,
+                    labels: torch.Tensor, chunk: int = 128) -> torch.Tensor:
+    """Next-token cross-entropy without the full [B, T, V] logits: per
+    chunk of ``min(chunk, T)`` positions (a ``T % chunk`` tail is dropped,
+    as in the reference), logits ``hx @ w_head`` in the model dtype, then
+    f32, ``logsumexp - gold`` averaged over the chunk; the mean over
+    chunks. Each chunk under a non-reentrant ``checkpoint``: the backward
+    recomputes its logits."""
+    t = h.shape[1]
+    chunk = min(chunk, t)
+
+    def per_chunk(hx, lx):
+        logits = (hx @ w_head).float()
+        lse = torch.logsumexp(logits, -1)
+        gold = logits.gather(-1, lx[..., None])[..., 0]
+        return torch.mean(lse - gold)
+
+    losses = [checkpoint(per_chunk, h[:, s:s + chunk],
+                         labels[:, s:s + chunk].long(), use_reentrant=False)
+              for s in range(0, t // chunk * chunk, chunk)]
+    return torch.mean(torch.stack(losses))
+
+
+def train_loss(params: TransformerLM, cfg: ArchConfig,
+               batch: dict) -> torch.Tensor:
+    """The training loss, f32: ``batch`` holds ``tokens`` (or ``frames``
+    [B, T, d] for the audio encoder), ``labels`` and, for the VLM,
+    ``image_embeds``. Chunked cross-entropy of the full-stack forward plus
+    the MoE aux loss, under autograd (``forward(..., train=True)``)."""
+    if cfg.family == "audio":
+        h = batch["frames"].to(DTYPES[cfg.dtype])
     else:
-        for bp in params.blocks:
-            h, a = _self_block(bp, cfg, h, causal=causal, window=window)
-            aux = add(a)
-    return apply_norm(params.final_norm, h, cfg.norm), aux
+        h = embed_tokens(params, cfg, batch["tokens"])
+    h, aux = forward(params, cfg, h, image_embeds=batch.get("image_embeds"),
+                     train=True)
+    ce = chunked_ce_loss(h, lm_head_weight(params, cfg), batch["labels"])
+    return ce + aux
 
 
 # ------------------------------------------------------------------- serving

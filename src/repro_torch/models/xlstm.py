@@ -25,7 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.layers import Params, const_init, dense_init, normal_init
+from repro_torch.models.layers import (Params, const_init, dense_init,
+                                       floor_at, normal_init)
 
 CHUNK_M = 256   # mLSTM chunked-parallel chunk length
 
@@ -72,7 +73,7 @@ def _slstm_step(r: torch.Tensor, n_heads: int, dh: int):
         f_g = torch.exp(ft + m - m_new)
         c_new = f_g * c + i_g * torch.tanh(zt)
         n_new = f_g * n + i_g
-        h_new = torch.sigmoid(ot) * c_new / torch.clamp_min(n_new, 1e-6)
+        h_new = torch.sigmoid(ot) * c_new / floor_at(n_new, 1e-6)
         return c_new, n_new, m_new, h_new
 
     return step
@@ -180,7 +181,7 @@ def mlstm_forward(p: Params, x: torch.Tensor, n_heads: int,
     y_inter = torch.einsum("bcqhk,bchvk->bcqhv", eb * qc, c_prevs)
     den_inter = torch.einsum("bcqhk,bchk->bcqh", eb * qc, n_prevs)
 
-    den = torch.clamp_min(torch.abs(den_intra + den_inter), 1.0)
+    den = floor_at(torch.abs(den_intra + den_inter), 1.0)
     h = (y_intra + y_inter) / den[..., None]
     h = h.reshape(b, t, n_heads, dh)
     y = (o.float() * h).reshape(b, t, d_inner).to(x.dtype)
