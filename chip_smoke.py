@@ -230,6 +230,31 @@ exits non-zero and no failure is caught:
      and peak memory; and each family at ``configs.reduced`` width in f32
      on the card against the CPU, within the CPU parity tests'
      tolerances.
+ 18. fl_train (run after 17): the federated LM train step
+     (``launch/train.py::make_fl_train_step``) on the multi-pod layout (pod
+     2 x data 16 x model 16: 2 participants of 256 blocks), the dry run's
+     THGS (s0 0.01, alpha 0.9, s_min 0.001) and mask ratio 0.01. (a) Yi-6B's
+     ``embed`` leaf and ``blocks.mlp.wi_gate``'s slice 0 at full width on
+     seeded inputs: each participant's keyed masks and blocked encode and
+     the decode bit-equal card (the scatter kernel) vs CPU (the plain
+     fold); the kernel at the embed decode bit-equal to its plain version,
+     timed beside its bound and ``index_add_``, its scratch printed. (b)
+     Yi-6B at 2 layers in f32 (TF32 off), B 2 x T 1024: one v1 step card vs
+     CPU (loss within ``FL_LOSS_TOL``; params within ``FL_PARAM_TOL``, at
+     most ``FL_MOVED_SHARE`` of the elements apart: a top-k flip moves an
+     element by its whole update); one v2 step: finite, the masks cancel.
+     (c) Yi-6B whole (32 layers, bf16, seed 0), B 4 x T 4096 (2 rows a
+     participant), lr 0.01, server_lr 1: counts reset, 3 steps (the third
+     with its parts timed), counts read: 229 scatter launches a step (every
+     decode); a profiled fourth step (busy share, the scatter's device
+     time); every loss finite, every leaf's aggregate non-zero, every
+     matrix leaf changed (changed elements printed per leaf), residuals
+     finite and non-zero, the masks cancel on ``lm_head`` (the masked
+     exchange against the same streams with the mask values taken off,
+     within ``FL_CANCEL_TOL``); step ms, tokens/s, peak memory, the
+     exchange's entries against dense. (d) ``table2_fedavg_quick`` with
+     dense secure aggregation, 2 rounds on the card and the CPU: equal
+     ledgers.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. ``--only flash`` runs phases 1 and 10
@@ -242,7 +267,8 @@ masks`` runs phase 1, the pair-mask kernel's round and flat rows of phase 2
 and the mask path probe the same way (on the parent of the round launch, a
 round is timed as its per-leaf flat launches); ``--only sharded`` runs
 phases 1 and 14, ``--only bench`` phases 1 and 15, ``--only families``
-phases 1 and 16, ``--only train`` phases 1 and 17. Without a CUDA device, or outside a checkout, it exits
+phases 1 and 16, ``--only train`` phases 1 and 17, ``--only fl_train``
+phases 1 and 18. Without a CUDA device, or outside a checkout, it exits
 non-zero and prints no result.
 """
 from __future__ import annotations
@@ -250,6 +276,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
 import os
 import re
 import statistics
@@ -2235,6 +2262,10 @@ def profiled(fn, top: int = 3, name_len: int = 48) -> dict:
             "device_ms": dev_ms, "busy": dev_ms / wall_ms,
             "flash_ms": sum(d[2] for d in dev
                             if "flash_attention" in d[0]) / 1e3,
+            "scatter_ms": sum(d[2] for d in dev
+                              if "stream_scatter_add" in d[0]) / 1e3,
+            "scatter_kernels": sum(d[1] for d in dev
+                                   if "stream_scatter_add" in d[0]),
             "top": [(k[:name_len], c, t / 1e3) for k, c, t in top]}
 
 
@@ -2743,8 +2774,6 @@ def train_yi6b(card: str) -> None:
     """Yi-6B at full width and depth in bf16: TRAIN_STEPS SGD steps on one
     ``train_4k``-length batch of TRAIN_B rows, as the dry run's microbatch
     rule splits it."""
-    import math
-
     import torch
 
     from repro_torch import configs
@@ -2944,6 +2973,436 @@ def train_phase(card: str) -> None:
     print(f"[train] phase 17 took {time.perf_counter() - t0:.1f} s on {card} "
           f"(parity {t1 - t0:.1f} s, Yi-6B {t2 - t1:.1f} s, families "
           f"{t3 - t2:.1f} s)", flush=True)
+
+
+# --------------------------------------------------- phase 18: fl_train
+FL_THGS = dict(s0=0.01, alpha=0.9, s_min=0.001)   # the dry run's THGS and
+FL_MASK_RATIO = 0.01                               # mask ratio
+FL_LR = 0.01                    # make_fl_train_step's defaults: lr 0.01,
+FL_B, FL_T = 4, 4096            # server_lr 1; train_4k's T, 2 rows a
+FL_STEPS = 3                    # participant (global batch 256 cut to 4)
+FL_UNITS = 229                  # Yi-6B's decodes a step on the multi-pod
+FL_PARITY_B, FL_PARITY_T = 2, 1024     # layout: 7 x 32 slices + 5 leaves
+# (b)'s readings on an H100 80GB HBM3 at 700 W: loss 9.537e-07; params
+# 2.918e-05 apart at embed, 407,827 of 870,338,560 elements (4.7e-4: top-k
+# choices flipped by the gradients' last bits, each a whole update)
+FL_LOSS_TOL = 2e-6
+FL_PARAM_TOL = 6e-5
+FL_MOVED_SHARE = 1e-3
+FL_CANCEL_TOL = 1e-4            # tests/test_blocked.py:31-48's rtol / atol
+
+
+def fl_config(layers=None, dtype=None):
+    """Yi-6B (cut to ``layers`` in ``dtype`` when given), the multi-pod
+    layout on the card (pod 2 x data 16 x model 16: 2 participants of 256
+    blocks), the dry run's THGS and mask ratio."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.core.types import SecureAggConfig, THGSConfig
+    from repro_torch.launch import mesh as tmesh
+
+    cfg = configs.get("yi_6b")
+    over = {k: v for k, v in (("n_layers", layers), ("dtype", dtype))
+            if v is not None}
+    cfg = dataclasses.replace(cfg, **over)
+    return (cfg, tmesh.make_production_mesh(multi_pod=True, device="cuda"),
+            THGSConfig(**FL_THGS), SecureAggConfig(mask_ratio=FL_MASK_RATIO))
+
+
+def fl_units_check(card: str, device) -> dict:
+    """(a) Yi-6B's ``embed`` leaf and ``blocks.mlp.wi_gate``'s slice 0 at
+    full width on the multi-pod layout, on shared seeded inputs: each
+    participant's keyed masks and blocked encode, and the decode of both,
+    bit-equal on the card (the scatter kernel) and the CPU (the plain
+    fold); the kernel at the embed decode against its plain version and
+    timed. Returns the kernel's row."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.core import threefry
+    from repro_torch.core.blocked import (decode_blocked_sum,
+                                          encode_leaf_blocked)
+    from repro_torch.kernels import ref, stream_decode
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models import transformer as tf
+
+    cfg, mesh, thgs, sa = fl_config()
+    step = ttrain.make_fl_train_step(cfg, mesh, "pod", thgs, sa, lr=FL_LR)
+    leaves, specs, sizes, leaf_k = step.layout(tf.init_params(cfg,
+                                                              device="meta"))
+    units = step.units(leaves, specs, sizes, leaf_k)
+    paths = [lf.path for lf in leaves]
+    picks = [next(u for u in units if u[0] == paths.index("embed")),
+             next(u for u in units if u[0] == paths.index(
+                 "blocks.mlp.wi_gate") and u[1] is not None and u[1][0] == 0)]
+    round_key = threefry.key(0)
+    row = None
+    for unit in picks:
+        lid, sl, nb, kb, km, _ = unit
+        shape = leaves[lid].shape if sl is None else sl[2]
+        n = int(torch.tensor(shape).prod())
+        key = threefry.fold_in(round_key, lid)
+        if sl is not None:
+            key = threefry.fold_in(key, sl[0])
+        gen = torch.Generator().manual_seed(lid)
+        gs = [(torch.randn(shape, generator=gen) * 1e-3).to(torch.bfloat16)
+              for _ in range(2)]
+        rs = [(torch.randn(shape, generator=gen) * 1e-4).to(torch.bfloat16)
+              for _ in range(2)]
+        out = {}
+        t_dev = {}
+        for dev in (device, torch.device("cpu")):
+            t0 = time.perf_counter()
+            masks, sts, res = [], [], []
+            for p in range(2):
+                m = step.masks_for(key, p, n, nb, km, None, dev)
+                st, r_new = encode_leaf_blocked(
+                    ttrain._neg_lr(gs[p].to(dev), FL_LR), rs[p].to(dev), kb,
+                    nb, mask_key=key, k_mask_block=km, n_peers=2, self_id=p,
+                    mask_lo=sa.p, mask_q=sa.q, masks=m)
+                masks.append(m[:2])
+                sts.append(st)
+                res.append(r_new)
+            idx = torch.stack([st.indices for st in sts])
+            vals = torch.stack([st.values for st in sts])
+            dense = decode_blocked_sum(idx, vals, n, nb, weight=0.5)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t_dev[dev.type] = time.perf_counter() - t0
+            out[dev.type] = (masks, idx, vals, res, dense)
+        c, h = out["cuda"], out["cpu"]
+        same = {
+            "masks": all(bits_equal(a.cpu(), b) for x, y in zip(c[0], h[0])
+                         for a, b in zip(x, y)),
+            "streams": bits_equal(c[1].cpu(), h[1])
+            and bits_equal(c[2].cpu(), h[2]),
+            "residuals": all(bits_equal(a.cpu(), b)
+                             for a, b in zip(c[3], h[3])),
+            "decode": bits_equal(c[4].cpu(), h[4])}
+        tag = leaves[lid].path + ("" if sl is None else f"[{sl[0]}]")
+        print(f"[fl_train] (a) {tag} {tuple(shape)} on {card}: nb={nb} "
+              f"kb={kb} k_mask={km} slots={c[1].numel()} ({c[1].shape[-1]} "
+              f"a block row); card vs CPU bit-equal {same}; card "
+              f"{t_dev['cuda']:.2f} s, CPU {t_dev['cpu']:.2f} s", flush=True)
+        check(all(same.values()), f"{tag}: card vs CPU differ: {same}")
+        if sl is None:
+            # the kernel at the embed decode against its plain version on
+            # the card, and timed (the decode's own weighted flat stream)
+            it = c[1].reshape(-1)
+            vt = c[2].reshape(-1) * torch.tensor(0.5, device=device)
+            got = stream_decode.stream_scatter_add_cuda(
+                it, vt, nb * (-(-n // nb)))
+            want = ref.stream_scatter_add_ref(it, vt, got.numel())
+            check(bits_equal(got, want), "the scatter kernel differs from "
+                  "its plain version at the embed decode")
+            row = scatter_row(f"fl.{tag}", it, vt, got.numel(), device,
+                              plain_reps=1)
+            row["max_abs_err"] = (got - want).abs().max().item()
+            del got, want
+        del out, c, h, gs, rs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return row
+
+
+def fl_parity(card: str) -> None:
+    """(b) Yi-6B at full width, 2 layers, f32 (TF32 off), B 2 x T 1024, on
+    the multi-pod layout: one v1 step on the card against the CPU (loss;
+    params, where a top-k flip moves an element by its whole update), then
+    one v2 step on the card (finite, the masks cancel)."""
+    import torch
+
+    from repro_torch.core import threefry
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models import transformer as tf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, mesh, thgs, sa = fl_config(layers=2, dtype="float32")
+    model = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    cpu_model = tf.init_params(cfg, device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    cpu_batch = lm_batch(cfg, FL_PARITY_B, FL_PARITY_T, 3, "cpu")
+    batch = {k: v.cuda() for k, v in cpu_batch.items()}
+    state0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    cpu_mesh = type(mesh)(mesh.devices.shape, mesh.axis_names, "cpu")
+    out = {}
+    for dev, m, mesh_ in (("cuda", model, mesh), ("cpu", cpu_model,
+                                                  cpu_mesh)):
+        step = ttrain.make_fl_train_step(cfg, mesh_, "pod", thgs, sa,
+                                         lr=FL_LR)
+        res = ttrain.init_fl_residuals(m, 2)
+        b = batch if dev == "cuda" else cpu_batch
+        t0 = time.perf_counter()
+        _, _, loss = step(m, res, b, threefry.key(0))
+        out[dev] = (loss.item(), time.perf_counter() - t0, res)
+    loss_err = abs(out["cuda"][0] - out["cpu"][0])
+    param_err, moved, total, worst = 0.0, 0, 0, ""
+    for (n, p), q in zip(model.named_parameters(), cpu_model.parameters()):
+        d = (p.cpu() - q).abs()
+        moved += int((d > 0).sum())
+        total += d.numel()
+        if d.max().item() > param_err:
+            param_err, worst = d.max().item(), n
+    moved_any = sum(int((p != state0[n]).sum())
+                    for n, p in model.named_parameters())
+    print(f"[fl_train] (b) v1 step {cfg.name} full width, 2 layers, f32 "
+          f"(TF32 off), B={FL_PARITY_B} T={FL_PARITY_T}, pod 2 x data 16 x "
+          f"model 16 on {card}: loss card {out['cuda'][0]:.7f} CPU "
+          f"{out['cpu'][0]:.7f} |diff| {loss_err:.3e} (tolerance "
+          f"{FL_LOSS_TOL}); params max |diff| {param_err:.3e} at {worst} "
+          f"(tolerance {FL_PARAM_TOL}), {moved} of {total} elements differ "
+          f"(share tolerance {FL_MOVED_SHARE}), {moved_any} moved by the "
+          f"step; card {out['cuda'][1]:.2f} s, CPU {out['cpu'][1]:.2f} s",
+          flush=True)
+    check(loss_err <= FL_LOSS_TOL, f"FL loss card vs CPU {loss_err:.3e}")
+    check(param_err <= FL_PARAM_TOL and moved <= FL_MOVED_SHARE * total,
+          f"FL params card vs CPU {param_err:.3e}, {moved} elements")
+    check(moved_any > 0, "the FL step moved no parameter")
+    del cpu_model, out
+    gc.collect()
+    # v2, one step from the initial state on the card
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(state0[n])
+    step = ttrain.make_fl_train_step_v2(cfg, mesh, "pod", thgs, sa, lr=FL_LR)
+    res = ttrain.init_fl_residuals(model, 2)
+    record = []
+    _, _, loss = step(model, res, batch, threefry.key(0), record=record)
+    finite = math.isfinite(loss.item()) and all(
+        bool(torch.isfinite(p).all()) for p in model.parameters())
+    cancel = fl_cancel_v2(step, model, record, threefry.key(0))
+    print(f"[fl_train] (b) v2 step on {card}: loss {loss.item():.7f}, "
+          f"params finite {finite}; {cancel['text']}", flush=True)
+    check(finite, "non-finite params or loss after the v2 step")
+    check(cancel["ok"], f"v2 masks do not cancel: {cancel['text']}")
+    del model, state0, res, record
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def fl_cancel(masked, unmasked, n_mask_slots: int, what: str) -> dict:
+    """The masked exchange against the exchange of the unmasked sparse
+    parts (the same streams, each mask slot's mask value taken off)."""
+    import torch
+
+    err = (masked - unmasked).abs().max().item()
+    ok = bool(torch.allclose(masked, unmasked, rtol=FL_CANCEL_TOL,
+                             atol=FL_CANCEL_TOL)) and n_mask_slots > 0
+    return {"ok": ok, "text": (
+        f"masks cancel on {what}: masked vs unmasked exchange max |diff| "
+        f"{err:.3e} (rtol = atol = {FL_CANCEL_TOL}), {n_mask_slots} "
+        f"non-zero mask values")}
+
+
+def fl_cancel_v2(step, model, record, round_key) -> dict:
+    """The mask check on v2's ``embed`` leaf (the pair-key matrix's
+    masks regenerated and taken off the streams' mask slots)."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.core import streams as se
+    from repro_torch.core import threefry
+    from repro_torch.core.blocked import decode_blocked_sum
+
+    leaves = convert.reference_leaves(model)
+    lid = [lf.path for lf in leaves].index("embed")
+    st = next(r["streams"] for r in record if r["leaf"] == lid)
+    km = step.k_mask(int(torch.tensor(leaves[lid].shape).prod()),
+                     st.indices.shape[1])
+    nb = st.indices.shape[1]
+    kb = st.indices.shape[2] - 2 * km
+    keys, signs = se.fold_pair_key_matrix(threefry.fold_in(round_key, lid),
+                                          2)
+    vals = st.values.clone()
+    m = math.prod(leaves[lid].shape) // nb       # the aligned view's rows
+    nz = 0
+    for p in range(2):
+        _, m_vals = se.pairwise_mask_rows(keys[p], signs[p], nb, km, m,
+                                          p=step.sa.p, q=step.sa.q,
+                                          device=vals.device)
+        vals[p, :, kb:] -= m_vals
+        nz += int((m_vals != 0).sum())
+    masked = decode_blocked_sum(st.indices, st.values, nb * m, nb, 0.5)
+    unmasked = decode_blocked_sum(st.indices, vals, nb * m, nb, 0.5)
+    return fl_cancel(masked, unmasked, nz, "v2 embed")
+
+
+def fl_yi6b(card: str) -> dict:
+    """(c) Yi-6B whole, bf16, seed 0, federated over 2 participants on the
+    multi-pod layout: FL_STEPS v1 steps (the third with its parts timed)
+    and a profiled fourth. Returns the scatter launches of steps 1-3."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.core import threefry
+    from repro_torch.core.blocked import decode_blocked_sum
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as ttrain
+    from repro_torch.launch.fl_train import step_wire_record
+    from repro_torch.models import transformer as tf
+    from repro_torch.sim import CommLedger
+
+    cfg, mesh, thgs, sa = fl_config()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    n_params = tf.param_count(params)
+    step = ttrain.make_fl_train_step(cfg, mesh, "pod", thgs, sa, lr=FL_LR,
+                                     server_lr=1.0, n_micro=1)
+    residuals = ttrain.init_fl_residuals(params, 2)
+    batch = lm_batch(cfg, FL_B, FL_T, 0, "cuda")
+    leaves = convert.reference_leaves(params)
+    named = dict(params.named_parameters())
+    before = {n: p.detach().to("cpu", copy=True) for n, p in named.items()}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    losses, times, parts, record = [], [], {}, []
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for i in range(FL_STEPS):
+        t0 = time.perf_counter()
+        last = i == FL_STEPS - 1
+        _, _, loss = step(params, residuals, batch, threefry.key(i),
+                          timings=parts if last else None,
+                          record=record if last else None)
+        losses.append(loss.item())
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = ops.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    out = {}
+    prof = profiled(lambda: out.update(loss=step(
+        params, residuals, batch, threefry.key(FL_STEPS))[2]), top=6,
+        name_len=80)
+    losses.append(out["loss"].item())
+
+    # every leaf's aggregate, params and residuals
+    paths = [lf.path for lf in leaves]
+    agg = {p: 0.0 for p in paths}
+    for r in record:
+        agg[paths[r["leaf"]]] = max(agg[paths[r["leaf"]]],
+                                    r["agg_absmax"].item())
+    changed = {}
+    for lf in leaves:
+        changed[lf.path] = sum(
+            int((named[n] != before[n].to(named[n].device)).sum())
+            for n in lf.names)
+    res_ok = {lf.path: bool(torch.isfinite(r).all()) and bool(r.any())
+              for lf, r in zip(leaves, residuals)}
+    # masks cancel on lm_head (step 3's streams, its masks regenerated)
+    lid = paths.index("lm_head")
+    r = next(x for x in record if x["leaf"] == lid)
+    unit = next(u for u in step.units(*step.layout(params)) if u[0] == lid)
+    _, _, nb, kb, km, _ = unit
+    size = math.prod(leaves[lid].shape)
+    key = threefry.fold_in(threefry.key(FL_STEPS - 1), lid)
+    idx = torch.stack([st.indices for st in r["streams"]])
+    vals = torch.stack([st.values for st in r["streams"]])
+    plain = vals.clone()
+    nz = 0
+    for p in range(2):
+        m_idx, m_vals, _ = step.masks_for(key, p, size, nb, km, None,
+                                          vals.device)
+        plain[p, :, kb:] -= m_vals
+        nz += int((m_vals != 0).sum())
+    cancel = fl_cancel(decode_blocked_sum(idx, vals, size, nb, 0.5),
+                       decode_blocked_sum(idx, plain, size, nb, 0.5), nz,
+                       "lm_head")
+    slots = sum(st.indices.numel() for x in record for st in x["streams"])
+    ledger = CommLedger()
+    ledger.record(step_wire_record(0, [math.prod(lf.shape) for lf in leaves],
+                                   thgs, sa, 2, mesh.size // 2))
+    tpu = ledger.totals("tpu")
+    step_ms = statistics.median(times[1:])
+    tokens = FL_B * FL_T
+    print(f"[fl_train] (c) {cfg.name} whole ({cfg.n_layers} layers, "
+          f"{n_params} parameters, bf16, seed 0) federated over 2 "
+          f"participants, pod 2 x data 16 x model 16 (256 blocks a "
+          f"participant) on {card}: B={FL_B} T={FL_T} (2 rows a "
+          f"participant), n_micro 1, lr {FL_LR}, server_lr 1, THGS "
+          f"{FL_THGS}, mask ratio {FL_MASK_RATIO}; set-up {setup_s:.1f} s; "
+          f"losses {losses} (steps 1-{FL_STEPS}, then the profiled step); "
+          f"step ms {[round(t, 3) for t in times]}, median of steps 2-"
+          f"{FL_STEPS} {step_ms:.3f} ms ({tokens / step_ms * 1e3:.1f} "
+          f"tokens/s); step {FL_STEPS}'s parts (ms, device synchronized at "
+          f"each): { {k: round(v, 3) for k, v in parts.items()} }; peak "
+          f"memory {peak_gib:.2f} GiB; launches in steps 1-{FL_STEPS} "
+          f"{counts}", flush=True)
+    print(f"[fl_train] (c) profiled step {FL_STEPS + 1}: wall "
+          f"{prof['wall_ms']:.3f} ms, {prof['kernels']} kernels, device "
+          f"{prof['device_ms']:.3f} ms (busy {prof['busy']:.1%}); scatter "
+          f"kernels {prof['scatter_kernels']} (two a launch) "
+          f"{prof['scatter_ms']:.3f} ms; top: "
+          + "; ".join(f"{k} x{c} {t:.3f} ms" for k, c, t in prof["top"]),
+          flush=True)
+    print(f"[fl_train] (c) exchange: {slots} stream entries in step "
+          f"{FL_STEPS} against {2 * n_params} dense ({slots / 2 / n_params:.4%}"
+          f"); step_wire_record (tpu accounting) upload_vs_dense "
+          f"{tpu['upload_vs_dense']:.6f}; per leaf max |aggregate| "
+          f"{ {k: float(f'{v:.3e}') for k, v in agg.items()} }; elements "
+          f"changed after {FL_STEPS + 1} steps {changed}; residuals finite "
+          f"and non-zero {all(res_ok.values())}; {cancel['text']}",
+          flush=True)
+    check(all(map(math.isfinite, losses)), f"a non-finite loss: {losses}")
+    check(counts["stream_scatter_add"] == FL_UNITS * FL_STEPS,
+          f"{counts['stream_scatter_add']} scatter launches in "
+          f"{FL_STEPS} steps, expected {FL_UNITS} a step")
+    check(prof["scatter_kernels"] == 2 * FL_UNITS,
+          f"the profiled step ran {prof['scatter_kernels']} scatter "
+          f"kernels, expected {2 * FL_UNITS}")
+    check(all(v > 0 for v in agg.values()), f"a zero aggregate: {agg}")
+    matrices = [lf.path for lf in leaves if len(lf.shape) - len(lf.lead) >= 2]
+    check(all(changed[p] > 0 for p in matrices),
+          f"a matrix leaf did not change: {changed}")
+    check(all(res_ok.values()), f"residuals not finite and non-zero: "
+          f"{res_ok}")
+    check(cancel["ok"], cancel["text"])
+    del params, residuals, before, record, batch, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def fl_dense_secagg(card: str) -> None:
+    """(d) table2_fedavg_quick with dense secure aggregation, 2 rounds on
+    the card and on the CPU: the ledgers are equal."""
+    from repro_torch.core.types import SecureAggConfig
+    from repro_torch.sim import presets
+    from repro_torch.sim.engine import Simulation
+
+    cfg = presets.get("table2_fedavg_quick").replace(
+        out_json=None, rounds=2, sa=SecureAggConfig(mask_ratio=0.01))
+    res = {dev: Simulation(cfg, device=dev).run() for dev in ("cuda", "cpu")}
+    facts = {dev: [(e.ks, e.k_masks, e.n_clients, e.n_survivors)
+                   for e in r.ledger.entries] for dev, r in res.items()}
+    same = facts["cuda"] == facts["cpu"] and all(
+        res["cuda"].ledger.totals(a) == res["cpu"].ledger.totals(a)
+        for a in ("paper", "tpu"))
+    print(f"[fl_train] (d) table2_fedavg_quick with dense secure "
+          f"aggregation, 2 rounds on {card}: accuracies card "
+          f"{res['cuda'].accuracies} CPU {res['cpu'].accuracies}; ledger "
+          f"equal {same}", flush=True)
+    check(same, "dense secure aggregation: the card's ledger differs from "
+          "the CPU's")
+
+
+def fl_train_phase(card: str, device) -> tuple[dict, dict]:
+    """Phase 18: the federated LM train step. Returns the scatter's row at
+    the embed decode and the launches of (c)'s steps 1-3."""
+    t0 = time.perf_counter()
+    row = fl_units_check(card, device)
+    t1 = time.perf_counter()
+    fl_parity(card)
+    t2 = time.perf_counter()
+    counts = fl_yi6b(card)
+    t3 = time.perf_counter()
+    fl_dense_secagg(card)
+    print(f"[fl_train] phase 18 took {time.perf_counter() - t0:.1f} s on "
+          f"{card} ((a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
+          f"{t3 - t2:.1f} s)", flush=True)
+    return row, counts
 
 
 # ----------------------------------------------------- phase 12: resume
@@ -4165,13 +4624,14 @@ def main() -> int:
                                  "docstring).")
     ap.add_argument("--only",
                     choices=["flash", "pack", "masks", "sharded", "bench",
-                             "families", "train"],
+                             "families", "train", "fl_train"],
                     help="run the device and build phases and then [flash] "
                     "(the HGMMA count printed, not required), the bit-pack "
                     "kernels' checks and times and one codec_wire_roundtrip "
                     "probe, the pair-mask kernel's flat and round rows "
                     "and one round's mask path probe, [sharded], [bench], "
-                    "[families] or [train] alone, with no result line: a "
+                    "[families], [train] or [fl_train] alone, with no "
+                    "result line: a "
                     "kernel's "
                     "times on a "
                     "tree, for a comparison of two trees in one call")
@@ -4249,6 +4709,11 @@ def main() -> int:
     if args.only == "train":
         train_phase(card)
         print(f"[done] --only train passed in "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
+    if args.only == "fl_train":
+        fl_train_phase(card, device)
+        print(f"[done] --only fl_train passed in "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
         return 0
     if args.only == "sharded":
@@ -4431,6 +4896,10 @@ def main() -> int:
     # --------------------------------------------------------- 17. train
     train_phase(card)
 
+    # ------------------------------------------------------ 18. fl_train
+    fl_row, fl_counts = fl_train_phase(card, device)
+    rows["stream_scatter_add"].append(fl_row)
+
     # ------------------------------------------------ 12-13. resume, serve
     t_phase = time.perf_counter()
     resume_phase(kind)
@@ -4466,7 +4935,8 @@ def main() -> int:
                                    "pair_mask_streams.cu",
                                    "src/repro/kernels/mask_prng.py:38")}
     # each kernel's launches come from the path that runs it: table2_quick
-    # and the sharded parity runs for the scatter and the masks,
+    # and the sharded parity runs for the scatter and the masks (the
+    # scatter also the federated Yi-6B steps of [fl_train]),
     # codec_sweep_quick and its sharded int8 arm for the bit packing, the
     # served Yi-6B and the families' first prefills for the flash
     # attention; no reference path calls the THGS split or the dense mask
@@ -4475,6 +4945,9 @@ def main() -> int:
     launches = {**main_counts,
                 **{n: main_counts[n] + sharded_counts[n]
                    for n in ("stream_scatter_add", "pair_mask_streams")},
+                "stream_scatter_add": (main_counts["stream_scatter_add"]
+                                       + sharded_counts["stream_scatter_add"]
+                                       + fl_counts["stream_scatter_add"]),
                 **{n: codec_counts[n] + sharded_counts[n]
                    for n in ("bitpack_rows", "bitunpack_rows")},
                 "flash_attention": (lm_counts["flash_attention"]

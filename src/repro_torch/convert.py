@@ -6,7 +6,7 @@ of the JAX package, converted to numpy, loads by a plain checked copy.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, NamedTuple
 
 import numpy as np
 import torch
@@ -133,3 +133,34 @@ def lm_tree_to_numpy(model_or_grads, cfg: ArchConfig) -> dict:
             node = node.setdefault(key, {})
         node[leaf] = arr
     return tree
+
+
+class RefLeaf(NamedTuple):
+    """One leaf of the reference's parameter tree, seen from the port."""
+
+    path: str      # the reference's dotted tree path, "blocks.mlp.wi_gate"
+    shape: tuple   # its (stacked) shape: lead + the port parameter's shape
+    lead: tuple    # the stacked axes' sizes; () for an unstacked leaf
+    names: tuple   # the port parameters it stacks, in row-major order
+
+
+def reference_leaves(model: torch.nn.Module) -> list[RefLeaf]:
+    """The reference's leaves of a ``TransformerLM`` in
+    ``jax.tree_util.tree_leaves`` order (dict keys sorted at every level),
+    each with the port parameters it stacks (``blocks.mlp.wi_gate`` stacks
+    ``blocks.0.mlp.wi_gate`` ... ``blocks.31.mlp.wi_gate`` on a leading
+    layer axis). This order is the FL step's leaf id: it keys the pair
+    masks, picks each leaf's rate of the Eq. 1 hierarchy and orders the
+    residual tree."""
+    named = [(n, (n, tuple(p.shape))) for n, p in model.named_parameters()]
+    out = []
+    for path, items in _stacks(named).items():
+        lead = _lead(items)
+        if len(items) != int(np.prod(lead, dtype=np.int64)):
+            raise ValueError(f"{path} has {len(items)} blocks for a stack "
+                             f"of {lead}")
+        items = sorted(items, key=lambda it: it[0])
+        shape = lead + items[0][1][1]
+        out.append(RefLeaf(path, shape, lead,
+                           tuple(name for _, (name, _) in items)))
+    return sorted(out, key=lambda leaf: tuple(leaf.path.split(".")))

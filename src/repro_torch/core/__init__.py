@@ -17,9 +17,17 @@ from repro_torch.core.fedavg import (FederatedState, batched_client_update,
 from repro_torch.core import costs
 from repro_torch.core import streams
 from repro_torch.core.streams import (StreamBatch, decode_leaf_batch,
+                                      dropout_cancel_streams,
                                       dropout_cancel_streams_seeded,
                                       encode_leaf_batch,
-                                      mask_streams_all_pairs)
+                                      mask_streams_all_pairs,
+                                      pair_key_matrix, pair_seed_matrix)
+from repro_torch.core.secure_agg import (aggregate_streams,
+                                         dense_masked_update, encode_leaf,
+                                         encode_update)
+from repro_torch.core.blocked import (BlockedStream, decode_blocked_sum,
+                                      encode_leaf_blocked,
+                                      sharding_aligned_transform)
 
 __all__ = [
     "CommRecord", "FedConfig", "SecureAggConfig", "SparseStream", "THGSConfig",
@@ -27,6 +35,9 @@ __all__ = [
     "dh_agree", "dh_private", "dh_public", "pair_seed",
     "FederatedState", "batched_client_update", "client_update", "init_state",
     "run_round", "costs", "streams", "StreamBatch", "decode_leaf_batch",
-    "dropout_cancel_streams_seeded", "encode_leaf_batch",
-    "mask_streams_all_pairs",
+    "dropout_cancel_streams", "dropout_cancel_streams_seeded",
+    "encode_leaf_batch", "mask_streams_all_pairs", "pair_key_matrix",
+    "pair_seed_matrix", "aggregate_streams", "dense_masked_update",
+    "encode_leaf", "encode_update", "BlockedStream", "decode_blocked_sum",
+    "encode_leaf_blocked", "sharding_aligned_transform",
 ]

@@ -501,14 +501,22 @@ def run_round(
             raise ValueError(
                 f"codec {codec!r} requires THGS sparse streams; dense rounds "
                 "have no stream wire to quantize (thgs is None)")
-        if sa.enabled:
-            raise NotImplementedError(
-                "dense secure aggregation (thgs=None with sa.enabled) is not "
-                "ported yet; it comes with the datacenter slice (ROADMAP "
-                "slice I)")
         surv_idx = [participants.index(c) for c in survivors]
-        agg = {n: _div(sum(deltas[n][i] for i in surv_idx), len(surv_idx))
-               for n in names}
+        if sa.enabled:
+            from repro_torch.core.secure_agg import dense_masked_update
+
+            # dense Bonawitz has no sparse-support reconstruction: masks
+            # are agreed among the survivors (the baseline's re-run
+            # assumption); leaf i's masks are keyed with leaf id i
+            agg = {n: _div(sum(dense_masked_update(
+                deltas[n][participants.index(c)], sa, c, survivors,
+                state.round, i) for c in survivors), len(survivors)).to(
+                    state.params[n].dtype)
+                for i, n in enumerate(names)}
+        else:
+            agg = {n: _div(sum(deltas[n][i] for i in surv_idx),
+                           len(surv_idx))
+                   for n in names}
         rec = costs.dense_round_record(
             state.round, model_size, n_clients=C, bits=bits,
             n_survivors=len(survivors))

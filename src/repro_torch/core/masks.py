@@ -13,6 +13,10 @@ the seed, the Bonawitz sign by id order) drawn by one flat per-pair launch
 on the card or by its plain version on the CPU, bit-exact against the
 reference's draws. The production data plane draws every pair of every
 client in one launch (``streams.mask_streams_round``).
+
+:func:`pair_key` is the legacy ``jax.random`` pair key (dense Bonawitz
+baseline, the keyed mask path), drawn with the port of threefry
+(``core/threefry.py``).
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import threefry
 from repro_torch.core.types import SecureAggConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
@@ -81,6 +86,16 @@ def seed_matrix_from_keys(ids: Sequence[int], privs: Sequence[int],
             signs[i, j] = sgn
             signs[j, i] = -sgn
     return torch.from_numpy(seeds), torch.from_numpy(signs)
+
+
+def pair_key(cfg: SecureAggConfig, a: int, b: int,
+             round_t: int) -> torch.Tensor:
+    """Legacy ``jax.random`` pair key of ``(a, b)`` for a round (the dense
+    Bonawitz baseline and the keyed mask path): ``fold_in(key(secret mod
+    (2**31 - 1)), round_t)``, the same from both ends; int64 ``[2]`` on the
+    CPU."""
+    secret = dh_agree(cfg.seed, a, b)
+    return threefry.fold_in(threefry.key(secret % (2 ** 31 - 1)), round_t)
 
 
 class PairMask(NamedTuple):

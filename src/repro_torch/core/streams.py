@@ -66,6 +66,7 @@ from torch.profiler import record_function
 from repro_torch.core import codecs
 from repro_torch.core import dp as dp_mod
 from repro_torch.core import masks
+from repro_torch.core import threefry
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
 
@@ -122,10 +123,29 @@ def first_occurrence_rows(idx: torch.Tensor) -> torch.Tensor:
 def select_topk_rows(acc: torch.Tensor, k: int) -> torch.Tensor:
     """[..., m] -> int64[..., k] per-row top-|.| indices (the 'exact'
     selector), in ``lax.top_k`` order: descending magnitude, ties to the
-    lower index (``torch.topk``'s tie order differs, so a stable descending
-    sort takes its place)."""
-    order = torch.sort(acc.abs(), dim=-1, descending=True, stable=True).indices
-    return order[..., :k]
+    lower index, which is a stable descending sort's first ``k``.
+
+    ``torch.topk``'s tie order differs, so it only finds each row's k-th
+    largest magnitude ``t``: the kept set is every element above ``t`` and
+    the lowest-index elements equal to ``t`` up to ``k``, then sorted
+    stably by magnitude. The same indices as the full sort at a fraction of
+    its cost on long rows (a 262M-element leaf); a row with NaN takes the
+    full sort (NaN compares as the largest there)."""
+    a = acc.abs()
+    m = a.shape[-1]
+    if k >= m or bool(torch.isnan(a).any()):
+        return torch.sort(a, dim=-1, descending=True,
+                          stable=True).indices[..., :k]
+    t = torch.topk(a, k, dim=-1).values[..., -1:]
+    above = a > t
+    tied = a == t
+    need = k - above.sum(-1, keepdim=True)
+    keep = above | (tied & (torch.cumsum(tied, -1, dtype=torch.int32)
+                            <= need))
+    idx = keep.nonzero()[:, -1].reshape(*a.shape[:-1], k)
+    order = torch.sort(torch.gather(a, -1, idx), dim=-1, descending=True,
+                       stable=True).indices
+    return torch.gather(idx, -1, order)
 
 
 # ----------------------------------------------------- THE unified-stream core
@@ -343,6 +363,125 @@ def recovery_streams_round(
     return [StreamBatch(indices=i, values=v) for i, v in out]
 
 
+# ------------------------------------------ the jax.random-keyed mask path
+def pair_key_matrix(sa, participant_ids, round_t: int):
+    """Host-side ``[C, C]`` legacy pair keys and signs: ``keys[i, j] =
+    masks.pair_key(sa, ids[i], ids[j], round_t)`` (int64 ``[C, C, 2]``),
+    ``signs[i, j]`` +1 when ids[i] < ids[j], -1 when >, 0 on the
+    diagonal."""
+    ids = list(participant_ids)
+    n = len(ids)
+    keys = torch.stack([torch.stack([masks.pair_key(sa, ids[i], ids[j],
+                                                    round_t)
+                                     for j in range(n)]) for i in range(n)])
+    signs = torch.tensor(
+        [[0.0 if i == j else (1.0 if ids[i] < ids[j] else -1.0)
+          for j in range(n)] for i in range(n)], dtype=torch.float32)
+    return keys, signs
+
+
+def fold_pair_key_matrix(mask_key: torch.Tensor, n: int):
+    """``[n, n]`` pair keys and signs of positional participants 0..n-1:
+    ``fold_in(fold_in(mask_key, min(i, j)), max(i, j))``, the same from both
+    ends of a pair; signs +1 for i < j, -1 for i > j, 0 on the diagonal."""
+    keys = torch.stack([fold_pair_keys_row(mask_key, i, n)[0]
+                        for i in range(n)])
+    signs = torch.tensor(
+        [[0.0 if i == j else (1.0 if i < j else -1.0) for j in range(n)]
+         for i in range(n)], dtype=torch.float32)
+    return keys, signs
+
+
+def fold_pair_keys_row(mask_key: torch.Tensor, self_id: int, n: int):
+    """Participant ``self_id``'s row of :func:`fold_pair_key_matrix`:
+    ``(keys int64[n, 2], signs f32[n])``. The self slot's sign is -0.0,
+    the reference's ``where(self < peer, 1, -1) * (self != peer)``."""
+    self_id = int(self_id)
+    keys = [threefry.fold_in(threefry.fold_in(mask_key, min(self_id, peer)),
+                             max(self_id, peer)) for peer in range(n)]
+    signs = torch.tensor([-0.0 if peer == self_id else
+                          (1.0 if self_id < peer else -1.0)
+                          for peer in range(n)], dtype=torch.float32)
+    return torch.stack(keys), signs
+
+
+def pairwise_mask_rows(
+    pair_keys_row: torch.Tensor,   # int64[n_peers, 2] this client's keys
+    signs_row: torch.Tensor,       # f32[n_peers], 0 for the self slot
+    nb: int,
+    k_mask: int,
+    m: int,
+    *,
+    p: float,
+    q: float,
+    leaf_id: int | None = None,
+    device=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One client's concatenated mask support and values over all peers,
+    on ``device``: per peer (its key folded with ``leaf_id`` when given,
+    then split into an index and a value key) ``k_mask`` positions a block
+    from ``randint(0, m)`` and magnitudes from ``uniform(p, p + q)``, times
+    the sign. Returns ``(idx int32[nb, n_peers*k_mask], vals f32[nb,
+    n_peers*k_mask])``, peer-major within a row."""
+    n = pair_keys_row.shape[0]
+    device = torch.device(device) if device is not None else \
+        signs_row.device
+    # every peer's three draws (randint's high and low bits, uniform's
+    # bits) in one threefry pass; the keys derived on the host
+    hi, lo, val = [], [], []
+    for k0, k1 in pair_keys_row.tolist():
+        if leaf_id is not None:
+            k0, k1 = threefry.threefry2x32(k0, k1, 0, leaf_id & threefry.M32)
+        k_i, k_v = threefry.split([k0, k1]).tolist()
+        h, l_ = threefry.randint_keys(k_i)
+        hi.append(h)
+        lo.append(l_)
+        val.append(k_v)
+    bits = threefry.random_bits(torch.tensor(hi + lo + val), (nb, k_mask),
+                                device=device)
+    pidx = threefry.randint_from_bits(bits[:n], bits[n:2 * n], 0, m)
+    pval = threefry.uniform_from_bits(bits[2 * n:], p, p + q)
+    pval = signs_row.to(device, torch.float32)[:, None, None] * pval
+    return (pidx.permute(1, 0, 2).reshape(nb, n * k_mask),
+            pval.permute(1, 0, 2).reshape(nb, n * k_mask))
+
+
+def encode_client_blocks(
+    acc: torch.Tensor,                        # f32[nb, m] one accumulator
+    k: int,
+    *,
+    pair_keys_row: torch.Tensor | None = None,   # int64[n_peers, 2]
+    pair_signs_row: torch.Tensor | None = None,  # f32[n_peers], 0 = self
+    k_mask: int = 0,
+    mask_p: float = -1.0,
+    mask_q: float = 2.0,
+    leaf_id: int | None = None,
+    weight: float = 1.0,
+    masks: tuple | None = None,   # (m_idx, m_vals) of pairwise_mask_rows
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One client's encode with keyed masks: the pair masks of
+    :func:`pairwise_mask_rows` (or ``masks``, drawn from the same keys
+    beforehand), the self slots pointed at the block's top-1 position (so
+    the first-occurrence gate zeroes them), then the unified stream.
+    Returns ``(global_idx int32[nb, k_total], vals, new_acc)``,
+    ``global_idx = row * m + col``."""
+    nb, m = acc.shape
+    masks_ = None
+    if masks is not None and k_mask > 0:
+        masks_ = tuple(x[None] for x in masks)
+    elif pair_keys_row is not None and k_mask > 0:
+        masks_ = tuple(x[None] for x in pairwise_mask_rows(
+            pair_keys_row, pair_signs_row, nb, k_mask, m, p=mask_p, q=mask_q,
+            leaf_id=leaf_id, device=acc.device))
+    st, new_acc = encode_batch_blocks(
+        acc[None], k,
+        pair_signs=None if masks_ is None else pair_signs_row[None],
+        k_mask=k_mask if masks_ is not None else 0, masks=masks_,
+        weights=torch.full((1,), weight, dtype=torch.float32,
+                           device=acc.device))
+    return st.indices[0], st.values[0], new_acc[0]
+
+
 # ------------------------------------------------------------- batched encode
 def encode_batch_blocks(
     acc: torch.Tensor,                       # f32[C, nb, m]
@@ -350,6 +489,7 @@ def encode_batch_blocks(
     *,
     pair_seeds: torch.Tensor | None = None,  # [C, C] uint32 counter seeds
     pair_signs: torch.Tensor | None = None,  # f32[C, C]
+    pair_keys: torch.Tensor | None = None,   # int64[C, C, 2] keyed path
     k_mask: int = 0,
     mask_p: float = -1.0,
     mask_q: float = 2.0,
@@ -359,7 +499,8 @@ def encode_batch_blocks(
     masks: tuple | None = None,              # (m_idx, m_vals) precomputed
 ) -> tuple[StreamBatch, torch.Tensor]:
     """Batched client encode: the leaf's pair masks (``masks``, from
-    :func:`mask_streams_round`, or generated here from ``pair_seeds``), then
+    :func:`mask_streams_round`, or generated here from ``pair_seeds``, or
+    from the legacy ``jax.random`` ``pair_keys`` one client at a time), then
     the unified stream of every client. Returns (StreamBatch with global
     indices row*m + col, new_acc [C, nb, m]). ``dp_support`` (one support
     for every client) selects the DP release shape."""
@@ -371,9 +512,16 @@ def encode_batch_blocks(
     # a shard's rows pair its clients with the whole cohort: the mask
     # streams exist when the cohort (the peers), not the shard, has two
     peers = C if pair_signs is None else pair_signs.shape[-1]
-    if (masks is not None or pair_seeds is not None) and k_mask > 0 \
-            and peers >= 2:
+    if (masks is not None or pair_seeds is not None
+            or pair_keys is not None) and k_mask > 0 and peers >= 2:
         signs = pair_signs.to(dev, torch.float32)
+        if masks is None and pair_seeds is None:
+            rows_ = [pairwise_mask_rows(pair_keys[c], signs[c], nb, k_mask,
+                                        m, p=mask_p, q=mask_q,
+                                        leaf_id=leaf_id, device=dev)
+                     for c in range(C)]
+            masks = (torch.stack([r[0] for r in rows_]),
+                     torch.stack([r[1] for r in rows_]))
         m_idx, m_vals = masks if masks is not None else \
             mask_streams_all_pairs(pair_seeds.to(dev), signs, nb, k_mask, m,
                                    p=mask_p, q=mask_q, leaf_id=leaf_id)
@@ -636,6 +784,36 @@ def dropout_cancel_streams_seeded(
     vals = -gates[:, None, None] * vals
     rows = torch.arange(nb, dtype=torch.int32, device=dev)[None, :, None]
     return StreamBatch(indices=rows * m + idx, values=vals)
+
+
+def dropout_cancel_streams(
+    pair_keys: torch.Tensor,    # int64[C, C, 2] keys used at encode time
+    pair_signs: torch.Tensor,   # f32[C, C]
+    alive: torch.Tensor,        # bool[C]
+    nb: int,
+    k_mask: int,
+    m: int,
+    *,
+    p: float,
+    q: float,
+    leaf_id: int | None = None,
+) -> StreamBatch:
+    """Bonawitz dropout recovery on the keyed path: every pair's mask
+    regenerated from the pair keys and negated, gated by ``alive[s] &
+    ~alive[d]`` (``[C * C, nb, k_mask]``, global indices), on ``alive``'s
+    device."""
+    dev = alive.device
+    C = pair_keys.shape[0]
+    alive_f = alive.to(torch.float32)
+    idx, vals = pairwise_mask_rows(
+        pair_keys.reshape(C * C, 2), pair_signs.reshape(C * C), nb, k_mask,
+        m, p=p, q=q, leaf_id=leaf_id, device=dev)
+    idx = idx.reshape(nb, C * C, k_mask).permute(1, 0, 2)
+    vals = vals.reshape(nb, C * C, k_mask).permute(1, 0, 2)
+    gates = (alive_f[:, None] * (1.0 - alive_f[None, :])).reshape(C * C)
+    rows = torch.arange(nb, dtype=torch.int32, device=dev)[None, :, None]
+    return StreamBatch(indices=rows * m + idx,
+                       values=-gates[:, None, None] * vals)
 
 
 def decode_leaf_batch(

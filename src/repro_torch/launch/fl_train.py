@@ -1,0 +1,160 @@
+"""Federated training of an LM on the datacenter mesh — port of
+``examples/federated_llm_training.py``.
+
+Trains an LM (``--arch``, reduced width by default) with the THGS + sparse
+secure-aggregation FL step (``launch/train.py::make_fl_train_step``) on the
+debug mesh (pod 2 x data 2 x model 2: two participants of four blocks
+each, driven by this one process on ``--device``). Each participant is one
+financial institution. Params and THGS residuals resume from the latest
+checkpoint in ``--ckpt`` (the reference's on-disk format), and the run's
+exchange volume is written to ``<ckpt>/comm_ledger.json`` under the
+reference's accounting (``costs.TPU_BITS``: f32 values, int32 indices).
+
+Run::
+
+    PYTHONPATH=src python -m repro_torch.launch.fl_train --device cpu \\
+        --steps 20
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import math
+import os
+import sys
+import tempfile
+
+import numpy as np
+import torch
+
+from repro_torch import checkpoint, configs, convert
+from repro_torch.core import costs, threefry
+from repro_torch.core.types import SecureAggConfig, THGSConfig
+from repro_torch.data import make_lm_tokens
+from repro_torch.launch.mesh import make_debug_mesh
+from repro_torch.launch.train import (fl_leaf_plan, init_fl_residuals,
+                                      make_fl_train_step)
+from repro_torch.models import transformer as tf
+from repro_torch.sim import CommLedger, mib
+
+
+def step_wire_record(step_t: int, leaf_sizes, thgs: THGSConfig,
+                     sa: SecureAggConfig, n_fed: int, n_blocks: int):
+    """One CommRecord for a datacenter FL step from the step's static plan:
+    per leaf, ``nb`` blocks of ``kb`` top-k slots plus ``k_mask_block`` mask
+    slots a block toward each of the ``n_fed - 1`` peers."""
+    sizes = [int(s) for s in leaf_sizes]
+    ks, k_masks = [], []
+    for size, (kb, nb) in zip(sizes, fl_leaf_plan(sizes, thgs, n_blocks)):
+        ks.append(nb * kb)
+        k_masks.append(
+            nb * max(1, int(size * sa.mask_ratio / n_fed / nb))
+            if (sa.enabled and n_fed >= 2) else 0)
+    return costs.round_record(step_t, sum(sizes), ks, k_masks,
+                              n_clients=n_fed, bits=costs.TPU_BITS)
+
+
+def params_tree(model: tf.TransformerLM) -> dict:
+    """The parameters as the reference's leaves ``{path: stacked
+    tensor}``, the checkpoint's ``params`` tree."""
+    named = dict(model.named_parameters())
+    return {leaf.path: (torch.stack([named[n] for n in leaf.names])
+                        .reshape(leaf.shape) if leaf.lead
+                        else named[leaf.names[0]])
+            for leaf in convert.reference_leaves(model)}
+
+
+@torch.no_grad()
+def load_params_tree(model: tf.TransformerLM, tree: dict) -> None:
+    """Write ``{path: stacked tensor}`` into the model's parameters."""
+    named = dict(model.named_parameters())
+    for leaf in convert.reference_leaves(model):
+        t = tree[leaf.path]
+        parts = t.reshape((-1,) + tuple(named[leaf.names[0]].shape))
+        for j, name in enumerate(leaf.names):
+            named[name].copy_(parts[j])
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="xlstm-125m")
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=0.3)
+    ap.add_argument("--ckpt",
+                    default=os.path.join(tempfile.gettempdir(),
+                                         "repro_fl_ckpt"))
+    ap.add_argument("--log-every", type=int, default=10,
+                    help="print the loss every N steps")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        print("CUDA is not available: pass --device cpu", file=sys.stderr)
+        return 1
+
+    cfg = configs.get(args.arch)
+    if args.reduced:
+        cfg = configs.reduced(cfg)
+    mesh = make_debug_mesh(2, 2, multi_pod=True, device=device)
+    fed_axis = "pod"
+    n_fed = mesh.shape[fed_axis]
+    n_blocks = mesh.size // n_fed
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = tf.init_params(cfg, gen, device=device)
+    residuals = init_fl_residuals(params, n_fed)
+    leaves = convert.reference_leaves(params)
+
+    thgs = THGSConfig(s0=0.05, alpha=0.9, s_min=0.01)
+    sa = SecureAggConfig(mask_ratio=0.01)
+    step = make_fl_train_step(cfg, mesh, fed_axis, thgs, sa, lr=args.lr)
+    # each institution's private corpus -> distinct token stream statistics
+    toks, labels = make_lm_tokens(cfg.vocab, args.batch, args.seq, seed=0)
+    batch = {"tokens": torch.from_numpy(np.asarray(toks, np.int32)),
+             "labels": torch.from_numpy(np.asarray(labels, np.int32))}
+    batch = {k: v.to(device) for k, v in batch.items()}
+
+    # resume from the latest checkpoint: the THGS error-feedback residuals
+    # are part of the training state
+    # (dotted leaf paths are the reference's tree levels on disk)
+    def state() -> dict:
+        return {"params": params_tree(params),
+                "residuals": {lf.path: r
+                              for lf, r in zip(leaves, residuals)}}
+
+    start = checkpoint.latest_step(args.ckpt) or 0
+    if start:
+        tree = checkpoint.restore(args.ckpt, start, like=state())
+        load_params_tree(params, tree["params"])
+        for lf, r in zip(leaves, residuals):
+            r.copy_(tree["residuals"][lf.path])
+        print(f"resumed from {args.ckpt} at step {start}")
+
+    ledger = CommLedger()
+    rec = step_wire_record(0, [math.prod(lf.shape) for lf in leaves], thgs,
+                           sa, n_fed, n_blocks)
+    for i in range(start, args.steps):
+        _, _, loss = step(params, residuals, batch, threefry.key(i))
+        ledger.record(dataclasses.replace(rec, round=i))
+        if (i + 1) % args.log_every == 0:
+            print(f"step {i + 1:4d}  loss={float(loss):.4f}", flush=True)
+
+    checkpoint.save(args.ckpt, args.steps, state())
+    print(f"checkpoint written to {args.ckpt} "
+          f"(step {checkpoint.latest_step(args.ckpt)})")
+    t = ledger.totals("tpu")
+    if ledger.entries:
+        print(f"federation exchange (tpu accounting): "
+              f"{mib(t['upload_bits']):.1f} MiB uploaded vs "
+              f"{mib(t['dense_upload_bits']):.1f} MiB dense "
+              f"-> {t['upload_vs_dense']:.1%} ({t['compression_x']:.1f}x)")
+    ledger.to_json(os.path.join(args.ckpt, "comm_ledger.json"),
+                   extra={"arch": args.arch, "steps": args.steps})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

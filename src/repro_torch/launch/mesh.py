@@ -1,7 +1,18 @@
-"""The 1-D ``clients`` mesh of the client-parallel round (port of the
-clients-mesh part of ``repro.launch.mesh``).
+"""Meshes — port of ``repro.launch.mesh``: the logical datacenter meshes of
+the FL train step and the 1-D ``clients`` mesh of the client-parallel round.
 
-The reference partitions a cohort of simulated clients over the local
+**The datacenter meshes.** A :class:`LogicalMesh` is axis names, axis sizes
+and the device each position runs on, driven by one process. The
+production layouts are the reference's: one pod ``(data 16, model 16)``,
+or two ``(pod 2, data 16, model 16)`` where ``pod`` is the federation axis
+(each pod one cross-silo participant). The port's FL step runs the
+participants along the federation axis one after another on their device;
+its block layout depends only on the logical shape (``data x model``
+blocks a participant), so the multi-pod layout runs on one card with the
+reference's numerics. :func:`logical_rules` maps the model's logical axis
+names onto the mesh axes, as the reference's.
+
+**The clients mesh.** The reference partitions a cohort of simulated clients over the local
 devices of ONE process (a single-controller 1-D ``jax.sharding.Mesh``) and
 runs each shard's local SGD, encode and pair-mask PRNG there; the gathered
 stream is decoded once. The port keeps that process model: a
@@ -21,6 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.core.streams import CLIENT_AXIS, tree_group_count
@@ -89,3 +101,78 @@ def default_tree_groups(cohort_size: int) -> int:
     the cohort, at least 2 (``core.streams.tree_group_count`` for
     ``tree_groups=0``)."""
     return tree_group_count(0, cohort_size)
+
+
+# NVIDIA H100 SXM (data sheet): dense bf16 tensor-core peak and HBM3 rate,
+# per card, for roofline bounds.
+PEAK_FLOPS_BF16 = 989e12     # FLOP/s
+HBM_BW = 3.35e12             # bytes/s
+
+
+class LogicalMesh:
+    """A named mesh run by one process: ``devices`` is a numpy object
+    array of ``torch.device`` of the mesh's shape (``devices.shape``,
+    ``devices.size`` as a JAX mesh's), one per position; positions may
+    share a device."""
+
+    def __init__(self, shape: tuple, axis_names: tuple, device="cuda"):
+        shape = tuple(int(d) for d in shape)
+        if len(shape) != len(axis_names) or min(shape, default=0) < 1:
+            raise ValueError(f"shape {shape} does not fit axes "
+                             f"{axis_names}")
+        self.axis_names = tuple(axis_names)
+        devs = np.empty(int(np.prod(shape)), dtype=object)
+        devs[:] = [torch.device(device)] * devs.size
+        self.devices = devs.reshape(shape)
+
+    @property
+    def shape(self) -> dict:
+        """``{axis name: size}``, in axis order."""
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device="cuda") -> LogicalMesh:
+    """(data 16, model 16), or (pod 2, data 16, model 16) with
+    ``multi_pod``; every position on ``device``."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return LogicalMesh(shape, axes, device)
+
+
+def make_debug_mesh(n_data: int = 2, n_model: int = 2, *,
+                    multi_pod: bool = False, device="cuda") -> LogicalMesh:
+    """A small mesh: (pod 2, data, model) with ``multi_pod``, else (data,
+    model)."""
+    if multi_pod:
+        return LogicalMesh((2, n_data, n_model), ("pod", "data", "model"),
+                           device)
+    return LogicalMesh((n_data, n_model), ("data", "model"), device)
+
+
+def logical_rules(mesh, *, fsdp: bool = True,
+                  fed_axis: str | None = None) -> dict:
+    """The model's logical axis names -> this mesh's axes. ``fed_axis`` (the
+    federation axis of FL training) is left out of ``fsdp`` and the batch
+    axes: each participant holds a whole model."""
+    axes = mesh.axis_names
+    has_pod = "pod" in axes
+    batch_axes = tuple(a for a in axes
+                       if a in ("pod", "data") and a != fed_axis)
+    fsdp_axis = ("data" if (fsdp and "data" in axes and fed_axis != "data")
+                 else None)
+    return {
+        "batch": batch_axes if len(batch_axes) > 1 else batch_axes[0],
+        "seq": "model",
+        "model": "model",
+        "heads": "model",
+        "expert": "model",
+        "vocab": "model",
+        "fsdp": fsdp_axis,
+        "kv_seq": "model",
+        "pod": "pod" if has_pod else None,
+    }

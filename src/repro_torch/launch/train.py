@@ -1,6 +1,6 @@
-"""The dense LM train step (port of ``repro.launch.train``'s ``loss_fn`` and
-``make_dense_train_step``): plain SGD on the gradient of ``train_loss``,
-optionally accumulated over microbatches.
+"""LM train steps — port of ``repro.launch.train``: the dense step (plain
+SGD on the gradient of ``train_loss``, optionally over microbatches) and the
+two federated steps (``make_fl_train_step``, ``make_fl_train_step_v2``).
 
 The reference takes ``jax.value_and_grad`` of a pure function of the
 parameter tree; the port's parameters live in a ``TransformerLM`` created
@@ -9,16 +9,55 @@ for the call and restores it. Gradients are returned by parameter name
 (``blocks.0.attn.wq``), in each parameter's dtype;
 ``convert.lm_tree_to_numpy`` stacks them into the reference's tree.
 
-The federated step builders (``make_fl_train_step``, ``_v2``,
-``fl_leaf_plan``, ``init_fl_residuals``) are not ported here.
+**The federated step** (``make_fl_train_step``, ``make_fl_train_step_v2``)
+is the paper's technique as the collective schedule: each participant along
+the federation axis of a logical mesh (``launch/mesh.py``; ``pod`` on the
+multi-pod mesh) computes its gradient on its rows of the batch, encodes its
+local update ``-lr * g`` per leaf with block-local THGS top-k and the
+``jax.random``-keyed sparse pair masks (``core/blocked.py``; the mask key of
+leaf ``i`` is ``fold_in(round_key, i)``), and the exchange scatter-adds
+every participant's stream with weight ``1 / n_fed`` (one
+``ops.stream_scatter_add`` a (sub-)leaf) into the aggregate; the server
+update is ``p + server_lr * agg`` in f32. Leaves are the reference's
+(``convert.reference_leaves``: stacked, in ``tree_leaves`` order), so leaf
+ids, per-leaf ranks and block layouts are the reference's.
+
+One process drives the mesh: the participants run one after another on the
+mesh's device, all at the parameters of the step's start; a participant's
+gradients are dropped after its encode, and the parameters are updated in
+place once, after the decode. Residuals are the reference's
+``[n_fed, *leaf]`` bf16 leaves (:func:`init_fl_residuals`), updated in
+place. A step is a gradient stage and an exchange stage
+(``step.exchange(params, residuals, grads, round_key)``, ``grads`` any
+iterable of per-participant gradient dicts), so the exchange can be fed
+other gradients. The environment switches keep the reference's names and
+defaults: ``REPRO_FL_ALIGNED_BLOCKS`` (v1, default off) and
+``REPRO_FL_V2_GENERIC`` (v2, default off) select the block layout;
+``REPRO_FL_STREAM_REPLICATE`` (a partitioner workaround) has no meaning in
+one process and is not read.
 """
 from __future__ import annotations
 
-from typing import Callable
+import contextlib
+import math
+import os
+import time
+from typing import Callable, Iterable
 
 import torch
+from torch.profiler import record_function
 
+from repro_torch import convert
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import schedules
+from repro_torch.core import streams as se
+from repro_torch.core import threefry
+from repro_torch.core.blocked import (block_layout, decode_blocked_sum,
+                                      encode_leaf_blocked,
+                                      sharding_aligned_transform)
+from repro_torch.core.types import SecureAggConfig, THGSConfig
+from repro_torch.launch import shardings as shd
+from repro_torch.launch.mesh import logical_rules
 from repro_torch.models import transformer as tf
 
 
@@ -103,3 +142,384 @@ def make_dense_train_step(cfg: ArchConfig, lr: float = 0.01,
         return params, loss
 
     return step
+
+
+# ------------------------------------------------------------------ federated
+def fl_leaf_plan(leaf_sizes, thgs: THGSConfig, n_blocks: int) -> list:
+    """Static per-leaf ``(k_block, n_blocks)`` from the Eq. 1 hierarchical
+    schedule, for the reference's leaf sizes in its order."""
+    sizes = [int(x) for x in leaf_sizes]
+    plan = []
+    for size, k in zip(sizes, schedules.leaf_ks(thgs, sizes)):
+        nb, _, _ = block_layout(size, n_blocks)
+        plan.append((max(1, -(-k // nb)), nb))
+    return plan
+
+
+def init_fl_residuals(params: tf.TransformerLM, n_fed: int) -> list:
+    """Zero per-participant residuals, one bf16 ``[n_fed, *leaf]`` tensor a
+    reference leaf (its order), on the parameters' device (``meta`` for
+    shape records)."""
+    device = next(params.parameters()).device
+    return [torch.zeros((n_fed,) + leaf.shape, dtype=torch.bfloat16,
+                        device=device)
+            for leaf in convert.reference_leaves(params)]
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def _stage(name: str, timings: dict | None, device):
+    """A ``fl.<name>`` profiler span; with ``timings`` the stage's wall ms
+    (device synchronized at both ends) add up under ``name``."""
+    with record_function(f"fl.{name}"):
+        if timings is None:
+            yield
+            return
+        _sync(device)
+        t0 = time.perf_counter()
+        yield
+        _sync(device)
+        timings[name] = timings.get(name, 0.0) + (
+            time.perf_counter() - t0) * 1e3
+
+
+def _participant_batches(batch: dict, n_fed: int) -> list:
+    """Participant ``p``'s rows of the batch: the ``p``-th of ``n_fed``
+    equal parts along dim 0 (the reference shards the batch over the
+    federation axis)."""
+    B = next(iter(batch.values())).shape[0]
+    if B % n_fed:
+        raise ValueError(f"batch {B} does not split over {n_fed} "
+                         "participants")
+    n = B // n_fed
+    return [{k: v[p * n:(p + 1) * n] for k, v in batch.items()}
+            for p in range(n_fed)]
+
+
+def _stacked(tensors: dict, leaf) -> torch.Tensor:
+    """The reference leaf from the port's tensors (a copy when stacked)."""
+    if not leaf.lead:
+        return tensors[leaf.names[0]]
+    return torch.stack([tensors[n] for n in leaf.names]).reshape(leaf.shape)
+
+
+def _slice_plan(leaf, spec) -> tuple[int, tuple | None]:
+    """The reference v1 step's slice decision for one leaf: the leading
+    unsharded dims (all but the last two) merge into ``lead`` slices; a 2-D
+    leaf of >= 2**28 elements whose first dim divides by 16 (and is not
+    sharded) is cut into 16 chunks. Returns ``(lead, slice_shape)``, lead
+    0 when the leaf has neither."""
+    shape = leaf.shape
+    entries = tuple(spec) + (None,) * len(shape)
+    if len(shape) >= 3:
+        lead, n = 1, 0
+        for di, d in enumerate(shape[:-2]):
+            if entries[di] is not None:
+                break
+            lead *= d
+            n += 1
+        return lead, tuple(shape[n:])
+    if len(shape) == 2 and math.prod(shape) >= 1 << 28 \
+            and shape[0] % 16 == 0 and entries[0] is None:
+        return 16, (shape[0] // 16, shape[1])
+    return 0, None
+
+
+def _slice_of(tensors: dict, leaf, lead: int, slice_shape: tuple,
+              i: int) -> torch.Tensor:
+    """Slice ``i`` of the leaf viewed as ``[lead, *slice_shape]``: a view of
+    one port parameter (the stacked axes come first, row-major, so slice
+    ``i`` lies in parameter ``i // per``)."""
+    per = lead // len(leaf.names)
+    t = tensors[leaf.names[i // per]]
+    return t.reshape((per,) + slice_shape)[i % per]
+
+
+def _neg_lr(g: torch.Tensor, lr: float) -> torch.Tensor:
+    """``-lr * g`` in ``g``'s dtype, the scalar rounded to that dtype first
+    (JAX's weak-typed scalar)."""
+    return g * torch.tensor(-lr, dtype=g.dtype, device=g.device)
+
+
+@torch.no_grad()
+def _update(p: torch.Tensor, agg: torch.Tensor, server_lr: float) -> None:
+    """``p = (f32(p) + server_lr * f32(agg)).to(p.dtype)``, in place."""
+    a = agg.to(torch.float32)
+    if server_lr != 1.0:
+        a = a * torch.tensor(server_lr, dtype=torch.float32, device=a.device)
+    p.copy_((p.to(torch.float32) + a).to(p.dtype))
+
+
+class _FLStep:
+    """Shared state of both FL steps."""
+
+    def __init__(self, cfg, mesh, fed_axis, thgs, sa, lr, server_lr,
+                 n_micro):
+        self.cfg, self.mesh, self.fed_axis = cfg, mesh, fed_axis
+        self.thgs, self.sa = thgs, sa
+        self.lr, self.server_lr, self.n_micro = lr, server_lr, n_micro
+        self.axis_sizes = shd.axis_sizes_of(mesh)
+        self.n_fed = self.axis_sizes[fed_axis]
+        self.n_blocks = mesh.size // self.n_fed
+        self.rules = logical_rules(mesh, fed_axis=fed_axis)
+        self.intra_axes = tuple(a for a in mesh.axis_names if a != fed_axis)
+        self.timings = None
+
+    def layout(self, params):
+        leaves = convert.reference_leaves(params)
+        specs = shd.param_specs({lf.path: lf.shape for lf in leaves},
+                                self.rules, self.axis_sizes)
+        sizes = [math.prod(lf.shape) for lf in leaves]
+        return leaves, [specs[lf.path] for lf in leaves], sizes, \
+            schedules.leaf_ks(self.thgs, sizes)
+
+    def k_mask(self, size: int, nb: int) -> int:
+        if self.sa.enabled and self.n_fed >= 2:
+            return max(1, int(size * self.sa.mask_ratio / self.n_fed / nb))
+        return 0
+
+    def gradients(self, params, batch: dict) -> Iterable:
+        """Each participant's ``(loss, {name: gradient})`` at ``params``,
+        one at a time (the next is computed only when asked for)."""
+        for b in _participant_batches(batch, self.n_fed):
+            with _stage("grads", self.timings, self.device(params)):
+                out = step_gradients(params, self.cfg, b, self.n_micro)
+            yield out
+            del out     # no frame holds a gradient while the next is made
+
+    @staticmethod
+    def device(params):
+        return next(params.parameters()).device
+
+    def __call__(self, params, residuals, batch, round_key, *,
+                 timings: dict | None = None, record: list | None = None):
+        """One step: ``(params, residuals, mean loss)``; both updated in
+        place. ``timings`` (a dict) collects each stage's wall ms, summed
+        over the participants and units (``grads``, ``masks``, ``encode``,
+        ``decode``, ``update``); ``record`` as :meth:`exchange`'s."""
+        self.timings = timings
+        losses = []
+
+        def grads():
+            for loss, g in self.gradients(params, batch):
+                losses.append(loss.to(torch.float32))
+                yield g
+                del g
+
+        try:
+            self.exchange(params, residuals, grads(), round_key,
+                          record=record)
+        finally:
+            self.timings = None
+        return params, residuals, torch.stack(losses).mean()
+
+
+class FLTrainStep(_FLStep):
+    """``make_fl_train_step``'s step (the reference's v1: the encode and
+    exchange of each participant inside its shard_map region)."""
+
+    def units(self, leaves, specs, sizes, leaf_k) -> list:
+        """The step's encode/exchange units in order: ``(leaf_id, (i, lead,
+        slice_shape) or None, nb, kb, k_mask, transform)``, one a whole
+        leaf or a slice of a large stacked one."""
+        use_aligned = os.environ.get("REPRO_FL_ALIGNED_BLOCKS", "0") == "1"
+        plan = fl_leaf_plan(sizes, self.thgs, self.n_blocks)
+        units = []
+        for lid, (leaf, spec, (kb, nb)) in enumerate(zip(leaves, specs,
+                                                         plan)):
+            tr = (sharding_aligned_transform(leaf.shape, spec,
+                                             self.axis_sizes, self.intra_axes)
+                  if use_aligned else None)
+            if tr is not None:
+                nb = tr[2]
+                kb = max(1, -(-leaf_k[lid] // nb))
+            km = self.k_mask(sizes[lid], nb)
+            lead, slice_shape = _slice_plan(leaf, spec)
+            if tr is None and lead > 1 and sizes[lid] // lead >= 1 << 20:
+                kb_s = max(1, -(-leaf_k[lid] // (nb * lead)))
+                km_s = max(1, km // lead) if km else 0
+                units += [(lid, (i, lead, slice_shape), nb, kb_s, km_s, None)
+                          for i in range(lead)]
+            else:
+                units.append((lid, None, nb, kb, km, tr))
+        return units
+
+    def exchange(self, params, residuals, grads: Iterable, round_key,
+                 *, record: list | None = None) -> None:
+        """Encode every participant's update leaf by leaf (large stacked
+        leaves slice by slice), then decode each (sub-)leaf's streams of all
+        participants and update the parameters. ``record`` (a list)
+        receives a dict a unit: ``leaf``, ``slice`` (None for a whole leaf),
+        ``streams`` (one :class:`BlockedStream` a participant) and
+        ``agg_absmax`` (a 0-d tensor: the aggregate's max magnitude)."""
+        leaves, specs, sizes, leaf_k = self.layout(params)
+        dev = self.device(params)
+        units = self.units(leaves, specs, sizes, leaf_k)
+        streams = [[] for _ in units]
+        for pid, g in enumerate(grads):
+            for u, unit in enumerate(units):
+                streams[u].append(self.encode_unit(
+                    unit, leaves[unit[0]], g, residuals, pid, round_key,
+                    dev))
+            del g
+        named = dict(params.named_parameters())
+        for u, (lid, sl, nb, kb, km, tr) in enumerate(units):
+            leaf = leaves[lid]
+            n = (math.prod(sl[2]) if sl is not None else sizes[lid])
+            with _stage("decode", self.timings, dev):
+                dense = decode_blocked_sum(
+                    torch.stack([st.indices for st in streams[u]]),
+                    torch.stack([st.values for st in streams[u]]), n, nb,
+                    weight=1.0 / self.n_fed, transform=tr)
+            if record is not None:
+                record.append({"leaf": lid,
+                               "slice": None if sl is None else sl[0],
+                               "streams": streams[u],
+                               "agg_absmax": dense.abs().max()})
+            streams[u] = None
+            # the aggregate takes the gradient's dtype (the parameter's, f32
+            # when microbatches add up) before the f32 update
+            gdt = (torch.float32 if self.n_micro > 1
+                   else named[leaf.names[0]].dtype)
+            with _stage("update", self.timings, dev):
+                if sl is not None:
+                    i, lead, slice_shape = sl
+                    _update(_slice_of(named, leaf, lead, slice_shape, i),
+                            dense.reshape(slice_shape).to(gdt),
+                            self.server_lr)
+                else:
+                    parts = dense.to(gdt).reshape(
+                        (-1,) + tuple(named[leaf.names[0]].shape))
+                    for j, name in enumerate(leaf.names):
+                        _update(named[name], parts[j], self.server_lr)
+            del dense
+
+    def encode_unit(self, unit, leaf, g: dict, residuals, pid: int,
+                    round_key, dev) -> object:
+        """Participant ``pid``'s stream of one (sub-)leaf; its residual
+        written in place."""
+        lid, sl, nb, kb, km, tr = unit
+        res = residuals[lid][pid]
+        if sl is not None:
+            i, lead, slice_shape = sl
+            gi = _slice_of(g, leaf, lead, slice_shape, i)
+            ri = res.reshape((lead,) + slice_shape)[i]
+            key = (threefry.fold_in(threefry.fold_in(round_key, lid), i)
+                   if km else None)
+        else:
+            gi, ri = _stacked(g, leaf), res
+            key = threefry.fold_in(round_key, lid) if km else None
+        masks = None
+        if key is not None:
+            with _stage("masks", self.timings, dev):
+                masks = self.masks_for(key, pid, gi.numel(), nb, km, tr, dev)
+        with _stage("encode", self.timings, dev):
+            st, r_new = encode_leaf_blocked(
+                _neg_lr(gi, self.lr), ri, kb, nb, mask_key=key,
+                k_mask_block=km, n_peers=self.n_fed, self_id=pid,
+                mask_lo=self.sa.p, mask_q=self.sa.q, transform=tr,
+                masks=masks)
+            ri.copy_(r_new)
+        return st
+
+    def masks_for(self, key, pid, size, nb, km, tr, dev):
+        """Participant ``pid``'s keyed masks of a (sub-)leaf, the blocked
+        layout's ``(m_idx, m_vals, signs_row)``."""
+        if tr is not None:
+            nb, m = tr[2], tr[3]
+        else:
+            nb, m, _ = block_layout(size, nb)
+        keys_row, signs_row = se.fold_pair_keys_row(key, pid, self.n_fed)
+        m_idx, m_vals = se.pairwise_mask_rows(
+            keys_row, signs_row, nb, km, m, p=self.sa.p, q=self.sa.q,
+            device=dev)
+        return m_idx, m_vals, signs_row
+
+
+class FLTrainStepV2(_FLStep):
+    """``make_fl_train_step_v2``'s step: gradients cast to bf16, every
+    participant's leaf encoded in one batched call on the sharding-aligned
+    block view (the generic row blocks when the spec has none, or with
+    ``REPRO_FL_V2_GENERIC=1``), the exchange one scatter a leaf."""
+
+    def exchange(self, params, residuals, grads: Iterable, round_key,
+                 *, record: list | None = None) -> None:
+        """As :meth:`FLTrainStep.exchange`; a unit is a whole leaf and its
+        ``streams`` one :class:`StreamBatch` of every participant."""
+        leaves, specs, sizes, leaf_k = self.layout(params)
+        dev = self.device(params)
+        generic = os.environ.get("REPRO_FL_V2_GENERIC", "0") == "1"
+        gs = [{n: t.to(torch.bfloat16) for n, t in g.items()} for g in grads]
+        named = dict(params.named_parameters())
+        n_intra = math.prod(self.axis_sizes[a] for a in self.intra_axes)
+        for lid, (leaf, spec) in enumerate(zip(leaves, specs)):
+            tr = None if generic else sharding_aligned_transform(
+                leaf.shape, spec, self.axis_sizes, self.intra_axes)
+            if tr is not None:
+                to_b, from_b, nb, m, _ = tr
+            else:
+                nb, m, _ = block_layout(sizes[lid], n_intra)
+
+                def to_b(x, _nb=nb, _m=m):
+                    return se.to_blocks(x, _nb, _m)
+
+                def from_b(b, _s=sizes[lid], _sh=leaf.shape):
+                    return b.reshape(-1)[:_s].reshape(_sh)
+            kb = max(1, min(m, -(-leaf_k[lid] // nb)))
+            f32 = torch.float32
+            with _stage("encode", self.timings, dev):
+                acc = torch.stack([
+                    to_b(residuals[lid][p].to(f32))
+                    + to_b(_neg_lr(_stacked(gs[p], leaf).to(f32), self.lr))
+                    for p in range(self.n_fed)])
+            km = self.k_mask(sizes[lid], nb)
+            pair_keys = pair_signs = None
+            if km > 0:
+                with _stage("masks", self.timings, dev):
+                    pair_keys, pair_signs = se.fold_pair_key_matrix(
+                        threefry.fold_in(round_key, lid), self.n_fed)
+            with _stage("encode", self.timings, dev):
+                st, new_blocks = se.encode_batch_blocks(
+                    acc, kb, pair_keys=pair_keys, pair_signs=pair_signs,
+                    k_mask=km, mask_p=self.sa.p, mask_q=self.sa.q)
+                for p in range(self.n_fed):
+                    residuals[lid][p].copy_(from_b(new_blocks[p]))
+            del acc, new_blocks
+            with _stage("decode", self.timings, dev):
+                # the reference divides by n_fed; XLA multiplies by the f32
+                # reciprocal under jit (probed), which the weight reproduces
+                dense = decode_blocked_sum(st.indices, st.values, nb * m, nb,
+                                           weight=1.0 / self.n_fed)
+                agg = from_b(dense.reshape(nb, m)).to(f32)
+            if record is not None:
+                record.append({"leaf": lid, "slice": None, "streams": st,
+                               "agg_absmax": dense.abs().max()})
+            with _stage("update", self.timings, dev):
+                parts = agg.reshape((-1,) + tuple(
+                    named[leaf.names[0]].shape))
+                for j, name in enumerate(leaf.names):
+                    _update(named[name], parts[j], self.server_lr)
+
+
+def make_fl_train_step(cfg: ArchConfig, mesh, fed_axis: str,
+                       thgs: THGSConfig, sa: SecureAggConfig,
+                       lr: float = 0.01, server_lr: float = 1.0,
+                       n_micro: int = 1) -> FLTrainStep:
+    """``step(params, residuals, batch, round_key) -> (params, residuals,
+    loss)``: the reference's v1 FL step on a ``LogicalMesh``. ``round_key``
+    is a threefry key (``core.threefry.key``)."""
+    return FLTrainStep(cfg, mesh, fed_axis, thgs, sa, lr, server_lr,
+                       n_micro)
+
+
+def make_fl_train_step_v2(cfg: ArchConfig, mesh, fed_axis: str,
+                          thgs: THGSConfig, sa: SecureAggConfig,
+                          lr: float = 0.01, server_lr: float = 1.0,
+                          n_micro: int = 1) -> FLTrainStepV2:
+    """The reference's v2 (GSPMD-first) FL step on a ``LogicalMesh``."""
+    return FLTrainStepV2(cfg, mesh, fed_axis, thgs, sa, lr, server_lr,
+                         n_micro)

@@ -184,9 +184,6 @@ class SimConfig:
             raise ValueError("buffer_size is only meaningful with "
                              "mode='async'")
         # what the port refuses, and the slice that brings it
-        if self.thgs is None and self.sa.enabled:
-            raise _not_ported("dense secure aggregation (thgs=None with "
-                              "sa.enabled)", "slice I (the datacenter layer)")
         if self.thgs is not None:
             self.thgs.validate()
             if self.thgs.selector != "exact":

@@ -174,7 +174,18 @@ def test_dense_baseline_and_refusals():
         name = ".".join(k.key for k in path)
         np.testing.assert_allclose(ts.params[name].numpy(), np.asarray(v),
                                    rtol=1e-5, atol=1e-6)
-    with pytest.raises(NotImplementedError):
-        tfa.run_round(tfa.init_state(tparams, tfed), tb,
-                      tpm.cross_entropy_loss(tm), tfed, None,
-                      ttypes.SecureAggConfig(enabled=True))
+    # dense secure aggregation: the dense Bonawitz masks agreed among the
+    # survivors; the same record, the params within the dense round's
+    # tolerance
+    js = jfa.run_round(jfa.init_state(jp, jfed), jb,
+                       jpm.cross_entropy_loss(jm), jfed, None,
+                       jtypes.SecureAggConfig(mask_ratio=0.01), dropped=(3,))
+    ts = tfa.run_round(tfa.init_state(tparams, tfed), tb,
+                       tpm.cross_entropy_loss(tm), tfed, None,
+                       ttypes.SecureAggConfig(mask_ratio=0.01), dropped=(3,))
+    assert dataclasses.asdict(ts.comm_log[0]) == dataclasses.asdict(
+        js.comm_log[0])
+    for path, v in jax.tree_util.tree_flatten_with_path(js.params)[0]:
+        name = ".".join(k.key for k in path)
+        np.testing.assert_allclose(ts.params[name].numpy(), np.asarray(v),
+                                   rtol=1e-5, atol=1e-6)

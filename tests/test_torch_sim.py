@@ -92,12 +92,17 @@ def test_cli_without_cuda_exits_nonzero(tmp_path):
 @pytest.mark.parametrize("over,what", [
     ({"thgs": TTHGS(selector="sampled")}, "selector"),
     ({"thgs": TTHGS(selector="local")}, "selector"),
-    ({"thgs": None}, "dense secure aggregation"),
 ])
 def test_config_refuses_what_this_slice_does_not_port(over, what):
     cfg = tpresets.get("table2_quick").replace(**over)
     with pytest.raises(NotImplementedError, match=what):
         cfg.validate()
+
+
+def test_config_accepts_dense_secure_aggregation():
+    cfg = tpresets.get("table2_quick").replace(thgs=None)
+    assert cfg.sa.enabled
+    cfg.validate()
 
 
 @pytest.mark.parametrize("preset", ["table2_quick", "async_quick"])
