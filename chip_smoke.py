@@ -255,6 +255,22 @@ exits non-zero and no failure is caught:
      exchange's entries against dense. (d) ``table2_fedavg_quick`` with
      dense secure aggregation, 2 rounds on the card and the CPU: equal
      ledgers.
+ 19. selectors (run after 15): the 'sampled' and 'local' THGS selectors.
+     (a) At VGG16's 512x512x3x3 leaf (k 60,199) and Yi-6B's ``embed``
+     (262,144,000 elements, its Eq. 1 k under the dry run's THGS) on a
+     seeded accumulator: 'sampled' indices card vs CPU bit-equal, exact and
+     sampled selection timed in turns with CUDA events,
+     ``sparsify.sparsify_leaf`` card vs CPU bit-equal, ``densify`` of the
+     stream with duplicates through one scatter launch, bit-equal to the
+     plain fold. (b) ``table2_quick`` under 'exact', 'local' and 'sampled'
+     (counts reset before each run, read after): 'local' bit-equal to
+     'exact' (params, residuals, ledger); 'sampled' launches the scatter 48
+     and the masks 12 times, its upload ratio and accuracy within the main
+     path's limits. (c) VGG16 under the table2 protocol, 2 rounds, in
+     turns exact, sampled, sampled, exact: round and encode ms (the device
+     synchronized around each leaf's encode); round 0's sampled encode of a
+     512x512x3x3 leaf replayed on the CPU from the same accumulators,
+     bit-equal. The first sampled runs' launches join the kernel table's.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. ``--only flash`` runs phases 1 and 10
@@ -268,7 +284,7 @@ and the mask path probe the same way (on the parent of the round launch, a
 round is timed as its per-leaf flat launches); ``--only sharded`` runs
 phases 1 and 14, ``--only bench`` phases 1 and 15, ``--only families``
 phases 1 and 16, ``--only train`` phases 1 and 17, ``--only fl_train``
-phases 1 and 18. Without a CUDA device, or outside a checkout, it exits
+phases 1 and 18, ``--only selectors`` phases 1 and 19. Without a CUDA device, or outside a checkout, it exits
 non-zero and prints no result.
 """
 from __future__ import annotations
@@ -4616,6 +4632,235 @@ def bench_phase(kind: str, card: str) -> dict:
     return counts
 
 
+# ----------------------------------------------------------------- phase 19
+SEL_FRAC = 0.01                  # THGSConfig's default sample_frac
+SEL_VGG = ("cifar_vgg16.512x512x3x3", 2359296, 60199)
+SEL_THGS_FL = dict(s0=0.01, alpha=0.9, s_min=0.001)    # the dry run's
+
+
+def sel_embed_k() -> int:
+    """Yi-6B ``embed``'s k under the dry run's THGS, as one flat leaf (its
+    rank in the reference's leaf order picks its Eq. 1 rate)."""
+    from repro_torch import configs, convert
+    from repro_torch.core import schedules
+    from repro_torch.core.types import THGSConfig
+    from repro_torch.models import transformer as tf
+
+    leaves = convert.reference_leaves(
+        tf.init_params(configs.get("yi_6b"), device="meta"))
+    sizes = [math.prod(lf.shape) for lf in leaves]
+    i = [lf.path for lf in leaves].index("embed")
+    return int(schedules.leaf_ks(THGSConfig(**SEL_THGS_FL), sizes)[i])
+
+
+def sel_row_check(tag: str, n: int, k: int, seed: int, device) -> dict:
+    """(a) at one full-width row: 'sampled' indices card vs CPU on a
+    seeded accumulator, exact and sampled selection timed with CUDA events,
+    ``sparsify_leaf`` card vs CPU, ``densify`` with duplicates through the
+    scatter kernel against its plain fold."""
+    import torch
+
+    from repro_torch.core import sparsify as sp
+    from repro_torch.core import streams as se
+    from repro_torch.core.types import SparseStream, THGSConfig
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    acc = torch.randn((1, n), generator=g, device=device)
+    res = 0.2 * torch.randn((n,), generator=g, device=device)
+    acc_c, res_c = acc.cpu(), res.cpu()
+    got = se.select_topk_rows(acc, k, "sampled", SEL_FRAC)
+    want = se.select_topk_rows(acc_c, k, "sampled", SEL_FRAC)
+    same_sel = torch.equal(got.cpu(), want)
+    overlap = int(torch.isin(got, se.select_topk_rows(acc, k)).sum())
+    reps, inner = (3, 2) if n > 10**8 else (5, 10)
+    ms = {"exact": [], "sampled": []}
+    for sel in ("exact", "sampled", "sampled", "exact"):   # in turns
+        ms[sel].append(events_ms(
+            lambda s=sel: se.select_topk_rows(acc, k, s, SEL_FRAC),
+            reps=reps, inner=inner, warmup=1))
+    cfg = THGSConfig(selector="sampled", sample_frac=SEL_FRAC)
+    out = sp.sparsify_leaf(acc[0], res, k, cfg)
+    out_c = sp.sparsify_leaf(acc_c[0], res_c, k, cfg)
+    same_sp = (bits_equal(out.stream.indices.cpu(), out_c.stream.indices)
+               and bits_equal(out.stream.values.cpu(), out_c.stream.values)
+               and bits_equal(out.residual.cpu(), out_c.residual)
+               and bits_equal(out.threshold.cpu(), out_c.threshold))
+    # the stream twice over, plus a heavy duplicate: slots fold in order
+    idx = torch.cat([out.stream.indices, out.stream.indices.flip(0),
+                     out.stream.indices[:1].expand(4096)])
+    val = torch.cat([out.stream.values, -0.5 * out.stream.values,
+                     torch.linspace(-1, 1, 4096, device=device)])
+    before = ops.launch_counts()["stream_scatter_add"]
+    dense = sp.densify(SparseStream(idx, val), n)
+    launched = ops.launch_counts()["stream_scatter_add"] - before
+    plain = ref.stream_scatter_add_ref(idx.cpu(), val.cpu(), n)
+    same_dense = bits_equal(dense.cpu(), plain)
+    print(f"[selectors] (a) {tag} n={n} k={k} f={SEL_FRAC}: sampled "
+          f"indices card vs CPU bit-equal={same_sel}, {overlap} of {k} in "
+          f"the exact top-k; selection ms (CUDA events, median of "
+          f"{reps} x {inner} calls, in turns) exact {ms['exact'][0]:.4f} / "
+          f"{ms['exact'][1]:.4f}, sampled {ms['sampled'][0]:.4f} / "
+          f"{ms['sampled'][1]:.4f}; sparsify_leaf "
+          f"card vs CPU bit-equal={same_sp} (threshold "
+          f"{float(out_c.threshold):.6g}); densify of {idx.numel()} slots "
+          f"with duplicates: {launched} scatter launch, bit-equal to the "
+          f"plain fold={same_dense}", flush=True)
+    check(same_sel, f"{tag}: sampled selection differs card vs CPU")
+    check(same_sp, f"{tag}: sparsify_leaf differs card vs CPU")
+    check(launched == 1, f"{tag}: densify launched the scatter {launched} "
+          "times, expected 1")
+    check(same_dense, f"{tag}: densify differs from the plain fold")
+    return ms
+
+
+def sel_table2_quick(kind: str) -> dict:
+    """(b) table2_quick under 'exact', 'local' and 'sampled' on the card;
+    returns the sampled run's launch counts."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.sim import presets
+    from repro_torch.sim.engine import Simulation
+
+    base = presets.get("table2_quick").replace(out_json=None)
+    runs = {}
+    for sel in ("exact", "local", "sampled"):
+        cfg = base.replace(thgs=dataclasses.replace(base.thgs,
+                                                    selector=sel))
+        sim = Simulation(cfg, device="cuda")
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        res = sim.run()
+        torch.cuda.synchronize()
+        runs[sel] = (sim, res, ops.launch_counts())
+        t2 = res.ledger.totals("paper")
+        print(f"[selectors] (b) table2_quick selector={sel} on {kind}: "
+              f"launches stream_scatter_add="
+              f"{runs[sel][2]['stream_scatter_add']} pair_mask_streams="
+              f"{runs[sel][2]['pair_mask_streams']} upload_vs_dense(paper)="
+              f"{t2['upload_vs_dense']:.6f} final_acc={res.final_acc:.4f} "
+              f"accs={res.accuracies} wall_s={res.wall_s:.4f}", flush=True)
+    (se_, re_, _), (sl, rl, _) = runs["exact"], runs["local"]
+    same = (all(bits_equal(se_.state.params[n], sl.state.params[n])
+                for n in se_.state.params)
+            and all(bits_equal(se_.state.residuals[c][n],
+                               sl.state.residuals[c][n])
+                    for c in se_.state.residuals for n in se_.state.params)
+            and re_.ledger.entries == rl.ledger.entries)
+    print(f"[selectors] (b) local == exact (params, residuals, ledger): "
+          f"{same}", flush=True)
+    check(same, "table2_quick under 'local' differs from 'exact'")
+    sim, res, counts = runs["sampled"]
+    rounds = base.rounds
+    check(counts["stream_scatter_add"] == 4 * rounds
+          and counts["pair_mask_streams"] == rounds,
+          f"sampled table2_quick launched {counts}, expected "
+          f"stream_scatter_add {4 * rounds} and pair_mask_streams {rounds}")
+    up = res.ledger.totals("paper")["upload_vs_dense"]
+    check(abs(up - 0.091) <= 0.005 and res.final_acc >= 0.98,
+          f"sampled table2_quick: upload_vs_dense {up:.6f} outside 9.1% "
+          f"+- 0.5 or final_acc {res.final_acc:.4f} < 0.98")
+    check(all(torch.isfinite(p).all() for p in sim.state.params.values()),
+          "non-finite parameters after sampled table2_quick")
+    return counts
+
+
+def sel_vgg16(kind: str) -> dict:
+    """(c) VGG16 under the table2 protocol, 2 rounds, 'sampled' against
+    'exact' in turns (exact, sampled, sampled, exact: the first run pays
+    the warm-up): round and encode ms; round 0's encode of a 512x512x3x3
+    leaf in the first sampled run replayed on the CPU from the same
+    accumulators, bit-equal. Returns the first sampled run's launch
+    counts."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import streams as se
+    from repro_torch.kernels import ops
+    from repro_torch.sim.engine import Simulation
+
+    encode = se.encode_leaf_batch
+    spent = []
+
+    def timed_encode(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = encode(*a, **kw)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    counts, probe = {}, {}
+    for sel in ("exact", "sampled", "sampled", "exact"):
+        cfg = vgg16_table2()
+        cfg = cfg.replace(thgs=dataclasses.replace(cfg.thgs, selector=sel))
+        sim = Simulation(cfg, device="cuda")
+
+        def hook(leaf_id, name, info):
+            if info["size"] == SEL_VGG[1] and not probe:
+                probe.update(clone_info(info), leaf_id=leaf_id)
+
+        if sel == "sampled" and not probe:
+            sim.leaf_hook = hook
+        spent.clear()
+        se.encode_leaf_batch = timed_encode
+        try:
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            res = sim.run()
+            torch.cuda.synchronize()
+            counts.setdefault(sel, ops.launch_counts())
+        finally:
+            se.encode_leaf_batch = encode
+        print(f"[selectors] (c) VGG16 table2 selector={sel} on {kind}: "
+              f"rounds={cfg.rounds} round_s={res.wall_s / cfg.rounds:.4f} "
+              f"encode_ms={1e3 * sum(spent):.3f} ({len(spent)} leaf "
+              f"encodes, the device synchronized around each) "
+              f"launches={ops.launch_counts()} accs={res.accuracies} "
+              f"upload_vs_dense(paper)="
+              f"{res.ledger.totals('paper')['upload_vs_dense']:.6f}",
+              flush=True)
+        check(all(torch.isfinite(p).all() for p in sim.state.params.values()),
+              f"non-finite VGG16 parameters under {sel}")
+        del sim
+        gc.collect()
+    cpu = {k: (v.cpu() if torch.is_tensor(v) else v)
+           for k, v in probe.items()}
+    size = cpu["size"]
+    st, nr = se.encode_leaf_batch(
+        cpu["updates"], cpu["residuals"], k=cpu["k"], nb=1, m=size,
+        size=size, selector="sampled", sample_frac=SEL_FRAC,
+        pair_seeds=cpu["pair_seeds"], pair_signs=cpu["pair_signs"],
+        k_mask=cpu["k_mask"], mask_p=-1.0, mask_q=2.0,
+        leaf_id=cpu["leaf_id"], weights=cpu["weights"])
+    same = (bits_equal(st.indices, cpu["streams"].indices.cpu())
+            and bits_equal(st.values, cpu["streams"].values.cpu())
+            and bits_equal(nr, cpu["new_residuals"]))
+    print(f"[selectors] (c) round 0's sampled encode of the 512x512x3x3 "
+          f"leaf (k={cpu['k']} k_mask={cpu['k_mask']}) replayed on the "
+          f"CPU: streams and residuals bit-equal={same}", flush=True)
+    check(same, "VGG16's sampled encode differs card vs CPU")
+    return counts["sampled"]
+
+
+def selectors_phase(kind: str, card: str, device) -> dict:
+    """Phase 19: the 'sampled' and 'local' selectors on the card; returns
+    the launch counts of the sampled runs of (b) and (c)."""
+    t_phase = time.perf_counter()
+    sel_row_check(SEL_VGG[0], SEL_VGG[1], SEL_VGG[2], 19, device)
+    sel_row_check("yi_6b.embed", 64000 * 4096, sel_embed_k(), 20, device)
+    t2_counts = sel_table2_quick(kind)
+    vgg_counts = sel_vgg16(kind)
+    counts = {n: t2_counts[n] + vgg_counts[n] for n in t2_counts}
+    print(f"[selectors] phase 19 took {time.perf_counter() - t_phase:.1f} s "
+          f"on {card}; sampled-path launches {counts}", flush=True)
+    return counts
+
+
 def main() -> int:
     import argparse
 
@@ -4624,13 +4869,14 @@ def main() -> int:
                                  "docstring).")
     ap.add_argument("--only",
                     choices=["flash", "pack", "masks", "sharded", "bench",
-                             "families", "train", "fl_train"],
+                             "families", "train", "fl_train", "selectors"],
                     help="run the device and build phases and then [flash] "
                     "(the HGMMA count printed, not required), the bit-pack "
                     "kernels' checks and times and one codec_wire_roundtrip "
                     "probe, the pair-mask kernel's flat and round rows "
                     "and one round's mask path probe, [sharded], [bench], "
-                    "[families], [train] or [fl_train] alone, with no "
+                    "[families], [train], [fl_train] or [selectors] "
+                    "alone, with no "
                     "result line: a "
                     "kernel's "
                     "times on a "
@@ -4714,6 +4960,11 @@ def main() -> int:
     if args.only == "fl_train":
         fl_train_phase(card, device)
         print(f"[done] --only fl_train passed in "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
+    if args.only == "selectors":
+        selectors_phase(kind, card, device)
+        print(f"[done] --only selectors passed in "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
         return 0
     if args.only == "sharded":
@@ -4914,6 +5165,9 @@ def main() -> int:
     # --------------------------------------------------------- 15. bench
     bench_phase(kind, card)
 
+    # ----------------------------------------------------- 19. selectors
+    sel_counts = selectors_phase(kind, card, device)
+
     # ------------------------------------------------------------ report
     sources = {"stream_scatter_add": ("src/repro_torch/kernels/csrc/"
                                       "stream_scatter_add.cu",
@@ -4936,18 +5190,20 @@ def main() -> int:
                                    "src/repro/kernels/mask_prng.py:38")}
     # each kernel's launches come from the path that runs it: table2_quick
     # and the sharded parity runs for the scatter and the masks (the
-    # scatter also the federated Yi-6B steps of [fl_train]),
-    # codec_sweep_quick and its sharded int8 arm for the bit packing, the
+    # scatter also the federated Yi-6B steps of [fl_train]; both also the
+    # sampled runs of [selectors]), codec_sweep_quick and its sharded int8 arm for the bit packing, the
     # served Yi-6B and the families' first prefills for the flash
     # attention; no reference path calls the THGS split or the dense mask
     # apply, whose path is the public ops API (the [kernels] phase's ops
     # path over every leaf of two models)
     launches = {**main_counts,
-                **{n: main_counts[n] + sharded_counts[n]
-                   for n in ("stream_scatter_add", "pair_mask_streams")},
                 "stream_scatter_add": (main_counts["stream_scatter_add"]
                                        + sharded_counts["stream_scatter_add"]
-                                       + fl_counts["stream_scatter_add"]),
+                                       + fl_counts["stream_scatter_add"]
+                                       + sel_counts["stream_scatter_add"]),
+                "pair_mask_streams": (main_counts["pair_mask_streams"]
+                                      + sharded_counts["pair_mask_streams"]
+                                      + sel_counts["pair_mask_streams"]),
                 **{n: codec_counts[n] + sharded_counts[n]
                    for n in ("bitpack_rows", "bitunpack_rows")},
                 "flash_attention": (lm_counts["flash_attention"]

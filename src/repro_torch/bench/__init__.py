@@ -11,8 +11,8 @@ workload; the baselines are the port's own, recorded on the card: the
 reference's ``BENCH_*.json`` are CPU numbers of another machine.
 
 The paper-table drivers (``bench/paper/``: table1, table2, fig1, fig3 on
-``repro_torch.sim``) run through ``--csv --only ...``. The roofline table
-waits for the datacenter layer (slice I).
+``repro_torch.sim``) and the roofline over the dry-run records
+(``launch/dryrun.py``) run through ``--csv --only ...``.
 
 Import discipline: this module and ``schema`` import no torch at module
 level, so a gate-only run touches no device; the suites are imported
@@ -37,7 +37,10 @@ LEGACY_SUITES = {
     "table2": ("repro_torch.bench.paper.table2", "run"),
     "fig1": ("repro_torch.bench.paper.fig1", "run"),
     "fig3": ("repro_torch.bench.paper.fig3", "run"),
+    "roofline": ("repro_torch.bench.paper.roofline", "run"),
 }
+# suites that read records and run nothing on a device
+NO_DEVICE_SUITES = ("roofline",)
 
 
 def run_suite(name: str, quick: bool = False, device="cuda") -> list[dict]:
@@ -60,6 +63,6 @@ def run_suite(name: str, quick: bool = False, device="cuda") -> list[dict]:
 
 
 __all__ = [
-    "JSON_SUITES", "LEGACY_SUITES", "SCHEMA_VERSION", "gate_compare",
+    "JSON_SUITES", "LEGACY_SUITES", "NO_DEVICE_SUITES", "SCHEMA_VERSION", "gate_compare",
     "iter_entries", "make_doc", "run_suite", "validate_doc",
 ]

@@ -4,6 +4,7 @@
     python -m repro_torch.bench --quick --out B.json   # one combined document
     python -m repro_torch.bench --gate B.json      # compare vs the baselines
     python -m repro_torch.bench --csv --only table2,agg   # CSV rows
+    python -m repro_torch.bench --csv --only roofline  # dry-run records
     python -m repro_torch.bench --device cpu --quick --out B.json
 
 The suites run on ``--device`` (default ``cuda``); without a card they fail
@@ -40,7 +41,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default=None,
                     help="comma-separated suites; JSON suites: "
                          "round,agg,cohort,serve; CSV-only: "
-                         "table1,table2,fig1,fig3")
+                         "table1,table2,fig1,fig3,roofline")
     ap.add_argument("--out", default=None,
                     help="write ONE combined JSON document here instead of "
                          "per-suite BENCH_torch_<suite>.json files in the "
@@ -64,7 +65,8 @@ def main(argv=None) -> int:
                          "host timings are noisy)")
     args = ap.parse_args(argv)
 
-    from repro_torch.bench import JSON_SUITES, LEGACY_SUITES
+    from repro_torch.bench import (JSON_SUITES, LEGACY_SUITES,
+                                   NO_DEVICE_SUITES)
 
     if args.gate is not None:
         current = schema.load_doc(args.gate)
@@ -106,7 +108,8 @@ def main(argv=None) -> int:
             return 2
     import torch
 
-    if args.device == "cuda" and not torch.cuda.is_available():
+    on_device = any(c not in NO_DEVICE_SUITES for c in chosen)
+    if on_device and args.device == "cuda" and not torch.cuda.is_available():
         print("error: no CUDA device: the suites run on the card; pass "
               "--device cpu to run the plain PyTorch versions on the CPU "
               "(its times are CPU times, never the card's)", file=sys.stderr)

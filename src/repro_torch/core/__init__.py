@@ -11,6 +11,8 @@ from repro_torch.core.types import (
     tree_zeros_like,
 )
 from repro_torch.core.schedules import layer_rates, leaf_ks, round_rate
+from repro_torch.core.sparsify import (densify, first_occurrence_mask,
+                                       member_of, sparsify_leaf)
 from repro_torch.core.masks import dh_agree, dh_private, dh_public, pair_seed
 from repro_torch.core.fedavg import (FederatedState, batched_client_update,
                                      client_update, init_state, run_round)
@@ -32,6 +34,7 @@ from repro_torch.core.blocked import (BlockedStream, decode_blocked_sum,
 __all__ = [
     "CommRecord", "FedConfig", "SecureAggConfig", "SparseStream", "THGSConfig",
     "tree_size", "tree_zeros_like", "layer_rates", "leaf_ks", "round_rate",
+    "densify", "first_occurrence_mask", "member_of", "sparsify_leaf",
     "dh_agree", "dh_private", "dh_public", "pair_seed",
     "FederatedState", "batched_client_update", "client_update", "init_state",
     "run_round", "costs", "streams", "StreamBatch", "decode_leaf_batch",

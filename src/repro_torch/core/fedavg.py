@@ -242,8 +242,10 @@ def run_round(
 ) -> FederatedState:
     """One synchronous aggregation round over the given participants.
 
-    ``thgs=None`` runs the dense FedAvg/FedProx baseline without secure
-    aggregation (dense secure aggregation is not ported yet and raises).
+    ``thgs=None`` runs the dense FedAvg/FedProx baseline, or with
+    ``sa.enabled`` dense secure aggregation (full-size pair masks,
+    ``secure_agg.dense_masked_update``). ``thgs.selector`` picks each
+    leaf's top-k ('exact', 'sampled' or 'local').
     ``client_weights`` gives per-client aggregation weights (default 1).
     ``dropped`` lists participants that agreed on masks but whose upload
     never arrived: their streams are excluded and the survivors' unpaired
@@ -427,7 +429,8 @@ def run_round(
             r_st = res_st[name]
             k_mask = k_masks[leaf_id]
             enc_kw = dict(
-                k=k, nb=1, m=size, size=size, pair_signs=signs_d,
+                k=k, nb=1, m=size, size=size, selector=thgs.selector,
+                sample_frac=thgs.sample_frac, pair_signs=signs_d,
                 k_mask=k_mask, leaf_id=leaf_id, weights=w_vec, codec=codec,
                 dp_sigma=dp_sigma_c, dp_seeds=dp_seeds,
                 dp_support_seed=dp_sup_seed, masks=masks[leaf_id])
@@ -606,8 +609,9 @@ def run_async_update(
         # ---- 2. batched unified-stream encode, staleness-weighted ----
         with record_function("round.encode"):
             streams_b, nr = se.encode_leaf_batch(
-                d_st, r_st, k=k, nb=1, m=size, size=size, leaf_id=leaf_id,
-                weights=w_vec, codec=codec)
+                d_st, r_st, k=k, nb=1, m=size, size=size,
+                selector=thgs.selector, sample_frac=thgs.sample_frac,
+                leaf_id=leaf_id, weights=w_vec, codec=codec)
         # ---- 3. decode, flat or tree ----
         splits = se.tree_splits(size, groups) if topology == "tree" else None
         with record_function("round.decode"):

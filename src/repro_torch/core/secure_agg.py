@@ -41,12 +41,9 @@ def encode_leaf(grad: torch.Tensor, residual: torch.Tensor, k: int,
     ``mask`` is the client's concatenated pair masks (``masks.client_masks``)
     or None. Returns the stream (int32 flat indices, f32 values, ``k +
     k_mask_total`` slots) and the new residual in ``residual``'s shape and
-    dtype. Only the 'exact' selector is ported (slice I2 brings the others).
+    dtype. The top-k is ``thgs.selector``'s ('local' is 'exact' on the
+    one block).
     """
-    if thgs.selector != "exact":
-        raise NotImplementedError(
-            f"selector {thgs.selector!r} is not ported to repro_torch yet; "
-            "it comes with slice I2 (ROADMAP.md, Queue 1)")
     acc = (residual + grad).to(torch.float32)
     flat = acc.reshape(1, 1, -1)             # [C=1, nb=1, m=size] block view
     if mask is not None and mask.indices.shape[0] > 0:
@@ -55,8 +52,9 @@ def encode_leaf(grad: torch.Tensor, residual: torch.Tensor, k: int,
     else:
         m_idx = m_vals = None
     ones = torch.ones((1,), dtype=torch.float32, device=acc.device)
-    idx, vals, new_acc = se.unified_stream_rows(flat, k, m_idx, m_vals,
-                                                weight=ones)
+    idx, vals, new_acc = se.unified_stream_rows(
+        flat, k, m_idx, m_vals, selector=thgs.selector,
+        sample_frac=thgs.sample_frac, weight=ones)
     return EncodedLeaf(
         stream=SparseStream(indices=idx[0, 0].to(torch.int32),
                             values=vals[0, 0]),

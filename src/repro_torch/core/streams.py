@@ -66,6 +66,7 @@ from torch.profiler import record_function
 from repro_torch.core import codecs
 from repro_torch.core import dp as dp_mod
 from repro_torch.core import masks
+from repro_torch.core import sparsify
 from repro_torch.core import threefry
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
@@ -105,47 +106,24 @@ def from_blocks(blocks: torch.Tensor, size: int, shape: tuple) -> torch.Tensor:
 
 
 # ------------------------------------------------------- first-occurrence gate
-def first_occurrence_rows(idx: torch.Tensor) -> torch.Tensor:
-    """Per row (last axis): True iff the slot is its index's first occurrence.
-
-    A stable sort puts duplicates of an index on consecutive ranks in slot
-    order, so a slot is first iff its sorted predecessor differs.
-    """
-    order = torch.argsort(idx, dim=-1, stable=True)
-    sorted_idx = torch.gather(idx, -1, order)
-    is_first = torch.cat(
-        [torch.ones_like(sorted_idx[..., :1], dtype=torch.bool),
-         sorted_idx[..., 1:] != sorted_idx[..., :-1]], -1)
-    return torch.zeros_like(is_first).scatter(-1, order, is_first)
+# per row (last axis): True iff the slot is its index's first occurrence
+first_occurrence_rows = sparsify.first_occurrence_mask
 
 
 # ------------------------------------------------------------- selector stage
-def select_topk_rows(acc: torch.Tensor, k: int) -> torch.Tensor:
-    """[..., m] -> int64[..., k] per-row top-|.| indices (the 'exact'
-    selector), in ``lax.top_k`` order: descending magnitude, ties to the
-    lower index, which is a stable descending sort's first ``k``.
+def select_topk_rows(acc: torch.Tensor, k: int, selector: str = "exact",
+                     sample_frac: float = 0.01) -> torch.Tensor:
+    """[..., m] -> int64[..., k] per-row top-|.| indices, in ``lax.top_k``
+    order (descending magnitude, NaN the largest, ties to the lower index).
 
-    ``torch.topk``'s tie order differs, so it only finds each row's k-th
-    largest magnitude ``t``: the kept set is every element above ``t`` and
-    the lowest-index elements equal to ``t`` up to ``k``, then sorted
-    stably by magnitude. The same indices as the full sort at a fraction of
-    its cost on long rows (a 262M-element leaf); a row with NaN takes the
-    full sort (NaN compares as the largest there)."""
+    'sampled' gates each row by its own sample threshold, as the
+    reference's per-row ``vmap`` of ``sparsify._sampled_topk`` (every row's
+    sample top-k in one ``torch.topk``); 'exact' and 'local' take the whole
+    row (the caller pre-blocks for 'local')."""
     a = acc.abs()
-    m = a.shape[-1]
-    if k >= m or bool(torch.isnan(a).any()):
-        return torch.sort(a, dim=-1, descending=True,
-                          stable=True).indices[..., :k]
-    t = torch.topk(a, k, dim=-1).values[..., -1:]
-    above = a > t
-    tied = a == t
-    need = k - above.sum(-1, keepdim=True)
-    keep = above | (tied & (torch.cumsum(tied, -1, dtype=torch.int32)
-                            <= need))
-    idx = keep.nonzero()[:, -1].reshape(*a.shape[:-1], k)
-    order = torch.sort(torch.gather(a, -1, idx), dim=-1, descending=True,
-                       stable=True).indices
-    return torch.gather(idx, -1, order)
+    if selector == "sampled":
+        return sparsify._sampled_topk(a, k, sample_frac)[1]
+    return sparsify._exact_topk(a, k)[1]
 
 
 # ----------------------------------------------------- THE unified-stream core
@@ -155,6 +133,8 @@ def unified_stream_rows(
     mask_idx: torch.Tensor | None,       # int[C, nb, k_mask_total] | None
     mask_vals: torch.Tensor | None,      # f32[C, nb, k_mask_total] | None
     *,
+    selector: str = "exact",
+    sample_frac: float = 0.01,
     weight: torch.Tensor,                # f32[C] client-side weights
     dp_support: torch.Tensor | None = None,  # int[nb, k] public support
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -164,16 +144,18 @@ def unified_stream_rows(
     (int64), ``vals = weight·acc[idx]·first_occurrence + mask`` and
     ``new_acc`` with every transmitted position zeroed.
 
-    ``dp_support`` is the DP release shape: the ``k`` data slots release
-    that public support instead of the top-k, mask slots carry no gradient
-    value, and ``new_acc`` zeroes only the released support.
+    ``selector`` and ``sample_frac`` pick the top-k
+    (:func:`select_topk_rows`). ``dp_support`` is the DP release shape: the
+    ``k`` data slots release that public support instead of the top-k, mask
+    slots carry no gradient value, and ``new_acc`` zeroes only the released
+    support.
     """
     C, nb, m = acc.shape
     k = int(min(k, m))
     if dp_support is not None:
         idx_t = dp_support.to(torch.int64).expand(C, nb, k)
     else:
-        idx_t = select_topk_rows(acc, k)
+        idx_t = select_topk_rows(acc, k, selector, sample_frac)
     zeros = torch.zeros((C, nb, k), dtype=torch.float32, device=acc.device)
     if mask_idx is not None and mask_idx.shape[-1] > 0:
         idx = torch.cat([idx_t, mask_idx.to(torch.int64)], -1)
@@ -450,6 +432,8 @@ def encode_client_blocks(
     acc: torch.Tensor,                        # f32[nb, m] one accumulator
     k: int,
     *,
+    selector: str = "exact",
+    sample_frac: float = 0.01,
     pair_keys_row: torch.Tensor | None = None,   # int64[n_peers, 2]
     pair_signs_row: torch.Tensor | None = None,  # f32[n_peers], 0 = self
     k_mask: int = 0,
@@ -474,7 +458,7 @@ def encode_client_blocks(
             pair_keys_row, pair_signs_row, nb, k_mask, m, p=mask_p, q=mask_q,
             leaf_id=leaf_id, device=acc.device))
     st, new_acc = encode_batch_blocks(
-        acc[None], k,
+        acc[None], k, selector=selector, sample_frac=sample_frac,
         pair_signs=None if masks_ is None else pair_signs_row[None],
         k_mask=k_mask if masks_ is not None else 0, masks=masks_,
         weights=torch.full((1,), weight, dtype=torch.float32,
@@ -487,6 +471,8 @@ def encode_batch_blocks(
     acc: torch.Tensor,                       # f32[C, nb, m]
     k: int,
     *,
+    selector: str = "exact",
+    sample_frac: float = 0.01,
     pair_seeds: torch.Tensor | None = None,  # [C, C] uint32 counter seeds
     pair_signs: torch.Tensor | None = None,  # f32[C, C]
     pair_keys: torch.Tensor | None = None,   # int64[C, C, 2] keyed path
@@ -536,9 +522,9 @@ def encode_batch_blocks(
             col_active = torch.repeat_interleave(signs != 0.0, k_mask,
                                                  dim=-1)[:, None, :]
             m_idx = torch.where(col_active, m_idx, top1)
-    idx, vals, new_acc = unified_stream_rows(acc, k, m_idx, m_vals,
-                                             weight=weights.to(dev),
-                                             dp_support=dp_support)
+    idx, vals, new_acc = unified_stream_rows(
+        acc, k, m_idx, m_vals, selector=selector, sample_frac=sample_frac,
+        weight=weights.to(dev), dp_support=dp_support)
     rows = torch.arange(nb, dtype=torch.int64, device=dev)[None, :, None]
     gidx = (rows * m + idx).to(torch.int32)
     return StreamBatch(indices=gidx, values=vals), new_acc
@@ -593,6 +579,8 @@ def _encode_accumulators(
     k: int,
     nb: int,
     m: int,
+    selector: str,
+    sample_frac: float,
     pair_seeds: torch.Tensor | None,
     pair_signs: torch.Tensor | None,
     k_mask: int,
@@ -625,7 +613,8 @@ def _encode_accumulators(
     acc = (residuals.to(torch.float32) + updates.to(torch.float32))
     acc = torch.stack([to_blocks(acc[c], nb, m) for c in range(C)])
     streams, new_acc = encode_batch_blocks(
-        acc, k, pair_seeds=pair_seeds, pair_signs=pair_signs,
+        acc, k, selector=selector, sample_frac=sample_frac,
+        pair_seeds=pair_seeds, pair_signs=pair_signs,
         k_mask=k_mask, mask_p=mask_p, mask_q=mask_q, leaf_id=leaf_id,
         weights=weights, dp_support=dp_support, masks=masks)
     if dp_on:
@@ -662,6 +651,8 @@ def encode_leaf_batch(
     nb: int,
     m: int,
     size: int,
+    selector: str = "exact",
+    sample_frac: float = 0.01,
     pair_seeds: torch.Tensor | None = None,
     pair_signs: torch.Tensor | None = None,
     k_mask: int = 0,
@@ -680,7 +671,9 @@ def encode_leaf_batch(
     The server's per-leaf entry: ``acc = residuals + updates`` in f32, the
     unified stream of every client (``k`` top-k slots plus ``k_mask`` mask
     slots per pair per block, ``leaf_id`` folded into every pair seed), and
-    the new error feedback with the transmitted positions zeroed. Returns
+    the new error feedback with the transmitted positions zeroed.
+    ``selector`` ('exact', 'sampled' or 'local') and ``sample_frac`` are
+    ``THGSConfig``'s: the top-k of each block row. Returns
     ``(StreamBatch int32/f32[C, nb, k + C*k_mask], new_residuals)``.
     ``masks`` (this leaf's entry of :func:`mask_streams_round`) replaces
     the generation from ``pair_seeds``; ``pair_signs`` is still needed.
@@ -697,7 +690,8 @@ def encode_leaf_batch(
     # the codec x secagg rejection lives in ONE place (repro.lint RPL003)
     codecs.reject_codec_with_masks(codec, k_mask)
     streams, new_acc = _encode_accumulators(
-        updates, residuals, k=k, nb=nb, m=m, pair_seeds=pair_seeds,
+        updates, residuals, k=k, nb=nb, m=m, selector=selector,
+        sample_frac=sample_frac, pair_seeds=pair_seeds,
         pair_signs=pair_signs, k_mask=k_mask, mask_p=mask_p, mask_q=mask_q,
         leaf_id=leaf_id, weights=weights, codec=codec, dp_sigma=dp_sigma,
         dp_seeds=dp_seeds, dp_support_seed=dp_support_seed, masks=masks)
@@ -1035,6 +1029,8 @@ def encode_leaf_shards(
     nb: int,
     m: int,
     size: int,
+    selector: str = "exact",
+    sample_frac: float = 0.01,
     pair_signs: torch.Tensor | None = None,
     masks: list | None = None,
     k_mask: int = 0,
@@ -1067,7 +1063,8 @@ def encode_leaf_shards(
         signs = None if masks is None else \
             pair_signs[rows].to(dev, torch.float32)
         streams, new_acc = _encode_accumulators(
-            upd, res, k=k, nb=nb, m=m, pair_seeds=None, pair_signs=signs,
+            upd, res, k=k, nb=nb, m=m, selector=selector,
+            sample_frac=sample_frac, pair_seeds=None, pair_signs=signs,
             k_mask=k_mask, mask_p=-1.0, mask_q=2.0, leaf_id=leaf_id,
             weights=w, codec=codec, dp_sigma=dp_sigma,
             dp_seeds=None if dp_seeds is None else dp_seeds[rows].to(dev),
@@ -1113,6 +1110,8 @@ def encode_decode_leaf_sharded(
     nb: int,
     m: int,
     size: int,
+    selector: str = "exact",
+    sample_frac: float = 0.01,
     pair_seeds: torch.Tensor | None = None,
     pair_signs: torch.Tensor | None = None,
     recovery_seeds: torch.Tensor | None = None,
@@ -1183,6 +1182,7 @@ def encode_decode_leaf_sharded(
                     leaf, p=mask_p, q=mask_q)[0], mesh, C, updates)
         payloads, new_res = encode_leaf_shards(
             mesh, updates, residuals, k=k, nb=nb, m=m, size=size,
+            selector=selector, sample_frac=sample_frac,
             pair_signs=pair_signs, masks=masks if with_masks else None,
             k_mask=k_mask if with_masks else 0, leaf_id=leaf_id,
             weights=weights, codec=codec, dp_sigma=dp_sigma,

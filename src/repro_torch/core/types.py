@@ -40,9 +40,10 @@ class THGSConfig:
     time_varying: bool = True
     alpha_t: float = 0.8       # constant attenuation factor of Eq. 2
     r_min: float = 0.001       # lower bound of the round schedule
-    # 'exact' is the only selector this slice ports
+    # Selector: 'exact' top-k | 'sampled' threshold from a subsample |
+    # 'local' per-block top-k (the caller pre-blocks; 'exact' on a block)
     selector: str = "exact"
-    sample_frac: float = 0.01  # for selector='sampled' (not ported)
+    sample_frac: float = 0.01  # for selector='sampled'
     # k values are quantized to this many geometric levels
     k_levels: int = 16
 

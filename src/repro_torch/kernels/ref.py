@@ -219,13 +219,14 @@ def stream_scatter_add_ref(indices: torch.Tensor, values: torch.Tensor,
     return torch.from_numpy(out)
 
 
-def scatter_fold_by_rank(idx: torch.Tensor, val: torch.Tensor,
-                         size: int) -> torch.Tensor:
+def scatter_fold_by_rank(idx: torch.Tensor, val: torch.Tensor, size: int,
+                         dtype=torch.float32) -> torch.Tensor:
     """The slot-order fold on any device, for in-range int64 ``idx``: each
     slot's rank among the earlier slots of its index (a stable sort), then
-    one pass per rank, each a plain add at distinct positions. Its passes
-    grow with the largest multiplicity of an index."""
-    out = torch.zeros(size, dtype=torch.float32, device=val.device)
+    one pass per rank, each a plain add at distinct positions, rounded to
+    ``dtype``. Its passes grow with the largest multiplicity of an index."""
+    out = torch.zeros(size, dtype=dtype, device=val.device)
+    val = val.to(dtype)
     n = idx.numel()
     if n == 0:
         return out

@@ -1,0 +1,395 @@
+"""Multi-pod dry run on the meta device — port of ``repro.launch.dryrun``.
+
+The one entry point of the port that needs no card: every step is built on
+PyTorch's ``meta`` device, where tensors have shapes and dtypes and no
+storage, so nothing is allocated and nothing runs on a GPU. For each
+(arch x input shape x mesh) combination this
+
+  1. builds the production layout (``make_production_mesh``: data 16 x
+     model 16, or pod 2 x data 16 x model 16) and its logical rules, with
+     the reference's ``long_500k`` rewrite (the idle batch axes fold into
+     the KV cache's sequence sharding);
+  2. resolves the parameter, input and (``--fl``) residual specs with
+     ``launch/shardings.param_specs`` and ``specs.input_pspecs``;
+  3. traces the step on meta tensors under
+     ``torch.utils.flop_counter.FlopCounterMode``;
+  4. writes ``<out>/<arch>__<shape>__<mesh>[__fl][__kvint8].json``
+     atomically, one record per combination.
+
+The port has no XLA compiler, so a record holds what the port can derive,
+and each block names its ``source``:
+
+* ``memory.argument_size_in_bytes``: the bytes one device holds of the
+  step's arguments (each leaf's shard shape under its spec; the reference's
+  ``memory_analysis`` field of that name counts the same buffers).
+  ``donated_argument_bytes`` are those the reference donates (train: the
+  parameters, and the residuals under ``--fl``; decode: the state). There is
+  no buffer assignment, so no output, alias or temp bytes.
+* ``cost.flops``: per device, the matmul-class FLOPs counted over the step
+  (train: ``train.value_and_grad`` at one call's rows, times the calls of
+  the step at the global batch: ``train.micro_batches`` microbatches, and
+  each participant under ``--fl``; prefill and decode: ``launch/serve``),
+  divided by ``n_devices`` as XLA's per-partition count is. The xLSTM's
+  sLSTM is a host loop a time step, so its train and prefill are counted at
+  two lengths and the count is carried to the shape's length along the
+  line through them (both lengths hold two or more mLSTM chunks, where the
+  count is affine in T).
+* ``collectives``: under ``--fl`` the exchange of the stream plan
+  (``train.fl_leaf_plan`` / ``fl_train.step_wire_record``: every stream
+  entry an int32 index and an f32 value, from every participant); the
+  collectives inside a participant, and every collective of the other steps,
+  would need the compiled program: ``total_bytes`` is null, with a reason.
+
+Usage::
+
+    python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k --mesh single
+    python -m repro_torch.launch.dryrun --all --mesh both
+    python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k --mesh pod --fl
+
+``benchmarks``' roofline port (``repro_torch.bench.paper.roofline``) reads
+the records.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import os
+import time
+import traceback
+
+import torch
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro_torch import configs, convert
+from repro_torch.core.types import SecureAggConfig, THGSConfig
+from repro_torch.launch import serve
+from repro_torch.launch import shardings as shd
+from repro_torch.launch import train
+from repro_torch.launch.mesh import logical_rules, make_production_mesh
+from repro_torch.launch.specs import (SHAPES, _state_leaves, arch_for_shape,
+                                      input_pspecs, input_specs, meta)
+from repro_torch.models import transformer as tf
+from repro_torch.models.sharding import P
+
+DEFAULT_OUT = "experiments/dryrun_torch"
+# the two lengths at which a recurrent stack (xLSTM) is counted: two and
+# three mLSTM chunks of 256 (one chunk has no inter-chunk products)
+RECURRENT_T = (512, 768)
+ROUND_KEY_BYTES = 8          # a threefry key: two uint32 words, replicated
+# the reference's FL dry-run THGS and mask ratio (repro/launch/dryrun.py)
+FL_THGS = THGSConfig(s0=0.01, alpha=0.9, s_min=0.001)
+FL_SA = SecureAggConfig(mask_ratio=0.01)
+
+_FLOP_SOURCE = (
+    "torch.utils.flop_counter.FlopCounterMode over the step on meta "
+    "tensors: matmul-class ops only (mm, addmm, bmm, baddbmm, "
+    "convolution, SDPA), elementwise work not counted (XLA's "
+    "cost_analysis counts it); attention as the plain version computes it, "
+    "every (query, key) product of the square, masked or not")
+_MEMORY_SOURCE = (
+    "the layout: each parameter, input and residual leaf's shard shape under "
+    "launch/shardings.param_specs and specs.input_pspecs on "
+    "make_production_mesh (FL residuals under P(fed_axis, *spec)); no "
+    "buffer assignment, so no output, alias or temp bytes")
+
+
+def shard_shape(shape, spec, axis_sizes: dict) -> tuple:
+    """One device's block of a ``shape`` array under ``spec``: each dim
+    divided by the product of its mesh axes (rounded up, as an uneven XLA
+    sharding pads)."""
+    out = []
+    for i, dim in enumerate(shape):
+        entry = spec[i] if i < len(spec) else None
+        axes = () if entry is None else (
+            entry if isinstance(entry, tuple) else (entry,))
+        n = math.prod(axis_sizes[a] for a in axes)
+        out.append(-(-int(dim) // n))
+    return tuple(out)
+
+
+def shard_bytes(shape, dtype, spec, axis_sizes: dict) -> int:
+    itemsize = torch.empty((), dtype=dtype, device="meta").element_size()
+    return math.prod(shard_shape(shape, spec, axis_sizes)) * itemsize
+
+
+def step_rules(mesh, shape, fed_axis: str | None) -> dict:
+    """``logical_rules`` with the reference's ``long_500k`` rewrite: a
+    batch of 1 carries no parallelism, so the idle batch axes fold into the
+    KV cache's sequence sharding."""
+    rules = logical_rules(mesh, fed_axis=fed_axis)
+    if shape.global_batch == 1:
+        batch_axes = rules["batch"] if isinstance(rules["batch"], tuple) \
+            else (rules["batch"],)
+        rules = {**rules,
+                 "kv_seq": tuple(a for a in batch_axes if a) + ("model",),
+                 "batch": None}
+    return rules
+
+
+def step_layout(cfg, shape, mesh, rules, fl: bool, model=None) -> dict:
+    """The step's arguments as ``{argument: [(path, shape, dtype, spec)]}``
+    in the reference's argument order (train: params, [residuals, round
+    key,] batch; prefill: params, tokens[, image embeds]; decode: params,
+    token, state)."""
+    model = tf.init_params(cfg, device="meta") if model is None else model
+    named = dict(model.named_parameters())
+    leaves = convert.reference_leaves(model)
+    pspecs = shd.param_specs({lf.path: lf.shape for lf in leaves}, rules,
+                             mesh)
+    params = [(lf.path, lf.shape, named[lf.names[0]].dtype, pspecs[lf.path])
+              for lf in leaves]
+    ins = input_specs(cfg, shape)
+    ispecs = input_pspecs(cfg, shape, rules)
+    if shape.kind == "train":
+        batch = [(f"batch.{k}", tuple(v.shape), v.dtype, ispecs["batch"][k])
+                 for k, v in ins["batch"].items()]
+        if not fl:
+            return {"params": params, "batch": batch}
+        fed_axis = "pod" if "pod" in mesh.axis_names else "data"
+        n_fed = mesh.shape[fed_axis]
+        residuals = [(f"residuals.{lf.path}", (n_fed,) + lf.shape,
+                      torch.bfloat16, P(fed_axis, *pspecs[lf.path]))
+                     for lf in leaves]
+        key = [("round_key", (ROUND_KEY_BYTES,), torch.uint8, P())]
+        return {"params": params, "residuals": residuals, "batch": batch,
+                "round_key": key}
+    if shape.kind == "prefill":
+        out = {"params": params,
+               "tokens": [("tokens", tuple(ins["tokens"].shape),
+                           ins["tokens"].dtype, ispecs["tokens"])]}
+        if cfg.family == "vlm":
+            out["image_embeds"] = [
+                ("image_embeds", tuple(ins["image_embeds"].shape),
+                 ins["image_embeds"].dtype, ispecs["image_embeds"])]
+        return out
+    state = _state_leaves(ins["state"])
+    return {"params": params,
+            "token": [("token", tuple(ins["token"].shape), ins["token"].dtype,
+                       ispecs["token"])],
+            "state": [(f"state.{i}", tuple(x.shape), x.dtype, s)
+                      for i, (x, s) in enumerate(zip(state,
+                                                     ispecs["state"]))]}
+
+
+def memory_summary(layout: dict, mesh, donate: tuple) -> dict:
+    sizes = mesh.shape
+    per_arg = {name: sum(shard_bytes(shp, dt, spec, sizes)
+                         for _, shp, dt, spec in leaves)
+               for name, leaves in layout.items()}
+    return {"argument_size_in_bytes": sum(per_arg.values()),
+            "donated_argument_bytes": sum(per_arg[a] for a in donate),
+            "argument_bytes_by_name": per_arg,
+            "source": _MEMORY_SOURCE}
+
+
+def _rows(tensors: dict, rows: int, t: int | None = None) -> dict:
+    """Meta stand-ins of ``tensors`` with ``rows`` rows (and ``t`` in place
+    of the sequence dim of the token-indexed ones)."""
+    out = {}
+    for k, v in tensors.items():
+        shp = (rows,) + tuple(v.shape[1:])
+        if t is not None and k != "image_embeds":
+            shp = (rows, t) + shp[2:]
+        out[k] = meta(shp, v.dtype)
+    return out
+
+
+def _count(fn) -> tuple[float, dict]:
+    fc = FlopCounterMode(display=False)
+    with fc:
+        fn()
+    by_op = {str(k): float(v)
+             for k, v in fc.get_flop_counts().get("Global", {}).items()}
+    return float(fc.get_total_flops()), by_op
+
+
+def _count_at(cfg, shape, model, rows: int, t: int) -> tuple[float, dict]:
+    """FLOPs of one call of the step at ``rows`` rows of length ``t``."""
+    if shape.kind == "train":
+        batch = _rows(input_specs(cfg, shape)["batch"], rows, t)
+        return _count(lambda: train.value_and_grad(model, cfg, batch))
+    ins = _rows(input_specs(cfg, shape), rows, t)
+    step = serve.make_prefill_step(cfg, cache_len=t)
+    return _count(lambda: step(model, ins["tokens"],
+                               ins.get("image_embeds")))
+
+
+def cost_summary(cfg, shape, model, mesh, fl: bool, n_params: int) -> dict:
+    """Counted FLOPs of the whole step, and per device."""
+    out = {"source": _FLOP_SOURCE}
+    if shape.kind == "decode":
+        ins = input_specs(cfg, shape)
+        step = serve.make_decode_step(cfg)
+        total, by_op = _count(lambda: step(model, ins["token"], ins["state"]))
+    else:
+        calls = (train.micro_batches(n_params) if shape.kind == "train"
+                 else 1)
+        if fl:      # each participant's rows, in its microbatches
+            calls *= mesh.shape["pod" if "pod" in mesh.axis_names
+                                else "data"]
+        rows = shape.global_batch // calls
+        if cfg.xlstm:
+            (t1, t2), T = RECURRENT_T, shape.seq_len
+            f1, by1 = _count_at(cfg, shape, model, rows, t1)
+            f2, by2 = _count_at(cfg, shape, model, rows, t2)
+
+            def line(a: float, b: float) -> float:
+                return a + (b - a) * (T - t1) / (t2 - t1)
+
+            total = line(f1, f2) * calls
+            by_op = {k: line(by1.get(k, 0.0), by2.get(k, 0.0)) * calls
+                     for k in sorted(set(by1) | set(by2))}
+            out["counted_at"] = [[t1, f1], [t2, f2]]
+            out["method"] = (
+                f"{rows} rows counted at T {t1} and {t2} (the sLSTM steps "
+                f"one time step a host call), carried to T {T} along the "
+                f"line through them, times {calls} call(s)")
+        else:
+            total, by_op = _count_at(cfg, shape, model, rows, shape.seq_len)
+            total *= calls
+            by_op = {k: v * calls for k, v in by_op.items()}
+            out["method"] = f"{rows} rows a call, times {calls} call(s)"
+        out["calls"] = calls
+    out.update(flops=total / mesh.size, flops_total=total,
+               flops_by_op=by_op)
+    return out
+
+
+def fl_exchange(mesh, n_fed: int, model) -> dict:
+    """The FL step's exchange from its static stream plan."""
+    from repro_torch.launch.fl_train import step_wire_record
+
+    sizes = [math.prod(lf.shape) for lf in convert.reference_leaves(model)]
+    n_blocks = mesh.size // n_fed
+    rec = step_wire_record(0, sizes, FL_THGS, FL_SA, n_fed, n_blocks)
+    entries = rec.upload_bits // 64
+    return {"total_bytes": None,
+            "stream_exchange_bytes": entries * 8,
+            "stream_entries": entries, "participants": n_fed,
+            "blocks_per_participant": n_blocks,
+            "upload_vs_dense": rec.upload_bits / rec.dense_upload_bits,
+            "source": (
+                "train.fl_leaf_plan / fl_train.step_wire_record: every "
+                "participant's stream entries (top-k and mask slots, an int32 "
+                "index and an f32 value each); total_bytes null: the "
+                "collectives inside a participant (FSDP, tensor parallel) "
+                "need the compiled program")}
+
+
+def _no_collectives() -> dict:
+    return {"total_bytes": None,
+            "source": ("no compiled program: the reference parses its "
+                       "collectives from XLA's HLO, which the port does not "
+                       "have")}
+
+
+def _write(rec: dict, out_dir: str, tag: str) -> None:
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, tag + ".json")
+    with open(path + ".tmp", "w") as f:
+        json.dump(rec, f, indent=1, default=str)
+    os.replace(path + ".tmp", path)
+
+
+def run_one(arch: str, shape_name: str, mesh_kind: str, fl: bool = False,
+            out_dir: str = DEFAULT_OUT, kv_int8: bool = False) -> dict:
+    cfg = configs.get(arch)
+    if kv_int8:
+        cfg = dataclasses.replace(cfg, kv_dtype="int8")
+    shape = SHAPES[shape_name]
+    if not cfg.supports_shape(shape_name):
+        rec = {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
+               "status": "skipped", "reason": "encoder-only: no decode step"}
+        _write(rec, out_dir, f"{arch}__{shape_name}__{mesh_kind}")
+        return rec
+    mesh = make_production_mesh(multi_pod=(mesh_kind == "pod"),
+                                device="meta")
+    rec = {"arch": arch, "shape": shape_name, "mesh": mesh_kind, "fl": fl,
+           "kv_int8": kv_int8, "n_devices": int(mesh.size)}
+    t0 = time.perf_counter()
+    try:
+        fed_axis = (("pod" if "pod" in mesh.axis_names else "data")
+                    if fl else None)
+        rules = step_rules(mesh, shape, fed_axis)
+        cfg = arch_for_shape(cfg, shape)
+        model = tf.init_params(cfg, device="meta")
+        n_params = tf.param_count(model)
+        fl_train = fl and shape.kind == "train"
+        layout = step_layout(cfg, shape, mesh, rules, fl_train, model)
+        # the reference donates mutable state: the decode its caches, a
+        # train step its params (+ residuals)
+        donate = {"decode": ("state",),
+                  "train": ("params", "residuals") if fl_train
+                  else ("params",)}.get(shape.kind, ())
+        memory = memory_summary(layout, mesh, donate)
+        build_s = time.perf_counter() - t0
+        cost = cost_summary(cfg, shape, model, mesh, fl_train, n_params)
+        collectives = (fl_exchange(mesh, mesh.shape[fed_axis], model)
+                       if fl_train else _no_collectives())
+        rec.update(
+            status="ok", lower_s=None, compile_s=None,
+            build_s=round(build_s, 2),
+            count_s=round(time.perf_counter() - t0 - build_s, 2),
+            n_params=n_params, memory=memory, cost=cost,
+            collectives=collectives)
+    except Exception as e:  # a record says what failed; the CLI goes on
+        rec.update(status="fail", error=f"{type(e).__name__}: {e}",
+                   traceback=traceback.format_exc()[-4000:])
+    tag = (f"{arch}__{shape_name}__{mesh_kind}" + ("__fl" if fl else "")
+           + ("__kvint8" if kv_int8 else ""))
+    _write(rec, out_dir, tag)
+    return rec
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.launch.dryrun",
+        description="Build every (arch x shape x mesh) step on the meta "
+                    "device and record its layout bytes and counted FLOPs "
+                    "(no card needed).")
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None, choices=list(SHAPES))
+    ap.add_argument("--mesh", default="single",
+                    choices=["single", "pod", "both"])
+    ap.add_argument("--fl", action="store_true",
+                    help="the THGS + secure-aggregation federated train "
+                         "step")
+    ap.add_argument("--kv-int8", action="store_true",
+                    help="int8 KV cache variant")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--out", default=DEFAULT_OUT)
+    args = ap.parse_args(argv)
+
+    archs = configs.all_archs() if (args.all or not args.arch) \
+        else [args.arch]
+    shapes = list(SHAPES) if (args.all or not args.shape) else [args.shape]
+    meshes = ["single", "pod"] if args.mesh == "both" else [args.mesh]
+
+    n_fail = 0
+    for arch in archs:
+        for shape in shapes:
+            for mk in meshes:
+                rec = run_one(arch, shape, mk, fl=args.fl, out_dir=args.out,
+                              kv_int8=args.kv_int8)
+                status = rec["status"]
+                extra = ""
+                if status == "ok":
+                    arg = rec["memory"]["argument_size_in_bytes"]
+                    col = rec["collectives"].get("stream_exchange_bytes")
+                    extra = (f" args/dev={arg / 2**30:.2f}GiB "
+                             f"flops/dev={rec['cost']['flops']:.4e} "
+                             + (f"exchange={col / 2**30:.2f}GiB "
+                                if col is not None else "coll=n/a ")
+                             + f"count={rec['count_s']:.0f}s")
+                elif status == "fail":
+                    n_fail += 1
+                    extra = " " + rec["error"][:160]
+                print(f"[{status:7s}] {arch:24s} {shape:12s} {mk:6s}"
+                      f"{' fl' if args.fl else '':3s}{extra}", flush=True)
+    return 1 if n_fail else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -107,6 +107,14 @@ def default_tree_groups(cohort_size: int) -> int:
 # per card, for roofline bounds.
 PEAK_FLOPS_BF16 = 989e12     # FLOP/s
 HBM_BW = 3.35e12             # bytes/s
+# NVLink 4 inside a node of 8 (H100 SXM data sheet: 900 GB/s a card, both
+# directions): 450 GB/s a direction.
+NVLINK_BW = 450e9            # bytes/s per card
+# Between nodes (DGX H100 data sheet: eight 400 Gb/s ConnectX-7 ports for
+# eight cards): 50 GB/s a direction per card. The production meshes' 256 /
+# 512 positions span 32 / 64 nodes, and a collective over the data or pod
+# axis crosses nodes, so the roofline's collective term takes this figure.
+INTER_NODE_BW = 50e9         # bytes/s per card
 
 
 class LogicalMesh:

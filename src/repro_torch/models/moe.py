@@ -130,7 +130,11 @@ def apply_moe(p: Params, x: torch.Tensor, spec: MoESpec) -> MoEOut:
 
     # load-balance aux loss (mean prob * fraction routed, Switch-style)
     me = probs.mean((0, 1))                                   # [E]
-    ce = torch.bincount(eidx.reshape(-1), minlength=e).float() / (b * t * k)
+    # the routed count per expert as an integer scatter (``bincount`` has
+    # no meta-device kernel, and the dry run traces this layer there)
+    flat_e = eidx.reshape(-1)
+    ce = torch.zeros(e, dtype=torch.int64, device=x.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e)).float() / (b * t * k)
     aux = spec.router_aux_weight * e * torch.sum(me * ce)
 
     cap = capacity(t, spec)

@@ -24,12 +24,6 @@ TOPOLOGIES = ("flat", "tree")
 MODES = ("sync", "async")
 
 
-def _not_ported(what: str, slice_: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet; it comes with {slice_} "
-        "(ROADMAP.md, Queue 1)")
-
-
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
     """Everything a ``repro_torch.sim.Simulation`` needs, as one record
@@ -183,12 +177,8 @@ class SimConfig:
         elif self.buffer_size:
             raise ValueError("buffer_size is only meaningful with "
                              "mode='async'")
-        # what the port refuses, and the slice that brings it
         if self.thgs is not None:
             self.thgs.validate()
-            if self.thgs.selector != "exact":
-                raise _not_ported(f"selector {self.thgs.selector!r}",
-                                  "slice I (the datacenter layer)")
 
     def replace(self, **kw) -> "SimConfig":
         return dataclasses.replace(self, **kw)

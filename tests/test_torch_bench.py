@@ -330,10 +330,29 @@ def test_encode_leaf_bit_exact(case, k, with_mask):
     np.testing.assert_array_equal(_bits(got.residual), _bits(want.residual))
 
 
-def test_encode_leaf_refuses_unported_selectors():
-    g = torch.zeros(10)
-    with pytest.raises(NotImplementedError, match="slice I2"):
-        tsa.encode_leaf(g, g, 3, ttypes.THGSConfig(selector="sampled"), None)
+@pytest.mark.parametrize("selector", ["sampled", "local"])
+def test_encode_leaf_refuses_unported_selectors(selector):
+    """No selector is refused any more: 'sampled' and 'local' encode a leaf
+    (with the client's masks, at a size where the sample is strided) bit
+    for bit as the reference's."""
+    rs = np.random.RandomState(5)
+    g = rs.randn(60, 50).astype(np.float32)
+    r = (0.1 * rs.randn(60, 50)).astype(np.float32)
+    size = g.size
+    ja = jtypes.SecureAggConfig(mask_ratio=0.05, seed=9)
+    ta = ttypes.SecureAggConfig(mask_ratio=0.05, seed=9)
+    jmask = jmasks.client_masks(ja, 1, [0, 1, 2, 3], 0, 0, size, 40)
+    tmask = tmasks.client_masks(ta, 1, [0, 1, 2, 3], 0, 0, size, 40,
+                                device="cpu")
+    want = jsa.encode_leaf(jnp.asarray(g), jnp.asarray(r), 30,
+                           jtypes.THGSConfig(selector=selector), jmask)
+    got = tsa.encode_leaf(torch.from_numpy(g), torch.from_numpy(r), 30,
+                          ttypes.THGSConfig(selector=selector), tmask)
+    np.testing.assert_array_equal(got.stream.indices.numpy(),
+                                  np.asarray(want.stream.indices))
+    np.testing.assert_array_equal(_bits(got.stream.values),
+                                  _bits(want.stream.values))
+    np.testing.assert_array_equal(_bits(got.residual), _bits(want.residual))
 
 
 # ----------------------------------------------------------- no JAX inside

@@ -1,0 +1,318 @@
+"""Port parity: the dry run on the meta device (``launch/dryrun.py``) and the
+roofline over its records (``bench/paper/roofline.py``) against
+``repro.launch.dryrun`` and the repo-root ``benchmarks/roofline.py``.
+
+* the roofline's formulas equal the reference's for every arch x shape;
+* every parameter and input leaf's spec and shard shape equal the
+  reference's (``launch/shardings.param_specs``, ``specs.input_pspecs``,
+  ``NamedSharding(mesh, spec).shard_shape`` on an abstract mesh of the
+  production sizes), the decode state's bytes a device equal the
+  reference's stacked state's, and the ``long_500k`` rule rewrite;
+* the record's keys and the skip record are the reference's;
+* one full-size Yi-6B ``train_4k`` record, and its FL twin on the
+  multi-pod mesh, on meta in seconds;
+* the roofline CSV through the bench CLI without a card, and the tables;
+* neither module loads ``jax``.
+"""
+import ast
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+import types
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax  # noqa: E402
+from jax.sharding import AbstractMesh, NamedSharding  # noqa: E402
+from jax.sharding import PartitionSpec as JP  # noqa: E402
+
+from repro import configs as jconfigs  # noqa: E402
+from repro.launch import mesh as jmesh  # noqa: E402
+from repro.launch import shardings as jshd  # noqa: E402
+from repro.launch import specs as jspecs  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.bench.__main__ import main as bench_main  # noqa: E402
+from repro_torch.bench.paper import experiments_tables, roofline  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch import specs as tspecs  # noqa: E402
+from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+if str(ROOT) not in sys.path:      # the repo-root ``benchmarks`` package
+    sys.path.insert(0, str(ROOT))
+
+from benchmarks import roofline as jroof  # noqa: E402
+
+ENV = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+       "OMP_NUM_THREADS": "1"}
+ARCHS = tconfigs.all_archs()
+SHAPES = list(tspecs.SHAPES)
+MESHES = {"single": ((16, 16), ("data", "model")),
+          "pod": ((2, 16, 16), ("pod", "data", "model"))}
+_N_PARAMS: dict = {}
+
+
+def _n_params(arch: str, shape: str) -> int:
+    key = (arch, shape)
+    if key not in _N_PARAMS:
+        cfg = tspecs.arch_for_shape(tconfigs.get(arch), tspecs.SHAPES[shape])
+        _N_PARAMS[key] = roofline.meta_param_count(cfg)
+    return _N_PARAMS[key]
+
+
+def _cfgs(arch: str, shape: str):
+    t = tspecs.arch_for_shape(tconfigs.get(arch), tspecs.SHAPES[shape])
+    j = jspecs.arch_for_shape(jconfigs.get(arch), jspecs.SHAPES[shape])
+    return t, j
+
+
+# ------------------------------------------------------------ the roofline
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_roofline_formulas_equal_reference(arch, shape):
+    tcfg, jcfg = _cfgs(arch, shape)
+    ts, js = tspecs.SHAPES[shape], jspecs.SHAPES[shape]
+    n = _n_params(arch, shape)
+    assert roofline.active_params(tcfg, n) == jroof.active_params(jcfg, n)
+    assert roofline.model_flops(tcfg, ts, n) == jroof.model_flops(jcfg, js,
+                                                                  n)
+    for fl in (False, True):
+        assert (roofline.analytic_hbm_bytes(tcfg, ts, n, fl)
+                == jroof.analytic_hbm_bytes(jcfg, js, n, fl))
+    assert roofline.n_micro_for(n) == jroof.n_micro_for(n)
+    assert roofline.scan_correction(tcfg, ts, n) == 1.0
+
+
+# ---------------------------------------------------------------- the layout
+def _ref_mesh(kind: str):
+    shape, axes = MESHES[kind]
+    # the reference's param_specs reads axis_names and devices.shape
+    fake = types.SimpleNamespace(axis_names=axes,
+                                 devices=np.empty(shape, dtype=object))
+    return fake, AbstractMesh(shape, axes)
+
+
+def _nested(flat: dict) -> dict:
+    tree: dict = {}
+    for path, leaf in flat.items():
+        node = tree
+        *keys, last = path.split(".")
+        for k in keys:
+            node = node.setdefault(k, {})
+        node[last] = leaf
+    return tree
+
+
+def _flat_specs(tree) -> dict:
+    return {".".join(k.key for k in path): spec
+            for path, spec in jax.tree_util.tree_flatten_with_path(
+                tree, is_leaf=lambda x: isinstance(x, JP))[0]}
+
+
+@pytest.mark.parametrize("mesh_kind", ["single", "pod"])
+@pytest.mark.parametrize("arch", ["yi_6b", "deepseek_moe_16b", "zamba2_7b",
+                                  "llama32_vision_90b", "xlstm_125m",
+                                  "hubert_xlarge", "llama4_scout_17b_a16e"])
+def test_param_shard_shapes_equal_reference(arch, mesh_kind):
+    fake, amesh = _ref_mesh(mesh_kind)
+    sizes = dict(zip(MESHES[mesh_kind][1], MESHES[mesh_kind][0]))
+    shape = tspecs.SHAPES["train_4k"]
+    tcfg, jcfg = _cfgs(arch, "train_4k")
+    tmesh = make_production_mesh(multi_pod=mesh_kind == "pod",
+                                 device="meta")
+    trules = dryrun.step_rules(tmesh, shape, None)
+    jrules = jmesh.logical_rules(fake)
+    assert trules == jrules
+    layout = dryrun.step_layout(tcfg, shape, tmesh, trules, False)
+    leaves = {p: s for p, s, _, _ in layout["params"]}
+    ref_tree = _nested({p: jax.ShapeDtypeStruct(s, np.float32)
+                        for p, s in leaves.items()})
+    ref_specs = _flat_specs(jshd.param_specs(ref_tree, jrules, fake))
+    assert set(ref_specs) == set(leaves)
+    for path, shp, _, spec in layout["params"]:
+        assert tuple(spec) == tuple(ref_specs[path]), path
+        want = NamedSharding(amesh, ref_specs[path]).shard_shape(shp)
+        assert dryrun.shard_shape(shp, spec, sizes) == tuple(want), path
+
+
+@pytest.mark.parametrize("mesh_kind", ["single", "pod"])
+@pytest.mark.parametrize("arch,shape", [("yi_6b", "train_4k"),
+                                        ("hubert_xlarge", "prefill_32k"),
+                                        ("llama32_vision_90b", "train_4k"),
+                                        ("llama32_vision_90b", "prefill_32k"),
+                                        ("yi_6b", "decode_32k"),
+                                        ("yi_6b", "long_500k"),
+                                        ("zamba2_7b", "decode_32k"),
+                                        ("xlstm_125m", "decode_32k"),
+                                        ("deepseek_moe_16b", "long_500k")])
+def test_input_bytes_equal_reference(arch, shape, mesh_kind):
+    """Inputs' specs (train, prefill) and the bytes a device holds of every
+    input, the decode state included (the port's state is one cache a
+    layer, the reference's stacked: the bytes agree)."""
+    fake, amesh = _ref_mesh(mesh_kind)
+    sizes = dict(zip(MESHES[mesh_kind][1], MESHES[mesh_kind][0]))
+    ts = tspecs.SHAPES[shape]
+    tcfg, jcfg = _cfgs(arch, shape)
+    tmesh = make_production_mesh(multi_pod=mesh_kind == "pod",
+                                 device="meta")
+    trules = dryrun.step_rules(tmesh, ts, None)
+    jrules = jmesh.logical_rules(fake)
+    if ts.global_batch == 1:     # the reference's run_one rewrite
+        b = jrules["batch"] if isinstance(jrules["batch"], tuple) \
+            else (jrules["batch"],)
+        jrules = {**jrules, "kv_seq": tuple(a for a in b if a) + ("model",),
+                  "batch": None}
+    assert trules == jrules
+    layout = dryrun.step_layout(tcfg, ts, tmesh, trules, False)
+    got = sum(dryrun.shard_bytes(s, dt, spec, sizes)
+              for name, leaves in layout.items() if name != "params"
+              for _, s, dt, spec in leaves)
+    jins = jspecs.input_specs(jcfg, jspecs.SHAPES[shape])
+    jps = jspecs.input_pspecs(jcfg, jspecs.SHAPES[shape], jrules)
+    want = 0
+    for (_, leaf), (_, spec) in zip(
+            jax.tree_util.tree_flatten_with_path(jins)[0],
+            jax.tree_util.tree_flatten_with_path(
+                jps, is_leaf=lambda x: isinstance(x, JP))[0]):
+        blk = NamedSharding(amesh, spec).shard_shape(leaf.shape)
+        want += math.prod(blk) * np.dtype(leaf.dtype).itemsize
+    assert got == want
+    if ts.kind != "decode":
+        tps = tspecs.input_pspecs(tcfg, ts, trules)
+        flat = (tps["batch"] if ts.kind == "train" else tps)
+        jflat = (jps["batch"] if ts.kind == "train" else jps)
+        assert {k: tuple(v) for k, v in flat.items()} == \
+            {k: tuple(v) for k, v in jflat.items()}
+
+
+# ----------------------------------------------------------------- records
+def _ref_record_keys() -> set:
+    """The keys ``repro/launch/dryrun.py::run_one`` gives a record of
+    status ok: its first dict literal's and ``rec.update``'s keywords."""
+    tree = ast.parse((ROOT / "src/repro/launch/dryrun.py").read_text())
+    fn = next(n for n in tree.body
+              if isinstance(n, ast.FunctionDef) and n.name == "run_one")
+    keys = set()
+    for node in ast.walk(fn):
+        if (isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict)
+                and any(isinstance(t, ast.Name) and t.id == "rec"
+                        for t in node.targets)
+                and any(isinstance(k, ast.Constant) and k.value == "fl"
+                        for k in node.value.keys)):
+            keys |= {k.value for k in node.value.keys}
+        if (isinstance(node, ast.Call)
+                and isinstance(node.func, ast.Attribute)
+                and node.func.attr == "update"
+                and any(kw.arg == "memory" for kw in node.keywords)):
+            keys |= {kw.arg for kw in node.keywords}
+    return keys
+
+
+def test_skip_record_equals_reference(tmp_path):
+    code = ("import json, sys\n"
+            "from repro.launch import dryrun\n"
+            "rec = dryrun.run_one('hubert_xlarge', 'decode_32k', 'single', "
+            "out_dir=sys.argv[1])\n"
+            "print(json.dumps(rec))\n")
+    p = subprocess.run([sys.executable, "-c", code, str(tmp_path / "ref")],
+                       capture_output=True, text=True, env=ENV,
+                       timeout=300)
+    assert p.returncode == 0, p.stderr[-2000:]
+    want = json.loads(p.stdout.strip().splitlines()[-1])
+    got = dryrun.run_one("hubert_xlarge", "decode_32k", "single",
+                         out_dir=str(tmp_path / "port"))
+    assert got == want
+    assert sorted(os.listdir(tmp_path / "port")) == sorted(
+        os.listdir(tmp_path / "ref")) == ["hubert_xlarge__decode_32k__single"
+                                          ".json"]
+
+
+def test_yi6b_train_records_on_meta(tmp_path):
+    """A full-size Yi-6B train_4k record in seconds, with the reference's
+    keys; its FLOP count is the global batch's; the FL twin on the
+    multi-pod mesh adds the residuals, the round key and the exchange."""
+    t0 = time.perf_counter()
+    rec = dryrun.run_one("yi_6b", "train_4k", "single",
+                         out_dir=str(tmp_path))
+    assert time.perf_counter() - t0 < 30
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert _ref_record_keys() <= set(rec)
+    assert json.loads((tmp_path / "yi_6b__train_4k__single.json")
+                      .read_text()) == json.loads(json.dumps(rec))
+    assert not list(tmp_path.glob("*.tmp"))
+    n = _n_params("yi_6b", "train_4k")
+    assert rec["n_params"] == n == 6061035520
+    cost = rec["cost"]
+    assert cost["calls"] == 2 and cost["flops"] * 256 == cost["flops_total"]
+    # above 6 N D: remat recompute and the full attention square
+    assert 1.2 < cost["flops_total"] / (6 * n * 256 * 4096) < 1.6
+    mem = rec["memory"]
+    by = mem["argument_bytes_by_name"]
+    assert mem["argument_size_in_bytes"] == sum(by.values())
+    assert mem["donated_argument_bytes"] == by["params"]
+    assert by["batch"] == 2 * (256 // 16) * 4096 * 4   # tokens, labels
+    assert rec["collectives"]["total_bytes"] is None
+    assert {"source"} <= set(mem) & set(cost) & set(rec["collectives"])
+
+    fl = dryrun.run_one("yi_6b", "train_4k", "pod", fl=True,
+                        out_dir=str(tmp_path))
+    assert fl["status"] == "ok", fl.get("traceback")
+    assert (tmp_path / "yi_6b__train_4k__pod__fl.json").exists()
+    by = fl["memory"]["argument_bytes_by_name"]
+    assert by["round_key"] == 8 and by["residuals"] > 0
+    assert fl["memory"]["donated_argument_bytes"] == (by["params"]
+                                                      + by["residuals"])
+    assert fl["cost"]["calls"] == 4
+    assert fl["cost"]["flops_total"] == pytest.approx(cost["flops_total"],
+                                                      rel=1e-12)
+    col = fl["collectives"]
+    assert col["total_bytes"] is None and col["participants"] == 2
+    assert col["stream_exchange_bytes"] == 8 * col["stream_entries"]
+    assert col["upload_vs_dense"] == pytest.approx(0.020386, abs=5e-6)
+
+
+def test_fl_on_the_single_mesh_fails_with_a_reason(tmp_path):
+    """The single pod's federation axis is ``data``, which leaves no batch
+    axis: the reference's rules raise there, and the record says so."""
+    rec = dryrun.run_one("yi_6b", "train_4k", "single", fl=True,
+                         out_dir=str(tmp_path))
+    assert rec["status"] == "fail" and "IndexError" in rec["error"]
+
+
+def test_roofline_csv_without_a_card_and_tables(tmp_path, monkeypatch,
+                                                capsys):
+    out = tmp_path / "experiments" / "dryrun_torch"
+    dryrun.run_one("deepseek_moe_16b", "decode_32k", "single",
+                   out_dir=str(out))
+    dryrun.run_one("hubert_xlarge", "long_500k", "pod", out_dir=str(out))
+    monkeypatch.chdir(tmp_path)
+    assert bench_main(["--csv", "--only", "roofline"]) == 0
+    rows = capsys.readouterr().out.strip().splitlines()
+    assert rows[0] == "name,us_per_call,derived"
+    assert [r.split(",")[0] for r in rows[1:]] == [
+        "roofline/deepseek_moe_16b/decode_32k/single"]
+    assert "t_collective=n/a;bottleneck=memory" in rows[1]
+    assert experiments_tables.main(["--dir", str(out)]) == 0
+    md = capsys.readouterr().out
+    assert "built OK: **1**, structural skips: 1" in md
+    assert "| deepseek_moe_16b | decode_32k |" in md
+
+
+def test_dryrun_and_roofline_import_no_jax():
+    code = ("import sys\n"
+            "import repro_torch.launch.dryrun, repro_torch.bench.paper."
+            "roofline, repro_torch.bench.paper.experiments_tables\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or m == "
+            "'repro' or m.startswith(('jax.', 'repro.')))\n"
+            "assert not bad, bad\n")
+    p = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=ENV, timeout=300)
+    assert p.returncode == 0, p.stderr[-2000:]
