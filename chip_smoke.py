@@ -271,6 +271,18 @@ exits non-zero and no failure is caught:
      synchronized around each leaf's encode); round 0's sampled encode of a
      512x512x3x3 leaf replayed on the CPU from the same accumulators,
      bit-equal. The first sampled runs' launches join the kernel table's.
+ 20. secagg_demo (run after 19): the secure-aggregation walkthrough
+     (``python -m repro_torch.secagg.demo``, the reference's
+     ``examples/secure_aggregation_demo.py``: n 4096, banks 0-2, seed 2024)
+     on the card, counts reset just before and read just after (the
+     pair-mask kernel for the encode's masks and the recovery masks, the
+     scatter for each of the three decodes), then on the CPU: its facts
+     printed; the streams (indices and values) and the three decoded sums
+     (round, no recovery, recovery) card == CPU bit-equal; the exactness
+     and recovered errors below ``DEMO_ERR_TOL``; the integer facts (slots,
+     masked slots, shares, bytes) equal. The scatter at the round decode's
+     stream and the flat pair-mask call at the encode's 6 pairs against
+     their plain versions, timed; the launches join the kernel table's.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. ``--only flash`` runs phases 1 and 10
@@ -284,7 +296,9 @@ and the mask path probe the same way (on the parent of the round launch, a
 round is timed as its per-leaf flat launches); ``--only sharded`` runs
 phases 1 and 14, ``--only bench`` phases 1 and 15, ``--only families``
 phases 1 and 16, ``--only train`` phases 1 and 17, ``--only fl_train``
-phases 1 and 18, ``--only selectors`` phases 1 and 19. Without a CUDA device, or outside a checkout, it exits
+phases 1 and 18, ``--only selectors`` phases 1 and 19, ``--only
+secagg_demo`` phases 1 and 20. Without a CUDA device, or outside a
+checkout, it exits
 non-zero and prints no result.
 """
 from __future__ import annotations
@@ -2770,18 +2784,27 @@ def train_parity(card: str) -> None:
 
 
 def train_flops(cfg, n_params: int, B: int, T: int) -> dict:
-    """A step's floating-point operations: 6 N tokens (N every parameter,
-    the embedding table included), the remat's second forward of the blocks
-    and the head (2 per parameter a token), and ``attend``'s score and PV
+    """A step's floating-point operations, as ``FlopCounterMode`` counts
+    the step on the meta device (``launch/dryrun.py``; held within 1% by
+    ``tests/test_torch_dryrun.py``): 6 N tokens, N every parameter but the
+    embedding table (a gather, no product); the block checkpoints' second
+    forward of every block product but the MLP's ``wo``, whose output no
+    backward needs (the recompute stops at the last saved input), and the
+    head's (2 per parameter a token); and ``attend``'s score and PV
     products over the full [T, T] square it computes before masking: a
-    forward, two recomputes (block and chunk) and a backward of twice the
-    forward."""
+    forward, its recompute and a backward of twice the forward, 4 forward
+    squares, and half a square more where ``attend_chunked`` splits T into
+    query chunks under checkpoints of their own."""
+    from repro_torch.models.attention import CHUNK_Q
+
     tokens = B * T
-    outside = cfg.vocab * cfg.d_model + cfg.d_model          # embed, norm
+    embed = cfg.vocab * cfg.d_model
+    outside = embed + cfg.d_model                            # embed, norm
+    mlp_wo = cfg.d_ff * cfg.d_model * cfg.n_layers
     attn_fwd = 4 * B * T * T * cfg.n_heads * cfg.hd * cfg.n_layers
-    out = {"model": 6 * n_params * tokens,
-           "recompute": 2 * (n_params - outside) * tokens,
-           "attention": 5 * attn_fwd}
+    out = {"model": 6 * (n_params - embed) * tokens,
+           "recompute": 2 * (n_params - outside - mlp_wo) * tokens,
+           "attention": (4.5 if T > CHUNK_Q else 4.0) * attn_fwd}
     out["total"] = sum(out.values())
     return out
 
@@ -4861,6 +4884,70 @@ def selectors_phase(kind: str, card: str, device) -> dict:
     return counts
 
 
+# ----------------------------------------------------------------- phase 20
+DEMO_ERR_TOL = 1e-5      # facts 3 and 4 (the reference prints 2.38e-07)
+DEMO_INT_FACTS = ("n", "k", "k_mask", "dh_secret", "dh_secret_other", "t",
+                  "n_phase1_shares", "slots", "masked_slots", "clear_slots",
+                  "n_recovery_shares", "sparse_bytes", "share_bytes",
+                  "dense_bytes")
+
+
+def secagg_demo_phase(kind: str, device) -> tuple[dict, dict]:
+    """The secure-aggregation walkthrough (``repro_torch.secagg.demo``) on
+    the card, counts reset just before and read just after, then on the
+    CPU: both kernels launched, streams and the three decoded sums
+    bit-equal, facts 3 and 4 below ``DEMO_ERR_TOL``, the integer facts
+    equal; then the scatter at the round decode's stream and the flat
+    pair-mask call at the encode's 6 pairs against their plain versions,
+    timed. Returns (the counts, the kernel rows)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.secagg import demo
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    card = demo.run("cuda")
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    plain = demo.run("cpu")
+    print("[secagg_demo] " + demo.report(card).replace("\n", "\n[secagg_demo] "),
+          flush=True)
+    same = {name: bits_equal(card[name], plain[name])
+            for name in ("indices", "values", "dense", "dense_drop",
+                         "dense_no_recovery")}
+    ints = {name: (card[name], plain[name]) for name in DEMO_INT_FACTS}
+    print(f"[secagg_demo] on {kind}: launches={counts} card == CPU "
+          f"bit-equal {same}; exact err {card['exact_err']:.3e} (CPU "
+          f"{plain['exact_err']:.3e}), no recovery {card['no_recovery_err']:.4f}"
+          f", recovered {card['recovered_err']:.3e} (CPU "
+          f"{plain['recovered_err']:.3e}); integer facts equal "
+          f"{all(a == b for a, b in ints.values())}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for name in ("stream_scatter_add", "pair_mask_streams"):
+        check(counts[name] > 0, f"the walkthrough never launched {name}")
+    check(all(same.values()), f"card != CPU in the walkthrough: {same}")
+    check(card["exact_err"] < DEMO_ERR_TOL and
+          card["recovered_err"] < DEMO_ERR_TOL,
+          f"walkthrough errors {card['exact_err']:.3e} / "
+          f"{card['recovered_err']:.3e} not below {DEMO_ERR_TOL}")
+    check(all(a == b for a, b in ints.values()),
+          f"walkthrough facts differ card vs CPU: "
+          f"{ {k: v for k, v in ints.items() if v[0] != v[1]} }")
+    # the kernels at the walkthrough's shapes against their plain versions
+    n = card["n"]
+    it = card["indices"].reshape(-1).to(device)
+    vt = card["values"].reshape(-1).to(device)
+    _, err = scatter_check("secagg_demo round decode", it, vt, n)
+    scatter = dict(scatter_row("secagg_demo round decode", it, vt, n,
+                               device), max_abs_err=err)
+    masks = flat_mask_rows([("secagg_demo", n, card["k"], card["k_mask"],
+                             len(demo.BANKS))], device)
+    return counts, {"stream_scatter_add": [scatter],
+                    "pair_mask_streams": masks}
+
+
 def main() -> int:
     import argparse
 
@@ -4869,13 +4956,15 @@ def main() -> int:
                                  "docstring).")
     ap.add_argument("--only",
                     choices=["flash", "pack", "masks", "sharded", "bench",
-                             "families", "train", "fl_train", "selectors"],
+                             "families", "train", "fl_train", "selectors",
+                             "secagg_demo"],
                     help="run the device and build phases and then [flash] "
                     "(the HGMMA count printed, not required), the bit-pack "
                     "kernels' checks and times and one codec_wire_roundtrip "
                     "probe, the pair-mask kernel's flat and round rows "
                     "and one round's mask path probe, [sharded], [bench], "
-                    "[families], [train], [fl_train] or [selectors] "
+                    "[families], [train], [fl_train], [selectors] or "
+                    "[secagg_demo] "
                     "alone, with no "
                     "result line: a "
                     "kernel's "
@@ -4965,6 +5054,11 @@ def main() -> int:
     if args.only == "selectors":
         selectors_phase(kind, card, device)
         print(f"[done] --only selectors passed in "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
+    if args.only == "secagg_demo":
+        secagg_demo_phase(kind, device)
+        print(f"[done] --only secagg_demo passed in "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
         return 0
     if args.only == "sharded":
@@ -5168,6 +5262,11 @@ def main() -> int:
     # ----------------------------------------------------- 19. selectors
     sel_counts = selectors_phase(kind, card, device)
 
+    # --------------------------------------------------- 20. secagg_demo
+    demo_counts, demo_rows = secagg_demo_phase(kind, device)
+    for name, extra in demo_rows.items():
+        rows[name] += extra
+
     # ------------------------------------------------------------ report
     sources = {"stream_scatter_add": ("src/repro_torch/kernels/csrc/"
                                       "stream_scatter_add.cu",
@@ -5191,7 +5290,8 @@ def main() -> int:
     # each kernel's launches come from the path that runs it: table2_quick
     # and the sharded parity runs for the scatter and the masks (the
     # scatter also the federated Yi-6B steps of [fl_train]; both also the
-    # sampled runs of [selectors]), codec_sweep_quick and its sharded int8 arm for the bit packing, the
+    # sampled runs of [selectors] and the walkthrough of [secagg_demo]),
+    # codec_sweep_quick and its sharded int8 arm for the bit packing, the
     # served Yi-6B and the families' first prefills for the flash
     # attention; no reference path calls the THGS split or the dense mask
     # apply, whose path is the public ops API (the [kernels] phase's ops
@@ -5200,10 +5300,12 @@ def main() -> int:
                 "stream_scatter_add": (main_counts["stream_scatter_add"]
                                        + sharded_counts["stream_scatter_add"]
                                        + fl_counts["stream_scatter_add"]
-                                       + sel_counts["stream_scatter_add"]),
+                                       + sel_counts["stream_scatter_add"]
+                                       + demo_counts["stream_scatter_add"]),
                 "pair_mask_streams": (main_counts["pair_mask_streams"]
                                       + sharded_counts["pair_mask_streams"]
-                                      + sel_counts["pair_mask_streams"]),
+                                      + sel_counts["pair_mask_streams"]
+                                      + demo_counts["pair_mask_streams"]),
                 **{n: codec_counts[n] + sharded_counts[n]
                    for n in ("bitpack_rows", "bitunpack_rows")},
                 "flash_attention": (lm_counts["flash_attention"]

@@ -11,9 +11,11 @@ For each (arch x shape x mesh) record of ``launch/dryrun.py`` in
 on one H100 SXM a position (``launch/mesh.py``: the NVIDIA data sheets).
 The collective term takes the inter-node rate, not NVLink's 450 GB/s: the
 production meshes span nodes of 8, and the FL exchange crosses the pod
-(federation) axis, between nodes. Its bytes are the record's stream
-exchange (``--fl`` records only); a record whose collectives are null (no
-compiled program) gives no collective term, not a zero one.
+(federation) axis, between nodes. Its bytes are the record's
+``collectives.total_bytes``, as the reference's: the dry run counts them
+from the layout (FSDP gathers and gradient reductions, tensor-parallel
+all-reduces, and under ``--fl`` the stream exchange); a record whose
+``total_bytes`` is null gives no collective term, not a zero one.
 
 Two FLOP figures, as in the reference: the analytic ``model_flops`` (6·N·D
 train, 2·N·D prefill, 2·N_active a token plus attention over the cache for
@@ -139,7 +141,7 @@ def roofline_row(rec: dict) -> dict | None:
     mf = model_flops(cfg, shape, n_params)
     hbm = analytic_hbm_bytes(cfg, shape, n_params, rec.get("fl", False))
     corr = scan_correction(cfg, shape, n_params)
-    coll = rec["collectives"].get("stream_exchange_bytes")
+    coll = rec["collectives"].get("total_bytes")
     coll = None if coll is None else coll * corr
     counted = rec["cost"].get("flops", 0.0) * chips * corr
     terms = {"compute": mf / (chips * PEAK_FLOPS_BF16),

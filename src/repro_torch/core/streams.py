@@ -409,11 +409,15 @@ def pairwise_mask_rows(
     device = torch.device(device) if device is not None else \
         signs_row.device
     # every peer's three draws (randint's high and low bits, uniform's
-    # bits) in one threefry pass; the keys derived on the host
+    # bits) in one threefry pass; the keys derived on the host, where they
+    # live (``core/threefry.py``: key math on Python ints), so neither
+    # ``.tolist()`` waits for the card
     hi, lo, val = [], [], []
+    # repro-lint: disable-next=RPL006
     for k0, k1 in pair_keys_row.tolist():
         if leaf_id is not None:
             k0, k1 = threefry.threefry2x32(k0, k1, 0, leaf_id & threefry.M32)
+        # repro-lint: disable-next=RPL006
         k_i, k_v = threefry.split([k0, k1]).tolist()
         h, l_ = threefry.randint_keys(k_i)
         hi.append(h)
@@ -555,6 +559,7 @@ def codec_wire_stage(gidx, vals, new_acc, weights, m: int, codec: str):
     err = err / torch.where(w == 0.0, 1.0, w)[:, None, None]
     # a codec row is the top-k alone: its columns are distinct, so the
     # scatter_add is one add per position, as the reference's .at[].add
+    # repro-lint: disable-next=RPL004
     new_acc = new_acc.scatter_add(-1, cols.to(torch.int64), err)
     order = torch.argsort(cols, dim=-1, stable=True)
     return (torch.gather(cols, -1, order), torch.gather(q, -1, order),

@@ -31,7 +31,15 @@ The draws:
   1, then ``max(lo, u * (hi - lo) + lo)``, the multiply-add rounded once:
   XLA contracts it into an FMA at every shape (probed on the CPU against
   the two-rounding form, which differs in ~15–50% of draws where the span
-  is not a power of 2). ``kernels/ref.py::_fma_f32`` rounds it once here.
+  is not a power of 2). ``kernels/ref.py::_fma_f32`` rounds it once here;
+* ``normal``: ``sqrt(2) * erf_inv(u)`` for ``u`` uniform on
+  ``[nextafter(-1, 0), 1)``, with XLA's f32 ``erf_inv`` (Giles'
+  single-precision polynomial over ``-log1p(-u*u)``) and XLA's CPU
+  ``log1p``: a Cephes rational below ``sqrt(2) - 1``, else the Cephes
+  ``log`` of ``1 + x``. Every multiply-add that LLVM contracts into an FMA
+  rounds once here (``_fma_f32``); the rest rounds as XLA does.
+  ``torch.erfinv`` and ``torch.log1p`` round otherwise (up to 64 and 2
+  ulp away, probed over a million draws), so neither is used.
 """
 from __future__ import annotations
 
@@ -181,3 +189,89 @@ def uniform_from_bits(bits: torch.Tensor, minval: float,
     span = (hi - lo).item()
     out = _fma_f32(span, u, lo.item())
     return torch.maximum(out, lo.to(out.device))
+
+
+# XLA's f32 erf_inv (stablehlo's chlo decomposition, Giles' polynomials in
+# w = -log1p(-x*x), highest degree first): w < 5, then w >= 5
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613, 0.00943887047,
+               1.00167406, 2.83297682)
+# XLA's log1p below sqrt(2) - 1: Cephes' rational (numerator, denominator)
+_LOG1P_P = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+            6.5787325942061044846969e0, 2.9911919328553073277375e1,
+            6.0949667980987787057556e1, 5.7112963590585538103336e1,
+            2.0039553499201281259648e1)
+_LOG1P_Q = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+            2.2176239823732856465394e2, 3.0909872225312059774938e2,
+            2.1642788614495947685003e2, 6.0118660497603843919306e1)
+# XLA's CPU log: Cephes' logf on the mantissa in [sqrt(1/2), sqrt(2))
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+          -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+          2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+
+
+def _horner(coeffs, x: torch.Tensor) -> torch.Tensor:
+    p = torch.full_like(x, coeffs[0])
+    for c in coeffs[1:]:
+        p = _fma_f32(p, x, c)
+    return p
+
+
+def _xla_log(v: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU f32 ``log`` of positive normal ``v``: the exponent split
+    off, the mantissa shifted into ``[sqrt(1/2), sqrt(2)) - 1``, Cephes'
+    degree-8 polynomial in three Horner parts, the exponent's ``ln 2`` added
+    as two constants."""
+    f32 = torch.float32
+    bits = v.view(torch.int32)
+    x = ((bits & ~0x7F800000) | 0x3F000000).view(f32)   # in [0.5, 1)
+    e = ((bits >> 23) - 0x7E).to(f32)
+    low = x < 0.707106781186547524
+    e = e - low.to(f32)
+    x = (x - 1.0) + torch.where(low, x, 0.0)
+    x2 = x * x
+    x3 = x2 * x
+    y = _fma_f32(_fma_f32(_LOG_P[0], x, _LOG_P[1]), x, _LOG_P[2])
+    y1 = _fma_f32(_fma_f32(_LOG_P[3], x, _LOG_P[4]), x, _LOG_P[5])
+    y2 = _fma_f32(_fma_f32(_LOG_P[6], x, _LOG_P[7]), x, _LOG_P[8])
+    y = _fma_f32(_fma_f32(y, x3, y1), x3, y2)
+    y = _fma_f32(y, x3, -2.12194440e-4 * e)
+    x = _fma_f32(-0.5, x2, x) + y
+    return _fma_f32(0.693359375, e, x)
+
+
+def _xla_log1p(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU f32 ``log1p`` for ``x > -1``."""
+    x2 = x * x
+    small = _horner(_LOG1P_P, x) / _horner(_LOG1P_Q, x)
+    small = x + _fma_f32(-0.5, x2, (x * x2) * small)
+    threshold = torch.tensor(0.41421356237309504880, dtype=torch.float32)
+    return torch.where(x.abs() < threshold, small, _xla_log(1.0 + x))
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 ``erf_inv`` on ``(-1, 1)``, bit for bit on the CPU
+    (``+-1`` give ``+-inf``)."""
+    w = -_xla_log1p(x * -x)
+    lt = w < 5.0
+    # torch.sqrt in f32 is not always correctly rounded on the CPU; XLA's is
+    root = torch.sqrt(w.to(torch.float64)).to(torch.float32)
+    w = torch.where(lt, w - 2.5, root - 3.0)
+    p = None
+    for a, b in zip(_ERFINV_LT5, _ERFINV_GE5):
+        c = torch.where(lt, torch.tensor(a, dtype=torch.float32),
+                        torch.tensor(b, dtype=torch.float32))
+        p = c if p is None else _fma_f32(p, w, c)
+    return torch.where(x.abs() == 1.0, x * torch.inf, p * x)
+
+
+def normal(key, shape, *, device=None) -> torch.Tensor:
+    """``jax.random.normal(key, shape, jnp.float32)`` (f32 on ``device``; a
+    batch of keys ``[..., 2]`` gives ``[..., *shape]``): ``f32(sqrt 2) *
+    erf_inv(uniform(key, shape, nextafter(-1, 0), 1))``."""
+    lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
+    u = uniform(key, shape, lo, 1.0, device=device)
+    return torch.tensor(math.sqrt(2.0), dtype=torch.float32) * erf_inv(u)

@@ -148,16 +148,17 @@ def thgs_sparsify_ref(g: torch.Tensor, residual: torch.Tensor,
     return sparse.to(g.dtype), (acc - sparse).to(residual.dtype)
 
 
-def _fma_f32(a: float, x: torch.Tensor, b: float) -> torch.Tensor:
-    """``fma(f32(a), x, f32(b))`` for f32 ``x``, rounded once to f32.
+def _fma_f32(a, x: torch.Tensor, b) -> torch.Tensor:
+    """``fma(f32(a), x, f32(b))`` for f32 ``x``, rounded once to f32; ``a``
+    and ``b`` are Python floats (taken as f32) or f32 tensors.
 
     In f64 the product of two f32 values is exact; the sum may round, so it
     is rounded to odd (TwoSum gives the exact error; an inexact sum whose
     last bit is even moves one f64 ulp toward the exact value), and 53 >=
     24 + 2 bits makes the final round-to-nearest-even to f32 correct."""
     f64 = torch.float64
-    a = torch.tensor(a, dtype=torch.float32).to(f64).to(x.device)
-    b = torch.tensor(b, dtype=torch.float32).to(f64).to(x.device)
+    a = torch.as_tensor(a, dtype=torch.float32, device=x.device).to(f64)
+    b = torch.as_tensor(b, dtype=torch.float32, device=x.device).to(f64)
     prod = x.to(f64) * a
     s = prod + b
     bb = s - prod

@@ -34,11 +34,15 @@ and each block names its ``source``:
   two lengths and the count is carried to the shape's length along the
   line through them (both lengths hold two or more mLSTM chunks, where the
   count is affine in T).
-* ``collectives``: under ``--fl`` the exchange of the stream plan
+* ``collectives``: the reference's keys (``all-reduce``, ``all-gather``,
+  ``reduce-scatter``, ``all-to-all``, ``collective-permute``, each
+  ``{bytes, count}``, and ``total_bytes``), counted from the layout, not
+  parsed from a compiled program (:func:`layout_collectives`): one device's
+  result bytes, as the reference sums the result shapes of its
+  per-partition HLO. Under ``--fl`` the exchange of the stream plan
   (``train.fl_leaf_plan`` / ``fl_train.step_wire_record``: every stream
-  entry an int32 index and an f32 value, from every participant); the
-  collectives inside a participant, and every collective of the other steps,
-  would need the compiled program: ``total_bytes`` is null, with a reason.
+  entry an int32 index and an f32 value, from every participant) is added
+  as one all-gather a leaf, and its totals are kept beside.
 
 Usage::
 
@@ -257,32 +261,100 @@ def cost_summary(cfg, shape, model, mesh, fl: bool, n_params: int) -> dict:
     return out
 
 
-def fl_exchange(mesh, n_fed: int, model) -> dict:
-    """The FL step's exchange from its static stream plan."""
+COLLECTIVE_OPS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+                  "collective-permute")
+_COLLECTIVE_SOURCE = (
+    "the layout's count, not XLA's (no compiled program): one device's "
+    "result bytes a step. FSDP: every parameter leaf sharded over a "
+    "data-parallel axis is all-gathered (the shard with those axes "
+    "gathered) in the forward and again in the backward, one a stacked "
+    "layer a call, and its gradient reduce-scattered once a call; a leaf "
+    "replicated over a data-parallel axis has its gradient all-reduced. "
+    "Tensor parallel: each row-parallel product (a 2-D rule whose input dim "
+    "is 'model': wo, out_proj, w_out, shared_wo) all-reduces its output "
+    "[rows a device, T, d_out] in the model dtype in the forward and its "
+    "partner's input gradient in the backward; the checkpoints' recompute, "
+    "MoE dispatch and sequence sharding are not counted. Prefill and decode: "
+    "the forward's gathers and all-reduces only (decode: T 1)")
+
+
+def _add(out: dict, op: str, nbytes: int, count: int) -> None:
+    out[op]["bytes"] += int(nbytes)
+    out[op]["count"] += int(count)
+
+
+def layout_collectives(cfg, shape, mesh, rules, layout: dict, calls: int,
+                       n_fed: int = 1) -> dict:
+    """The collectives one device runs in a step of ``layout`` on ``mesh``,
+    counted from each parameter leaf's spec (``launch/shardings.py``), with
+    the reference's keys. ``calls``: the step's calls a device makes (the
+    training microbatches; 1 for prefill and decode). ``rules`` name the
+    data-parallel axes (``batch``); ``n_fed`` participants split the
+    global batch first."""
+    sizes = mesh.shape
+    batch = rules["batch"]
+    dp_axes = tuple(a for a in (batch if isinstance(batch, tuple)
+                                else (batch,)) if a and sizes[a] > 1)
+    train_step = shape.kind == "train"
+    passes = 2 if train_step else 1            # forward (+ backward)
+    out = {op: {"bytes": 0, "count": 0} for op in COLLECTIVE_OPS}
+    split = n_fed * math.prod(sizes[a] for a in dp_axes) * max(calls, 1)
+    rows = -(-shape.global_batch // split)
+    t = shape.seq_len if shape.kind != "decode" else 1
+    act_bytes = torch.empty((), dtype=tf.DTYPES[cfg.dtype],
+                            device="meta").element_size()
+    tp = sizes.get("model", 1) > 1
+    for path, shp, dt, spec in layout["params"]:
+        rule = shd.leaf_rule(path, shp)
+        stack = math.prod(shp[:len(shp) - len(rule)])
+        entries = [e if isinstance(e, tuple) else (e,) for e in spec]
+        on = {a for e in entries for a in e if a}
+        fsdp = [a for a in dp_axes if a in on]
+        if fsdp:
+            gathered = P(*[tuple(a for a in e if a and a not in fsdp) or None
+                           for e in entries])
+            _add(out, "all-gather",
+                 passes * calls * shard_bytes(shp, dt, gathered, sizes),
+                 passes * calls * stack)
+            if train_step:
+                _add(out, "reduce-scatter",
+                     calls * shard_bytes(shp, dt, spec, sizes), calls * stack)
+        if train_step and any(a not in on for a in dp_axes):
+            _add(out, "all-reduce", calls * shard_bytes(shp, dt, spec, sizes),
+                 calls * stack)
+        if tp and len(rule) == 2 and rule[0] == "model":
+            n = passes * calls * stack
+            _add(out, "all-reduce", n * rows * t * shp[-1] * act_bytes, n)
+    out["total_bytes"] = sum(v["bytes"] for v in out.values())
+    out["source"] = _COLLECTIVE_SOURCE
+    return out
+
+
+def fl_exchange(mesh, n_fed: int, model, collectives: dict) -> dict:
+    """The FL step's exchange from its static stream plan, added to a
+    participant's ``collectives`` as one all-gather a leaf: a device
+    receives every participant's entries of its block."""
     from repro_torch.launch.fl_train import step_wire_record
 
-    sizes = [math.prod(lf.shape) for lf in convert.reference_leaves(model)]
+    leaves = convert.reference_leaves(model)
+    sizes = [math.prod(lf.shape) for lf in leaves]
     n_blocks = mesh.size // n_fed
     rec = step_wire_record(0, sizes, FL_THGS, FL_SA, n_fed, n_blocks)
     entries = rec.upload_bits // 64
-    return {"total_bytes": None,
+    out = {op: dict(collectives[op]) for op in COLLECTIVE_OPS}
+    _add(out, "all-gather", entries * 8 // n_blocks, len(leaves))
+    out["total_bytes"] = sum(v["bytes"] for v in out.values())
+    return {**out,
             "stream_exchange_bytes": entries * 8,
             "stream_entries": entries, "participants": n_fed,
             "blocks_per_participant": n_blocks,
             "upload_vs_dense": rec.upload_bits / rec.dense_upload_bits,
             "source": (
+                collectives["source"] + "; the FL exchange from "
                 "train.fl_leaf_plan / fl_train.step_wire_record: every "
-                "participant's stream entries (top-k and mask slots, an int32 "
-                "index and an f32 value each); total_bytes null: the "
-                "collectives inside a participant (FSDP, tensor parallel) "
-                "need the compiled program")}
-
-
-def _no_collectives() -> dict:
-    return {"total_bytes": None,
-            "source": ("no compiled program: the reference parses its "
-                       "collectives from XLA's HLO, which the port does not "
-                       "have")}
+                "participant's stream entries (top-k and mask slots, an "
+                "int32 index and an f32 value each), a device's block of "
+                "them gathered once a leaf")}
 
 
 def _write(rec: dict, out_dir: str, tag: str) -> None:
@@ -326,8 +398,14 @@ def run_one(arch: str, shape_name: str, mesh_kind: str, fl: bool = False,
         memory = memory_summary(layout, mesh, donate)
         build_s = time.perf_counter() - t0
         cost = cost_summary(cfg, shape, model, mesh, fl_train, n_params)
-        collectives = (fl_exchange(mesh, mesh.shape[fed_axis], model)
-                       if fl_train else _no_collectives())
+        calls = (train.micro_batches(n_params) if shape.kind == "train"
+                 else 1)
+        collectives = layout_collectives(
+            cfg, shape, mesh, rules, layout, calls,
+            n_fed=mesh.shape[fed_axis] if fl_train else 1)
+        if fl_train:
+            collectives = fl_exchange(mesh, mesh.shape[fed_axis], model,
+                                      collectives)
         rec.update(
             status="ok", lower_s=None, compile_s=None,
             build_s=round(build_s, 2),
@@ -377,12 +455,11 @@ def main(argv=None) -> int:
                 extra = ""
                 if status == "ok":
                     arg = rec["memory"]["argument_size_in_bytes"]
-                    col = rec["collectives"].get("stream_exchange_bytes")
+                    col = rec["collectives"]["total_bytes"]
                     extra = (f" args/dev={arg / 2**30:.2f}GiB "
                              f"flops/dev={rec['cost']['flops']:.4e} "
-                             + (f"exchange={col / 2**30:.2f}GiB "
-                                if col is not None else "coll=n/a ")
-                             + f"count={rec['count_s']:.0f}s")
+                             f"coll/dev={col / 2**30:.2f}GiB "
+                             f"count={rec['count_s']:.0f}s")
                 elif status == "fail":
                     n_fail += 1
                     extra = " " + rec["error"][:160]

@@ -66,8 +66,10 @@ _MOE_RANK3 = {
 }
 
 
-def _leaf_logical(path: str, shape) -> tuple:
-    """Logical names of every dim of the leaf at dotted ``path``."""
+def leaf_rule(path: str, shape) -> tuple:
+    """The logical names of the leaf's trailing dims that its rule covers
+    (all its dims, unnamed, where no rule matches); the dims before them
+    are stacked layers (replicated)."""
     keys = path.split(".")
     name = keys[-1]
     base: Optional[tuple] = None
@@ -77,8 +79,12 @@ def _leaf_logical(path: str, shape) -> tuple:
         base = _RULES[name]
     if base is None:
         base = (None,) * len(shape)
-    if len(base) > len(shape):
-        base = base[-len(shape):]
+    return tuple(base[-len(shape):]) if len(base) > len(shape) else base
+
+
+def _leaf_logical(path: str, shape) -> tuple:
+    """Logical names of every dim of the leaf at dotted ``path``."""
+    base = leaf_rule(path, shape)
     return (None,) * (len(shape) - len(base)) + tuple(base)
 
 

@@ -101,3 +101,14 @@ class RoundProtocol:
                 seeds[pos[s], pos[d]] = sd
                 seeds[pos[d], pos[s]] = sd
         return torch.from_numpy(seeds)
+
+    # ------------------------------------------------------------ accounting
+    @property
+    def n_phase1_shares(self) -> int:
+        """Shares crossing the wire in phase 1 (self-share stays local)."""
+        C = len(self.participants)
+        return C * (C - 1)
+
+    def n_recovery_shares(self, n_dropped: int) -> int:
+        """Shares uploaded by survivors to unmask ``n_dropped`` clients."""
+        return self.t * n_dropped

@@ -4,8 +4,8 @@ A :class:`SimConfig` names one multi-round federated run: model, dataset and
 partition, the federated protocol, THGS / secure aggregation, sampling and
 dropout, evaluation cadence and output path. The fields and their defaults
 are the reference's, so ``to_dict()`` writes the same ledger ``config``
-block. ``validate()`` refuses, with ``NotImplementedError`` naming the slice
-that brings it, every option this slice of the port does not run.
+block. ``validate()`` refuses, with ``ValueError``, every option and
+combination the reference's ``validate()`` refuses, and nothing else.
 """
 from __future__ import annotations
 

@@ -10,7 +10,11 @@ roofline over its records (``bench/paper/roofline.py``) against
   reference's stacked state's, and the ``long_500k`` rule rewrite;
 * the record's keys and the skip record are the reference's;
 * one full-size Yi-6B ``train_4k`` record, and its FL twin on the
-  multi-pod mesh, on meta in seconds;
+  multi-pod mesh, on meta in seconds; the layout's collective count,
+  hand-counted on a toy mesh;
+* ``chip_smoke.py``'s ``train_flops`` against the meta trace's
+  ``FlopCounterMode`` count within 1%, at reduced widths and at Yi-6B's
+  B 4 x T 4096 (8.7109e14);
 * the roofline CSV through the bench CLI without a card, and the tables;
 * neither module loads ``jax``.
 """
@@ -259,8 +263,13 @@ def test_yi6b_train_records_on_meta(tmp_path):
     assert mem["argument_size_in_bytes"] == sum(by.values())
     assert mem["donated_argument_bytes"] == by["params"]
     assert by["batch"] == 2 * (256 // 16) * 4096 * 4   # tokens, labels
-    assert rec["collectives"]["total_bytes"] is None
-    assert {"source"} <= set(mem) & set(cost) & set(rec["collectives"])
+    col = rec["collectives"]
+    ops = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+           "collective-permute")
+    assert col["total_bytes"] == sum(col[op]["bytes"] for op in ops) > 0
+    assert col["all-gather"]["count"] == col["reduce-scatter"]["count"] * 2
+    assert "the layout's count, not XLA's" in col["source"]
+    assert {"source"} <= set(mem) & set(cost) & set(col)
 
     fl = dryrun.run_one("yi_6b", "train_4k", "pod", fl=True,
                         out_dir=str(tmp_path))
@@ -274,7 +283,17 @@ def test_yi6b_train_records_on_meta(tmp_path):
     assert fl["cost"]["flops_total"] == pytest.approx(cost["flops_total"],
                                                       rel=1e-12)
     col = fl["collectives"]
-    assert col["total_bytes"] is None and col["participants"] == 2
+    assert col["total_bytes"] == sum(col[op]["bytes"] for op in ops)
+    assert col["participants"] == 2
+    # a participant's data x model sub-mesh gathers the single pod's
+    # parameters; the exchange adds one gather a leaf of a device's block
+    # of every participant's streams
+    single = rec["collectives"]["all-gather"]
+    assert col["all-gather"]["bytes"] == single["bytes"] + (
+        col["stream_exchange_bytes"] // col["blocks_per_participant"])
+    n_leaves = len(dryrun.convert.reference_leaves(
+        dryrun.tf.init_params(tconfigs.get("yi_6b"), device="meta")))
+    assert col["all-gather"]["count"] == single["count"] + n_leaves
     assert col["stream_exchange_bytes"] == 8 * col["stream_entries"]
     assert col["upload_vs_dense"] == pytest.approx(0.020386, abs=5e-6)
 
@@ -299,7 +318,10 @@ def test_roofline_csv_without_a_card_and_tables(tmp_path, monkeypatch,
     assert rows[0] == "name,us_per_call,derived"
     assert [r.split(",")[0] for r in rows[1:]] == [
         "roofline/deepseek_moe_16b/decode_32k/single"]
-    assert "t_collective=n/a;bottleneck=memory" in rows[1]
+    coll = json.loads((out / "deepseek_moe_16b__decode_32k__single.json")
+                      .read_text())["collectives"]["total_bytes"]
+    assert f"t_collective={coll / (256 * 50e9):.6f}s;bottleneck=memory" \
+        in rows[1]
     assert experiments_tables.main(["--dir", str(out)]) == 0
     md = capsys.readouterr().out
     assert "built OK: **1**, structural skips: 1" in md
@@ -316,3 +338,92 @@ def test_dryrun_and_roofline_import_no_jax():
     p = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, env=ENV, timeout=300)
     assert p.returncode == 0, p.stderr[-2000:]
+
+
+# ---------------------------------------------- the layout's collectives
+def test_layout_collectives_hand_counted_on_a_toy_mesh():
+    """data 2 x model 2, a train step of 2 calls over 8 rows of T 4 (2 rows
+    a device a call), bf16 activations: a column-parallel, a row-parallel
+    (2 stacked layers each) and a replicated leaf, counted by hand."""
+    from repro_torch.launch.mesh import LogicalMesh, logical_rules
+    from repro_torch.models.sharding import P
+
+    mesh = LogicalMesh((2, 2), ("data", "model"), device="meta")
+    rules = logical_rules(mesh)
+    bf16, f32 = torch.bfloat16, torch.float32
+    layout = {"params": [
+        ("blocks.mlp.wi_gate", (2, 8, 16), bf16, P(None, "data", "model")),
+        ("blocks.mlp.wo", (2, 16, 8), bf16, P(None, "model", "data")),
+        ("final_norm.scale", (8,), f32, P(None))]}
+    shape = types.SimpleNamespace(kind="train", global_batch=8, seq_len=4)
+    cfg = tconfigs.get("yi_6b")                        # bf16 activations
+    got = dryrun.layout_collectives(cfg, shape, mesh, rules, layout, calls=2)
+    # each FSDP leaf: gathered over data to 2 x 8 x 8 bf16 (256 B), in the
+    # forward and the backward of 2 calls, one a stacked layer; its
+    # gradient's shard (128 B) reduce-scattered once a call and layer
+    assert got["all-gather"] == {"bytes": 2 * 2 * 2 * 256, "count": 2 * 8}
+    assert got["reduce-scatter"] == {"bytes": 2 * 2 * 128, "count": 2 * 4}
+    # wo's output [2 rows, T 4, 8] bf16 (128 B) in the forward and the
+    # backward of 2 calls and 2 layers; the norm's f32 gradient (32 B)
+    # all-reduced over data once a call
+    assert got["all-reduce"] == {"bytes": 8 * 128 + 2 * 32, "count": 8 + 2}
+    assert got["all-to-all"] == got["collective-permute"] == {"bytes": 0,
+                                                              "count": 0}
+    assert got["total_bytes"] == 2048 + 512 + 1088
+    # prefill: the forward's gathers and all-reduces of one call, T 4
+    prefill = types.SimpleNamespace(kind="prefill", global_batch=8,
+                                    seq_len=4)
+    got = dryrun.layout_collectives(cfg, prefill, mesh, rules, layout,
+                                    calls=1)
+    assert got["all-gather"] == {"bytes": 2 * 256, "count": 4}
+    assert got["reduce-scatter"]["count"] == 0
+    # 4 rows a device: [4, 4, 8] bf16 = 256 B, once a layer
+    assert got["all-reduce"] == {"bytes": 2 * 256, "count": 2}
+
+
+# ----------------------------------------------- chip_smoke's train FLOPs
+def _train_flops():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.train_flops
+
+
+def _meta_train_count(cfg, B: int, T: int) -> tuple[float, int]:
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tf
+
+    model = tf.init_params(cfg, device="meta")
+    batch = {k: torch.empty((B, T), dtype=torch.int32, device="meta")
+             for k in ("tokens", "labels")}
+    total, _ = dryrun._count(lambda: train.value_and_grad(model, cfg, batch))
+    return total, tf.param_count(model)
+
+
+@pytest.mark.parametrize("layers,d,T,B", [(2, 256, 2048, 2),
+                                          (3, 256, 4096, 1),
+                                          (2, 512, 1024, 2),
+                                          (2, 256, 512, 3)])
+def test_train_flops_match_the_meta_count_at_reduced_widths(layers, d, T, B):
+    """Below and above ``attention.CHUNK_Q``: one query chunk, and chunks
+    under checkpoints of their own."""
+    from repro_torch.configs.base import reduced
+
+    cfg = reduced(tconfigs.get("yi_6b"), n_layers=layers, d_model=d,
+                  n_heads=4, n_kv_heads=2, d_ff=4 * d, vocab=1000)
+    count, n = _meta_train_count(cfg, B, T)
+    got = _train_flops()(cfg, n, B, T)
+    assert got["total"] == pytest.approx(count, rel=1e-2)
+
+
+def test_train_flops_of_yi6b_step_equal_the_dry_run_count():
+    """Yi-6B at B 4 x T 4096, two microbatches of 2 rows as ``[train]``
+    runs it: 8.7109e14 (the dry run's count), within 1%."""
+    cfg = tconfigs.get("yi_6b")
+    count, n = _meta_train_count(cfg, 2, 4096)
+    assert 2 * count == pytest.approx(8.7109e14, rel=1e-4)
+    got = _train_flops()(cfg, n, 4, 4096)
+    assert got["total"] == pytest.approx(2 * count, rel=1e-2)
