@@ -82,8 +82,9 @@ exits non-zero and no failure is caught:
      the reference's staleness vectors, upload 7.0% +- 0.5 pt, accuracy;
      then an all-fresh buffer through ``run_async_update`` bit-equal to
      ``run_round``.
- 10. flash: the HGMMA instructions in the built flash library's SASS
-     (``cuobjdump -sass``: the bf16 instances run on the tensor cores); the
+ 10. flash: the tensor-core instructions in the built flash library's SASS
+     (``cuobjdump -sass``: HGMMA in the bf16 instances, TF32 HGMMA in every
+     f32 instance, which runs both products as three TF32 passes); the
      flash-attention kernel against its plain version on the card (2e-5 in
      f32, 2e-2 in bf16; max abs error and error relative to max |plain|) at
      Yi-6B's prefill shape (B 4, T = S = 1024, 32 heads, 4 kv heads, hd 128,
@@ -96,11 +97,15 @@ exits non-zero and no failure is caught:
      to 128 on the tensor cores) at HuBERT-XLarge's encode (B 4, T = S =
      1024, 16 heads, non-causal) and Zamba2-7B's shared block (B 4, T = S =
      1024, 32 heads, causal), in f32, with ragged tails and needles at each
-     width; for Yi-6B's two rows and the two hd-80/112 model rows, the raw
-     launch time beside the bound (the flops of the pairs the mask keeps),
-     the plain version and ``scaled_dot_product_attention`` as the library
-     yardstick, and for the f32 rows the raw launch time beside its bound at
-     the f32 CUDA-core rate.
+     width; Yi-6B in f32 at ``[lm]``'s parity prompt (B 1, T 256) and at its
+     prefill shape, and f32 at T > S, T != S, a window and three needles;
+     for Yi-6B's two bf16 rows, the two hd-80/112 model rows and every f32
+     row of T = S with no window, the raw launch time beside the bound (the
+     flops of the pairs the mask keeps; f32 at a third of the TF32 rate, and
+     at the CUDA cores' f32 rate beside it), the plain version and
+     ``scaled_dot_product_attention`` as the library yardstick: its default
+     call, then each backend pinned in turn (time and error, or refused),
+     and which one the default took.
  11. lm: Yi-6B at full width (32 layers, d_model 4096, bf16, 12.1 GB of
      random weights drawn on the card from seed 0) served by
      ``InferenceServer(LMAdapter(max_batch=4, prompt_len=1024, n_new=16))``
@@ -286,8 +291,9 @@ exits non-zero and no failure is caught:
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. ``--only flash`` runs phases 1 and 10
-alone, does not require HGMMA instructions, and prints no result line (the
-kernel's times on one tree, to compare two trees in one call); ``--only
+alone, does not require HGMMA or TF32 instructions, and prints no
+result line (the kernel's times on one tree, to compare two trees in one
+call); ``--only
 pack`` runs phase 1, the bit-pack part of phase 2 and the round-trip probe
 of phase 6 the same way (on a tree without segmented launches, the parent
 of that design, a leaf pair is timed as its two single launches); ``--only
@@ -319,6 +325,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core rate
+TF32_FLOPS = 495e12            # H100 SXM dense TF32 tensor-core rate
 MASK_OPS_PER_SLOT = 25         # integer ops of one pair-mask slot (two mix32
                                # chains, mod, shift, convert, 2 mul + add),
                                # counted at the f32 rate: the data sheet
@@ -1882,8 +1889,10 @@ def async_phase(kind: str) -> None:
 
 # ------------------------------------------------------------------ phase 8
 # (tag, B, T, S, Hq, Hkv, hd, dtype, causal, window, needle). The first two
-# are timed beside the bound, the plain version and SDPA; the f32 rows (the
-# CUDA-core instance) get a raw-launch time too. A needle is a key of V set to 1000.0
+# are timed beside the bound, the plain version and SDPA; so is every f32 row
+# of T = S without a window or needle (the 3xTF32 instance), beside both of
+# its bounds and SDPA in f32 under each backend in turn. A needle is a key of
+# V set to 1000.0
 # that the rows it names must not see: an int is a key position (the rows
 # before it under causal, the rows past its window), "pad" fills the memory
 # past S of a B = 1 view with it (no row may read past S). A mask or
@@ -1937,12 +1946,30 @@ FLASH_SHAPES = (
      "pad"),
     ("needle.pad.hd112", 1, 300, 300, 8, 8, 112, "bfloat16", True, None,
      "pad"),
+    # Yi-6B in f32: [lm]'s card-vs-CPU parity prompt (B 1, 256 tokens) and
+    # its full prefill shape
+    ("yi_6b.parity.f32", 1, 256, 256, 32, 4, 128, "float32", True, None,
+     None),
+    ("yi_6b.prefill.f32", 4, 1024, 1024, 32, 4, 128, "float32", True, None,
+     None),
+    # the f32 instance's edges, checked and not timed: T > S with keyless
+    # rows, T != S off the tile grid, a window, and the needles
+    ("t_gt_s.f32", 1, 100, 40, 4, 2, 64, "float32", True, 8, None),
+    ("ragged.t_ne_s.f32", 1, 700, 333, 8, 2, 128, "float32", False, None,
+     None),
+    ("needle.window.f32", 1, 1000, 1000, 8, 2, 128, "float32", True, 256,
+     300),
+    ("needle.causal.hd112.f32", 1, 256, 256, 8, 8, 112, "float32", True,
+     None, 200),
+    ("needle.pad.hd80.f32", 1, 300, 300, 8, 8, 80, "float32", False, None,
+     "pad"),
 )
-# rows timed beside the bound and SDPA (with the f32 rows, timed beside
-# their bound; the two f32 rows at B 2, T 256, 8 heads beside SDPA in f32
-# too): the first is the kernel's main row in the report
+# bf16 rows timed beside the bound, the plain version and SDPA (every f32
+# row is too): the first is the kernel's main row in the report
 FLASH_TIMED = ("yi_6b.prefill", "yi_6b.long", "hubert.encode",
-               "zamba2.shared", "f32.hd80", "f32.hd112")
+               "zamba2.shared")
+SDPA_BACKENDS = ("MATH", "EFFICIENT_ATTENTION", "FLASH_ATTENTION",
+                 "CUDNN_ATTENTION")
 NEEDLE = 1000.0
 
 
@@ -1984,24 +2011,82 @@ def flash_inputs(B, T, S, H, Hkv, hd, dtype, causal, window, needle,
     return q, k, v, blind
 
 
-def flash_phase(device, require_hgmma: bool = True) -> list:
-    import torch
-    import torch.nn.functional as F
+def flash_mma_counts(lib) -> tuple[int, dict]:
+    """The bf16 instances' HGMMA and each f32 instance's TF32 tensor-core
+    instructions (HGMMA or HMMA with TF32) in the built library's SASS
+    (``cuobjdump -sass``)."""
+    from repro_torch.kernels import build
 
-    from repro_torch.kernels import build, flash_attention as flash, ref
-
-    # the bf16 instances run on the tensor cores: count the HGMMA
-    # instructions in the built library
-    lib = build._lib_path("flash_attention.cu")
     cuobjdump = Path(build.find_nvcc()).parent / "cuobjdump"
     check(cuobjdump.exists(), f"no cuobjdump beside nvcc ({cuobjdump})")
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
                           capture_output=True, text=True, timeout=120).stdout
-    hgmma = sum("HGMMA" in line for line in sass.splitlines())
-    print(f"[flash] {lib.name}: {hgmma} HGMMA instructions in its SASS "
+    bf16, tf32, fn = 0, {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"f32_kernelILi(\d+)ELi(\d+)E", line)
+            fn = f"hd{m.group(1)}.nw{m.group(2)}" if m else None
+            if fn:
+                tf32[fn] = 0
+        elif fn is None and "HGMMA" in line:
+            bf16 += 1
+        elif fn and "MMA" in line and "TF32" in line:
+            tf32[fn] += 1
+    return bf16, tf32
+
+
+def sdpa_rows(q, k, v, causal: bool, plain) -> tuple[float, str]:
+    """``scaled_dot_product_attention`` on q, k, v ``[B,T,H,hd]`` as the
+    library yardstick: its default call timed (ms), then each backend pinned
+    in turn (time, error against the plain version, or refused); the default
+    took the backend whose output has its bits."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+    def call():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                              enable_gqa=True)
+
+    default = call()
+    default_ms = events_ms(call, reps=5, inner=10)
+    took, parts = "none of them", []
+    for name in SDPA_BACKENDS:
+        try:
+            with sdpa_kernel(getattr(SDPBackend, name)):
+                out = call()
+                ms = events_ms(call, reps=5, inner=10)
+        except RuntimeError:
+            parts.append(f"{name} refused")
+            continue
+        err = (out.transpose(1, 2).float() - plain.float()).abs().max().item()
+        parts.append(f"{name} {ms:.6f} ms err {err:.3e}")
+        if took == "none of them" and bits_equal(out, default):
+            took = name
+        del out
+    return default_ms, (f"sdpa_ms={default_ms:.6f} (took {took}; "
+                        + "; ".join(parts) + ")")
+
+
+def flash_phase(device, require_mma: bool = True) -> list:
+    import torch
+
+    from repro_torch.kernels import build, flash_attention as flash, ref
+
+    # both instances run on the tensor cores: HGMMA in the bf16 ones, TF32
+    # HGMMA in every f32 one (three passes a product)
+    lib = build._lib_path("flash_attention.cu")
+    hgmma, tf32 = flash_mma_counts(lib)
+    print(f"[flash] {lib.name}: {hgmma} HGMMA in the bf16 instances, "
+          f"{sum(tf32.values())} TF32 MMA in {len(tf32)} f32 instances "
+          f"({', '.join(f'{n} {c}' for n, c in tf32.items())}) in its SASS "
           "(cuobjdump -sass)", flush=True)
-    check(hgmma > 0 or not require_hgmma,
+    check(hgmma > 0 or not require_mma,
           "the flash library has no HGMMA instruction")
+    check((tf32 and min(tf32.values()) > 0) or not require_mma,
+          "an f32 flash instance has no TF32 tensor-core instruction")
 
     rows = []
     for i, (tag, B, T, S, H, Hkv, hd, dt, causal, window, needle) in (
@@ -2040,7 +2125,10 @@ def flash_phase(device, require_hgmma: bool = True) -> list:
                      f"{blind_max:.3f})")
             check(blind_err <= tol * (1 + blind_max),
                   f"{tag}: rows blind to the needle err by {blind_err:.3e}")
-        if tag in FLASH_TIMED or dtype == torch.float32:
+        f32 = dtype == torch.float32
+        if tag in FLASH_TIMED or (f32 and T == S and window is None
+                                  and needle is None):
+            check(window is None and T == S, f"{tag}: SDPA takes no window")
             fn = build.kernel("flash_attention")
             o = torch.empty_like(q)
 
@@ -2053,31 +2141,28 @@ def flash_phase(device, require_hgmma: bool = True) -> list:
 
             ms = graph_ms(launch, reps=5, inner=10)
             # 4 hd flops (two products) for each pair the mask keeps, at the
-            # true head width
+            # true head width; f32 at a third of the TF32 rate (three passes),
+            # and, to compare with the CUDA-core rows before it, at the f32
+            # rate of the CUDA cores
             flops = 4 * B * H * hd * visible_pairs(T, S, causal, window)
             nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
-            rate = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+            rate = TF32_FLOPS / 3 if f32 else BF16_FLOPS
             bound_ms, bound_by = bound(nbytes, flops, rate)
             row.update(ms=ms, bound_ms=bound_ms, bound_by=bound_by,
                        flops=flops, bytes=nbytes)
-            line += (f" ms={ms:.6f} bound_ms={bound_ms:.6f} ({bound_by}: "
-                     f"{flops:.4g} flops, {nbytes / 1e6:.1f} MB) "
-                     f"TFLOP/s={flops / ms / 1e9:.2f}")
-        if tag in FLASH_TIMED:
-            check(window is None and T == S, f"{tag}: SDPA takes no window")
+            line += (f" ms={ms:.6f} bound_ms={bound_ms:.6f} ({bound_by}"
+                     f"{' at 3xTF32' if f32 else ''}: {flops:.4g} flops, "
+                     f"{nbytes / 1e6:.1f} MB)")
+            if f32:
+                row["bound_cuda_cores_ms"] = bound(nbytes, flops)[0]
+                line += (f" bound_cuda_cores_ms="
+                         f"{row['bound_cuda_cores_ms']:.6f}")
+            line += f" TFLOP/s={flops / ms / 1e9:.2f}"
             plain_ms = events_ms(lambda: ref.flash_attention_ref(
                 q, k, v, causal=causal), reps=3, inner=2)
-            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-            lib_out = F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, enable_gqa=True)
-            lib_err = (lib_out.transpose(1, 2).float() - plain.float()
-                       ).abs().max().item()
-            lib_ms = events_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, enable_gqa=True), reps=5,
-                inner=10)
+            lib_ms, lib_line = sdpa_rows(q, k, v, causal, plain)
             row.update(plain_ms=plain_ms, library_ms=lib_ms)
-            line += (f" plain_ms={plain_ms:.6f} sdpa_ms={lib_ms:.6f} (sdpa "
-                     f"vs plain {lib_err:.3e}) vs_bound="
+            line += (f" plain_ms={plain_ms:.6f} {lib_line} vs_bound="
                      f"{ms / bound_ms:.2f}x vs_sdpa={ms / lib_ms:.2f}x")
         rows.append(row)
         print(line, flush=True)
@@ -4959,7 +5044,7 @@ def main() -> int:
                              "families", "train", "fl_train", "selectors",
                              "secagg_demo"],
                     help="run the device and build phases and then [flash] "
-                    "(the HGMMA count printed, not required), the bit-pack "
+                    "(the MMA counts printed, not required), the bit-pack "
                     "kernels' checks and times and one codec_wire_roundtrip "
                     "probe, the pair-mask kernel's flat and round rows "
                     "and one round's mask path probe, [sharded], [bench], "
@@ -5020,8 +5105,8 @@ def main() -> int:
     # levels that an earlier leaf position would draw (a denser stream)
     shapes.append(("cifar_vgg16.512x512x3x3@k60199", 2359296, 60199,
                    sa.k_mask_for(2359296, 5), 5))
-    if args.only == "flash":      # any tree, the parent's CUDA-core kernel too
-        flash_phase(device, require_hgmma=False)
+    if args.only == "flash":      # any tree, a parent's kernel too
+        flash_phase(device, require_mma=False)
         print(f"[done] --only flash passed in "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
         return 0

@@ -4,10 +4,14 @@
 The kernel is ``csrc/flash_attention.cu``: in bf16 a Hopper kernel on the
 tensor cores (one CTA per 128 queries of one head, K/V tiles of 128 keys
 brought by TMA into a two-stage ring, ``wgmma`` for both products, online
-softmax in f32 registers); in f32 a CUDA-core kernel (64 x 64 tiles, f32
-FMAs), since TF32 ``wgmma`` would not hold f32's tolerance. Head widths
-64, 80, 112 and 128 have instances (in bf16, 80 and 112 run P V at the width
-padded to 128, TMA zero-filling the columns past hd); any other width
+softmax in f32 registers); in f32 both products also run on the tensor
+cores, as TF32 ``wgmma`` in three passes (each operand split into two TF32
+halves, hi*hi' + hi*lo' + lo*hi': about 21 bits, within f32's tolerance
+where one TF32 pass is not), K/V tiles of 64 keys brought by ``cp.async``
+and split once into shared memory, 64 or 128 query rows a CTA chosen at
+launch to fill the card. Head widths 64, 80, 112 and 128 have instances (in
+bf16, 80 and 112 run P V at the width padded to 128, TMA zero-filling the
+columns past hd; in f32 every width runs as it is); any other width
 raises. Its plain version is ``kernels/ref.py::flash_attention_ref``. A CPU tensor takes the
 plain version, a CUDA tensor launches the kernel or raises. ``launches``
 counts kernel launches and nothing else.
