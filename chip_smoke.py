@@ -247,9 +247,21 @@ exits non-zero and no failure is caught:
      Yi-6B at 2 layers in f32 (TF32 off), B 2 x T 1024: one v1 step card vs
      CPU (loss within ``FL_LOSS_TOL``; params within ``FL_PARAM_TOL``, at
      most ``FL_MOVED_SHARE`` of the elements apart: a top-k flip moves an
-     element by its whole update); one v2 step: finite, the masks cancel.
+     element by its whole update). (d) Placement, (b)'s inputs and state:
+     (i) every position on ``cuda:0`` through a device array, bit-equal to
+     (b)'s one-device step (params, residuals, loss, streams); (ii) (b)'s
+     CPU run; (iii) pod 0 on ``cuda:0``, pod 1 on the CPU, the parameters
+     on ``cuda:0`` (counts reset, one step, counts read: one scatter launch
+     a unit): participant 0's streams and residual rows bit-equal to (i)'s
+     and on the card, participant 1's to (ii)'s and on the CPU, the CPU
+     replica bit-equal to the step's start, the params bit-equal to (i)'s
+     step's exchange fed participant 0's card and participant 1's CPU
+     gradients, and within ``FL_PARAM_TOL`` / ``FL_MOVED_SHARE`` of (i)'s;
+     a v2 step on (i) and on (iii): finite, gradients on the participants'
+     devices, the masks cancel, (iii) within ``FL_PARAM_TOL`` of (i).
      (c) Yi-6B whole (32 layers, bf16, seed 0), B 4 x T 4096 (2 rows a
-     participant), lr 0.01, server_lr 1: counts reset, 3 steps (the third
+     participant), lr 0.01, server_lr 1, every position on ``cuda:0`` by
+     a device array: counts reset, 3 steps (the third
      with its parts timed), counts read: 229 scatter launches a step (every
      decode); a profiled fourth step (busy share, the scatter's device
      time); every loss finite, every leaf's aggregate non-zero, every
@@ -257,7 +269,7 @@ exits non-zero and no failure is caught:
      finite and non-zero, the masks cancel on ``lm_head`` (the masked
      exchange against the same streams with the mask values taken off,
      within ``FL_CANCEL_TOL``); step ms, tokens/s, peak memory, the
-     exchange's entries against dense. (d) ``table2_fedavg_quick`` with
+     exchange's entries against dense. (e) ``table2_fedavg_quick`` with
      dense secure aggregation, 2 rounds on the card and the CPU: equal
      ledgers.
  19. selectors (run after 15): the 'sampled' and 'local' THGS selectors.
@@ -319,6 +331,7 @@ import statistics
 import subprocess
 import sys
 import time
+import weakref
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -3230,11 +3243,72 @@ def fl_units_check(card: str, device) -> dict:
     return row
 
 
-def fl_parity(card: str) -> None:
+def card_mesh(mesh):
+    """``mesh`` with every position on ``cuda:0``, given as a device
+    array (``LogicalMesh``'s per-position constructor)."""
+    import numpy as np
+    import torch
+
+    shape = mesh.devices.shape
+    return type(mesh)(shape, mesh.axis_names,
+                      np.full(shape, torch.device("cuda", 0), dtype=object))
+
+
+def keep_gradients(step, keep: dict, to=None):
+    """Wrap ``step.gradients`` so that it also stores participant ``p``'s
+    gradients in ``keep[p]`` (moved to ``to`` when given) for every ``p``
+    already in ``keep``, and each participant's gradient devices in
+    ``keep["devices"]``. The wrapper holds the class's function, not the
+    step: no reference cycle keeps the step's tensors alive."""
+    inner = type(step).gradients
+
+    def gradients(params, batch):
+        keep["devices"] = []
+        for p, (loss, g) in enumerate(inner(step_ref(), params, batch)):
+            keep["devices"].append(sorted({str(t.device)
+                                           for t in g.values()}))
+            if p in keep:
+                keep[p] = g if to is None else {
+                    n: t.to(to) for n, t in g.items()}
+            yield loss, g
+            del g
+
+    step_ref = weakref.ref(step)
+    step.gradients = gradients
+
+
+def stream_bits(record, p: int) -> list:
+    """Participant ``p``'s stream of every unit of a v1 ``record``."""
+    return [(r["streams"][p].indices, r["streams"][p].values)
+            for r in record]
+
+
+def params_gap(a, b) -> tuple[float, int, int, str]:
+    """(max |a - b|, elements apart, elements, the worst parameter) of two
+    models' parameters, on ``a``'s device."""
+    err, moved, total, worst = 0.0, 0, 0, ""
+    for (n, p), q in zip(a.named_parameters(), b.parameters()):
+        d = (p - q.to(p.device)).abs()
+        moved += int((d > 0).sum())
+        total += d.numel()
+        if d.max().item() > err:
+            err, worst = d.max().item(), n
+    return err, moved, total, worst
+
+
+def same_params(a, b) -> bool:
+    return all(bits_equal(p, q.to(p.device))
+               for p, q in zip(a.parameters(), b.parameters()))
+
+
+def fl_parity(card: str) -> dict:
     """(b) Yi-6B at full width, 2 layers, f32 (TF32 off), B 2 x T 1024, on
     the multi-pod layout: one v1 step on the card against the CPU (loss;
-    params, where a top-k flip moves an element by its whole update), then
-    one v2 step on the card (finite, the masks cancel)."""
+    params, where a top-k flip moves an element by its whole update).
+    Then (d), placement: the same step with every position on ``cuda:0``
+    by a device array (i), all on the CPU ((b)'s CPU run, ii), and pod 0
+    on ``cuda:0``, pod 1 on the CPU (iii); v2 steps on (i) and (iii).
+    Returns (iii)'s v1 step's launches."""
     import torch
 
     from repro_torch.core import threefry
@@ -3251,24 +3325,21 @@ def fl_parity(card: str) -> None:
     batch = {k: v.cuda() for k, v in cpu_batch.items()}
     state0 = {n: p.detach().clone() for n, p in model.named_parameters()}
     cpu_mesh = type(mesh)(mesh.devices.shape, mesh.axis_names, "cpu")
-    out = {}
+    key = threefry.key(0)
+    out, kept = {}, {"cuda": {0: None}, "cpu": {1: None}}
     for dev, m, mesh_ in (("cuda", model, mesh), ("cpu", cpu_model,
                                                   cpu_mesh)):
         step = ttrain.make_fl_train_step(cfg, mesh_, "pod", thgs, sa,
                                          lr=FL_LR)
+        keep_gradients(step, kept[dev], to="cuda")
         res = ttrain.init_fl_residuals(m, 2)
         b = batch if dev == "cuda" else cpu_batch
+        record = []
         t0 = time.perf_counter()
-        _, _, loss = step(m, res, b, threefry.key(0))
-        out[dev] = (loss.item(), time.perf_counter() - t0, res)
+        _, _, loss = step(m, res, b, key, record=record)
+        out[dev] = (loss.item(), time.perf_counter() - t0, res, record)
     loss_err = abs(out["cuda"][0] - out["cpu"][0])
-    param_err, moved, total, worst = 0.0, 0, 0, ""
-    for (n, p), q in zip(model.named_parameters(), cpu_model.parameters()):
-        d = (p.cpu() - q).abs()
-        moved += int((d > 0).sum())
-        total += d.numel()
-        if d.max().item() > param_err:
-            param_err, worst = d.max().item(), n
+    param_err, moved, total, worst = params_gap(model, cpu_model)
     moved_any = sum(int((p != state0[n]).sum())
                     for n, p in model.named_parameters())
     print(f"[fl_train] (b) v1 step {cfg.name} full width, 2 layers, f32 "
@@ -3284,26 +3355,172 @@ def fl_parity(card: str) -> None:
     check(param_err <= FL_PARAM_TOL and moved <= FL_MOVED_SHARE * total,
           f"FL params card vs CPU {param_err:.3e}, {moved} elements")
     check(moved_any > 0, "the FL step moved no parameter")
-    del cpu_model, out
-    gc.collect()
-    # v2, one step from the initial state on the card
-    with torch.no_grad():
-        for n, p in model.named_parameters():
-            p.copy_(state0[n])
-    step = ttrain.make_fl_train_step_v2(cfg, mesh, "pod", thgs, sa, lr=FL_LR)
-    res = ttrain.init_fl_residuals(model, 2)
-    record = []
-    _, _, loss = step(model, res, batch, threefry.key(0), record=record)
-    finite = math.isfinite(loss.item()) and all(
-        bool(torch.isfinite(p).all()) for p in model.parameters())
-    cancel = fl_cancel_v2(step, model, record, threefry.key(0))
-    print(f"[fl_train] (b) v2 step on {card}: loss {loss.item():.7f}, "
-          f"params finite {finite}; {cancel['text']}", flush=True)
-    check(finite, "non-finite params or loss after the v2 step")
-    check(cancel["ok"], f"v2 masks do not cancel: {cancel['text']}")
-    del model, state0, res, record
+    del step
+    counts = fl_placement(card, cfg, mesh, thgs, sa, model, state0, batch,
+                          out, kept)
+    del cpu_model, out, kept
     gc.collect()
     torch.cuda.empty_cache()
+    return counts
+
+
+def fl_placement(card: str, cfg, mesh, thgs, sa, model_b, state0, batch,
+                 out: dict, kept: dict) -> dict:
+    """(d) placement, from (b)'s state0, batch and runs: ``out`` holds (b)'s
+    card run and (ii), the CPU run (loss, s, residuals, record); ``kept``
+    participant 0's card and participant 1's CPU gradients of those runs,
+    on the card."""
+    import torch
+
+    from repro_torch.core import threefry
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models import transformer as tf
+
+    key = threefry.key(0)
+    cuda0, cpu = torch.device("cuda", 0), torch.device("cpu")
+    mesh_i = card_mesh(mesh)
+    mesh_iii = type(mesh)(mesh.devices.shape, mesh.axis_names,
+                          [cuda0, cpu])         # one device a pod
+
+    def fresh():
+        m = tf.init_params(cfg, device="meta").to_empty(device=cuda0)
+        with torch.no_grad():
+            for n, p in m.named_parameters():
+                p.copy_(state0[n])
+        return m
+
+    # (i) every position on cuda:0 through the device array
+    model_i = fresh()
+    step_i = ttrain.make_fl_train_step(cfg, mesh_i, "pod", thgs, sa,
+                                       lr=FL_LR)
+    res_i = ttrain.init_fl_residuals(model_i, 2, mesh_i, "pod")
+    rec_i = []
+    t0 = time.perf_counter()
+    _, _, loss_i = step_i(model_i, res_i, batch, key, record=rec_i)
+    loss_i = loss_i.item()
+    t_i = time.perf_counter() - t0
+    _, _, res_b, rec_b = out["cuda"]
+    same_i = {
+        "params": same_params(model_i, model_b),
+        "residuals": all(bits_equal(a, b) for a, b in zip(res_i, res_b)),
+        "loss": bits_equal(torch.tensor(loss_i),
+                           torch.tensor(out["cuda"][0])),
+        "streams": all(bits_equal(a, c) and bits_equal(b, d)
+                       for p in (0, 1) for (a, b), (c, d) in zip(
+                           stream_bits(rec_i, p), stream_bits(rec_b, p)))}
+    print(f"[fl_train] (d)(i) every position on cuda:0 by a device array "
+          f"on {card}: v1 step {t_i:.2f} s, loss {loss_i:.7f}; bit-equal "
+          f"to (b)'s one-device step {same_i}", flush=True)
+    check(all(same_i.values()), f"(d)(i) differs from the one-device step: "
+          f"{same_i}")
+    del model_b, res_b, rec_b
+    gc.collect()
+
+    # (iii) pod 0 on cuda:0, pod 1 on the CPU, the parameters on cuda:0
+    model_iii = fresh()
+    step_iii = ttrain.make_fl_train_step(cfg, mesh_iii, "pod", thgs, sa,
+                                         lr=FL_LR)
+    res_iii = ttrain.init_fl_residuals(model_iii, 2, mesh_iii, "pod")
+    rec_iii = []
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, _, loss_iii = step_iii(model_iii, res_iii, batch, key,
+                              record=rec_iii)
+    loss_iii = loss_iii.item()
+    t_iii = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    n_units = len(step_iii.units(*step_iii.layout(model_iii)))
+    _, t_ii, res_ii, rec_ii = out["cpu"]
+    on = {"streams 0": {str(st.indices.device) for st in
+                        (r["streams"][0] for r in rec_iii)},
+          "streams 1": {str(st.indices.device) for st in
+                        (r["streams"][1] for r in rec_iii)},
+          "rows 0": {str(r[0].device) for r in res_iii},
+          "rows 1": {str(r[1].device) for r in res_iii}}
+    replica = step_iii.replicas[cpu][1]
+    same_iii = {
+        "streams 0 = (i)'s": all(
+            bits_equal(a, c) and bits_equal(b, d) for (a, b), (c, d) in
+            zip(stream_bits(rec_iii, 0), stream_bits(rec_i, 0))),
+        "streams 1 = (ii)'s": all(
+            bits_equal(a, c) and bits_equal(b, d) for (a, b), (c, d) in
+            zip(stream_bits(rec_iii, 1), stream_bits(rec_ii, 1))),
+        "rows 0 = (i)'s": all(bits_equal(a[0], b[0])
+                              for a, b in zip(res_iii, res_i)),
+        "rows 1 = (ii)'s": all(bits_equal(a[1], b[1])
+                               for a, b in zip(res_iii, res_ii)),
+        "CPU replica = state0": all(
+            bits_equal(p.cpu(), state0[n].cpu())
+            for n, p in replica.named_parameters())}
+    # the exchange on the cuda:0 mesh fed participant 0's card and
+    # participant 1's CPU gradients (moved to the card)
+    model_o = fresh()
+    res_o = ttrain.init_fl_residuals(model_o, 2, mesh_i, "pod")
+    step_i.exchange(model_o, res_o, [kept["cuda"][0], kept["cpu"][1]], key)
+    same_iii["params = exchange of the same gradients"] = same_params(
+        model_iii, model_o)
+    err, moved, total, worst = params_gap(model_iii, model_i)
+    print(f"[fl_train] (d)(iii) pod 0 on cuda:0, pod 1 on the CPU, home "
+          f"cuda:0, on {card}: v1 step {t_iii:.2f} s (i {t_i:.2f} s, ii "
+          f"{t_ii:.2f} s; {torch.get_num_threads()} CPU threads), loss "
+          f"{loss_iii:.7f}; placed {on}; launches "
+          f"{counts} ({n_units} units); bit-equal {same_iii}; params vs "
+          f"(i) max |diff| {err:.3e} at {worst} (tolerance "
+          f"{FL_PARAM_TOL}), {moved} of {total} elements differ (share "
+          f"tolerance {FL_MOVED_SHARE})", flush=True)
+    check(on == {"streams 0": {"cuda:0"}, "streams 1": {"cpu"},
+                 "rows 0": {"cuda:0"}, "rows 1": {"cpu"}},
+          f"(d)(iii) placement {on}")
+    check(all(same_iii.values()), f"(d)(iii): {same_iii}")
+    check(err <= FL_PARAM_TOL and moved <= FL_MOVED_SHARE * total,
+          f"(d)(iii) params vs (i) {err:.3e}, {moved} elements")
+    check(counts["stream_scatter_add"] == n_units,
+          f"(d)(iii) launched the scatter {counts['stream_scatter_add']} "
+          f"times for {n_units} units")
+    del model_o, res_o, rec_iii, res_iii, rec_i, res_i, out, kept
+    gc.collect()
+
+    # v2 on (i), then on (iii), from state0
+    v2 = {}
+    for tag, mesh_, m in (("i", mesh_i, model_i), ("iii", mesh_iii,
+                                                   model_iii)):
+        with torch.no_grad():
+            for n, p in m.named_parameters():
+                p.copy_(state0[n])
+        step = ttrain.make_fl_train_step_v2(cfg, mesh_, "pod", thgs, sa,
+                                            lr=FL_LR)
+        seen = {}
+        keep_gradients(step, seen)
+        res = ttrain.init_fl_residuals(m, 2, mesh_, "pod")
+        record = []
+        t0 = time.perf_counter()
+        _, _, loss = step(m, res, batch, key, record=record)
+        loss = loss.item()
+        t = time.perf_counter() - t0
+        finite = math.isfinite(loss) and all(
+            bool(torch.isfinite(p).all()) for p in m.parameters())
+        cancel = fl_cancel_v2(step, m, record, key)
+        v2[tag] = seen["devices"]
+        print(f"[fl_train] (d) v2 step on ({tag}) on {card}: {t:.2f} s, "
+              f"loss {loss:.7f}, params finite {finite}, gradients on "
+              f"{seen['devices']}; {cancel['text']}", flush=True)
+        check(finite, f"non-finite params or loss after the v2 step ({tag})")
+        check(cancel["ok"], f"v2 masks do not cancel on ({tag}): "
+              f"{cancel['text']}")
+        del res, record
+    err, moved, total, worst = params_gap(model_iii, model_i)
+    print(f"[fl_train] (d) v2 (iii) vs (i): params max |diff| {err:.3e} at "
+          f"{worst} (tolerance {FL_PARAM_TOL}), {moved} of {total} elements "
+          f"differ", flush=True)
+    check(v2["iii"] == [["cuda:0"], ["cpu"]] and v2["i"] == [["cuda:0"]] * 2,
+          f"v2 gradients made on {v2}")
+    check(err <= FL_PARAM_TOL, f"v2 (iii) vs (i) params {err:.3e}")
+    del model_i, model_iii
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
 
 
 def fl_cancel(masked, unmasked, n_mask_slots: int, what: str) -> dict:
@@ -3369,6 +3586,9 @@ def fl_yi6b(card: str) -> dict:
     from repro_torch.sim import CommLedger
 
     cfg, mesh, thgs, sa = fl_config()
+    mesh = card_mesh(mesh)
+    gc.collect()        # nothing of the earlier cases in the peak
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
@@ -3490,7 +3710,7 @@ def fl_yi6b(card: str) -> dict:
 
 
 def fl_dense_secagg(card: str) -> None:
-    """(d) table2_fedavg_quick with dense secure aggregation, 2 rounds on
+    """(e) table2_fedavg_quick with dense secure aggregation, 2 rounds on
     the card and on the CPU: the ledgers are equal."""
     from repro_torch.core.types import SecureAggConfig
     from repro_torch.sim import presets
@@ -3504,7 +3724,7 @@ def fl_dense_secagg(card: str) -> None:
     same = facts["cuda"] == facts["cpu"] and all(
         res["cuda"].ledger.totals(a) == res["cpu"].ledger.totals(a)
         for a in ("paper", "tpu"))
-    print(f"[fl_train] (d) table2_fedavg_quick with dense secure "
+    print(f"[fl_train] (e) table2_fedavg_quick with dense secure "
           f"aggregation, 2 rounds on {card}: accuracies card "
           f"{res['cuda'].accuracies} CPU {res['cpu'].accuracies}; ledger "
           f"equal {same}", flush=True)
@@ -3514,19 +3734,20 @@ def fl_dense_secagg(card: str) -> None:
 
 def fl_train_phase(card: str, device) -> tuple[dict, dict]:
     """Phase 18: the federated LM train step. Returns the scatter's row at
-    the embed decode and the launches of (c)'s steps 1-3."""
+    the embed decode and the launches of (d)(iii)'s step and (c)'s steps
+    1-3."""
     t0 = time.perf_counter()
     row = fl_units_check(card, device)
     t1 = time.perf_counter()
-    fl_parity(card)
+    placed = fl_parity(card)
     t2 = time.perf_counter()
     counts = fl_yi6b(card)
     t3 = time.perf_counter()
     fl_dense_secagg(card)
     print(f"[fl_train] phase 18 took {time.perf_counter() - t0:.1f} s on "
-          f"{card} ((a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
+          f"{card} ((a) {t1 - t0:.1f} s, (b) and (d) {t2 - t1:.1f} s, (c) "
           f"{t3 - t2:.1f} s)", flush=True)
-    return row, counts
+    return row, {k: counts[k] + placed[k] for k in counts}
 
 
 # ----------------------------------------------------- phase 12: resume
@@ -5374,7 +5595,8 @@ def main() -> int:
                                    "src/repro/kernels/mask_prng.py:38")}
     # each kernel's launches come from the path that runs it: table2_quick
     # and the sharded parity runs for the scatter and the masks (the
-    # scatter also the federated Yi-6B steps of [fl_train]; both also the
+    # scatter also the federated Yi-6B steps of [fl_train], (c)'s whole
+    # model and (d)'s placed step; both also the
     # sampled runs of [selectors] and the walkthrough of [secagg_demo]),
     # codec_sweep_quick and its sharded int8 arm for the bit packing, the
     # served Yi-6B and the families' first prefills for the flash

@@ -4,16 +4,20 @@
 Trains an LM (``--arch``, reduced width by default) with the THGS + sparse
 secure-aggregation FL step (``launch/train.py::make_fl_train_step``) on the
 debug mesh (pod 2 x data 2 x model 2: two participants of four blocks
-each, driven by this one process on ``--device``). Each participant is one
-financial institution. Params and THGS residuals resume from the latest
-checkpoint in ``--ckpt`` (the reference's on-disk format), and the run's
-exchange volume is written to ``<ckpt>/comm_ledger.json`` under the
-reference's accounting (``costs.TPU_BITS``: f32 values, int32 indices).
+each, driven by this one process on ``--device``, or each pod on its
+device of ``--devices``, the parameters on the first). Each participant is
+one financial institution. Params and THGS residuals resume from the
+latest checkpoint in ``--ckpt`` (the reference's on-disk format: residuals
+``[n_fed, *leaf]``, each row restored onto its participant's device), and
+the run's exchange volume is written to ``<ckpt>/comm_ledger.json`` under
+the reference's accounting (``costs.TPU_BITS``: f32 values, int32
+indices).
 
 Run::
 
     PYTHONPATH=src python -m repro_torch.launch.fl_train --device cpu \\
         --steps 20
+    python -m repro_torch.launch.fl_train --devices cuda:0,cuda:1
 """
 from __future__ import annotations
 
@@ -33,7 +37,8 @@ from repro_torch.core.types import SecureAggConfig, THGSConfig
 from repro_torch.data import make_lm_tokens
 from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.launch.train import (fl_leaf_plan, init_fl_residuals,
-                                      make_fl_train_step)
+                                      load_residuals, make_fl_train_step,
+                                      stacked_residuals)
 from repro_torch.models import transformer as tf
 from repro_torch.sim import CommLedger, mib
 
@@ -64,6 +69,36 @@ def params_tree(model: tf.TransformerLM) -> dict:
             for leaf in convert.reference_leaves(model)}
 
 
+def fl_state(model: tf.TransformerLM, residuals: list) -> dict:
+    """The checkpoint's tree: ``params`` and the residuals in the
+    reference's ``[n_fed, *leaf]`` layout (dotted leaf paths are the
+    reference's tree levels on disk)."""
+    return {"params": params_tree(model),
+            "residuals": {lf.path: r for lf, r in zip(
+                convert.reference_leaves(model),
+                stacked_residuals(residuals))}}
+
+
+def load_fl_state(model: tf.TransformerLM, residuals: list,
+                  tree: dict) -> None:
+    """Write a restored :func:`fl_state` tree into the parameters and the
+    residuals (each row onto its participant's device)."""
+    load_params_tree(model, tree["params"])
+    load_residuals(residuals, [tree["residuals"][lf.path]
+                               for lf in convert.reference_leaves(model)])
+
+
+def parse_devices(spec: str) -> list:
+    """``--devices``: comma-separated devices, one a pod. A ``cuda`` device
+    must exist: nothing moves to the CPU in its place."""
+    devs = [torch.device(d.strip()) for d in spec.split(",")]
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    for d in devs:
+        if d.type == "cuda" and (d.index or 0) >= n:
+            raise ValueError(f"{d}: this host has {n} CUDA device(s)")
+    return devs
+
+
 @torch.no_grad()
 def load_params_tree(model: tf.TransformerLM, tree: dict) -> None:
     """Write ``{path: stacked tensor}`` into the model's parameters."""
@@ -88,24 +123,31 @@ def main(argv=None) -> int:
                                          "repro_fl_ckpt"))
     ap.add_argument("--log-every", type=int, default=10,
                     help="print the loss every N steps")
-    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--device", default="cuda",
+                    help="the one device of every pod")
+    ap.add_argument("--devices", default=None,
+                    help="comma-separated, one device a pod (e.g. "
+                    "cuda:0,cuda:1); the parameters live on the first")
     args = ap.parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        print("CUDA is not available: pass --device cpu", file=sys.stderr)
+    try:
+        devices = parse_devices(args.devices or args.device)
+    except ValueError as e:
+        print(f"{e}: pass --device cpu", file=sys.stderr)
         return 1
+    device = devices[0]
 
     cfg = configs.get(args.arch)
     if args.reduced:
         cfg = configs.reduced(cfg)
-    mesh = make_debug_mesh(2, 2, multi_pod=True, device=device)
+    mesh = make_debug_mesh(2, 2, multi_pod=True, devices=(
+        devices if args.devices else None), device=device)
     fed_axis = "pod"
     n_fed = mesh.shape[fed_axis]
     n_blocks = mesh.size // n_fed
 
     gen = torch.Generator(device=device).manual_seed(0)
     params = tf.init_params(cfg, gen, device=device)
-    residuals = init_fl_residuals(params, n_fed)
+    residuals = init_fl_residuals(params, n_fed, mesh, fed_axis)
     leaves = convert.reference_leaves(params)
 
     thgs = THGSConfig(s0=0.05, alpha=0.9, s_min=0.01)
@@ -119,18 +161,10 @@ def main(argv=None) -> int:
 
     # resume from the latest checkpoint: the THGS error-feedback residuals
     # are part of the training state
-    # (dotted leaf paths are the reference's tree levels on disk)
-    def state() -> dict:
-        return {"params": params_tree(params),
-                "residuals": {lf.path: r
-                              for lf, r in zip(leaves, residuals)}}
-
     start = checkpoint.latest_step(args.ckpt) or 0
     if start:
-        tree = checkpoint.restore(args.ckpt, start, like=state())
-        load_params_tree(params, tree["params"])
-        for lf, r in zip(leaves, residuals):
-            r.copy_(tree["residuals"][lf.path])
+        load_fl_state(params, residuals, checkpoint.restore(
+            args.ckpt, start, like=fl_state(params, residuals)))
         print(f"resumed from {args.ckpt} at step {start}")
 
     ledger = CommLedger()
@@ -142,7 +176,7 @@ def main(argv=None) -> int:
         if (i + 1) % args.log_every == 0:
             print(f"step {i + 1:4d}  loss={float(loss):.4f}", flush=True)
 
-    checkpoint.save(args.ckpt, args.steps, state())
+    checkpoint.save(args.ckpt, args.steps, fl_state(params, residuals))
     print(f"checkpoint written to {args.ckpt} "
           f"(step {checkpoint.latest_step(args.ckpt)})")
     t = ledger.totals("tpu")

@@ -2,12 +2,19 @@
 the FL train step and the 1-D ``clients`` mesh of the client-parallel round.
 
 **The datacenter meshes.** A :class:`LogicalMesh` is axis names, axis sizes
-and the device each position runs on, driven by one process. The
-production layouts are the reference's: one pod ``(data 16, model 16)``,
-or two ``(pod 2, data 16, model 16)`` where ``pod`` is the federation axis
-(each pod one cross-silo participant). The port's FL step runs the
-participants along the federation axis one after another on their device;
-its block layout depends only on the logical shape (``data x model``
+and the device each position runs on, driven by one process; like a JAX
+``Mesh`` it takes ``devices``, an array of the mesh's shape (or one device
+for every position). The production layouts are the reference's: one pod
+``(data 16, model 16)``, or two ``(pod 2, data 16, model 16)`` where
+``pod`` is the federation axis (each pod one cross-silo participant);
+:func:`make_production_mesh` and :func:`make_debug_mesh` take ``devices=``,
+one device a pod or one a position. The port's FL step runs each
+participant along the federation axis on its own device
+(:func:`participant_device`); the positions of one participant compute as
+one unsharded model, so they must share that device: the port runs no
+intra-participant parallelism (FSDP or tensor parallelism across cards),
+and a participant spread over two devices raises ``NotImplementedError``.
+The block layout depends only on the logical shape (``data x model``
 blocks a participant), so the multi-pod layout runs on one card with the
 reference's numerics. :func:`logical_rules` maps the model's logical axis
 names onto the mesh axes, as the reference's.
@@ -31,6 +38,7 @@ then run one after the other on that device. :func:`make_clients_mesh` and
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -117,11 +125,36 @@ NVLINK_BW = 450e9            # bytes/s per card
 INTER_NODE_BW = 50e9         # bytes/s per card
 
 
+def _device_array(devices, shape: tuple) -> np.ndarray:
+    """``devices`` as an object array of ``torch.device`` of ``shape``: one
+    device fills every position; an array of the mesh's shape, or of its
+    size, gives one a position; an array of a leading part of the shape
+    (one device a pod on the multi-pod layout) fills the rest."""
+    if isinstance(devices, (str, torch.device)):
+        arr = np.empty((), dtype=object)
+        arr[()] = devices
+    else:
+        arr = np.asarray(devices, dtype=object)
+    if arr.shape != shape[:arr.ndim]:
+        if arr.size != math.prod(shape):
+            raise ValueError(f"devices of shape {arr.shape} do not fit a "
+                             f"mesh of shape {shape}")
+        arr = arr.reshape(shape)
+    arr = np.broadcast_to(arr.reshape(arr.shape + (1,) * (len(shape)
+                                                          - arr.ndim)),
+                          shape)
+    out = np.empty(shape, dtype=object)
+    out.reshape(-1)[:] = [torch.device(d) for d in arr.reshape(-1)]
+    return out
+
+
 class LogicalMesh:
     """A named mesh run by one process: ``devices`` is a numpy object
     array of ``torch.device`` of the mesh's shape (``devices.shape``,
     ``devices.size`` as a JAX mesh's), one per position; positions may
-    share a device."""
+    share a device. ``device`` is one device for every position, or an
+    array (nested sequence) of the mesh's shape or size, or of a leading
+    part of its shape (one device a pod)."""
 
     def __init__(self, shape: tuple, axis_names: tuple, device="cuda"):
         shape = tuple(int(d) for d in shape)
@@ -129,9 +162,7 @@ class LogicalMesh:
             raise ValueError(f"shape {shape} does not fit axes "
                              f"{axis_names}")
         self.axis_names = tuple(axis_names)
-        devs = np.empty(int(np.prod(shape)), dtype=object)
-        devs[:] = [torch.device(device)] * devs.size
-        self.devices = devs.reshape(shape)
+        self.devices = _device_array(device, shape)
 
     @property
     def shape(self) -> dict:
@@ -143,23 +174,63 @@ class LogicalMesh:
         return int(self.devices.size)
 
 
-def make_production_mesh(*, multi_pod: bool = False,
-                         device="cuda") -> LogicalMesh:
+def _canonical(device: torch.device) -> torch.device:
+    """``cuda`` with no index is the current card, as a tensor placed there
+    reports it."""
+    if device.type == "cuda" and device.index is None \
+            and torch.cuda.is_available():
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def participant_device(mesh: LogicalMesh, fed_axis: str,
+                       p: int) -> torch.device:
+    """The device that federation participant ``p`` (index ``p`` along
+    ``fed_axis``) runs on: the one device of its positions. Raises
+    ``NotImplementedError`` when they span several devices."""
+    sub = np.take(mesh.devices, p, axis=mesh.axis_names.index(fed_axis))
+    devs = sorted({_canonical(d) for d in sub.reshape(-1)}, key=str)
+    if len(devs) > 1:
+        raise NotImplementedError(
+            f"participant {p} along {fed_axis!r} spans devices "
+            f"{[str(d) for d in devs]}: the port runs each participant as "
+            "one unsharded model on one device (no intra-participant "
+            "FSDP or tensor parallelism across cards)")
+    return devs[0]
+
+
+def _mesh_devices(devices, device, n_pods: int):
+    """``make_*_mesh``'s placement: ``devices`` (one a pod, or one a
+    position) when given, else ``device`` everywhere."""
+    if devices is None:
+        return device
+    arr = np.asarray(devices, dtype=object)
+    if n_pods == 1 and arr.size == 1:     # a single-pod mesh is one pod
+        return arr.reshape(-1)[0]
+    return arr
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda",
+                         devices=None) -> LogicalMesh:
     """(data 16, model 16), or (pod 2, data 16, model 16) with
-    ``multi_pod``; every position on ``device``."""
+    ``multi_pod``; every position on ``device``, or placed by ``devices``
+    (one device a pod, or one a position)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return LogicalMesh(shape, axes, device)
+    return LogicalMesh(shape, axes,
+                       _mesh_devices(devices, device, 2 if multi_pod else 1))
 
 
 def make_debug_mesh(n_data: int = 2, n_model: int = 2, *,
-                    multi_pod: bool = False, device="cuda") -> LogicalMesh:
+                    multi_pod: bool = False, device="cuda",
+                    devices=None) -> LogicalMesh:
     """A small mesh: (pod 2, data, model) with ``multi_pod``, else (data,
-    model)."""
+    model); placed as :func:`make_production_mesh`'s."""
     if multi_pod:
         return LogicalMesh((2, n_data, n_model), ("pod", "data", "model"),
-                           device)
-    return LogicalMesh((n_data, n_model), ("data", "model"), device)
+                           _mesh_devices(devices, device, 2))
+    return LogicalMesh((n_data, n_model), ("data", "model"),
+                       _mesh_devices(devices, device, 1))
 
 
 def logical_rules(mesh, *, fsdp: bool = True,

@@ -22,19 +22,44 @@ update is ``p + server_lr * agg`` in f32. Leaves are the reference's
 (``convert.reference_leaves``: stacked, in ``tree_leaves`` order), so leaf
 ids, per-leaf ranks and block layouts are the reference's.
 
-One process drives the mesh: the participants run one after another on the
-mesh's device, all at the parameters of the step's start; a participant's
-gradients are dropped after its encode, and the parameters are updated in
-place once, after the decode. Residuals are the reference's
-``[n_fed, *leaf]`` bf16 leaves (:func:`init_fl_residuals`), updated in
+One process drives the mesh. Participant ``p`` runs on its pod's device
+(``launch.mesh.participant_device``); the *home* device is where the
+parameters live, and there the decode, the scatter launches and the server
+update run. A participant whose device is not home computes on a replica
+of the parameters, refreshed from them (bit for bit) at the start of each
+step's gradient stage. Every participant works at the parameters of the
+step's start; a participant's gradients are dropped after its encode, and
+the parameters are updated in place once, after the decode. Residuals are
+the reference's ``[n_fed, *leaf]`` bf16 leaves on a one-device mesh, and on
+a mesh of several devices one row a participant on its device
+(:func:`init_fl_residuals`; ``residuals[leaf][p]`` either way), updated in
 place. A step is a gradient stage and an exchange stage
 (``step.exchange(params, residuals, grads, round_key)``, ``grads`` any
 iterable of per-participant gradient dicts), so the exchange can be fed
-other gradients. The environment switches keep the reference's names and
+other gradients. v1 draws a participant's masks and encodes on its device
+and brings its streams home for the decode; v2's one batched encode runs
+at home, so it brings every participant's bf16 gradients and residual rows
+home and sends the new rows back (Yi-6B: about 12 GB of gradients a
+participant). The environment switches keep the reference's names and
 defaults: ``REPRO_FL_ALIGNED_BLOCKS`` (v1, default off) and
 ``REPRO_FL_V2_GENERIC`` (v2, default off) select the block layout;
 ``REPRO_FL_STREAM_REPLICATE`` (a partitioner workaround) has no meaning in
 one process and is not read.
+
+**Host synchronizations.** The gradient stage copies each participant's
+rows of the batch and refreshes the replicas before it enqueues any
+gradient work, and it starts a participant's gradients before the previous
+participant's encode whenever their devices differ (one gradient set
+pending a device): no host sync sits between the gradient stages of
+participants on different devices, and on several cards they overlap.
+Participants that share a device make their gradients one after the
+other, each after the previous one's encode (one gradient set alive, as
+on one card). The syncs left are: the ``_stage`` timings, when the caller
+asks for them; inside a participant's encode, the small host-to-device
+copies of the masks' keys and scalars and the top-k's NaN test (they wait
+for that participant's stream); and copies to or from a CPU participant
+(its rows, its replica, its stream, its loss, and v2's gradients and
+residual rows).
 """
 from __future__ import annotations
 
@@ -57,7 +82,7 @@ from repro_torch.core.blocked import (block_layout, decode_blocked_sum,
                                       sharding_aligned_transform)
 from repro_torch.core.types import SecureAggConfig, THGSConfig
 from repro_torch.launch import shardings as shd
-from repro_torch.launch.mesh import logical_rules
+from repro_torch.launch.mesh import logical_rules, participant_device
 from repro_torch.models import transformer as tf
 
 
@@ -156,14 +181,42 @@ def fl_leaf_plan(leaf_sizes, thgs: THGSConfig, n_blocks: int) -> list:
     return plan
 
 
-def init_fl_residuals(params: tf.TransformerLM, n_fed: int) -> list:
-    """Zero per-participant residuals, one bf16 ``[n_fed, *leaf]`` tensor a
-    reference leaf (its order), on the parameters' device (``meta`` for
-    shape records)."""
-    device = next(params.parameters()).device
-    return [torch.zeros((n_fed,) + leaf.shape, dtype=torch.bfloat16,
-                        device=device)
-            for leaf in convert.reference_leaves(params)]
+def init_fl_residuals(params: tf.TransformerLM, n_fed: int, mesh=None,
+                      fed_axis: str = "pod") -> list:
+    """Zero per-participant residuals, one a reference leaf (its order),
+    bf16: a ``[n_fed, *leaf]`` tensor on the parameters' device (``meta``
+    for shape records), or on ``mesh``'s one device; on a mesh of several
+    devices, a list of ``n_fed`` rows, row ``p`` on participant ``p``'s
+    device."""
+    leaves = convert.reference_leaves(params)
+    if mesh is None:
+        devs = [next(params.parameters()).device]
+    else:
+        if mesh.shape[fed_axis] != n_fed:
+            raise ValueError(f"{n_fed} participants on a mesh of "
+                             f"{mesh.shape[fed_axis]} along {fed_axis!r}")
+        devs = [participant_device(mesh, fed_axis, p) for p in range(n_fed)]
+    if len(set(devs)) == 1:
+        return [torch.zeros((n_fed,) + leaf.shape, dtype=torch.bfloat16,
+                            device=devs[0]) for leaf in leaves]
+    return [[torch.zeros(leaf.shape, dtype=torch.bfloat16, device=d)
+             for d in devs] for leaf in leaves]
+
+
+def stacked_residuals(residuals: list) -> list:
+    """The residuals in the reference's layout, one ``[n_fed, *leaf]``
+    tensor a leaf (a mesh's per-participant rows stacked on the CPU)."""
+    return [r if torch.is_tensor(r) else torch.stack([x.cpu() for x in r])
+            for r in residuals]
+
+
+@torch.no_grad()
+def load_residuals(residuals: list, stacked: list) -> None:
+    """Write ``[n_fed, *leaf]`` tensors into the residuals, each row onto
+    its participant's device."""
+    for r, src in zip(residuals, stacked):
+        for row, s in zip(r, src):
+            row.copy_(s)
 
 
 def _sync(device) -> None:
@@ -267,6 +320,9 @@ class _FLStep:
         self.n_blocks = mesh.size // self.n_fed
         self.rules = logical_rules(mesh, fed_axis=fed_axis)
         self.intra_axes = tuple(a for a in mesh.axis_names if a != fed_axis)
+        self.devices = [participant_device(mesh, fed_axis, p)
+                        for p in range(self.n_fed)]
+        self.replicas = {}      # device -> (params, replica)
         self.timings = None
 
     def layout(self, params):
@@ -282,12 +338,40 @@ class _FLStep:
             return max(1, int(size * self.sa.mask_ratio / self.n_fed / nb))
         return 0
 
+    @torch.no_grad()
+    def replica(self, params, device):
+        """The parameters on ``device``: ``params`` on their own device,
+        else the replica there, refreshed from them bit for bit."""
+        if device == self.device(params):
+            return params
+        cached = self.replicas.get(device)
+        if cached is None or cached[0] is not params:
+            rep = tf.init_params(params.cfg, device="meta").to_empty(
+                device=device)
+            self.replicas[device] = cached = (params, rep)
+        for r, p in zip(cached[1].parameters(), params.parameters()):
+            r.copy_(p)
+        return cached[1]
+
     def gradients(self, params, batch: dict) -> Iterable:
         """Each participant's ``(loss, {name: gradient})`` at ``params``,
-        one at a time (the next is computed only when asked for)."""
-        for b in _participant_batches(batch, self.n_fed):
-            with _stage("grads", self.timings, self.device(params)):
-                out = step_gradients(params, self.cfg, b, self.n_micro)
+        on its device. A participant's gradients are started when the
+        previous one is handed out, or before that when their devices
+        differ (module docstring); a device holds one pending set."""
+        models = {d: self.replica(params, d) for d in self.devices}
+        rows = [{k: v.to(d) for k, v in b.items()} for d, b in
+                zip(self.devices, _participant_batches(batch, self.n_fed))]
+        pending, nxt = [], 0        # (device, gradients) started, in order
+        for _ in range(self.n_fed):
+            while nxt < self.n_fed and all(
+                    self.devices[nxt] != d for d, _ in pending):
+                d = self.devices[nxt]
+                with _stage("grads", self.timings, d):
+                    pending.append((d, step_gradients(
+                        models[d], self.cfg, rows[nxt], self.n_micro)))
+                rows[nxt] = None
+                nxt += 1
+            _, out = pending.pop(0)
             yield out
             del out     # no frame holds a gradient while the next is made
 
@@ -298,15 +382,17 @@ class _FLStep:
     def __call__(self, params, residuals, batch, round_key, *,
                  timings: dict | None = None, record: list | None = None):
         """One step: ``(params, residuals, mean loss)``; both updated in
-        place. ``timings`` (a dict) collects each stage's wall ms, summed
-        over the participants and units (``grads``, ``masks``, ``encode``,
-        ``decode``, ``update``); ``record`` as :meth:`exchange`'s."""
+        place, the loss on the parameters' device. ``timings`` (a dict)
+        collects each stage's wall ms, summed over the participants and
+        units (``grads``, ``masks``, ``encode``, ``decode``, ``update``);
+        ``record`` as :meth:`exchange`'s."""
         self.timings = timings
+        home = self.device(params)
         losses = []
 
         def grads():
             for loss, g in self.gradients(params, batch):
-                losses.append(loss.to(torch.float32))
+                losses.append(loss.to(home, torch.float32))
                 yield g
                 del g
 
@@ -354,8 +440,9 @@ class FLTrainStep(_FLStep):
         leaves slice by slice), then decode each (sub-)leaf's streams of all
         participants and update the parameters. ``record`` (a list)
         receives a dict a unit: ``leaf``, ``slice`` (None for a whole leaf),
-        ``streams`` (one :class:`BlockedStream` a participant) and
-        ``agg_absmax`` (a 0-d tensor: the aggregate's max magnitude)."""
+        ``streams`` (one :class:`BlockedStream` a participant, on its
+        device, as encoded) and ``agg_absmax`` (a 0-d tensor: the
+        aggregate's max magnitude)."""
         leaves, specs, sizes, leaf_k = self.layout(params)
         dev = self.device(params)
         units = self.units(leaves, specs, sizes, leaf_k)
@@ -363,8 +450,7 @@ class FLTrainStep(_FLStep):
         for pid, g in enumerate(grads):
             for u, unit in enumerate(units):
                 streams[u].append(self.encode_unit(
-                    unit, leaves[unit[0]], g, residuals, pid, round_key,
-                    dev))
+                    unit, leaves[unit[0]], g, residuals, pid, round_key))
             del g
         named = dict(params.named_parameters())
         for u, (lid, sl, nb, kb, km, tr) in enumerate(units):
@@ -372,9 +458,9 @@ class FLTrainStep(_FLStep):
             n = (math.prod(sl[2]) if sl is not None else sizes[lid])
             with _stage("decode", self.timings, dev):
                 dense = decode_blocked_sum(
-                    torch.stack([st.indices for st in streams[u]]),
-                    torch.stack([st.values for st in streams[u]]), n, nb,
-                    weight=1.0 / self.n_fed, transform=tr)
+                    torch.stack([st.indices.to(dev) for st in streams[u]]),
+                    torch.stack([st.values.to(dev) for st in streams[u]]),
+                    n, nb, weight=1.0 / self.n_fed, transform=tr)
             if record is not None:
                 record.append({"leaf": lid,
                                "slice": None if sl is None else sl[0],
@@ -399,19 +485,25 @@ class FLTrainStep(_FLStep):
             del dense
 
     def encode_unit(self, unit, leaf, g: dict, residuals, pid: int,
-                    round_key, dev) -> object:
-        """Participant ``pid``'s stream of one (sub-)leaf; its residual
-        written in place."""
+                    round_key) -> object:
+        """Participant ``pid``'s stream of one (sub-)leaf, on its device;
+        its residual row (there too) written in place."""
         lid, sl, nb, kb, km, tr = unit
+        dev = self.devices[pid]
         res = residuals[lid][pid]
+        if res.device != dev:
+            raise ValueError(
+                f"participant {pid}'s residuals lie on {res.device}, the "
+                f"participant on {dev}: make them with "
+                "init_fl_residuals(params, n_fed, mesh)")
         if sl is not None:
             i, lead, slice_shape = sl
-            gi = _slice_of(g, leaf, lead, slice_shape, i)
+            gi = _slice_of(g, leaf, lead, slice_shape, i).to(dev)
             ri = res.reshape((lead,) + slice_shape)[i]
             key = (threefry.fold_in(threefry.fold_in(round_key, lid), i)
                    if km else None)
         else:
-            gi, ri = _stacked(g, leaf), res
+            gi, ri = _stacked(g, leaf).to(dev), res
             key = threefry.fold_in(round_key, lid) if km else None
         masks = None
         if key is not None:
@@ -441,10 +533,12 @@ class FLTrainStep(_FLStep):
 
 
 class FLTrainStepV2(_FLStep):
-    """``make_fl_train_step_v2``'s step: gradients cast to bf16, every
-    participant's leaf encoded in one batched call on the sharding-aligned
-    block view (the generic row blocks when the spec has none, or with
-    ``REPRO_FL_V2_GENERIC=1``), the exchange one scatter a leaf."""
+    """``make_fl_train_step_v2``'s step: gradients cast to bf16 on the
+    participants' devices and brought home, every participant's leaf
+    encoded in one batched call there on the sharding-aligned block view
+    (the generic row blocks when the spec has none, or with
+    ``REPRO_FL_V2_GENERIC=1``), the new residual rows sent back, the
+    exchange one scatter a leaf."""
 
     def exchange(self, params, residuals, grads: Iterable, round_key,
                  *, record: list | None = None) -> None:
@@ -453,7 +547,8 @@ class FLTrainStepV2(_FLStep):
         leaves, specs, sizes, leaf_k = self.layout(params)
         dev = self.device(params)
         generic = os.environ.get("REPRO_FL_V2_GENERIC", "0") == "1"
-        gs = [{n: t.to(torch.bfloat16) for n, t in g.items()} for g in grads]
+        gs = [{n: t.to(torch.bfloat16).to(dev) for n, t in g.items()}
+              for g in grads]
         named = dict(params.named_parameters())
         n_intra = math.prod(self.axis_sizes[a] for a in self.intra_axes)
         for lid, (leaf, spec) in enumerate(zip(leaves, specs)):
@@ -473,7 +568,7 @@ class FLTrainStepV2(_FLStep):
             f32 = torch.float32
             with _stage("encode", self.timings, dev):
                 acc = torch.stack([
-                    to_b(residuals[lid][p].to(f32))
+                    to_b(residuals[lid][p].to(dev, f32))
                     + to_b(_neg_lr(_stacked(gs[p], leaf).to(f32), self.lr))
                     for p in range(self.n_fed)])
             km = self.k_mask(sizes[lid], nb)
