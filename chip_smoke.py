@@ -221,7 +221,17 @@ exits non-zero and no failure is caught:
      (``TRAIN_LOSS_TOL``, ``TRAIN_GRAD_REL``, ``TRAIN_PARAM_TOL``); the
      gradients without the per-block and per-chunk checkpoints bit-equal
      to those with them; two steps from one state bit-equal; n_micro 2
-     against 1 within ``TRAIN_MICRO_REL``. Then Yi-6B at full width and
+     against 1 within ``TRAIN_MICRO_REL``. The same model over ``data 2``
+     on ``[cuda:0, cpu]`` (``launch/fsdp.py``), B 2 x T 256: the bytes on
+     the card after placement (the caching allocator's requested bytes;
+     ``memory_allocated`` counts an unsplit cached block whole, under 1 MiB
+     more a tensor) equal to ``param_specs``' prediction (the
+     ``embed`` table whole, every other matrix halved), one step within the
+     card-vs-CPU tolerances of the one-card step at n_micro 2. Yi-6B whole
+     in bf16 over two explicit groups on ``cuda:0``, B 4 x T 4096: one step
+     whose loss and params are bit-equal to the n_micro 2 step 1 below,
+     its peak at most that run's plus a gathered block and ``lm_head``.
+     Then Yi-6B at full width and
      depth in bf16 (seed 0): 5 SGD steps at lr 0.01 on one batch of
      ``make_lm_tokens(64000, 4, 4096, seed=0)`` as the dry run's
      microbatch rule splits it (2 of 2 rows), then one profiled step: every
@@ -269,9 +279,21 @@ exits non-zero and no failure is caught:
      finite and non-zero, the masks cancel on ``lm_head`` (the masked
      exchange against the same streams with the mask values taken off,
      within ``FL_CANCEL_TOL``); step ms, tokens/s, peak memory, the
-     exchange's entries against dense. (e) ``table2_fedavg_quick`` with
-     dense secure aggregation, 2 rounds on the card and the CPU: equal
-     ledgers.
+     exchange's entries against dense. (e) One participant over its data
+     positions (``launch/fsdp.py``), Yi-6B at 2 layers in f32, B 4 x T 256:
+     (i) each participant's data 0-7 and 8-15 as two explicit groups on
+     ``cuda:0``, v1 and v2 steps bit-equal to the one-device step at
+     n_micro 2 (params, residuals, loss, streams); (ii) data 0-7 of each
+     pod on ``cuda:0``, 8-15 on the CPU: every chunk, residual chunk and
+     stream on its device, each group's loss and gradients bit-equal to
+     ``value_and_grad`` of the one-device model of its device on its rows
+     (that v1 step under ``torch.use_deterministic_algorithms``: the CPU's
+     embed backward is not repeatable without it),
+     params within ``FL_PARAM_TOL`` of (i) with at most ``FL_MOVED_SHARE``
+     of the elements apart, one scatter launch a unit (counts reset and
+     read around the v1 step; they join the kernel table's), and a v2 step
+     whose masks cancel. (f) ``table2_fedavg_quick`` with dense secure
+     aggregation, 2 rounds on the card and the CPU: equal ledgers.
  19. selectors (run after 15): the 'sampled' and 'local' THGS selectors.
      (a) At VGG16's 512x512x3x3 leaf (k 60,199) and Yi-6B's ``embed``
      (262,144,000 elements, its Eq. 1 k under the dry run's THGS) on a
@@ -2722,6 +2744,7 @@ TRAIN_LOSS_TOL = 2e-6
 TRAIN_GRAD_REL = 2.6e-5
 TRAIN_PARAM_TOL = 2.4e-7
 TRAIN_MICRO_REL = 2.2e-5
+TRAIN_SHARD_T = 256     # the [cuda:0, cpu] step: its CPU group's row
 # the families at reduced width in f32, card vs CPU: the CPU parity tests'
 # tolerances (tests/test_torch_train_families.py)
 FAMILY_TRAIN_LOSS_TOL, FAMILY_TRAIN_GRAD_REL = 2e-5, 1e-4
@@ -2881,6 +2904,162 @@ def train_parity(card: str) -> None:
     torch.cuda.empty_cache()
 
 
+def fsdp_bytes_on(cfg, mesh, positions: int, n_data: int) -> int:
+    """The bytes a device holds after ``fsdp.shard`` places ``cfg`` on
+    ``mesh`` with ``positions`` of its ``n_data`` data positions there,
+    predicted from ``param_specs`` alone: a leaf whose spec names ``data``
+    holds ``positions / n_data`` of its elements, any other leaf all."""
+    from repro_torch import convert
+    from repro_torch.launch import shardings as shd
+    from repro_torch.launch.mesh import logical_rules
+    from repro_torch.models import transformer as tf
+
+    meta = tf.init_params(cfg, device="meta")
+    leaves = convert.reference_leaves(meta)
+    specs = shd.param_specs({lf.path: lf.shape for lf in leaves},
+                            logical_rules(mesh), shd.axis_sizes_of(mesh))
+    named = dict(meta.named_parameters())
+    total = 0
+    for lf in leaves:
+        split = any(e == "data" for e in tuple(specs[lf.path]))
+        for n in lf.names:
+            p = named[n]
+            nbytes = p.numel() * p.element_size()
+            total += nbytes * positions // n_data if split else nbytes
+    return total
+
+
+def train_sharded_parity(card: str) -> None:
+    """Yi-6B at full width and 2 layers, f32, TF32 off, B 2 x T
+    TRAIN_SHARD_T, ``data 2`` on ``[cuda:0, cpu]``: the bytes placed on the
+    card against ``param_specs``' prediction, then one dense step against
+    the one-card step with ``n_micro`` 2 (each group one row)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch import fsdp
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models import transformer as tf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(configs.get("yi_6b"), n_layers=2,
+                              dtype="float32")
+    mesh = tmesh.LogicalMesh((2, 1), ("data", "model"), ["cuda:0", "cpu"])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def held():
+        # the bytes asked of the caching allocator and what it counts as
+        # allocated (a cached block it did not split counts whole)
+        return (torch.cuda.memory_stats()["requested_bytes.all.current"],
+                torch.cuda.memory_allocated())
+
+    base = held()
+    model = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    lm = fsdp.shard(model, mesh)
+    del model
+    placed, allocated = (a - b for a, b in zip(held(), base))
+    want = fsdp_bytes_on(cfg, mesh, 1, 2)
+    n_params = tf.param_count(tf.init_params(cfg, device="meta"))
+    on_card = {str(t.device) for t in lm.chunks[0].values()}
+    on_cpu = {str(t.device) for t in lm.chunks[1].values()}
+    batch = lm_batch(cfg, 2, TRAIN_SHARD_T, 3, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = fsdp.step_gradients(lm, cfg, batch)
+    fsdp.sgd_update(lm, grads, TRAIN_LR)
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t0
+    # the one-card step with two microbatches, from the same draw
+    model = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    loss_1, grads_1 = ttrain.step_gradients(model, cfg, batch, 2)
+    ttrain.sgd_update(model, grads_1, TRAIN_LR)
+    loss_err = abs(loss.item() - loss_1.item())
+    rel, at = grad_gap({n: grads.full(n, "cuda") for n in grads_1}, grads_1)
+    del grads, grads_1
+    param_err = max((p - lm.full(n, "cuda")).abs().max().item()
+                    for n, p in model.named_parameters())
+    print(f"[train] sharded parity on {card}: {cfg.name} full width, 2 "
+          f"layers, f32 (TF32 off), data 2 on [cuda:0, cpu], B=2 "
+          f"T={TRAIN_SHARD_T} (one row a group): cuda:0 holds {placed} bytes "
+          f"after placement ({allocated} allocated), param_specs predict "
+          f"{want} ({want / 4 / 1e6:.1f} M of {n_params / 1e6:.1f} M "
+          f"parameters); chunks on "
+          f"{sorted(on_card)} / {sorted(on_cpu)}; against the one-card step "
+          f"at n_micro 2: loss {loss.item():.7f} vs {loss_1.item():.7f} "
+          f"|diff| {loss_err:.3e} (tolerance {TRAIN_LOSS_TOL}), gradients "
+          f"max |diff| / max |g| {rel:.3e} at {at} (tolerance "
+          f"{TRAIN_GRAD_REL}), params max |diff| {param_err:.3e} (tolerance "
+          f"{TRAIN_PARAM_TOL}); the sharded step {shard_s:.2f} s", flush=True)
+    check(placed == want, f"cuda:0 holds {placed} bytes after placement, "
+          f"param_specs predict {want}")
+    check(0 <= allocated - want < 2**20 * len(lm.chunks[0]),
+          f"the allocator counts {allocated} bytes for {want} placed")
+    check(on_card == {"cuda:0"} and on_cpu == {"cpu"},
+          f"chunks on {on_card} / {on_cpu}")
+    check(loss_err <= TRAIN_LOSS_TOL, f"sharded loss {loss_err:.3e}")
+    check(rel <= TRAIN_GRAD_REL, f"sharded gradient {at} {rel:.3e}")
+    check(param_err <= TRAIN_PARAM_TOL, f"sharded params {param_err:.3e}")
+    del lm, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_sharded_yi6b(card: str) -> dict:
+    """Yi-6B whole, bf16, seed 0, B TRAIN_B x T TRAIN_T over two explicit
+    groups on ``cuda:0`` (data 0 and 1 of a ``data 2`` layout): one dense
+    step. Returns its loss, its params on the CPU, its peak bytes and the
+    bytes of one gathered block and of ``lm_head``, for ``train_yi6b``."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch import fsdp
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models import transformer as tf
+
+    cfg = configs.get("yi_6b")
+    cuda0 = torch.device("cuda", 0)
+    groups = [(cuda0, range(0, 1)), (cuda0, range(1, 2))]
+    mesh = tmesh.LogicalMesh((2, 1), ("data", "model"), "cuda:0")
+    n_micro = ttrain.micro_batches(tf.param_count(tf.init_params(
+        cfg, device="meta")))
+    check(n_micro % 2 == 0, f"{cfg.name} takes n_micro {n_micro}: two "
+          "groups cannot stand in for it")
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = fsdp.shard(tf.init_params(cfg, torch.Generator(
+        device="cuda").manual_seed(0)), mesh, groups=groups)
+    batch = lm_batch(cfg, TRAIN_B, TRAIN_T, 0, "cuda")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss = ttrain.make_dense_train_step(cfg, lr=TRAIN_LR,
+                                        n_micro=n_micro // 2)(lm, batch)[1]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    block = sum(math.prod(lm.shapes[n]) * 2 for n in lm.shapes
+                if n.startswith("blocks.0.") and lm.dims[n] is not None)
+    head = math.prod(lm.shapes["lm_head"]) * 2
+    params = {n: lm.full(n, "cpu") for n in lm.shapes}
+    print(f"[train] {cfg.name} whole, bf16, B={TRAIN_B} T={TRAIN_T} over two "
+          f"groups on {card} (cuda:0 twice): one step {step_ms:.3f} ms, loss "
+          f"{loss.item():.6f}, peak {peak / 2**30:.2f} GiB; a gathered block "
+          f"{block / 1e9:.3f} GB, lm_head {head / 1e9:.3f} GB", flush=True)
+    out = {"loss": loss.cpu(), "params": params, "peak": peak,
+           "block": block, "head": head, "ms": step_ms}
+    del lm, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def train_flops(cfg, n_params: int, B: int, T: int) -> dict:
     """A step's floating-point operations, as ``FlopCounterMode`` counts
     the step on the meta device (``launch/dryrun.py``; held within 1% by
@@ -2907,10 +3086,13 @@ def train_flops(cfg, n_params: int, B: int, T: int) -> dict:
     return out
 
 
-def train_yi6b(card: str) -> None:
+def train_yi6b(card: str, sharded: dict) -> None:
     """Yi-6B at full width and depth in bf16: TRAIN_STEPS SGD steps on one
     ``train_4k``-length batch of TRAIN_B rows, as the dry run's microbatch
-    rule splits it."""
+    rule splits it. Step 1 is held against ``sharded``
+    (``train_sharded_yi6b``'s two-group step): loss and params bit-equal,
+    and its peak at most this run's plus one gathered block and
+    ``lm_head``."""
     import torch
 
     from repro_torch import configs
@@ -2920,6 +3102,8 @@ def train_yi6b(card: str) -> None:
 
     cfg = configs.get("yi_6b")
     B, T = TRAIN_B, TRAIN_T
+    gc.collect()        # nothing of the two-group step in the peak
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
@@ -2946,6 +3130,10 @@ def train_yi6b(card: str) -> None:
     bad = [n for n, g in grads.items() if not bool(torch.isfinite(g).all())]
     zero = [n for n, g in grads.items() if not bool(g.any())]
     del grads
+    same = {"loss": bits_equal(loss.cpu(), sharded["loss"]),
+            "params": all(bits_equal(p, sharded["params"][n].to(p.device))
+                          for n, p in params.named_parameters())}
+    sharded["params"] = None
     step = ttrain.make_dense_train_step(cfg, lr=TRAIN_LR, n_micro=n_micro)
     for _ in range(TRAIN_STEPS - 1):
         torch.cuda.synchronize()
@@ -2984,6 +3172,17 @@ def train_yi6b(card: str) -> None:
           f"{prof['device_ms']:.3f} ms (busy {prof['busy']:.1%}); top: "
           + "; ".join(f"{k} x{c} {t:.3f} ms" for k, c, t in prof["top"]),
           flush=True)
+    allowed = peak_gib * 2**30 + sharded["block"] + sharded["head"]
+    print(f"[train] {cfg.name} over two groups on cuda:0 against step 1 "
+          f"(n_micro {n_micro}) on {card}: bit-equal {same}; its step "
+          f"{sharded['ms']:.3f} ms against step 1's {times[0]:.3f} ms; its "
+          f"peak {sharded['peak'] / 2**30:.2f} GiB against {peak_gib:.2f} "
+          f"GiB + a gathered block + lm_head = {allowed / 2**30:.2f} GiB",
+          flush=True)
+    check(all(same.values()), f"the two-group step differs from the "
+          f"n_micro {n_micro} step: {same}")
+    check(sharded["peak"] <= allowed, f"the two-group step's peak "
+          f"{sharded['peak'] / 2**30:.2f} GiB above {allowed / 2**30:.2f}")
     check(counts["flash_attention"] == 0, "training launched flash")
     check(not bad, f"non-finite gradients: {bad}")
     check(not zero, f"all-zero gradients: {zero}")
@@ -3094,8 +3293,9 @@ def train_phase(card: str) -> None:
 
     t0 = time.perf_counter()
     train_parity(card)
+    train_sharded_parity(card)
     t1 = time.perf_counter()
-    train_yi6b(card)
+    train_yi6b(card, train_sharded_yi6b(card))
     t2 = time.perf_counter()
     for arch, layers, B in FAMILY_CELLS:
         train_family(arch, layers, B, card)
@@ -3120,6 +3320,7 @@ FL_B, FL_T = 4, 4096            # server_lr 1; train_4k's T, 2 rows a
 FL_STEPS = 3                    # participant (global batch 256 cut to 4)
 FL_UNITS = 229                  # Yi-6B's decodes a step on the multi-pod
 FL_PARITY_B, FL_PARITY_T = 2, 1024     # layout: 7 x 32 slices + 5 leaves
+FL_SHARD_T = 256                # (e): one row a group, 2 groups a pod
 # (b)'s readings on an H100 80GB HBM3 at 700 W: loss 9.537e-07; params
 # 2.918e-05 apart at embed, 407,827 of 870,338,560 elements (4.7e-4: top-k
 # choices flipped by the gradients' last bits, each a whole update)
@@ -3709,8 +3910,224 @@ def fl_yi6b(card: str) -> dict:
     return counts
 
 
+def sharded_state(lm) -> dict:
+    """A sharded model's chunks and copies, cloned where they lie."""
+    return {(g, n): t.detach().clone() for g, c in enumerate(lm.chunks)
+            for n, t in c.items()}
+
+
+def group_gradient_spy(plain: dict, seen: list):
+    """Wrap ``fsdp.group_value_and_grad`` so that every group's loss and
+    gradients (each gathered whole on the group's device) are held,
+    bit for bit, against ``launch.train.value_and_grad`` of the one-device
+    model ``plain[device.type]`` on the same rows. Returns the function to
+    restore."""
+    import torch
+
+    from repro_torch.launch import fsdp
+    from repro_torch.launch import train as ttrain
+
+    real = fsdp.group_value_and_grad
+
+    def spy(lm, g, cfg, batch):
+        loss, gr = real(lm, g, cfg, batch)
+        dev = lm.groups[g][0]
+        want_loss, want = ttrain.value_and_grad(plain[dev.type], cfg, batch)
+        off = [] if bits_equal(loss, want_loss) else [
+            f"loss {abs(loss.item() - want_loss.item()):.3e}"]
+        for n, w in want.items():
+            d = lm.dims[n]
+            got = (gr[(None, n)] if d is None else torch.cat(
+                [gr[(h, n)].to(dev) for h in range(len(lm.groups))], d))
+            if not bits_equal(got, w):
+                off.append(f"{n} {(got - w).abs().max().item():.3e}")
+        if off:     # is the one-device run itself repeatable there?
+            again_loss, again = ttrain.value_and_grad(plain[dev.type], cfg,
+                                                      batch)
+            off.append("one-device run repeats bit for bit: " + str(
+                bits_equal(again_loss, want_loss) and all(
+                    bits_equal(again[n], w) for n, w in want.items())))
+        seen.append((str(dev), not off, off[:4] + off[-1:] if off else []))
+        return loss, gr
+
+    fsdp.group_value_and_grad = spy
+    return real
+
+
+def fl_sharded(card: str) -> dict:
+    """(e) one participant over its data positions, on (b)'s multi-pod
+    layout, Yi-6B at 2 layers, f32 (TF32 off), B FL_B x T FL_SHARD_T (2 rows
+    a participant, one a group). (i) each participant's data 0-7 and 8-15
+    as two explicit groups on ``cuda:0``: v1 and v2 steps bit-equal to the
+    one-device step at n_micro 2 (params, residuals, loss, streams). (ii)
+    data 0-7 of each pod on ``cuda:0``, 8-15 on the CPU: every chunk and
+    residual chunk on its device; each group's gradients bit-equal to the
+    one-device run of its device on its rows; params within FL_PARAM_TOL of
+    (i), at most FL_MOVED_SHARE apart; the scatter launches counted; v2's
+    masks cancel. Returns (ii)'s v1 launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import threefry
+    from repro_torch.kernels import ops
+    from repro_torch.launch import fsdp
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models import transformer as tf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, mesh, thgs, sa = fl_config(layers=2, dtype="float32")
+    cuda0, cpu = torch.device("cuda", 0), torch.device("cpu")
+    mesh_1 = card_mesh(mesh)
+    halves = [(cuda0, range(0, 8)), (cuda0, range(8, 16))]
+    devs = np.empty(mesh.devices.shape, dtype=object)
+    devs[:, :8], devs[:, 8:] = cuda0, cpu
+    mesh_ii = type(mesh)(mesh.devices.shape, mesh.axis_names, devs)
+    model0 = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(1))
+    state0 = {n: p.detach().clone() for n, p in model0.named_parameters()}
+    batch = lm_batch(cfg, FL_B, FL_SHARD_T, 5, "cuda")
+    key = threefry.key(0)
+
+    def fresh_model():
+        with torch.no_grad():
+            for n, p in model0.named_parameters():
+                p.copy_(state0[n])
+        return model0
+
+    def run(version, params, mesh_, groups, n_micro, res):
+        mk = (ttrain.make_fl_train_step if version == "v1"
+              else ttrain.make_fl_train_step_v2)
+        step = mk(cfg, mesh_, "pod", thgs, sa, lr=FL_LR, n_micro=n_micro,
+                  groups=groups)
+        record = []
+        t0 = time.perf_counter()
+        _, _, loss = step(params, res, batch, key, record=record)
+        loss = loss.item()
+        return step, record, loss, time.perf_counter() - t0
+
+    def streams_of(record):
+        out = []
+        for r in record:
+            sts = r["streams"] if isinstance(r["streams"], list) \
+                else [r["streams"]]
+            out += [(st.indices, st.values) for st in sts]
+        return out
+
+    out = {}
+    for version in ("v1", "v2"):
+        # the one-device step at n_micro 2
+        m1 = fresh_model()
+        res_1 = ttrain.init_fl_residuals(m1, 2)
+        _, rec_1, loss_1, t_1 = run(version, m1, mesh_1, None, 2, res_1)
+        want_p = {n: p.detach().clone() for n, p in m1.named_parameters()}
+        # (i) two groups a participant on cuda:0
+        lm = fsdp.shard(fresh_model(), mesh_1, "pod", groups=halves)
+        res_i = ttrain.init_fl_residuals(lm, 2, mesh_1, "pod",
+                                         groups=[halves] * 2)
+        _, rec_i, loss_i, t_i = run(version, lm, mesh_1, [halves] * 2, 1,
+                                    res_i)
+        same = {
+            "params": all(bits_equal(lm.full(n, cuda0), w)
+                          for n, w in want_p.items()),
+            "residuals": all(bits_equal(a.cpu(), b.cpu()) for a, b in zip(
+                ttrain.stacked_residuals(res_1),
+                ttrain.stacked_residuals(res_i))),
+            "loss": bits_equal(torch.tensor(loss_1), torch.tensor(loss_i)),
+            "streams": all(bits_equal(a, c) and bits_equal(b, d)
+                           for (a, b), (c, d) in zip(streams_of(rec_1),
+                                                     streams_of(rec_i)))}
+        print(f"[fl_train] (e)(i) {version} on {card}: each participant's "
+              f"data 0-7 and 8-15 as two groups on cuda:0, {cfg.name} 2 "
+              f"layers f32, B={FL_B} T={FL_SHARD_T}: {t_i:.2f} s (the "
+              f"one-device n_micro 2 step {t_1:.2f} s), loss {loss_i:.7f}; "
+              f"bit-equal to the one-device step {same}", flush=True)
+        check(all(same.values()), f"(e)(i) {version} differs from the "
+              f"one-device n_micro 2 step: {same}")
+        out[version] = {n: lm.full(n, cuda0) for n in lm.shapes}
+        del lm, res_i, rec_i, rec_1, res_1, want_p
+        gc.collect()
+
+    # (ii) data 0-7 on cuda:0, 8-15 on the CPU
+    plain = {"cuda": fresh_model(), "cpu": tf.init_params(cfg, device="cpu")}
+    plain["cpu"].load_state_dict(plain["cuda"].state_dict())
+    seen: list = []
+    lm = fsdp.shard(fresh_model(), mesh_ii, "pod")
+    res_ii = ttrain.init_fl_residuals(lm, 2, mesh_ii, "pod")
+    placed = {
+        "chunks": [sorted({str(t.device) for t in c.values()})
+                   for c in lm.chunks],
+        "rows": sorted({tuple(str(p.device) for p in r.parts)
+                        for row in res_ii for r in row})}
+    real = group_gradient_spy(plain, seen)
+    # the CPU's index backward (the embed gather) adds repeated tokens'
+    # rows with atomics unless deterministic algorithms are asked for: two
+    # CPU runs of one row then differ in embed's last bits
+    flags = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        step, rec_ii, loss_ii, t_ii = run("v1", lm, mesh_ii, None, 1, res_ii)
+        counts = ops.launch_counts()
+    finally:
+        fsdp.group_value_and_grad = real
+        torch.use_deterministic_algorithms(flags[0], warn_only=flags[1])
+    n_units = len(step.units(*step.layout(lm)))
+    placed["streams"] = sorted({str(st.indices.device) for r in rec_ii
+                                for st in r["streams"]})
+    err, moved, total = 0.0, 0, 0
+    for n, w in out["v1"].items():
+        d = (lm.full(n, cuda0) - w).abs()
+        err = max(err, d.max().item())
+        moved += int((d > 0).sum())
+        total += d.numel()
+    print(f"[fl_train] (e)(ii) v1 on {card}: data 0-7 of each pod on cuda:0, "
+          f"8-15 on the CPU: {t_ii:.2f} s ({torch.get_num_threads()} CPU "
+          f"threads), loss {loss_ii:.7f}; placed {placed}; each group's "
+          f"gradients against the one-device run of its device {seen}; "
+          f"launches {counts} ({n_units} units); params vs (i) max |diff| "
+          f"{err:.3e} (tolerance {FL_PARAM_TOL}), {moved} of {total} "
+          f"elements differ (share tolerance {FL_MOVED_SHARE})", flush=True)
+    check(placed["chunks"] == [["cuda:0"], ["cpu"]]
+          and placed["rows"] == [("cuda:0",), ("cuda:0", "cpu")]
+          and placed["streams"] == ["cuda:0"], f"(e)(ii) placement {placed}")
+    check(len(seen) == 4 and all(ok for _, ok, _ in seen),
+          f"(e)(ii) group gradients vs the one-device runs: {seen}")
+    check(err <= FL_PARAM_TOL and moved <= FL_MOVED_SHARE * total,
+          f"(e)(ii) params vs (i) {err:.3e}, {moved} elements")
+    check(counts["stream_scatter_add"] == n_units,
+          f"(e)(ii) launched the scatter {counts['stream_scatter_add']} "
+          f"times for {n_units} units")
+    del rec_ii, res_ii, plain
+    gc.collect()
+
+    # v2 on (ii)
+    with torch.no_grad():
+        for n, w in state0.items():
+            lm.load_(n, w)
+    res_ii = ttrain.init_fl_residuals(lm, 2, mesh_ii, "pod")
+    step, rec, loss, t = run("v2", lm, mesh_ii, None, 1, res_ii)
+    cancel = fl_cancel_v2(step, lm.meta, rec, key)
+    err = max((lm.full(n, cuda0) - w).abs().max().item()
+              for n, w in out["v2"].items())
+    finite = math.isfinite(loss) and all(
+        bool(torch.isfinite(t_).all()) for _, t_ in lm.tensors())
+    print(f"[fl_train] (e)(ii) v2 on {card}: {t:.2f} s, loss {loss:.7f}, "
+          f"params finite {finite}, max |diff| vs (i) {err:.3e} (tolerance "
+          f"{FL_PARAM_TOL}); {cancel['text']}", flush=True)
+    check(finite, "non-finite params or loss after the (e)(ii) v2 step")
+    check(cancel["ok"], f"v2 masks do not cancel on (e)(ii): "
+          f"{cancel['text']}")
+    check(err <= FL_PARAM_TOL, f"(e)(ii) v2 vs (i) params {err:.3e}")
+    del lm, res_ii, rec, out, model0, state0, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def fl_dense_secagg(card: str) -> None:
-    """(e) table2_fedavg_quick with dense secure aggregation, 2 rounds on
+    """(f) table2_fedavg_quick with dense secure aggregation, 2 rounds on
     the card and on the CPU: the ledgers are equal."""
     from repro_torch.core.types import SecureAggConfig
     from repro_torch.sim import presets
@@ -3724,7 +4141,7 @@ def fl_dense_secagg(card: str) -> None:
     same = facts["cuda"] == facts["cpu"] and all(
         res["cuda"].ledger.totals(a) == res["cpu"].ledger.totals(a)
         for a in ("paper", "tpu"))
-    print(f"[fl_train] (e) table2_fedavg_quick with dense secure "
+    print(f"[fl_train] (f) table2_fedavg_quick with dense secure "
           f"aggregation, 2 rounds on {card}: accuracies card "
           f"{res['cuda'].accuracies} CPU {res['cpu'].accuracies}; ledger "
           f"equal {same}", flush=True)
@@ -3734,8 +4151,8 @@ def fl_dense_secagg(card: str) -> None:
 
 def fl_train_phase(card: str, device) -> tuple[dict, dict]:
     """Phase 18: the federated LM train step. Returns the scatter's row at
-    the embed decode and the launches of (d)(iii)'s step and (c)'s steps
-    1-3."""
+    the embed decode and the launches of (d)(iii)'s step, (c)'s steps 1-3
+    and (e)(ii)'s v1 step."""
     t0 = time.perf_counter()
     row = fl_units_check(card, device)
     t1 = time.perf_counter()
@@ -3743,11 +4160,13 @@ def fl_train_phase(card: str, device) -> tuple[dict, dict]:
     t2 = time.perf_counter()
     counts = fl_yi6b(card)
     t3 = time.perf_counter()
+    sharded = fl_sharded(card)
+    t4 = time.perf_counter()
     fl_dense_secagg(card)
     print(f"[fl_train] phase 18 took {time.perf_counter() - t0:.1f} s on "
           f"{card} ((a) {t1 - t0:.1f} s, (b) and (d) {t2 - t1:.1f} s, (c) "
-          f"{t3 - t2:.1f} s)", flush=True)
-    return row, {k: counts[k] + placed[k] for k in counts}
+          f"{t3 - t2:.1f} s, (e) {t4 - t3:.1f} s)", flush=True)
+    return row, {k: counts[k] + placed[k] + sharded[k] for k in counts}
 
 
 # ----------------------------------------------------- phase 12: resume
@@ -5596,7 +6015,7 @@ def main() -> int:
     # each kernel's launches come from the path that runs it: table2_quick
     # and the sharded parity runs for the scatter and the masks (the
     # scatter also the federated Yi-6B steps of [fl_train], (c)'s whole
-    # model and (d)'s placed step; both also the
+    # model, (d)'s placed step and (e)'s sharded one; both also the
     # sampled runs of [selectors] and the walkthrough of [secagg_demo]),
     # codec_sweep_quick and its sharded int8 arm for the bit packing, the
     # served Yi-6B and the families' first prefills for the flash

@@ -114,10 +114,15 @@ def lm_tree_to_numpy(model_or_grads, cfg: ArchConfig) -> dict:
     2]``, a MoE expert axis after the layer axis). Values are float32 (numpy
     has no bfloat16; the widening is exact), so
     ``lm_params_from_jax(lm_tree_to_numpy(m, cfg), cfg)`` holds ``m``'s
-    values bit for bit."""
-    named = (model_or_grads.named_parameters()
-             if isinstance(model_or_grads, torch.nn.Module)
-             else model_or_grads.items())
+    values bit for bit. Sharded parameters (``launch.fsdp.ShardedLM``) are
+    gathered whole, one parameter at a time (``launch.fsdp.shard_reference``
+    is the way back)."""
+    if hasattr(model_or_grads, "named_full"):
+        named = model_or_grads.named_full()
+    elif isinstance(model_or_grads, torch.nn.Module):
+        named = model_or_grads.named_parameters()
+    else:
+        named = model_or_grads.items()
     tree: dict = {}
     for ref_name, items in _stacks(named).items():
         lead = _lead(items)
@@ -151,7 +156,9 @@ def reference_leaves(model: torch.nn.Module) -> list[RefLeaf]:
     ``blocks.0.mlp.wi_gate`` ... ``blocks.31.mlp.wi_gate`` on a leading
     layer axis). This order is the FL step's leaf id: it keys the pair
     masks, picks each leaf's rate of the Eq. 1 hierarchy and orders the
-    residual tree."""
+    residual tree. Sharded parameters (``launch.fsdp.ShardedLM``) give the
+    leaves of their ``meta`` model."""
+    model = getattr(model, "meta", model)
     named = [(n, (n, tuple(p.shape))) for n, p in model.named_parameters()]
     out = []
     for path, items in _stacks(named).items():

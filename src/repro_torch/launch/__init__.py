@@ -1,4 +1,6 @@
 """Launch helpers: the serving steps of the LM path (port of
 ``repro.launch.serve``), the dense LM train step (``launch/train.py``, port
-of ``repro.launch.train``'s ``loss_fn`` and ``make_dense_train_step``) and
-the clients mesh of the client-parallel round (``launch/mesh.py``)."""
+of ``repro.launch.train``'s ``loss_fn`` and ``make_dense_train_step``), one
+participant's parameters sharded over its ``data`` positions
+(``launch/fsdp.py``) and the clients mesh of the client-parallel round
+(``launch/mesh.py``)."""

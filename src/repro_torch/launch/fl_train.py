@@ -4,11 +4,14 @@
 Trains an LM (``--arch``, reduced width by default) with the THGS + sparse
 secure-aggregation FL step (``launch/train.py::make_fl_train_step``) on the
 debug mesh (pod 2 x data 2 x model 2: two participants of four blocks
-each, driven by this one process on ``--device``, or each pod on its
-device of ``--devices``, the parameters on the first). Each participant is
-one financial institution. Params and THGS residuals resume from the
-latest checkpoint in ``--ckpt`` (the reference's on-disk format: residuals
-``[n_fed, *leaf]``, each row restored onto its participant's device), and
+each, driven by this one process on ``--device``, or placed by
+``--devices``: one device a pod, or one a (pod, data) position, the
+parameters on the first). A pod whose two data positions lie on two
+devices holds its parameters sharded over them (``launch/fsdp.py``). Each
+participant is one financial institution. Params and THGS residuals resume
+from the latest checkpoint in ``--ckpt`` (the reference's on-disk format:
+params whole, residuals ``[n_fed, *leaf]``, each row, or its chunks,
+restored onto its participant's devices), and
 the run's exchange volume is written to ``<ckpt>/comm_ledger.json`` under
 the reference's accounting (``costs.TPU_BITS``: f32 values, int32
 indices).
@@ -18,6 +21,7 @@ Run::
     PYTHONPATH=src python -m repro_torch.launch.fl_train --device cpu \\
         --steps 20
     python -m repro_torch.launch.fl_train --devices cuda:0,cuda:1
+    python -m repro_torch.launch.fl_train --devices cuda:0,cuda:1,cuda:2,cuda:3
 """
 from __future__ import annotations
 
@@ -35,7 +39,8 @@ from repro_torch import checkpoint, configs, convert
 from repro_torch.core import costs, threefry
 from repro_torch.core.types import SecureAggConfig, THGSConfig
 from repro_torch.data import make_lm_tokens
-from repro_torch.launch.mesh import make_debug_mesh
+from repro_torch.launch import fsdp
+from repro_torch.launch.mesh import make_debug_mesh, participant_groups
 from repro_torch.launch.train import (fl_leaf_plan, init_fl_residuals,
                                       load_residuals, make_fl_train_step,
                                       stacked_residuals)
@@ -59,38 +64,42 @@ def step_wire_record(step_t: int, leaf_sizes, thgs: THGSConfig,
                               n_clients=n_fed, bits=costs.TPU_BITS)
 
 
-def params_tree(model: tf.TransformerLM) -> dict:
+def params_tree(model) -> dict:
     """The parameters as the reference's leaves ``{path: stacked
-    tensor}``, the checkpoint's ``params`` tree."""
-    named = dict(model.named_parameters())
+    tensor}``, the checkpoint's ``params`` tree (sharded parameters
+    gathered whole on the CPU)."""
+    leaves = convert.reference_leaves(model)
+    named = (dict(model.named_full()) if isinstance(model, fsdp.ShardedLM)
+             else dict(model.named_parameters()))
     return {leaf.path: (torch.stack([named[n] for n in leaf.names])
                         .reshape(leaf.shape) if leaf.lead
                         else named[leaf.names[0]])
-            for leaf in convert.reference_leaves(model)}
+            for leaf in leaves}
 
 
-def fl_state(model: tf.TransformerLM, residuals: list) -> dict:
+def fl_state(model, residuals: list) -> dict:
     """The checkpoint's tree: ``params`` and the residuals in the
     reference's ``[n_fed, *leaf]`` layout (dotted leaf paths are the
-    reference's tree levels on disk)."""
+    reference's tree levels on disk); sharded parameters and chunked rows
+    are written whole, in that same layout."""
     return {"params": params_tree(model),
             "residuals": {lf.path: r for lf, r in zip(
-                convert.reference_leaves(model),
-                stacked_residuals(residuals))}}
+                convert.reference_leaves(model), stacked_residuals(residuals))}}
 
 
-def load_fl_state(model: tf.TransformerLM, residuals: list,
-                  tree: dict) -> None:
+def load_fl_state(model, residuals: list, tree: dict) -> None:
     """Write a restored :func:`fl_state` tree into the parameters and the
-    residuals (each row onto its participant's device)."""
+    residuals (each row, or its chunks, onto its participant's
+    devices)."""
     load_params_tree(model, tree["params"])
     load_residuals(residuals, [tree["residuals"][lf.path]
                                for lf in convert.reference_leaves(model)])
 
 
 def parse_devices(spec: str) -> list:
-    """``--devices``: comma-separated devices, one a pod. A ``cuda`` device
-    must exist: nothing moves to the CPU in its place."""
+    """``--devices``: comma-separated devices, one a pod or one a (pod,
+    data) position. A ``cuda`` device must exist: nothing moves to the CPU
+    in its place."""
     devs = [torch.device(d.strip()) for d in spec.split(",")]
     n = torch.cuda.device_count() if torch.cuda.is_available() else 0
     for d in devs:
@@ -100,14 +109,19 @@ def parse_devices(spec: str) -> list:
 
 
 @torch.no_grad()
-def load_params_tree(model: tf.TransformerLM, tree: dict) -> None:
-    """Write ``{path: stacked tensor}`` into the model's parameters."""
-    named = dict(model.named_parameters())
+def load_params_tree(model, tree: dict) -> None:
+    """Write ``{path: stacked tensor}`` into the model's parameters (or
+    into sharded parameters' chunks)."""
+    sharded = isinstance(model, fsdp.ShardedLM)
+    named = None if sharded else dict(model.named_parameters())
     for leaf in convert.reference_leaves(model):
         t = tree[leaf.path]
-        parts = t.reshape((-1,) + tuple(named[leaf.names[0]].shape))
+        parts = t.reshape((-1,) + leaf.shape[len(leaf.lead):])
         for j, name in enumerate(leaf.names):
-            named[name].copy_(parts[j])
+            if sharded:
+                model.load_(name, parts[j])
+            else:
+                named[name].copy_(parts[j])
 
 
 def main(argv=None) -> int:
@@ -127,28 +141,42 @@ def main(argv=None) -> int:
                     help="the one device of every pod")
     ap.add_argument("--devices", default=None,
                     help="comma-separated, one device a pod (e.g. "
-                    "cuda:0,cuda:1); the parameters live on the first")
+                    "cuda:0,cuda:1) or one a (pod, data) position (4, e.g. "
+                    "cuda:0,cuda:1,cuda:2,cuda:3); the parameters live on "
+                    "the first")
     args = ap.parse_args(argv)
     try:
         devices = parse_devices(args.devices or args.device)
     except ValueError as e:
         print(f"{e}: pass --device cpu", file=sys.stderr)
         return 1
+    if args.devices and len(devices) not in (2, 4):
+        print(f"--devices takes 2 devices (one a pod) or 4 (one a (pod, "
+              f"data) position), not {len(devices)}", file=sys.stderr)
+        return 1
     device = devices[0]
 
     cfg = configs.get(args.arch)
     if args.reduced:
         cfg = configs.reduced(cfg)
-    mesh = make_debug_mesh(2, 2, multi_pod=True, devices=(
-        devices if args.devices else None), device=device)
+    placed = None
+    if args.devices:        # one a pod, or one a (pod, data) position
+        placed = np.empty(len(devices), dtype=object)
+        placed[:] = devices
+        placed = placed.reshape(2, -1) if len(devices) == 4 else placed
+    mesh = make_debug_mesh(2, 2, multi_pod=True, devices=placed,
+                           device=device)
     fed_axis = "pod"
     n_fed = mesh.shape[fed_axis]
     n_blocks = mesh.size // n_fed
 
     gen = torch.Generator(device=device).manual_seed(0)
     params = tf.init_params(cfg, gen, device=device)
-    residuals = init_fl_residuals(params, n_fed, mesh, fed_axis)
     leaves = convert.reference_leaves(params)
+    if any(len(participant_groups(mesh, fed_axis, p)) > 1
+           for p in range(n_fed)):
+        params = fsdp.shard(params, mesh, fed_axis)
+    residuals = init_fl_residuals(params, n_fed, mesh, fed_axis)
 
     thgs = THGSConfig(s0=0.05, alpha=0.9, s_min=0.01)
     sa = SecureAggConfig(mask_ratio=0.01)

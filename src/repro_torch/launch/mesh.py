@@ -9,14 +9,16 @@ for every position). The production layouts are the reference's: one pod
 ``pod`` is the federation axis (each pod one cross-silo participant);
 :func:`make_production_mesh` and :func:`make_debug_mesh` take ``devices=``,
 one device a pod or one a position. The port's FL step runs each
-participant along the federation axis on its own device
-(:func:`participant_device`); the positions of one participant compute as
-one unsharded model, so they must share that device: the port runs no
-intra-participant parallelism (FSDP or tensor parallelism across cards),
-and a participant spread over two devices raises ``NotImplementedError``.
-The block layout depends only on the logical shape (``data x model``
-blocks a participant), so the multi-pod layout runs on one card with the
-reference's numerics. :func:`logical_rules` maps the model's logical axis
+participant along the federation axis on its own devices: its ``data``
+positions form groups (:func:`participant_groups`: a device and a
+contiguous run of positions), over which its parameters are sharded by the
+``fsdp`` rule (``launch/fsdp.py``); a participant of one group computes as
+one unsharded model on that device (:func:`participant_device`). The
+``model`` positions of a ``data`` position must share its device: a
+spread along ``model`` is tensor parallelism, which the port does not run
+(``NotImplementedError``). The block layout depends only on the logical
+shape (``data x model`` blocks a participant), so the multi-pod layout runs
+on one card with the reference's numerics. :func:`logical_rules` maps the model's logical axis
 names onto the mesh axes, as the reference's.
 
 **The clients mesh.** The reference partitions a cohort of simulated clients over the local
@@ -187,16 +189,58 @@ def participant_device(mesh: LogicalMesh, fed_axis: str,
                        p: int) -> torch.device:
     """The device that federation participant ``p`` (index ``p`` along
     ``fed_axis``) runs on: the one device of its positions. Raises
-    ``NotImplementedError`` when they span several devices."""
+    ``NotImplementedError`` when they span several devices
+    (:func:`participant_groups` gives a spread participant's groups)."""
     sub = np.take(mesh.devices, p, axis=mesh.axis_names.index(fed_axis))
     devs = sorted({_canonical(d) for d in sub.reshape(-1)}, key=str)
     if len(devs) > 1:
         raise NotImplementedError(
             f"participant {p} along {fed_axis!r} spans devices "
-            f"{[str(d) for d in devs]}: the port runs each participant as "
-            "one unsharded model on one device (no intra-participant "
-            "FSDP or tensor parallelism across cards)")
+            f"{[str(d) for d in devs]}: it has no one device "
+            "(participant_groups gives its groups)")
     return devs[0]
+
+
+def participant_groups(mesh: LogicalMesh, fed_axis: str | None,
+                       p: int = 0) -> list:
+    """Participant ``p``'s ``data`` positions as ``(device, positions)``
+    groups, in position order: positions that share a device merge into one
+    group (``positions`` a ``range``). ``fed_axis`` None takes the whole mesh
+    as one participant. Each device's positions must form one contiguous run
+    along ``data`` (``ValueError`` otherwise), and every ``model`` position of
+    a ``data`` position must share its device: a spread along ``model`` is
+    tensor parallelism, which the port does not run
+    (``NotImplementedError``). A participant without a ``data`` axis (or
+    whose federation axis is ``data``) is one position."""
+    axes = list(mesh.axis_names)
+    sub = mesh.devices
+    if fed_axis is not None:
+        sub = np.take(sub, p, axis=axes.index(fed_axis))
+        axes.remove(fed_axis)
+    if "data" in axes:
+        sub = np.moveaxis(sub, axes.index("data"), 0)
+    else:
+        sub = sub.reshape((1,) + sub.shape)
+    groups: list = []
+    for i, row in enumerate(sub.reshape(sub.shape[0], -1)):
+        devs = sorted({_canonical(d) for d in row}, key=str)
+        if len(devs) > 1:
+            raise NotImplementedError(
+                f"participant {p}'s data position {i} spans devices "
+                f"{[str(d) for d in devs]} along 'model': that is tensor "
+                "parallelism, which the port does not run (a data "
+                "position's model positions share one device)")
+        dev = devs[0]
+        if groups and groups[-1][0] == dev:
+            groups[-1] = (dev, range(groups[-1][1].start, i + 1))
+            continue
+        if any(d == dev for d, _ in groups):
+            raise ValueError(
+                f"participant {p}'s data positions on {dev} are not one "
+                "contiguous run: a device's positions must be adjacent "
+                "along 'data'")
+        groups.append((dev, range(i, i + 1)))
+    return groups
 
 
 def _mesh_devices(devices, device, n_pods: int):

@@ -23,9 +23,9 @@ update is ``p + server_lr * agg`` in f32. Leaves are the reference's
 ids, per-leaf ranks and block layouts are the reference's.
 
 One process drives the mesh. Participant ``p`` runs on its pod's device
-(``launch.mesh.participant_device``); the *home* device is where the
-parameters live, and there the decode, the scatter launches and the server
-update run. A participant whose device is not home computes on a replica
+(``launch.mesh.participant_groups``: one group); the *home* device is where
+the parameters live, and there the decode, the scatter launches and the
+server update run. A participant whose device is not home computes on a replica
 of the parameters, refreshed from them (bit for bit) at the start of each
 step's gradient stage. Every participant works at the parameters of the
 step's start; a participant's gradients are dropped after its encode, and
@@ -45,6 +45,23 @@ defaults: ``REPRO_FL_ALIGNED_BLOCKS`` (v1, default off) and
 ``REPRO_FL_V2_GENERIC`` (v2, default off) select the block layout;
 ``REPRO_FL_STREAM_REPLICATE`` (a partitioner workaround) has no meaning in
 one process and is not read.
+
+**A participant over several devices.** Where a participant's ``data``
+positions span several groups, the parameters are a
+``launch.fsdp.ShardedLM`` over participant 0's groups (``fsdp.shard``):
+each group computes its share of the participant's rows with every block
+gathered whole on its device, and the gradients fold in f32 onto the
+chunks' owners (``fsdp.step_gradients``: bit-equal to the one-device step
+with ``groups x n_micro`` microbatches), so they arrive as f32 sums. The
+residual rows are chunked like the parameters (``fsdp.ChunkedRow``, the
+reference's ``P(fed_axis, *gspec)``). v1 encodes a unit on the
+participant's lead device (its group 0): it gathers the unit's gradient and
+residual chunks there in position order and writes the residual chunks
+back; the streams go home, and each chunk of the aggregate goes to its
+owner for the update. A participant whose groups differ from participant
+0's computes on a sharded replica over its own groups, refreshed chunk by
+chunk each step. v2's batched encode stays at home: it gathers every
+participant's full gradients and residual rows there.
 
 **Host synchronizations.** The gradient stage copies each participant's
 rows of the batch and refreshes the replicas before it enqueues any
@@ -81,8 +98,9 @@ from repro_torch.core.blocked import (block_layout, decode_blocked_sum,
                                       encode_leaf_blocked,
                                       sharding_aligned_transform)
 from repro_torch.core.types import SecureAggConfig, THGSConfig
+from repro_torch.launch import fsdp
 from repro_torch.launch import shardings as shd
-from repro_torch.launch.mesh import logical_rules, participant_device
+from repro_torch.launch.mesh import logical_rules, participant_groups
 from repro_torch.models import transformer as tf
 
 
@@ -156,12 +174,30 @@ def sgd_update(params: tf.TransformerLM, grads: dict, lr: float) -> None:
 
 
 def make_dense_train_step(cfg: ArchConfig, lr: float = 0.01,
-                          n_micro: int = 1) -> Callable:
+                          n_micro: int = 1, mesh=None) -> Callable:
     """``step(params, batch) -> (params, loss)``: one SGD step,
     ``step_gradients`` then ``sgd_update``; the parameters are updated in
-    place and returned."""
+    place and returned. Sharded parameters (``launch.fsdp.ShardedLM``) take
+    ``fsdp.step_gradients`` and ``fsdp.sgd_update``: the batch rows split
+    over their groups. With ``mesh`` (no federation axis) the step checks
+    that the parameters are placed on its ``data`` groups: a
+    ``TransformerLM`` where the mesh is one group, else a ``ShardedLM``
+    made by ``fsdp.shard(model, mesh)``."""
+    groups = None if mesh is None else participant_groups(mesh, None)
 
-    def step(params: tf.TransformerLM, batch: dict):
+    def step(params, batch: dict):
+        if isinstance(params, fsdp.ShardedLM):
+            if groups is not None and not fsdp.same_groups(groups,
+                                                           params.groups):
+                raise ValueError(f"the parameters lie on groups "
+                                 f"{params.groups}, the mesh's are {groups}")
+            loss, grads = fsdp.step_gradients(params, cfg, batch, n_micro)
+            fsdp.sgd_update(params, grads, lr)
+            return params, loss
+        if groups is not None and len(groups) > 1:
+            raise ValueError(f"the mesh spreads the model over {len(groups)} "
+                             "groups: place it with launch.fsdp.shard(model, "
+                             "mesh) first")
         loss, grads = step_gradients(params, cfg, batch, n_micro)
         sgd_update(params, grads, lr)
         return params, loss
@@ -181,13 +217,25 @@ def fl_leaf_plan(leaf_sizes, thgs: THGSConfig, n_blocks: int) -> list:
     return plan
 
 
-def init_fl_residuals(params: tf.TransformerLM, n_fed: int, mesh=None,
-                      fed_axis: str = "pod") -> list:
+def init_fl_residuals(params, n_fed: int, mesh=None, fed_axis: str = "pod",
+                      groups=None) -> list:
     """Zero per-participant residuals, one a reference leaf (its order),
     bf16: a ``[n_fed, *leaf]`` tensor on the parameters' device (``meta``
     for shape records), or on ``mesh``'s one device; on a mesh of several
     devices, a list of ``n_fed`` rows, row ``p`` on participant ``p``'s
-    device."""
+    device. Sharded parameters (``launch.fsdp.ShardedLM``) take rows
+    chunked like the parameters over each participant's groups
+    (``fsdp.ChunkedRow``; ``groups`` one list a participant, default the
+    mesh's, else the parameters' own)."""
+    if isinstance(params, fsdp.ShardedLM):
+        if groups is None:
+            groups = ([participant_groups(mesh, fed_axis, p)
+                       for p in range(n_fed)] if mesh is not None
+                      else [params.groups] * n_fed)
+        if len(groups) != n_fed:
+            raise ValueError(f"{n_fed} participants, {len(groups)} group "
+                             "lists")
+        return fsdp.residual_rows(params, groups, n_fed)
     leaves = convert.reference_leaves(params)
     if mesh is None:
         devs = [next(params.parameters()).device]
@@ -195,7 +243,14 @@ def init_fl_residuals(params: tf.TransformerLM, n_fed: int, mesh=None,
         if mesh.shape[fed_axis] != n_fed:
             raise ValueError(f"{n_fed} participants on a mesh of "
                              f"{mesh.shape[fed_axis]} along {fed_axis!r}")
-        devs = [participant_device(mesh, fed_axis, p) for p in range(n_fed)]
+        devs = []
+        for p in range(n_fed):
+            gs = participant_groups(mesh, fed_axis, p)
+            if len(gs) > 1:
+                raise ValueError(
+                    f"participant {p} spreads over {len(gs)} groups: shard "
+                    "the parameters (launch.fsdp.shard) first")
+            devs.append(gs[0][0])
     if len(set(devs)) == 1:
         return [torch.zeros((n_fed,) + leaf.shape, dtype=torch.bfloat16,
                             device=devs[0]) for leaf in leaves]
@@ -220,8 +275,10 @@ def load_residuals(residuals: list, stacked: list) -> None:
 
 
 def _sync(device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    for d in (device if isinstance(device, (list, tuple, set)) else
+              (device,)):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
 
 
 @contextlib.contextmanager
@@ -311,7 +368,7 @@ class _FLStep:
     """Shared state of both FL steps."""
 
     def __init__(self, cfg, mesh, fed_axis, thgs, sa, lr, server_lr,
-                 n_micro):
+                 n_micro, groups=None):
         self.cfg, self.mesh, self.fed_axis = cfg, mesh, fed_axis
         self.thgs, self.sa = thgs, sa
         self.lr, self.server_lr, self.n_micro = lr, server_lr, n_micro
@@ -320,9 +377,18 @@ class _FLStep:
         self.n_blocks = mesh.size // self.n_fed
         self.rules = logical_rules(mesh, fed_axis=fed_axis)
         self.intra_axes = tuple(a for a in mesh.axis_names if a != fed_axis)
-        self.devices = [participant_device(mesh, fed_axis, p)
-                        for p in range(self.n_fed)]
-        self.replicas = {}      # device -> (params, replica)
+        if groups is None:
+            groups = [participant_groups(mesh, fed_axis, p)
+                      for p in range(self.n_fed)]
+        elif len(groups) != self.n_fed:
+            raise ValueError(f"{len(groups)} group lists for {self.n_fed} "
+                             "participants")
+        n_data = fsdp.n_data_of(mesh, fed_axis)
+        self.groups = [fsdp.check_groups(gs, n_data) for gs in groups]
+        self.devices = [gs[0][0] for gs in self.groups]   # lead devices
+        # gradients fold in f32 with microbatches or a participant's groups
+        self.f32 = n_micro > 1 or any(len(gs) > 1 for gs in self.groups)
+        self.replicas = {}      # device (or groups) -> (params, replica)
         self.timings = None
 
     def layout(self, params):
@@ -353,22 +419,61 @@ class _FLStep:
             r.copy_(p)
         return cached[1]
 
+    @torch.no_grad()
+    def sharded_replica(self, params, p: int):
+        """Participant ``p``'s sharded parameters: ``params`` when its
+        groups are theirs, else a replica over its groups, refreshed from
+        ``params`` chunk by chunk."""
+        gs = self.groups[p]
+        if fsdp.same_groups(gs, params.groups):
+            return params
+        key = tuple((str(d), r.start, r.stop) for d, r in gs)
+        cached = self.replicas.get(key)
+        if cached is None or cached[0] is not params:
+            rep = fsdp.ShardedLM(params.cfg, gs, params.n_data, params.dims)
+            self.replicas[key] = cached = (params, rep)
+        cached[1].refresh_from(params)
+        return cached[1]
+
     def gradients(self, params, batch: dict) -> Iterable:
-        """Each participant's ``(loss, {name: gradient})`` at ``params``,
-        on its device. A participant's gradients are started when the
-        previous one is handed out, or before that when their devices
-        differ (module docstring); a device holds one pending set."""
-        models = {d: self.replica(params, d) for d in self.devices}
-        rows = [{k: v.to(d) for k, v in b.items()} for d, b in
-                zip(self.devices, _participant_batches(batch, self.n_fed))]
-        pending, nxt = [], 0        # (device, gradients) started, in order
+        """Each participant's ``(loss, gradients)`` at ``params``, on its
+        device: ``{name: gradient}``, or for sharded parameters an
+        ``fsdp.Grads`` over the participant's groups (f32 sums when any
+        participant has several). A participant's gradients are started
+        when the previous one is handed out, or before that when their
+        devices differ (module docstring); a device holds one pending
+        set."""
+        sharded = isinstance(params, fsdp.ShardedLM)
+        if sharded:
+            models = [self.sharded_replica(params, p)
+                      for p in range(self.n_fed)]
+            devsets = [{d for d, _ in gs} for gs in self.groups]
+            rows = _participant_batches(batch, self.n_fed)
+        else:
+            if any(len(gs) > 1 for gs in self.groups):
+                raise ValueError("a participant spreads over several groups:"
+                                 " shard the parameters (launch.fsdp.shard)")
+            models = {d: self.replica(params, d) for d in self.devices}
+            devsets = [{d} for d in self.devices]
+            rows = [{k: v.to(d) for k, v in b.items()} for d, b in
+                    zip(self.devices, _participant_batches(batch,
+                                                           self.n_fed))]
+        pending, nxt = [], 0        # (devices, gradients) started, in order
         for _ in range(self.n_fed):
             while nxt < self.n_fed and all(
-                    self.devices[nxt] != d for d, _ in pending):
-                d = self.devices[nxt]
-                with _stage("grads", self.timings, d):
-                    pending.append((d, step_gradients(
-                        models[d], self.cfg, rows[nxt], self.n_micro)))
+                    not devsets[nxt] & ds for ds, _ in pending):
+                with _stage("grads", self.timings, sorted(devsets[nxt],
+                                                          key=str)):
+                    if sharded:
+                        out = fsdp.step_gradients(
+                            models[nxt], self.cfg, rows[nxt], self.n_micro,
+                            f32=self.f32)
+                    else:
+                        out = step_gradients(models[self.devices[nxt]],
+                                             self.cfg, rows[nxt],
+                                             self.n_micro)
+                pending.append((devsets[nxt], out))
+                del out
                 rows[nxt] = None
                 nxt += 1
             _, out = pending.pop(0)
@@ -377,7 +482,44 @@ class _FLStep:
 
     @staticmethod
     def device(params):
+        if isinstance(params, fsdp.ShardedLM):
+            return params.device
         return next(params.parameters()).device
+
+    def update_param(self, params, named, name: str, value, sl=None) -> None:
+        """``_update`` of one parameter by the aggregate ``value`` (whole,
+        or slice ``k`` of it viewed as ``[per, *slice_shape]`` with ``sl =
+        (per, slice_shape, k, sd)``, ``sd`` the split dim within the
+        slice): in place, or on sharded parameters each chunk by its piece
+        of ``value`` on the chunk's device, each copy of a whole one by all
+        of it."""
+        if named is not None:
+            p = named[name]
+            if sl is not None:
+                p = p.reshape((sl[0],) + sl[1])[sl[2]]
+            _update(p, value, self.server_lr)
+            return
+        d = params.dims[name]
+        seen = set()
+        for g, c in enumerate(params.chunks):
+            t = c[name]
+            if id(t) in seen:
+                continue
+            seen.add(id(t))
+            if d is None:
+                view = t if sl is None else t.reshape((sl[0],) + sl[1])[sl[2]]
+                _update(view, value.to(t.device), self.server_lr)
+                continue
+            off, n = params.extent(g, name)
+            if sl is None:
+                view, piece = t, value.narrow(d, off, n)
+            else:
+                per, slice_shape, k, sd = sl
+                shape = list(slice_shape)
+                shape[sd] = -1
+                view = t.reshape((per,) + tuple(shape))[k]
+                piece = value.narrow(sd, off, n)
+            _update(view, piece.to(t.device), self.server_lr)
 
     def __call__(self, params, residuals, batch, round_key, *,
                  timings: dict | None = None, record: list | None = None):
@@ -452,7 +594,8 @@ class FLTrainStep(_FLStep):
                 streams[u].append(self.encode_unit(
                     unit, leaves[unit[0]], g, residuals, pid, round_key))
             del g
-        named = dict(params.named_parameters())
+        sharded = isinstance(params, fsdp.ShardedLM)
+        named = None if sharded else dict(params.named_parameters())
         for u, (lid, sl, nb, kb, km, tr) in enumerate(units):
             leaf = leaves[lid]
             n = (math.prod(sl[2]) if sl is not None else sizes[lid])
@@ -468,20 +611,27 @@ class FLTrainStep(_FLStep):
                                "agg_absmax": dense.abs().max()})
             streams[u] = None
             # the aggregate takes the gradient's dtype (the parameter's, f32
-            # when microbatches add up) before the f32 update
-            gdt = (torch.float32 if self.n_micro > 1
-                   else named[leaf.names[0]].dtype)
+            # when microbatches or groups add up) before the f32 update
+            gdt = (torch.float32 if self.f32
+                   else (params.dtypes[leaf.names[0]] if sharded
+                         else named[leaf.names[0]].dtype))
+            shape = leaf.shape[len(leaf.lead):]
             with _stage("update", self.timings, dev):
                 if sl is not None:
                     i, lead, slice_shape = sl
-                    _update(_slice_of(named, leaf, lead, slice_shape, i),
-                            dense.reshape(slice_shape).to(gdt),
-                            self.server_lr)
+                    per = lead // len(leaf.names)
+                    sd = (None if not sharded
+                          or params.dims[leaf.names[0]] is None
+                          else params.dims[leaf.names[0]]
+                          - (len(shape) - len(slice_shape)))
+                    self.update_param(
+                        params, named, leaf.names[i // per],
+                        dense.reshape(slice_shape).to(gdt),
+                        (per, slice_shape, i % per, sd))
                 else:
-                    parts = dense.to(gdt).reshape(
-                        (-1,) + tuple(named[leaf.names[0]].shape))
+                    parts = dense.to(gdt).reshape((-1,) + tuple(shape))
                     for j, name in enumerate(leaf.names):
-                        _update(named[name], parts[j], self.server_lr)
+                        self.update_param(params, named, name, parts[j])
             del dense
 
     def encode_unit(self, unit, leaf, g: dict, residuals, pid: int,
@@ -491,19 +641,30 @@ class FLTrainStep(_FLStep):
         lid, sl, nb, kb, km, tr = unit
         dev = self.devices[pid]
         res = residuals[lid][pid]
-        if res.device != dev:
+        chunked = isinstance(res, fsdp.ChunkedRow)
+        want = ([d for d, _ in self.groups[pid]]
+                if chunked and res.dim is not None else [dev])
+        have = [p.device for p in res.parts] if chunked else [res.device]
+        if have != want:
             raise ValueError(
-                f"participant {pid}'s residuals lie on {res.device}, the "
-                f"participant on {dev}: make them with "
+                f"participant {pid}'s residuals lie on {have}, the "
+                f"participant on {want}: make them with "
                 "init_fl_residuals(params, n_fed, mesh)")
+        if chunked:     # gather the unit's gradient and residual on dev
+            per = 1 if sl is None else sl[1] // len(leaf.names)
+            names = leaf.names if sl is None else [leaf.names[sl[0] // per]]
+            g = {n: (g.full(n, dev) if isinstance(g, fsdp.Grads)
+                     else g[n].to(dev)) for n in names}
         if sl is not None:
             i, lead, slice_shape = sl
             gi = _slice_of(g, leaf, lead, slice_shape, i).to(dev)
-            ri = res.reshape((lead,) + slice_shape)[i]
+            ri = (res.slice_to(lead, slice_shape, i, dev) if chunked
+                  else res.reshape((lead,) + slice_shape)[i])
             key = (threefry.fold_in(threefry.fold_in(round_key, lid), i)
                    if km else None)
         else:
-            gi, ri = _stacked(g, leaf).to(dev), res
+            gi = _stacked(g, leaf).to(dev)
+            ri = res.to(dev) if chunked else res
             key = threefry.fold_in(round_key, lid) if km else None
         masks = None
         if key is not None:
@@ -515,7 +676,12 @@ class FLTrainStep(_FLStep):
                 k_mask_block=km, n_peers=self.n_fed, self_id=pid,
                 mask_lo=self.sa.p, mask_q=self.sa.q, transform=tr,
                 masks=masks)
-            ri.copy_(r_new)
+            if chunked and sl is not None:
+                res.put_slice(lead, slice_shape, i, r_new)
+            elif chunked:
+                res.copy_(r_new)
+            else:
+                ri.copy_(r_new)
         return st
 
     def masks_for(self, key, pid, size, nb, km, tr, dev):
@@ -538,7 +704,9 @@ class FLTrainStepV2(_FLStep):
     encoded in one batched call there on the sharding-aligned block view
     (the generic row blocks when the spec has none, or with
     ``REPRO_FL_V2_GENERIC=1``), the new residual rows sent back, the
-    exchange one scatter a leaf."""
+    exchange one scatter a leaf. On sharded parameters it gathers each
+    participant's full gradients at home (cast to bf16 chunk by chunk on
+    their devices) and its residual chunks, and sends the chunks back."""
 
     def exchange(self, params, residuals, grads: Iterable, round_key,
                  *, record: list | None = None) -> None:
@@ -547,9 +715,12 @@ class FLTrainStepV2(_FLStep):
         leaves, specs, sizes, leaf_k = self.layout(params)
         dev = self.device(params)
         generic = os.environ.get("REPRO_FL_V2_GENERIC", "0") == "1"
-        gs = [{n: t.to(torch.bfloat16).to(dev) for n, t in g.items()}
+        gs = [{n: g.full(n, dev, torch.bfloat16)
+               for n in g.lm.shapes} if isinstance(g, fsdp.Grads)
+              else {n: t.to(torch.bfloat16).to(dev) for n, t in g.items()}
               for g in grads]
-        named = dict(params.named_parameters())
+        named = (None if isinstance(params, fsdp.ShardedLM)
+                 else dict(params.named_parameters()))
         n_intra = math.prod(self.axis_sizes[a] for a in self.intra_axes)
         for lid, (leaf, spec) in enumerate(zip(leaves, specs)):
             tr = None if generic else sharding_aligned_transform(
@@ -594,27 +765,30 @@ class FLTrainStepV2(_FLStep):
                 record.append({"leaf": lid, "slice": None, "streams": st,
                                "agg_absmax": dense.abs().max()})
             with _stage("update", self.timings, dev):
-                parts = agg.reshape((-1,) + tuple(
-                    named[leaf.names[0]].shape))
+                parts = agg.reshape((-1,) + leaf.shape[len(leaf.lead):])
                 for j, name in enumerate(leaf.names):
-                    _update(named[name], parts[j], self.server_lr)
+                    self.update_param(params, named, name, parts[j])
 
 
 def make_fl_train_step(cfg: ArchConfig, mesh, fed_axis: str,
                        thgs: THGSConfig, sa: SecureAggConfig,
                        lr: float = 0.01, server_lr: float = 1.0,
-                       n_micro: int = 1) -> FLTrainStep:
+                       n_micro: int = 1, groups=None) -> FLTrainStep:
     """``step(params, residuals, batch, round_key) -> (params, residuals,
     loss)``: the reference's v1 FL step on a ``LogicalMesh``. ``round_key``
-    is a threefry key (``core.threefry.key``)."""
+    is a threefry key (``core.threefry.key``). Each participant's groups
+    are ``launch.mesh.participant_groups``', or ``groups`` (one list a
+    participant, devices may repeat); a participant of several groups
+    takes sharded parameters (``launch.fsdp``)."""
     return FLTrainStep(cfg, mesh, fed_axis, thgs, sa, lr, server_lr,
-                       n_micro)
+                       n_micro, groups)
 
 
 def make_fl_train_step_v2(cfg: ArchConfig, mesh, fed_axis: str,
                           thgs: THGSConfig, sa: SecureAggConfig,
                           lr: float = 0.01, server_lr: float = 1.0,
-                          n_micro: int = 1) -> FLTrainStepV2:
-    """The reference's v2 (GSPMD-first) FL step on a ``LogicalMesh``."""
+                          n_micro: int = 1, groups=None) -> FLTrainStepV2:
+    """The reference's v2 (GSPMD-first) FL step on a ``LogicalMesh``
+    (``groups`` as :func:`make_fl_train_step`'s)."""
     return FLTrainStepV2(cfg, mesh, fed_axis, thgs, sa, lr, server_lr,
-                         n_micro)
+                         n_micro, groups)

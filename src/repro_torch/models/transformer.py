@@ -224,6 +224,15 @@ def _xlstm_layer(params: TransformerLM, i: int):
             (params.slstm if i % 2 == 0 else params.mlstm)[i // 2])
 
 
+def _full(p):
+    """A block's parameters as the block functions read them: ``p`` itself,
+    or, for a group of sharded parameters (``launch/fsdp.py``), its tensors
+    gathered whole on the group's device. Called inside the block's
+    checkpointed function, so the backward's recompute gathers again."""
+    gather = getattr(p, "gather", None)
+    return gather() if callable(gather) else p
+
+
 # --------------------------------------------------------------- full forward
 def forward(params: TransformerLM, cfg: ArchConfig, h: torch.Tensor, *,
             window: Optional[int] = None,
@@ -236,7 +245,10 @@ def forward(params: TransformerLM, cfg: ArchConfig, h: torch.Tensor, *,
     Serving (the default) runs under ``torch.inference_mode()`` with the
     flash kernel. ``train=True`` runs under autograd, attention through
     ``attend_chunked``, each block under a non-reentrant ``checkpoint``
-    where the reference remats a scan body."""
+    where the reference remats a scan body. ``params`` may also be one
+    group's view of sharded parameters (``launch.fsdp.GroupView``): each
+    block is then gathered inside its checkpoint (xLSTM's layers, which
+    have none, as they run)."""
     with torch.inference_mode(not train):
         causal = not cfg.encoder_only
         window = window if window is not None else cfg.window
@@ -246,8 +258,8 @@ def forward(params: TransformerLM, cfg: ArchConfig, h: torch.Tensor, *,
                 else fn(*args)
 
         def self_block(bp, x, aux):
-            x, a = _self_block(bp, cfg, x, causal=causal, window=window,
-                               train=train)
+            x, a = _self_block(_full(bp), cfg, x, causal=causal,
+                               window=window, train=train)
             return x, aux if a is None else aux + a
 
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -256,22 +268,26 @@ def forward(params: TransformerLM, cfg: ArchConfig, h: torch.Tensor, *,
                 is_s, p = _xlstm_layer(params, i)
                 run = (xlstm_mod.slstm_forward if is_s
                        else xlstm_mod.mlstm_forward)
-                h = h + run(p, h, cfg.n_heads)[0]
+                h = h + run(_full(p), h, cfg.n_heads)[0]
         elif cfg.family == "vlm":
             img = _image_embeds(cfg, image_embeds, h)
 
             def vlm_super(x, aux, self_ps, cross_p):
                 for bp in self_ps:
                     x, aux = ckpt(self_block, bp, x, aux)
-                return _cross_block(cross_p, cfg, x, img, train=train), aux
+                return _cross_block(_full(cross_p), cfg, x, img,
+                                    train=train), aux
 
             for self_ps, cross_p in zip(params.self_blocks,
                                         params.cross_blocks):
                 h, aux = ckpt(vlm_super, h, aux, self_ps, cross_p)
         elif cfg.family == "hybrid":
+            def ssm_block(bp, x):
+                return _ssm_block(_full(bp), cfg, x)
+
             def hybrid_super(x, aux, ssm_ps):
                 for bp in ssm_ps:
-                    x = ckpt(_ssm_block, bp, cfg, x)
+                    x = ckpt(ssm_block, bp, x)
                 return self_block(params.shared_block, x, aux)
 
             for ssm_ps in params.ssm_blocks:
@@ -279,7 +295,7 @@ def forward(params: TransformerLM, cfg: ArchConfig, h: torch.Tensor, *,
         else:
             for bp in params.blocks:
                 h, aux = ckpt(self_block, bp, h, aux)
-        return apply_norm(params.final_norm, h, cfg.norm), aux
+        return apply_norm(_full(params.final_norm), h, cfg.norm), aux
 
 
 # ----------------------------------------------------------------------- loss

@@ -21,7 +21,10 @@
   5.0e-4 on (2,2,1) v2, 9.3e-4 on (2,1,2) v2, 9.3e-5 / 1.9e-6 for v1): the
   gradients differ in the last bits (GSPMD's partial sums), which flips a
   few top-k selections, each moving one element by its whole update; the
-  share of elements off by more than 1e-5 stays under 1%.
+  share of elements off by more than 1e-5 stays under 1%. The same holds
+  with each participant spread over two groups on the CPU (sharded
+  parameters, chunked residual rows, the gradients f32 sums of two
+  halves).
 * **The CLI**: the loss falls over 6 steps, a run stopped at step 3 and
   resumed replays the uninterrupted run bit for bit, and the ledger equals
   the reference example's ``step_wire_record``.
@@ -60,6 +63,7 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.core import threefry  # noqa: E402
 from repro_torch.core.types import SecureAggConfig as TSA  # noqa: E402
 from repro_torch.core.types import THGSConfig as TTHGS  # noqa: E402
+from repro_torch.launch import fsdp  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
 
@@ -177,19 +181,29 @@ def _flat(tree, prefix=""):
     return out
 
 
-def check_free_running(ref: dict, shape, version: str) -> None:
+def check_free_running(ref: dict, shape, version: str,
+                       groups=None) -> None:
     """The port's step from the reference's init and batch, 2 steps,
-    against the reference's real step."""
+    against the reference's real step; with ``groups`` (one participant's
+    groups, every participant's) the parameters are sharded over them
+    (``launch.fsdp.shard_reference``) and the residual rows chunked."""
     jcfg, tcfg = _pair()
     p0 = jax.tree_util.tree_map(np.asarray,
                                 jtf.init_params(jcfg, jax.random.key(0)))
-    model = convert.lm_params_from_jax(p0, tcfg)
     mesh = tmesh.LogicalMesh(shape, AXES, "cpu")
     mk = (ttrain.make_fl_train_step if version == "v1"
           else ttrain.make_fl_train_step_v2)
-    step = mk(tcfg, mesh, "pod", TTHGS(**THGS), TSA(mask_ratio=MASK_RATIO),
-              lr=LR)
-    res = ttrain.init_fl_residuals(model, 2)
+    if groups is None:
+        model = convert.lm_params_from_jax(p0, tcfg)
+        step = mk(tcfg, mesh, "pod", TTHGS(**THGS),
+                  TSA(mask_ratio=MASK_RATIO), lr=LR)
+        res = ttrain.init_fl_residuals(model, 2)
+    else:
+        model = fsdp.shard_reference(p0, tcfg, mesh, "pod", groups=groups)
+        step = mk(tcfg, mesh, "pod", TTHGS(**THGS),
+                  TSA(mask_ratio=MASK_RATIO), lr=LR, groups=[groups] * 2)
+        res = ttrain.init_fl_residuals(model, 2, mesh, "pod",
+                                       groups=[groups] * 2)
     batch = {k: torch.from_numpy(v) for k, v in ref["batch"].items()}
     losses = [float(step(model, res, batch, threefry.key(i))[2])
               for i in range(2)]
@@ -197,7 +211,10 @@ def check_free_running(ref: dict, shape, version: str) -> None:
     np.testing.assert_allclose(losses, want["losses"], rtol=0, atol=LOSS_TOL)
     got_p = _flat(convert.lm_tree_to_numpy(model, tcfg))
     want_p, want_r, start = _flat(want["p"]), _flat(want["r"]), _flat(p0)
-    for lid, leaf in enumerate(convert.reference_leaves(model)):
+    res = ttrain.stacked_residuals(res)
+    leaves = convert.reference_leaves(model if groups is None
+                                      else model.meta)
+    for lid, leaf in enumerate(leaves):
         gp, wp = got_p[leaf.path], want_p[leaf.path]
         np.testing.assert_allclose(gp, wp, rtol=0, atol=PARAM_TOL,
                                    err_msg=leaf.path)
@@ -546,3 +563,13 @@ def test_fl_modules_load_no_jax():
 @pytest.mark.parametrize("version", ["v1", "v2"])
 def test_free_running_step_matches_reference_221(ref_221, version):
     check_free_running(ref_221.result(), (2, 2, 1), version)
+
+
+@pytest.mark.parametrize("version", ["v1", "v2"])
+def test_sharded_step_matches_reference_221(ref_221, version):
+    """Each participant over two groups on the CPU (its data positions 0
+    and 1): gradients as f32 sums of two halves, parameters and residual
+    rows in chunks; the reference's tolerances hold."""
+    cpu = torch.device("cpu")
+    check_free_running(ref_221.result(), (2, 2, 1), version,
+                       groups=[(cpu, range(0, 1)), (cpu, range(1, 2))])
