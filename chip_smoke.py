@@ -231,12 +231,22 @@ exits non-zero and no failure is caught:
      in bf16 over two explicit groups on ``cuda:0``, B 4 x T 4096: one step
      whose loss and params are bit-equal to the n_micro 2 step 1 below,
      its peak at most that run's plus a gathered block and ``lm_head``.
-     Then Yi-6B at full width and
-     depth in bf16 (seed 0): 5 SGD steps at lr 0.01 on one batch of
+     Tensor parallelism (``launch/tp.py``): (g) the same 2-layer f32 model
+     over ``(data 1, model 2)`` on ``[cuda:0, cpu]``, B 2 x T 256: the
+     bytes on the card after placement equal to ``param_specs``'
+     prediction, one step within the card-vs-CPU tolerances of the same
+     grid on ``[cuda:0, cuda:0]``; (f) Yi-6B whole in bf16, B 4 x T 4096 as
+     n_micro 2, over ``(data 1, model 2)`` with both positions on
+     ``cuda:0``: the bytes placed, one step against the one-card step
+     (``TP_LOSS_TOL``, ``TP_PARAM_TOL``, ``TP_MOVED_SHARE``), two steps
+     from one state bit-equal, step ms, tokens/s, peak. Then Yi-6B at
+     full width and
+     depth in bf16 (seed 0): 3 SGD steps (5 before the tensor-parallel
+     cases) at lr 0.01 on one batch of
      ``make_lm_tokens(64000, 4, 4096, seed=0)`` as the dry run's
      microbatch rule splits it (2 of 2 rows), then one profiled step: every
      loss finite and the last below the first, every gradient leaf of the
-     first step finite and not all zero; step ms (median of steps 2-5),
+     first step finite and not all zero; step ms (median of steps 2-3),
      tokens/s, peak memory, the step's floating-point operations against
      989 TFLOP/s, busy share and top kernels. Then one step of every config
      of phase 16 at its depth and batch, bf16, T 1,024 (frames, bf16 image
@@ -271,9 +281,10 @@ exits non-zero and no failure is caught:
      devices, the masks cancel, (iii) within ``FL_PARAM_TOL`` of (i).
      (c) Yi-6B whole (32 layers, bf16, seed 0), B 4 x T 4096 (2 rows a
      participant), lr 0.01, server_lr 1, every position on ``cuda:0`` by
-     a device array: counts reset, 3 steps (the third
-     with its parts timed), counts read: 229 scatter launches a step (every
-     decode); a profiled fourth step (busy share, the scatter's device
+     a device array: counts reset, 2 steps (3 before the tensor-parallel
+     cases; the last with its parts timed), counts read: 229 scatter
+     launches a step (every decode); a profiled third step (busy share, the
+     scatter's device
      time); every loss finite, every leaf's aggregate non-zero, every
      matrix leaf changed (changed elements printed per leaf), residuals
      finite and non-zero, the masks cancel on ``lm_head`` (the masked
@@ -287,13 +298,21 @@ exits non-zero and no failure is caught:
      pod on ``cuda:0``, 8-15 on the CPU: every chunk, residual chunk and
      stream on its device, each group's loss and gradients bit-equal to
      ``value_and_grad`` of the one-device model of its device on its rows
-     (that v1 step under ``torch.use_deterministic_algorithms``: the CPU's
-     embed backward is not repeatable without it),
+     (no deterministic flag: the embed gather's backward folds in token
+     order),
      params within ``FL_PARAM_TOL`` of (i) with at most ``FL_MOVED_SHARE``
      of the elements apart, one scatter launch a unit (counts reset and
      read around the v1 step; they join the kernel table's), and a v2 step
-     whose masks cancel. (f) ``table2_fedavg_quick`` with dense secure
-     aggregation, 2 rounds on the card and the CPU: equal ledgers.
+     whose masks cancel. (f) Tensor parallelism (``launch/tp.py``): Yi-6B
+     whole in bf16, B 4 x T 4096, two pods each ``(data 1, model 2)`` with
+     both positions on ``cuda:0``: one v1 step (counts reset and read: 229
+     scatter launches; they join the kernel table's) against the
+     one-device v1 step on the same (2, 1, 2) layout (params within
+     ``FL_TP_PARAM_TOL``, at most ``FL_MOVED_SHARE`` apart), then a v2
+     step whose masks cancel; every loss, leaf and residual finite, every
+     matrix leaf moved; step ms, tokens/s, peak. (g)
+     ``table2_fedavg_quick`` with dense secure aggregation, 2 rounds on the
+     card and the CPU: equal ledgers.
  19. selectors (run after 15): the 'sampled' and 'local' THGS selectors.
      (a) At VGG16's 512x512x3x3 leaf (k 60,199) and Yi-6B's ``embed``
      (262,144,000 elements, its Eq. 1 k under the dry run's THGS) on a
@@ -337,8 +356,9 @@ round is timed as its per-leaf flat launches); ``--only sharded`` runs
 phases 1 and 14, ``--only bench`` phases 1 and 15, ``--only families``
 phases 1 and 16, ``--only train`` phases 1 and 17, ``--only fl_train``
 phases 1 and 18, ``--only selectors`` phases 1 and 19, ``--only
-secagg_demo`` phases 1 and 20. Without a CUDA device, or outside a
-checkout, it exits
+secagg_demo`` phases 1 and 20, ``--only tp`` phase 1 and the
+tensor-parallel cases (``[train]`` (f), (g), ``[fl_train]`` (f)). Without a
+CUDA device, or outside a checkout, it exits
 non-zero and prints no result.
 """
 from __future__ import annotations
@@ -2732,7 +2752,7 @@ def families_phase(card: str) -> dict:
 TRAIN_LR = 0.01
 TRAIN_PARITY_B, TRAIN_PARITY_T = 2, 2048    # two attend_chunked chunks
 TRAIN_B, TRAIN_T = 4, 4096      # Yi-6B: train_4k's length, 4 rows a card
-TRAIN_STEPS = 5
+TRAIN_STEPS = 3         # 5 before the tensor-parallel cases joined
 TRAIN_FAMILY_T = 1024           # the families' tokens (frames) a row,
 TRAIN_XLSTM_T = 512             # but xLSTM's: its sLSTM steps on the host
 # Yi-6B at full width and 2 layers in f32 (TF32 off), card vs CPU: the loss,
@@ -2745,6 +2765,16 @@ TRAIN_GRAD_REL = 2.6e-5
 TRAIN_PARAM_TOL = 2.4e-7
 TRAIN_MICRO_REL = 2.2e-5
 TRAIN_SHARD_T = 256     # the [cuda:0, cpu] step: its CPU group's row
+TP_T = 256              # (g): the [cuda:0, cpu] grid's step
+# (f) Yi-6B whole in bf16 over (data 1, model 2) on cuda:0 against the
+# one-card step: the loss, the params after one step (max |diff|, and the
+# share of elements apart: a bf16 parameter whose update differs in the
+# last bits rounds to its neighbour). About 2x the readings on an H100 80GB
+# HBM3 at 700 W: 7.915e-05; 2.441e-04 (one bf16 ulp of embed's values in
+# [1/32, 1/16)); 1,390,054 of 6,061,035,520 elements (2.29e-4)
+TP_LOSS_TOL = 1.6e-4
+TP_PARAM_TOL = 4.9e-4
+TP_MOVED_SHARE = 4.6e-4
 # the families at reduced width in f32, card vs CPU: the CPU parity tests'
 # tolerances (tests/test_torch_train_families.py)
 FAMILY_TRAIN_LOSS_TOL, FAMILY_TRAIN_GRAD_REL = 2e-5, 1e-4
@@ -3060,6 +3090,241 @@ def train_sharded_yi6b(card: str) -> dict:
     return out
 
 
+def grid_bytes_on(cfg, mesh, groups, device) -> int:
+    """The bytes ``device`` holds after ``fsdp.shard`` places ``cfg`` on
+    ``mesh``'s ``(data group, model position)`` grid ``groups``, predicted
+    from ``param_specs`` alone: each distinct block of a leaf that a cell on
+    ``device`` holds, one position's shard (``dryrun.shard_bytes``) times
+    the group's data positions where the leaf splits over ``data``."""
+    from repro_torch import convert
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import shardings as shd
+    from repro_torch.launch.mesh import group_cells, logical_rules
+    from repro_torch.models import transformer as tf
+
+    meta = tf.init_params(cfg, device="meta")
+    named = dict(meta.named_parameters())
+    sizes = shd.axis_sizes_of(mesh)
+    leaves = convert.reference_leaves(meta)
+    specs = shd.param_specs({lf.path: lf.shape for lf in leaves},
+                            logical_rules(mesh), sizes)
+    total = 0
+    for lf in leaves:
+        spec = tuple(specs[lf.path])
+        d_split, m_split = "data" in spec, "model" in spec
+        per = dryrun.shard_bytes(lf.shape, named[lf.names[0]].dtype, spec,
+                                 sizes)
+        blocks = {(g if d_split else None, j if m_split else None,
+                   len(pos) if d_split else 1)
+                  for g, (devs, pos) in enumerate(groups)
+                  for j, dev in enumerate(group_cells(devs))
+                  if dev == device}
+        total += per * sum(n for _, _, n in blocks)
+    return total
+
+
+def placed_bytes(make) -> tuple:
+    """``make()``'s result and the bytes it left on the card: requested of
+    the caching allocator, and what it counts as allocated."""
+    import torch
+
+    def held():
+        return (torch.cuda.memory_stats()["requested_bytes.all.current"],
+                torch.cuda.memory_allocated())
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = held()
+    out = make()
+    gc.collect()
+    return out, tuple(a - b for a, b in zip(held(), base))
+
+
+def train_tp_parity(card: str) -> None:
+    """(g) Yi-6B at full width and 2 layers, f32, TF32 off, B 2 x T TP_T,
+    ``(data 1, model 2)`` on ``[cuda:0, cpu]`` (``launch/tp.py``): the bytes
+    placed on the card against ``param_specs``' prediction, then one dense
+    step against the same grid with both positions on ``cuda:0``, within
+    the card-vs-CPU parity tolerances."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch import fsdp
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.models import transformer as tf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(configs.get("yi_6b"), n_layers=2,
+                              dtype="float32")
+    cuda0, cpu = torch.device("cuda", 0), torch.device("cpu")
+    mesh = tmesh.LogicalMesh((1, 2), ("data", "model"), [["cuda:0", "cpu"]])
+    groups = tmesh.participant_groups(mesh, None)
+    check(groups == [((cuda0, cpu), range(0, 1))], f"the grid {groups}")
+
+    def make():
+        model = tf.init_params(cfg, torch.Generator(
+            device="cuda").manual_seed(0))
+        return fsdp.shard(model, mesh)
+
+    lm, (placed, allocated) = placed_bytes(make)
+    want = grid_bytes_on(cfg, mesh, groups, cuda0)
+    batch = lm_batch(cfg, 2, TP_T, 3, "cuda")
+    out = {}
+    for tag, grid_ in (("[cuda:0, cpu]", None),
+                       ("[cuda:0, cuda:0]", [((cuda0, cuda0),
+                                              range(0, 1))])):
+        if grid_ is not None:
+            lm = fsdp.shard(tf.init_params(cfg, torch.Generator(
+                device="cuda").manual_seed(0)), mesh, groups=grid_)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = fsdp.step_gradients(lm, cfg, batch)
+        fsdp.sgd_update(lm, grads, TRAIN_LR)
+        torch.cuda.synchronize()
+        out[tag] = {"s": time.perf_counter() - t0, "loss": loss.item(),
+                    "grads": {n: grads.full(n, cuda0) for n in lm.shapes},
+                    "params": {n: lm.full(n, cuda0) for n in lm.shapes},
+                    "devices": sorted({str(t.device)
+                                       for _, t in lm.tensors()})}
+        del grads, lm
+        gc.collect()
+    a, b = out["[cuda:0, cpu]"], out["[cuda:0, cuda:0]"]
+    loss_err = abs(a["loss"] - b["loss"])
+    rel, at = grad_gap(a["grads"], b["grads"])
+    param_err = max((a["params"][n] - p).abs().max().item()
+                    for n, p in b["params"].items())
+    print(f"[train] (g) tensor parallel on {card}: {cfg.name} full width, 2 "
+          f"layers, f32 (TF32 off), (data 1, model 2) on [cuda:0, cpu], B=2 "
+          f"T={TP_T}: cuda:0 holds {placed} bytes after placement "
+          f"({allocated} allocated), param_specs predict {want}; tensors on "
+          f"{a['devices']}; against the same grid on [cuda:0, cuda:0]: loss "
+          f"{a['loss']:.7f} vs {b['loss']:.7f} |diff| {loss_err:.3e} "
+          f"(tolerance {TRAIN_LOSS_TOL}), gradients max |diff| / max |g| "
+          f"{rel:.3e} at {at} (tolerance {TRAIN_GRAD_REL}), params max "
+          f"|diff| {param_err:.3e} (tolerance {TRAIN_PARAM_TOL}); steps "
+          f"{a['s']:.2f} s / {b['s']:.2f} s", flush=True)
+    check(placed == want, f"(g) cuda:0 holds {placed} bytes after "
+          f"placement, param_specs predict {want}")
+    check(a["devices"] == ["cpu", "cuda:0"] and b["devices"] == ["cuda:0"],
+          f"(g) tensors on {a['devices']} / {b['devices']}")
+    check(loss_err <= TRAIN_LOSS_TOL, f"(g) loss {loss_err:.3e}")
+    check(rel <= TRAIN_GRAD_REL, f"(g) gradient {at} {rel:.3e}")
+    check(param_err <= TRAIN_PARAM_TOL, f"(g) params {param_err:.3e}")
+    del out, a, b, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def gap_on_card(got, want) -> tuple[float, int, int, str]:
+    """(max |got - want|, elements apart, elements, the worst parameter) of
+    two ``{name: tensor}`` sets, each pair compared on the card (``got``'s
+    values there; ``want``'s moved there one parameter at a time)."""
+    err, moved, total, worst = 0.0, 0, 0, ""
+    for n, w in want.items():
+        g = got[n]
+        d = (g.float() - w.to(g.device).float()).abs()
+        moved += int((d > 0).sum())
+        total += d.numel()
+        if d.max().item() > err:
+            err, worst = d.max().item(), n
+    return err, moved, total, worst
+
+
+def train_tp_yi6b(card: str) -> None:
+    """(f) Yi-6B whole, bf16, seed 0, B TRAIN_B x T TRAIN_T, over ``(data
+    1, model 2)`` with both positions on ``cuda:0`` (``launch/tp.py``): the
+    bytes placed against ``param_specs``' prediction; one step at the dry
+    run's n_micro against the one-card step (loss, params within TP_LOSS_TOL
+    / TP_PARAM_TOL, at most TP_MOVED_SHARE of the elements apart); two
+    steps from one state bit-equal; step ms, tokens/s, peak. Every
+    comparison runs on the card, the compared copy kept there."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import fsdp
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models import transformer as tf
+
+    cfg = configs.get("yi_6b")
+    cuda0 = torch.device("cuda", 0)
+    grid_ = [((cuda0, cuda0), range(0, 1))]
+    mesh = tmesh.LogicalMesh((1, 2), ("data", "model"), "cuda:0")
+    n_micro = ttrain.micro_batches(tf.param_count(tf.init_params(
+        cfg, device="meta")))
+    batch = lm_batch(cfg, TRAIN_B, TRAIN_T, 0, "cuda")
+
+    def draw():
+        return tf.init_params(cfg, torch.Generator(
+            device="cuda").manual_seed(0))
+
+    def tp_step():
+        lm, (placed, _) = placed_bytes(
+            lambda: fsdp.shard(draw(), mesh, groups=grid_))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = ttrain.make_dense_train_step(cfg, lr=TRAIN_LR,
+                                            n_micro=n_micro)(lm, batch)[1]
+        torch.cuda.synchronize()
+        return lm, {"ms": (time.perf_counter() - t0) * 1e3, "loss": loss,
+                    "placed": placed, "launches": ops.launch_counts(),
+                    # the step's own peak: its placed params and what it
+                    # allocates, beside the copy kept for the comparison
+                    "peak": torch.cuda.max_memory_allocated() - held
+                    + placed}
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = draw()          # the one-card step, kept for the comparison
+    loss_1 = ttrain.make_dense_train_step(cfg, lr=TRAIN_LR,
+                                          n_micro=n_micro)(model, batch)[1]
+    lm, a = tp_step()
+    kept = {n: lm.full(n, cuda0) for n in lm.shapes}
+    err, moved, total, worst = gap_on_card(kept, dict(
+        model.named_parameters()))
+    del lm, model
+    gc.collect()
+    lm, b = tp_step()
+    same = bits_equal(a["loss"], b["loss"]) and all(
+        bits_equal(lm.full(n, cuda0), p) for n, p in kept.items())
+    del lm, kept
+    predicted = grid_bytes_on(cfg, mesh, grid_, cuda0)
+    loss_err = abs(a["loss"].item() - loss_1.item())
+    print(f"[train] (f) tensor parallel on {card}: {cfg.name} whole, bf16, "
+          f"B={TRAIN_B} T={TRAIN_T} as n_micro={n_micro}, (data 1, model 2) "
+          f"with both positions on cuda:0: cuda:0 holds {a['placed']} bytes "
+          f"after placement, param_specs predict {predicted}; steps "
+          f"{a['ms']:.3f} / {b['ms']:.3f} ms "
+          f"({TRAIN_B * TRAIN_T / a['ms'] * 1e3:.1f} / "
+          f"{TRAIN_B * TRAIN_T / b['ms'] * 1e3:.1f} tokens/s), peak "
+          f"{a['peak'] / 2**30:.2f} / {b['peak'] / 2**30:.2f} GiB; against "
+          f"the one-card step: loss {a['loss'].item():.6f} vs "
+          f"{loss_1.item():.6f} |diff| {loss_err:.3e} (tolerance "
+          f"{TP_LOSS_TOL}), params max |diff| {err:.3e} at {worst} "
+          f"(tolerance {TP_PARAM_TOL}), {moved} of {total} elements apart "
+          f"(share tolerance {TP_MOVED_SHARE}); two steps from one state "
+          f"bit-equal {same}; launches {a['launches']}", flush=True)
+    check(a["placed"] == predicted and b["placed"] == predicted,
+          f"(f) cuda:0 holds {a['placed']} / {b['placed']} bytes after "
+          f"placement, param_specs predict {predicted}")
+    check(same, "(f) two tensor-parallel steps from one state differ")
+    check(math.isfinite(a["loss"].item()), "(f) a non-finite loss")
+    check(loss_err <= TP_LOSS_TOL, f"(f) loss {loss_err:.3e}")
+    check(err <= TP_PARAM_TOL and moved <= TP_MOVED_SHARE * total,
+          f"(f) params {err:.3e} at {worst}, {moved} of {total} apart")
+    check(a["launches"]["flash_attention"] == 0, "(f) launched flash")
+    del batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def train_flops(cfg, n_params: int, B: int, T: int) -> dict:
     """A step's floating-point operations, as ``FlopCounterMode`` counts
     the step on the meta device (``launch/dryrun.py``; held within 1% by
@@ -3297,6 +3562,8 @@ def train_phase(card: str) -> None:
     t1 = time.perf_counter()
     train_yi6b(card, train_sharded_yi6b(card))
     t2 = time.perf_counter()
+    train_tp_phase(card)
+    t_tp = time.perf_counter()
     for arch, layers, B in FAMILY_CELLS:
         train_family(arch, layers, B, card)
         gc.collect()
@@ -3308,8 +3575,14 @@ def train_phase(card: str) -> None:
           f"{FAMILY_TRAIN_GRAD_REL} of each leaf's max |g|): "
           + "; ".join(lines), flush=True)
     print(f"[train] phase 17 took {time.perf_counter() - t0:.1f} s on {card} "
-          f"(parity {t1 - t0:.1f} s, Yi-6B {t2 - t1:.1f} s, families "
-          f"{t3 - t2:.1f} s)", flush=True)
+          f"(parity {t1 - t0:.1f} s, Yi-6B {t2 - t1:.1f} s, tensor parallel "
+          f"{t_tp - t2:.1f} s, families {t3 - t_tp:.1f} s)", flush=True)
+
+
+def train_tp_phase(card: str) -> None:
+    """[train] (f) and (g): tensor parallelism over ``model``."""
+    train_tp_parity(card)
+    train_tp_yi6b(card)
 
 
 # --------------------------------------------------- phase 18: fl_train
@@ -3317,7 +3590,8 @@ FL_THGS = dict(s0=0.01, alpha=0.9, s_min=0.001)   # the dry run's THGS and
 FL_MASK_RATIO = 0.01                               # mask ratio
 FL_LR = 0.01                    # make_fl_train_step's defaults: lr 0.01,
 FL_B, FL_T = 4, 4096            # server_lr 1; train_4k's T, 2 rows a
-FL_STEPS = 3                    # participant (global batch 256 cut to 4)
+FL_STEPS = 2                    # participant (global batch 256 cut to 4);
+                                # 3 steps before the tensor-parallel cases
 FL_UNITS = 229                  # Yi-6B's decodes a step on the multi-pod
 FL_PARITY_B, FL_PARITY_T = 2, 1024     # layout: 7 x 32 slices + 5 leaves
 FL_SHARD_T = 256                # (e): one row a group, 2 groups a pod
@@ -3328,6 +3602,12 @@ FL_LOSS_TOL = 2e-6
 FL_PARAM_TOL = 6e-5
 FL_MOVED_SHARE = 1e-3
 FL_CANCEL_TOL = 1e-4            # tests/test_blocked.py:31-48's rtol / atol
+# (f) Yi-6B whole in bf16, each participant over (data 1, model 2) on
+# cuda:0, against the one-device step: the params' max |diff| (bf16: an
+# update rounded to the neighbouring bf16 value). About 2x the reading on
+# an H100 80GB HBM3 at 700 W: 2.441e-04 at embed, 78,324 of 6,061,035,520
+# elements apart (1.3e-5, under FL_MOVED_SHARE)
+FL_TP_PARAM_TOL = 4.9e-4
 
 
 def fl_config(layers=None, dtype=None):
@@ -3773,8 +4053,9 @@ def fl_cancel_v2(step, model, record, round_key) -> dict:
 
 def fl_yi6b(card: str) -> dict:
     """(c) Yi-6B whole, bf16, seed 0, federated over 2 participants on the
-    multi-pod layout: FL_STEPS v1 steps (the third with its parts timed)
-    and a profiled fourth. Returns the scatter launches of steps 1-3."""
+    multi-pod layout: FL_STEPS v1 steps (the last with its parts timed)
+    and a profiled one more. Returns the scatter launches of the FL_STEPS
+    steps."""
     import torch
 
     from repro_torch import convert
@@ -4059,12 +4340,6 @@ def fl_sharded(card: str) -> dict:
         "rows": sorted({tuple(str(p.device) for p in r.parts)
                         for row in res_ii for r in row})}
     real = group_gradient_spy(plain, seen)
-    # the CPU's index backward (the embed gather) adds repeated tokens'
-    # rows with atomics unless deterministic algorithms are asked for: two
-    # CPU runs of one row then differ in embed's last bits
-    flags = (torch.are_deterministic_algorithms_enabled(),
-             torch.is_deterministic_algorithms_warn_only_enabled())
-    torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         torch.cuda.synchronize()
         ops.reset_launch_counts()
@@ -4072,7 +4347,6 @@ def fl_sharded(card: str) -> dict:
         counts = ops.launch_counts()
     finally:
         fsdp.group_value_and_grad = real
-        torch.use_deterministic_algorithms(flags[0], warn_only=flags[1])
     n_units = len(step.units(*step.layout(lm)))
     placed["streams"] = sorted({str(st.indices.device) for r in rec_ii
                                 for st in r["streams"]})
@@ -4126,8 +4400,133 @@ def fl_sharded(card: str) -> dict:
     return counts
 
 
+def fl_tp(card: str) -> dict:
+    """(f) Yi-6B whole, bf16, seed 0, federated over 2 participants, each
+    ``(data 1, model 2)`` with both positions on ``cuda:0``
+    (``launch/tp.py``), B FL_B x T FL_T: one v1 step (counts reset and
+    read: FL_UNITS scatter launches) against the one-device v1 step on the
+    same (2, 1, 2) layout (params within FL_TP_PARAM_TOL, at most
+    FL_MOVED_SHARE of the elements apart); every loss, leaf and residual
+    finite, every matrix leaf moved. Then a v2 step on the same grid at 2
+    layers (v2 brings both participants' gradients home: the whole model's
+    do not fit beside its residuals) whose masks cancel. Returns the v1
+    step's launches."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.core import threefry
+    from repro_torch.kernels import ops
+    from repro_torch.launch import fsdp
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models import transformer as tf
+
+    cfg, _, thgs, sa = fl_config()
+    cuda0 = torch.device("cuda", 0)
+    mesh = tmesh.LogicalMesh((2, 1, 2), ("pod", "data", "model"), "cuda:0")
+    grid_ = [((cuda0, cuda0), range(0, 1))]
+    batch = lm_batch(cfg, FL_B, FL_T, 0, "cuda")
+    key = threefry.key(0)
+
+    def draw():
+        return tf.init_params(cfg, torch.Generator(
+            device="cuda").manual_seed(0))
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = draw()
+    res = ttrain.init_fl_residuals(model, 2)
+    step = ttrain.make_fl_train_step(cfg, mesh, "pod", thgs, sa, lr=FL_LR)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_1 = step(model, res, batch, key)[2].item()
+    torch.cuda.synchronize()
+    ms_1 = (time.perf_counter() - t0) * 1e3
+    want = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    del model, res, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    lm = fsdp.shard(draw(), mesh, "pod", groups=grid_)
+    res = ttrain.init_fl_residuals(lm, 2, mesh, "pod", groups=[grid_] * 2)
+    step = ttrain.make_fl_train_step(cfg, mesh, "pod", thgs, sa, lr=FL_LR,
+                                     groups=[grid_] * 2)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss_v1 = step(lm, res, batch, key)[2].item()
+    torch.cuda.synchronize()
+    ms_v1 = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    got = {n: lm.full(n, cuda0) for n in lm.shapes}
+    err, moved, total, worst = gap_on_card(got, want)
+    del want
+    leaves = convert.reference_leaves(lm.meta)
+    finite = all(bool(torch.isfinite(t).all()) for _, t in lm.tensors())
+    res_ok = all(bool(torch.isfinite(r.to(cuda0)).all())
+                 for row in res for r in row)
+    del lm, res, step
+    gc.collect()
+    start = dict(draw().named_parameters())
+    unmoved = [lf.path for lf in leaves
+               if len(lf.shape) - len(lf.lead) >= 2
+               and all(bits_equal(got[n], start[n]) for n in lf.names)]
+    del got, start
+    print(f"[fl_train] (f) tensor parallel on {card}: {cfg.name} whole bf16, "
+          f"2 participants each (data 1, model 2) on cuda:0, B={FL_B} "
+          f"T={FL_T}: v1 step {ms_v1:.3f} ms "
+          f"({FL_B * FL_T / ms_v1 * 1e3:.1f} tokens/s; the one-device step "
+          f"{ms_1:.3f} ms), peak {peak / 2**30:.2f} GiB, loss {loss_v1:.6f} "
+          f"(one-device {loss_1:.6f}), launches {counts}; params vs the "
+          f"one-device step max |diff| {err:.3e} at {worst} (tolerance "
+          f"{FL_TP_PARAM_TOL}), {moved} of {total} elements apart (share "
+          f"tolerance {FL_MOVED_SHARE}); params finite {finite}, residuals "
+          f"finite {res_ok}, matrix leaves unmoved {unmoved}", flush=True)
+    check(counts["stream_scatter_add"] == FL_UNITS,
+          f"(f) {counts['stream_scatter_add']} scatter launches, expected "
+          f"{FL_UNITS}")
+    check(math.isfinite(loss_1) and math.isfinite(loss_v1),
+          "(f) a non-finite loss")
+    check(finite and res_ok, "(f) non-finite params or residuals")
+    check(not unmoved, f"(f) matrix leaves did not move: {unmoved}")
+    check(err <= FL_TP_PARAM_TOL and moved <= FL_MOVED_SHARE * total,
+          f"(f) params vs the one-device step {err:.3e} at {worst}, {moved} "
+          f"of {total} apart")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # v2 on the same grid at 2 layers
+    cfg2, _, _, _ = fl_config(layers=2)
+    lm = fsdp.shard(tf.init_params(cfg2, torch.Generator(
+        device="cuda").manual_seed(0)), mesh, "pod", groups=grid_)
+    res = ttrain.init_fl_residuals(lm, 2, mesh, "pod", groups=[grid_] * 2)
+    step2 = ttrain.make_fl_train_step_v2(cfg2, mesh, "pod", thgs, sa,
+                                         lr=FL_LR, groups=[grid_] * 2)
+    rec: list = []
+    t0 = time.perf_counter()
+    loss_v2 = step2(lm, res, batch, key, record=rec)[2].item()
+    torch.cuda.synchronize()
+    ms_v2 = (time.perf_counter() - t0) * 1e3
+    cancel = fl_cancel_v2(step2, lm.meta, rec, key)
+    finite = math.isfinite(loss_v2) and all(
+        bool(torch.isfinite(t).all()) for _, t in lm.tensors())
+    print(f"[fl_train] (f) v2 tensor parallel on {card}: {cfg2.name} 2 "
+          f"layers bf16, the same grid, B={FL_B} T={FL_T}: {ms_v2:.3f} ms, "
+          f"loss {loss_v2:.6f}, params finite {finite}; {cancel['text']}",
+          flush=True)
+    check(finite, "(f) v2: a non-finite loss or param")
+    check(cancel["ok"], f"(f) v2 masks do not cancel: {cancel['text']}")
+    del lm, res, step2, rec, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def fl_dense_secagg(card: str) -> None:
-    """(f) table2_fedavg_quick with dense secure aggregation, 2 rounds on
+    """(g) table2_fedavg_quick with dense secure aggregation, 2 rounds on
     the card and on the CPU: the ledgers are equal."""
     from repro_torch.core.types import SecureAggConfig
     from repro_torch.sim import presets
@@ -4141,7 +4540,7 @@ def fl_dense_secagg(card: str) -> None:
     same = facts["cuda"] == facts["cpu"] and all(
         res["cuda"].ledger.totals(a) == res["cpu"].ledger.totals(a)
         for a in ("paper", "tpu"))
-    print(f"[fl_train] (f) table2_fedavg_quick with dense secure "
+    print(f"[fl_train] (g) table2_fedavg_quick with dense secure "
           f"aggregation, 2 rounds on {card}: accuracies card "
           f"{res['cuda'].accuracies} CPU {res['cpu'].accuracies}; ledger "
           f"equal {same}", flush=True)
@@ -4151,8 +4550,8 @@ def fl_dense_secagg(card: str) -> None:
 
 def fl_train_phase(card: str, device) -> tuple[dict, dict]:
     """Phase 18: the federated LM train step. Returns the scatter's row at
-    the embed decode and the launches of (d)(iii)'s step, (c)'s steps 1-3
-    and (e)(ii)'s v1 step."""
+    the embed decode and the launches of (d)(iii)'s step, (c)'s steps,
+    (e)(ii)'s v1 step and (f)'s v1 step."""
     t0 = time.perf_counter()
     row = fl_units_check(card, device)
     t1 = time.perf_counter()
@@ -4162,11 +4561,15 @@ def fl_train_phase(card: str, device) -> tuple[dict, dict]:
     t3 = time.perf_counter()
     sharded = fl_sharded(card)
     t4 = time.perf_counter()
+    tp = fl_tp(card)
+    t5 = time.perf_counter()
     fl_dense_secagg(card)
     print(f"[fl_train] phase 18 took {time.perf_counter() - t0:.1f} s on "
           f"{card} ((a) {t1 - t0:.1f} s, (b) and (d) {t2 - t1:.1f} s, (c) "
-          f"{t3 - t2:.1f} s, (e) {t4 - t3:.1f} s)", flush=True)
-    return row, {k: counts[k] + placed[k] + sharded[k] for k in counts}
+          f"{t3 - t2:.1f} s, (e) {t4 - t3:.1f} s, (f) {t5 - t4:.1f} s)",
+          flush=True)
+    return row, {k: counts[k] + placed[k] + sharded[k] + tp[k]
+                 for k in counts}
 
 
 # ----------------------------------------------------- phase 12: resume
@@ -5682,14 +6085,15 @@ def main() -> int:
     ap.add_argument("--only",
                     choices=["flash", "pack", "masks", "sharded", "bench",
                              "families", "train", "fl_train", "selectors",
-                             "secagg_demo"],
+                             "secagg_demo", "tp"],
                     help="run the device and build phases and then [flash] "
                     "(the MMA counts printed, not required), the bit-pack "
                     "kernels' checks and times and one codec_wire_roundtrip "
                     "probe, the pair-mask kernel's flat and round rows "
                     "and one round's mask path probe, [sharded], [bench], "
-                    "[families], [train], [fl_train], [selectors] or "
-                    "[secagg_demo] "
+                    "[families], [train], [fl_train], [selectors], "
+                    "[secagg_demo] or the tensor-parallel cases ([train] "
+                    "(f), (g) and [fl_train] (f)) "
                     "alone, with no "
                     "result line: a "
                     "kernel's "
@@ -5774,6 +6178,12 @@ def main() -> int:
     if args.only == "fl_train":
         fl_train_phase(card, device)
         print(f"[done] --only fl_train passed in "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
+    if args.only == "tp":
+        train_tp_phase(card)
+        fl_tp(card)
+        print(f"[done] --only tp passed in "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
         return 0
     if args.only == "selectors":

@@ -5,9 +5,11 @@ Trains an LM (``--arch``, reduced width by default) with the THGS + sparse
 secure-aggregation FL step (``launch/train.py::make_fl_train_step``) on the
 debug mesh (pod 2 x data 2 x model 2: two participants of four blocks
 each, driven by this one process on ``--device``, or placed by
-``--devices``: one device a pod, or one a (pod, data) position, the
-parameters on the first). A pod whose two data positions lie on two
-devices holds its parameters sharded over them (``launch/fsdp.py``). Each
+``--devices``: one device a pod, one a (pod, data) position, or one a
+(pod, data, model) position, the parameters on the first). A pod whose two
+data positions lie on two devices holds its parameters sharded over them
+(``launch/fsdp.py``); one whose model positions lie on several devices
+runs tensor-parallel over them (``launch/tp.py``). Each
 participant is one financial institution. Params and THGS residuals resume
 from the latest checkpoint in ``--ckpt`` (the reference's on-disk format:
 params whole, residuals ``[n_fed, *leaf]``, each row, or its chunks,
@@ -22,6 +24,8 @@ Run::
         --steps 20
     python -m repro_torch.launch.fl_train --devices cuda:0,cuda:1
     python -m repro_torch.launch.fl_train --devices cuda:0,cuda:1,cuda:2,cuda:3
+    python -m repro_torch.launch.fl_train \
+        --devices cuda:0,cuda:1,cuda:2,cuda:3,cuda:4,cuda:5,cuda:6,cuda:7
 """
 from __future__ import annotations
 
@@ -97,15 +101,34 @@ def load_fl_state(model, residuals: list, tree: dict) -> None:
 
 
 def parse_devices(spec: str) -> list:
-    """``--devices``: comma-separated devices, one a pod or one a (pod,
-    data) position. A ``cuda`` device must exist: nothing moves to the CPU
-    in its place."""
+    """``--devices``: comma-separated devices, one a pod, one a (pod, data)
+    or one a (pod, data, model) position. A ``cuda`` device must exist:
+    nothing moves to the CPU in its place."""
     devs = [torch.device(d.strip()) for d in spec.split(",")]
     n = torch.cuda.device_count() if torch.cuda.is_available() else 0
     for d in devs:
         if d.type == "cuda" and (d.index or 0) >= n:
             raise ValueError(f"{d}: this host has {n} CUDA device(s)")
     return devs
+
+
+def cli_mesh(devices: list | None, device):
+    """The debug mesh (pod 2, data 2, model 2) placed by ``--devices`` (2,
+    4 or 8 of them: one a pod, a (pod, data) or a (pod, data, model)
+    position), else every position on ``device``."""
+    placed = None
+    if devices:
+        if len(devices) not in (2, 4, 8):
+            raise ValueError(
+                f"--devices takes 2 devices (one a pod), 4 (one a (pod, "
+                f"data) position) or 8 (one a (pod, data, model) position), "
+                f"not {len(devices)}")
+        placed = np.empty(len(devices), dtype=object)
+        placed[:] = devices
+        placed = placed.reshape({2: (2,), 4: (2, 2), 8: (2, 2, 2)}[
+            len(devices)])
+    return make_debug_mesh(2, 2, multi_pod=True, devices=placed,
+                           device=device)
 
 
 @torch.no_grad()
@@ -141,31 +164,25 @@ def main(argv=None) -> int:
                     help="the one device of every pod")
     ap.add_argument("--devices", default=None,
                     help="comma-separated, one device a pod (e.g. "
-                    "cuda:0,cuda:1) or one a (pod, data) position (4, e.g. "
-                    "cuda:0,cuda:1,cuda:2,cuda:3); the parameters live on "
-                    "the first")
+                    "cuda:0,cuda:1), one a (pod, data) position (4, e.g. "
+                    "cuda:0,cuda:1,cuda:2,cuda:3) or one a (pod, data, "
+                    "model) position (8); the parameters live on the first")
     args = ap.parse_args(argv)
     try:
         devices = parse_devices(args.devices or args.device)
     except ValueError as e:
         print(f"{e}: pass --device cpu", file=sys.stderr)
         return 1
-    if args.devices and len(devices) not in (2, 4):
-        print(f"--devices takes 2 devices (one a pod) or 4 (one a (pod, "
-              f"data) position), not {len(devices)}", file=sys.stderr)
-        return 1
     device = devices[0]
+    try:
+        mesh = cli_mesh(devices if args.devices else None, device)
+    except ValueError as e:
+        print(e, file=sys.stderr)
+        return 1
 
     cfg = configs.get(args.arch)
     if args.reduced:
         cfg = configs.reduced(cfg)
-    placed = None
-    if args.devices:        # one a pod, or one a (pod, data) position
-        placed = np.empty(len(devices), dtype=object)
-        placed[:] = devices
-        placed = placed.reshape(2, -1) if len(devices) == 4 else placed
-    mesh = make_debug_mesh(2, 2, multi_pod=True, devices=placed,
-                           device=device)
     fed_axis = "pod"
     n_fed = mesh.shape[fed_axis]
     n_blocks = mesh.size // n_fed
@@ -173,7 +190,7 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=device).manual_seed(0)
     params = tf.init_params(cfg, gen, device=device)
     leaves = convert.reference_leaves(params)
-    if any(len(participant_groups(mesh, fed_axis, p)) > 1
+    if any(fsdp.spread(participant_groups(mesh, fed_axis, p))
            for p in range(n_fed)):
         params = fsdp.shard(params, mesh, fed_axis)
     residuals = init_fl_residuals(params, n_fed, mesh, fed_axis)

@@ -13,12 +13,14 @@ participant along the federation axis on its own devices: its ``data``
 positions form groups (:func:`participant_groups`: a device and a
 contiguous run of positions), over which its parameters are sharded by the
 ``fsdp`` rule (``launch/fsdp.py``); a participant of one group computes as
-one unsharded model on that device (:func:`participant_device`). The
-``model`` positions of a ``data`` position must share its device: a
-spread along ``model`` is tensor parallelism, which the port does not run
-(``NotImplementedError``). The block layout depends only on the logical
-shape (``data x model`` blocks a participant), so the multi-pod layout runs
-on one card with the reference's numerics. :func:`logical_rules` maps the model's logical axis
+one unsharded model on that device (:func:`participant_device`). Where the
+``model`` positions of a ``data`` position span devices, a group is a row
+of the participant's ``(data group, model position)`` grid, one device a
+cell, and the participant runs tensor-parallel over it (``launch/tp.py``);
+:func:`participant_grids` gives every participant that one layout. The
+block layout depends only on the logical shape (``data x model`` blocks a
+participant), so the multi-pod layout runs on one card with the
+reference's numerics. :func:`logical_rules` maps the model's logical axis
 names onto the mesh axes, as the reference's.
 
 **The clients mesh.** The reference partitions a cohort of simulated clients over the local
@@ -203,15 +205,18 @@ def participant_device(mesh: LogicalMesh, fed_axis: str,
 
 def participant_groups(mesh: LogicalMesh, fed_axis: str | None,
                        p: int = 0) -> list:
-    """Participant ``p``'s ``data`` positions as ``(device, positions)``
-    groups, in position order: positions that share a device merge into one
-    group (``positions`` a ``range``). ``fed_axis`` None takes the whole mesh
-    as one participant. Each device's positions must form one contiguous run
-    along ``data`` (``ValueError`` otherwise), and every ``model`` position of
-    a ``data`` position must share its device: a spread along ``model`` is
-    tensor parallelism, which the port does not run
-    (``NotImplementedError``). A participant without a ``data`` axis (or
-    whose federation axis is ``data``) is one position."""
+    """Participant ``p``'s ``data`` positions as groups, in position order:
+    ``(device, positions)`` (``positions`` a ``range``), or, where the
+    ``model`` positions of a ``data`` position span devices, ``(cells,
+    positions)`` with ``cells`` one device a ``model`` position (the
+    group's row of the participant's ``(data group, model position)``
+    grid: tensor parallelism, ``launch/tp.py``). Adjacent ``data``
+    positions whose devices (or cell rows) are equal merge into one group.
+    ``fed_axis`` None takes the whole mesh as one participant. Each
+    device's (or row's) positions must form one contiguous run along
+    ``data`` (``ValueError`` otherwise). A participant without a ``data``
+    axis (or whose federation axis is ``data``) is one position; one
+    without a ``model`` axis has one ``model`` position."""
     axes = list(mesh.axis_names)
     sub = mesh.devices
     if fed_axis is not None:
@@ -219,18 +224,28 @@ def participant_groups(mesh: LogicalMesh, fed_axis: str | None,
         axes.remove(fed_axis)
     if "data" in axes:
         sub = np.moveaxis(sub, axes.index("data"), 0)
+        axes.remove("data")
+        axes.insert(0, "data")
     else:
         sub = sub.reshape((1,) + sub.shape)
+        axes.insert(0, "data")
+    if "model" in axes:
+        sub = np.moveaxis(sub, axes.index("model"), -1)
+    rows = sub.reshape(sub.shape[0], -1, sub.shape[-1] if "model" in axes
+                       else 1)
+    spread = any(len({_canonical(d) for d in row.reshape(-1)}) > 1
+                 for row in rows)
     groups: list = []
-    for i, row in enumerate(sub.reshape(sub.shape[0], -1)):
-        devs = sorted({_canonical(d) for d in row}, key=str)
-        if len(devs) > 1:
-            raise NotImplementedError(
-                f"participant {p}'s data position {i} spans devices "
-                f"{[str(d) for d in devs]} along 'model': that is tensor "
-                "parallelism, which the port does not run (a data "
-                "position's model positions share one device)")
-        dev = devs[0]
+    for i, row in enumerate(rows):
+        if spread:
+            cells = [{_canonical(d) for d in col} for col in row.T]
+            if any(len(c) > 1 for c in cells):
+                raise ValueError(
+                    f"participant {p}'s data position {i} places one model "
+                    "position on several devices")
+            dev = tuple(c.pop() for c in cells)
+        else:
+            dev = _canonical(row.reshape(-1)[0])
         if groups and groups[-1][0] == dev:
             groups[-1] = (dev, range(groups[-1][1].start, i + 1))
             continue
@@ -241,6 +256,31 @@ def participant_groups(mesh: LogicalMesh, fed_axis: str | None,
                 "along 'data'")
         groups.append((dev, range(i, i + 1)))
     return groups
+
+
+def participant_grids(mesh: LogicalMesh, fed_axis: str) -> list:
+    """Every participant's :func:`participant_groups` along ``fed_axis``,
+    in one layout: where any participant's model positions span devices,
+    each group of the others is a grid row too (its one device a model
+    position), so that every participant splits the model alike."""
+    out = [participant_groups(mesh, fed_axis, p)
+           for p in range(mesh.shape[fed_axis])]
+    if any(isinstance(gs[0][0], tuple) for gs in out):
+        m = mesh.shape.get("model", 1)
+        out = [[(d if isinstance(d, tuple) else (d,) * m, pos)
+                for d, pos in gs] for gs in out]
+    return out
+
+
+def group_cells(dev) -> tuple:
+    """A group's devices, one a ``model`` position: ``dev`` itself when a
+    group's entry is one device (its model positions merged)."""
+    return tuple(dev) if isinstance(dev, (tuple, list)) else (dev,)
+
+
+def lead_device(dev) -> torch.device:
+    """A group's lead device: its ``model`` position 0's."""
+    return group_cells(dev)[0]
 
 
 def _mesh_devices(devices, device, n_pods: int):

@@ -1,0 +1,685 @@
+"""Tensor parallelism over ``model`` inside one participant: the port's
+counterpart of GSPMD partitioning the reference's training step by its
+``param_specs`` (``launch/shardings.py``) and its model code's activation
+constraints (``repro/models/transformer.py``, ``attention.py``, ``moe.py``).
+
+One process drives every position of a participant's ``(data group, model
+position)`` grid (``launch.mesh.participant_groups``; the parameters are a
+``launch.fsdp.ShardedLM`` over it). A data group's ``m`` model positions
+compute its rows together, Megatron-style:
+
+* **Residual stream.** Between blocks it is split by sequence, position
+  ``j`` holding rows ``[j T/m, (j+1) T/m)`` (the reference's ``("batch",
+  "seq", None)``), where ``m`` divides ``T``; otherwise every position
+  holds it whole (bit-equal copies on one device type). Norms run on each
+  position's slice; the normed input is all-gathered along the sequence
+  before the projections (the reference's ``("batch", None, None)``).
+* **Self- and cross-attention.** Position ``j`` runs query heads ``[j H/m,
+  (j+1) H/m)`` (the reference's ``"heads"``; an uneven split where ``m``
+  does not divide ``H``). ``wq`` is column-parallel: a position reads its
+  own ``model`` chunk where the chunk is exactly its heads' columns. ``wk`` /
+  ``wv`` are split the same way only where their chunk holds exactly the
+  KV heads its queries read (GQA: the split falls on KV-head boundaries and
+  the position's query heads map onto its own KV heads, e.g. Yi-6B at
+  model 2); otherwise each position gathers ``wk`` / ``wv`` whole at use
+  and takes the KV heads its queries need (Granite-20B's single KV head,
+  ``model > n_kv``, Yi-6B's 512-wide ``wk`` at model 8 or 16). ``wo`` is
+  row-parallel: its partial sums are reduce-scattered back to the sequence
+  slices. Cross-attention reads its K/V from the image embeddings, whole on
+  every position.
+* **Dense MLP.** ``wi`` / ``wi_gate`` / ``wi_up`` column-parallel, ``wo``
+  row-parallel, reduce-scattered.
+* **Embedding.** Split by feature (``"embed": (None, "model")``): each
+  position looks up its own columns for every token, then an all-to-all
+  hands each position its sequence slice of whole rows.
+* **Loss.** Vocab-parallel over ``lm_head``: each position computes its
+  vocab chunk's logits; the max, the sums of exponentials and the gold
+  logit (from the position that owns it) combine on the lead position in
+  position order, per 128-token chunk, recomputed in the backward. With
+  tied embeddings (xLSTM) ``embed.T`` is split along the contraction, so
+  the positions' partial logits are reduced whole at the loss.
+* **Blocks this slice does not split** (MoE experts and router, the SSM
+  mixer, the xLSTM cells): their weights stay stored split; their input is
+  gathered whole along the sequence, they run with gathered weights on the
+  group's model position 0, and each position is handed its own slice of
+  the output. MoE capacity and the recurrences depend on the whole
+  sequence, so a split by sequence would change their numerics.
+
+**Collectives, in position order.** :func:`all_gather`,
+:func:`reduce_scatter`, :func:`all_reduce`, :func:`all_to_all`,
+:func:`broadcast`, :func:`scatter` and :func:`reduce_to` are
+``torch.autograd.Function`` s over one tensor a position, each with its
+adjoint as its backward (all-gather and reduce-scatter; all-reduce and
+itself, the identity on the reduced value; broadcast and reduce;
+all-to-all and its inverse). Moves between devices are ``Tensor.to``; no
+``torch.distributed``, no host sync between devices. **Every sum adds the
+positions' partials in position order, starting from partial 0, in f32,
+and rounds once to the partials' dtype.** A result is therefore independent
+of where the positions lie: ``m`` positions on one device and on ``m``
+devices of one type give the same bits, and replicated activations are
+bit-identical on every position.
+
+**Gradients.** Each position reads every parameter through its own leaf
+(a detached alias of the stored chunk or copy), so autograd never adds two
+positions' contributions itself: :func:`group_value_and_grad` hands
+back each block's partial gradients in position order, and
+``launch.fsdp.step_gradients`` adds them in that order in f32
+(:func:`fold`; the gradient of a leaf replicated across model
+positions, such as a norm scale, is the sum of every position's partial),
+then folds the sums in (data group, microbatch) order as without tensor
+parallelism; one group of one microbatch rounds each sum once to the
+parameter's dtype, as one device's step keeps it.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import transformer as tf
+from repro_torch.models import xlstm as xlstm_mod
+from repro_torch.models.attention import _split_heads, attend_chunked
+from repro_torch.models.layers import apply_norm, apply_rope, embed_lookup
+
+F = torch.nn.functional
+
+
+# ---------------------------------------------------------------- collectives
+def fold(parts, device, dtype=None) -> torch.Tensor:
+    """``parts[0] + parts[1] + ...`` on ``device``, added in that order in
+    f32 and rounded once to ``dtype`` (default ``parts[0]``'s; a new
+    tensor)."""
+    acc = parts[0].to(device=device, dtype=torch.float32, copy=True)
+    for p in parts[1:]:
+        acc += p.to(device=device, dtype=torch.float32)
+    return acc.to(parts[0].dtype if dtype is None else dtype)
+
+
+def _pieces(n: int, m: int) -> list:
+    """``(offset, length)`` of ``m`` equal pieces of ``n``."""
+    per = n // m
+    return [(i * per, per) for i in range(m)]
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dim, *xs):
+        ctx.dim = dim
+        ctx.devices = [x.device for x in xs]
+        ctx.sizes = [x.shape[dim] for x in xs]
+        return tuple(torch.cat([x.to(d) for x in xs], dim)
+                     for d in ctx.devices)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        out, off = [], 0
+        for dev, n in zip(ctx.devices, ctx.sizes):
+            out.append(fold([g.narrow(ctx.dim, off, n) for g in gs], dev))
+            off += n
+        return (None, *out)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dim, *parts):
+        ctx.dim = dim
+        ctx.devices = [p.device for p in parts]
+        return tuple(fold([p.narrow(dim, off, n) for p in parts], dev)
+                     for dev, (off, n) in zip(
+                         ctx.devices, _pieces(parts[0].shape[dim],
+                                              len(parts))))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, *(torch.cat([g.to(d) for g in gs], ctx.dim)
+                        for d in ctx.devices))
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, *parts):
+        ctx.devices = [p.device for p in parts]
+        return tuple(fold(parts, d) for d in ctx.devices)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return tuple(fold(gs, d) for d in ctx.devices)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, split_dim, cat_dim, *xs):
+        ctx.split_dim, ctx.cat_dim = split_dim, cat_dim
+        ctx.devices = [x.device for x in xs]
+        ctx.sizes = [x.shape[cat_dim] for x in xs]
+        return tuple(torch.cat([x.narrow(split_dim, off, n).to(d)
+                                for x in xs], cat_dim)
+                     for d, (off, n) in zip(ctx.devices, _pieces(
+                         xs[0].shape[split_dim], len(xs))))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        out, off = [], 0
+        for dev, n in zip(ctx.devices, ctx.sizes):
+            out.append(torch.cat([g.narrow(ctx.cat_dim, off, n).to(dev)
+                                  for g in gs], ctx.split_dim))
+            off += n
+        return (None, None, *out)
+
+
+class _Broadcast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, devices, x):
+        ctx.device = x.device
+        return tuple(x.to(d, copy=True) for d in devices)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return None, fold(gs, ctx.device)
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dim, devices, x):
+        ctx.dim, ctx.device = dim, x.device
+        return tuple(x.narrow(dim, off, n).to(d, copy=True)
+                     for d, (off, n) in zip(devices, _pieces(x.shape[dim],
+                                                             len(devices))))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return None, None, torch.cat([g.to(ctx.device) for g in gs],
+                                     ctx.dim)
+
+
+class _ReduceTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, device, *parts):
+        ctx.devices = [p.device for p in parts]
+        return fold(parts, device)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, *(g.to(d, copy=True) for d in ctx.devices))
+
+
+def all_gather(xs, dim: int) -> list:
+    """Every position's ``x`` concatenated along ``dim``, on each position's
+    device (backward: reduce-scatter)."""
+    return list(_AllGather.apply(dim, *xs))
+
+
+def reduce_scatter(parts, dim: int) -> list:
+    """Position ``i``: the sum of every position's ``i``-th equal piece
+    along ``dim`` (backward: all-gather)."""
+    return list(_ReduceScatter.apply(dim, *parts))
+
+
+def all_reduce(parts) -> list:
+    """The sum of the positions' partials on every position (backward: the
+    sum of the copies' gradients to every partial)."""
+    return list(_AllReduce.apply(*parts))
+
+
+def all_to_all(xs, split_dim: int, cat_dim: int) -> list:
+    """Position ``i``: every position's ``i``-th piece along ``split_dim``,
+    concatenated along ``cat_dim`` (backward: the inverse exchange)."""
+    return list(_AllToAll.apply(split_dim, cat_dim, *xs))
+
+
+def broadcast(x: torch.Tensor, devices) -> list:
+    """``x`` copied to every device (backward: the copies' gradients
+    summed onto ``x``'s device)."""
+    return list(_Broadcast.apply(tuple(devices), x))
+
+
+def scatter(x: torch.Tensor, devices, dim: int) -> list:
+    """``x``'s equal pieces along ``dim``, one to each device (backward:
+    concatenated back)."""
+    return list(_Scatter.apply(dim, tuple(devices), x))
+
+
+def reduce_to(parts, device) -> torch.Tensor:
+    """The sum of the positions' partials on ``device`` (backward: the
+    gradient copied to every partial)."""
+    return _ReduceTo.apply(device, *parts)
+
+
+class _Remat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, fn, n_in, *args):
+        ctx.fn, ctx.n_in = fn, n_in
+        ctx.save_for_backward(*args[:n_in])
+        ctx.params = args[n_in:]
+        with torch.no_grad():
+            outs = fn(*args[:n_in])
+        return tuple(o.clone() if any(o is a for a in args) else o
+                     for o in outs)
+
+    @staticmethod
+    def backward(ctx, *gouts):
+        ins = [a.detach().requires_grad_(a.requires_grad)
+               for a in ctx.saved_tensors]
+        wrt = [x for x in (*ins, *ctx.params) if x.requires_grad]
+        with torch.enable_grad():
+            outs = ctx.fn(*ins)
+        pairs = [(o, g) for o, g in zip(outs, gouts) if o.requires_grad]
+        grads = iter(torch.autograd.grad(
+            [o for o, _ in pairs], wrt, [g for _, g in pairs],
+            allow_unused=True))
+        return (None, None, *(next(grads) if x.requires_grad else None
+                              for x in (*ins, *ctx.params)))
+
+
+def remat(fn, inputs, params=()) -> tuple:
+    """``fn(*inputs)`` (a tuple of tensors) saving only ``inputs``: the
+    backward recomputes it once, inside this node's own backward, and
+    hands back the gradients of ``inputs`` and of ``params`` (the leaves
+    ``fn`` reads besides). ``torch.utils.checkpoint``'s saved-tensor hooks
+    recompute a frame from whichever device thread unpacks a tensor first,
+    and the autograd engine unpacks a frame that spans devices from
+    several threads at once."""
+    return _Remat.apply(fn, len(inputs), *inputs, *params)
+
+
+# ------------------------------------------------------------- the grid view
+def nested(names, prefix: str, fetch) -> dict:
+    """``{name: fetch(name)}`` for the names under ``prefix``, as the
+    nested mapping (prefix stripped, split at the dots) that the model's
+    functions read."""
+    out: dict = {}
+    for name in names:
+        if name.startswith(prefix):
+            *path, leaf = name[len(prefix):].split(".")
+            node = out
+            for key in path:
+                node = node.setdefault(key, {})
+            node[leaf] = fetch(name)
+    return out
+
+
+def _span(j: int, m: int, n: int) -> tuple[int, int]:
+    """Position ``j``'s share ``[lo, hi)`` of ``n`` (heads, columns,
+    vocab): equal where ``m`` divides ``n``, else as even as can be."""
+    return j * n // m, (j + 1) * n // m
+
+
+class GridView:
+    """Data group ``g``'s view of a grid's parameters: each model
+    position reads through aliases of the stored tensors (module
+    docstring), gathered on its device. ``reads`` lists ``(position,
+    logical key, alias)`` in the order they were made."""
+
+    def __init__(self, lm, g: int):
+        self.lm, self.g, self.m = lm, g, lm.n_model
+        self.devices = [lm.cells[lm.cell(g, j)][2] for j in range(self.m)]
+        self.reads: list = []
+        self._alias: dict = {}
+
+    def _read(self, j: int, name: str, h: int, i: int) -> torch.Tensor:
+        lm = self.lm
+        c = lm.cell(h if lm.dims[name] is not None else self.g,
+                    i if lm.mdims[name] is not None else j)
+        t = lm.chunks[c][name]
+        a = self._alias.get((j, id(t)))
+        if a is None:
+            a = self._alias[(j, id(t))] = t.detach().requires_grad_(True)
+            self.reads.append((j, lm.logical_key(c, name), a))
+        return a
+
+    def chunk(self, j: int, name: str, i: int) -> torch.Tensor:
+        """Model chunk ``i`` of ``name`` (all of it where ``model`` does
+        not split it), whole along data, on position ``j``'s device."""
+        d, dev = self.lm.dims[name], self.devices[j]
+        if d is None:
+            return self._read(j, name, self.g, i).to(dev)
+        return torch.cat([self._read(j, name, h, i).to(dev)
+                          for h in range(len(self.lm.groups))], d)
+
+    def own(self, j: int, name: str) -> torch.Tensor:
+        """What position ``j`` holds of ``name``, whole along data."""
+        return self.chunk(j, name, j)
+
+    def whole(self, j: int, name: str) -> torch.Tensor:
+        """``name`` whole on position ``j``'s device."""
+        md = self.lm.mdims[name]
+        if md is None:
+            return self.own(j, name)
+        return torch.cat([self.chunk(j, name, i) for i in range(self.m)], md)
+
+    def part(self, j: int, name: str, dim: int, lo: int,
+             hi: int) -> torch.Tensor:
+        """``name``'s ``[lo, hi)`` along ``dim`` on position ``j``'s device:
+        its own chunk where that is exactly the chunk, else a slice of the
+        whole (gathered at use)."""
+        lm = self.lm
+        if lm.mdims[name] == dim and lm.mextent(j, name) == (lo, hi - lo):
+            return self.own(j, name)
+        return self.whole(j, name).narrow(dim, lo, hi - lo)
+
+    def leaves(self, prefix: str) -> list:
+        """Every alias a position may read of the parameters under
+        ``prefix`` (made here if not yet), for :func:`remat`."""
+        lm, out = self.lm, {}
+        for name in lm.shapes:
+            if name.startswith(prefix):
+                for j in range(self.m):
+                    for h in range(len(lm.groups)):
+                        for i in range(self.m):
+                            a = self._read(j, name, h, i)
+                            out[id(a)] = a
+        return list(out.values())
+
+    def tree(self, j: int, prefix: str) -> dict:
+        """The parameters under ``prefix`` whole on position ``j``'s
+        device, as the nested mapping the model's functions read."""
+        return nested(self.lm.shapes, prefix,
+                      lambda name: self.whole(j, name))
+
+
+class Stream:
+    """How a group's residual stream lies on its positions: split by
+    sequence where ``m`` divides ``T``, else whole on every position."""
+
+    def __init__(self, devices, t: int):
+        self.devices, self.m = list(devices), len(devices)
+        self.split = t % self.m == 0
+
+    def gather(self, xs) -> list:
+        """Each position's slices whole on every position."""
+        return all_gather(xs, 1) if self.split else list(xs)
+
+    def reduce(self, parts) -> list:
+        """Row-parallel partial sums back to the stream's layout."""
+        return reduce_scatter(parts, 1) if self.split else all_reduce(parts)
+
+    def spread(self, y: torch.Tensor) -> list:
+        """A whole output on position 0 to the stream's layout."""
+        return (scatter(y, self.devices, 1) if self.split
+                else broadcast(y, self.devices))
+
+    def inputs(self, x: torch.Tensor) -> list:
+        """A whole input (no gradient) to the stream's layout."""
+        pieces = (_pieces(x.shape[1], self.m) if self.split
+                  else [(0, x.shape[1])] * self.m)
+        return [x.narrow(1, off, n).to(d)
+                for d, (off, n) in zip(self.devices, pieces)]
+
+
+# ---------------------------------------------------------------- the blocks
+def _norms(view: GridView, prefix: str, xs, cfg: ArchConfig) -> list:
+    return [apply_norm(view.tree(j, prefix), x, cfg.norm)
+            for j, x in enumerate(xs)]
+
+
+def attention_partials(view: GridView, prefix: str, hs, cfg: ArchConfig, *,
+                       causal: bool, window: Optional[int],
+                       kv_srcs=None) -> list:
+    """Each position's ``wo`` partial sum ``[B, T, d]`` of the attention
+    under ``prefix`` (``...attn.``) on its whole normed input ``hs[j]``;
+    ``kv_srcs`` (one a position): cross-attention's K/V source, no
+    rotation (module docstring)."""
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    per_kv = H // K
+    out = []
+    for j, h in enumerate(hs):
+        b, t, _ = h.shape
+        lo, hi = _span(j, view.m, H)
+        if hi == lo:
+            out.append(h.new_zeros((b, t, cfg.d_model)))
+            continue
+        nq = hi - lo
+        kmap = [(lo + i) // per_kv for i in range(nq)]
+        klo, khi = kmap[0], kmap[-1] + 1
+        nk = khi - klo
+        src = h if kv_srcs is None else kv_srcs[j]
+        q = _split_heads(h @ view.part(j, prefix + "wq", 1, lo * hd, hi * hd),
+                         nq, hd)
+        k = _split_heads(src @ view.part(j, prefix + "wk", 1, klo * hd,
+                                         khi * hd), nk, hd)
+        v = _split_heads(src @ view.part(j, prefix + "wv", 1, klo * hd,
+                                         khi * hd), nk, hd)
+        if kv_srcs is None:
+            positions = torch.arange(t, device=h.device)[None, :]
+            q = apply_rope(q, positions, cfg.rope)
+            k = apply_rope(k, positions, cfg.rope)
+        if nq % nk or kmap != [klo + i // (nq // nk) for i in range(nq)]:
+            sel = torch.tensor([x - klo for x in kmap], device=h.device)
+            k, v = k[:, :, sel], v[:, :, sel]
+        o = attend_chunked(q, k, v, hd=hd, causal=causal, window=window)
+        out.append(o.reshape(b, t, nq * hd)
+                   @ view.part(j, prefix + "wo", 0, lo * hd, hi * hd))
+    return out
+
+
+def mlp_partials(view: GridView, prefix: str, hs, cfg: ArchConfig) -> list:
+    """Each position's ``wo`` partial sum of the dense MLP under
+    ``prefix`` (``...mlp.``): its share of the hidden columns."""
+    out = []
+    for j, h in enumerate(hs):
+        lo, hi = _span(j, view.m, cfg.d_ff)
+        if hi == lo:
+            out.append(h.new_zeros(h.shape))
+            continue
+        if cfg.act == "swiglu":
+            a = (F.silu(h @ view.part(j, prefix + "wi_gate", 1, lo, hi))
+                 * (h @ view.part(j, prefix + "wi_up", 1, lo, hi)))
+        else:
+            a = F.gelu(h @ view.part(j, prefix + "wi", 1, lo, hi),
+                       approximate="tanh")
+        out.append(a @ view.part(j, prefix + "wo", 0, lo, hi))
+    return out
+
+
+def self_block(view: GridView, prefix: str, cfg: ArchConfig, st: Stream,
+               xs, aux, *, causal: bool, window: Optional[int]):
+    """Pre-norm attention + MLP (or MoE on position 0) on the stream's
+    slices. Returns ``(xs, aux)``."""
+    hs = st.gather(_norms(view, prefix + "attn_norm.", xs, cfg))
+    a = st.reduce(attention_partials(view, prefix + "attn.", hs, cfg,
+                                     causal=causal, window=window))
+    xs = [x + y for x, y in zip(xs, a)]
+    hs = st.gather(_norms(view, prefix + "mlp_norm.", xs, cfg))
+    if cfg.family == "moe" and cfg.moe is not None:
+        out = moe_mod.apply_moe(view.tree(0, prefix + "moe."), hs[0],
+                                cfg.moe)
+        ys, aux = st.spread(out.y), aux + out.aux_loss
+    else:
+        ys = st.reduce(mlp_partials(view, prefix + "mlp.", hs, cfg))
+    return [x + y for x, y in zip(xs, ys)], aux
+
+
+def cross_block(view: GridView, prefix: str, cfg: ArchConfig, st: Stream,
+                xs, imgs) -> list:
+    hs = st.gather(_norms(view, prefix + "attn_norm.", xs, cfg))
+    a = st.reduce(attention_partials(view, prefix + "attn.", hs, cfg,
+                                     causal=False, window=None,
+                                     kv_srcs=imgs))
+    xs = [x + y for x, y in zip(xs, a)]
+    hs = st.gather(_norms(view, prefix + "mlp_norm.", xs, cfg))
+    ys = st.reduce(mlp_partials(view, prefix + "mlp.", hs, cfg))
+    return [x + y for x, y in zip(xs, ys)]
+
+
+def on_lead(st: Stream, xs, fn) -> list:
+    """``x + fn(x whole on position 0)`` in the stream's layout (a block
+    this slice does not split)."""
+    ys = st.spread(fn(st.gather(xs)[0]))
+    return [x + y for x, y in zip(xs, ys)]
+
+
+# -------------------------------------------------------------- the forward
+def forward(view: GridView, cfg: ArchConfig, st: Stream, xs, *,
+            image_embeds=None):
+    """The training forward of ``transformer.forward(..., train=True)``
+    over a group's positions: ``xs`` the embedded input in the stream's
+    layout. Returns (final-normed slices, aux loss on position 0), with
+    the reference's checkpoints (:func:`remat`)."""
+    causal = not cfg.encoder_only
+    window = cfg.window
+
+    def ckpt(fn, prefixes, *args):
+        return remat(fn, args, [a for p in prefixes for a in view.leaves(p)])
+
+    def self_fn(prefix):
+        def run(aux, *xs):
+            xs, aux = self_block(view, prefix, cfg, st, xs, aux,
+                                 causal=causal, window=window)
+            return (aux, *xs)
+        return run
+
+    aux = torch.zeros((), dtype=torch.float32, device=view.devices[0])
+    if cfg.xlstm:
+        for i in range(cfg.n_layers):
+            prefix = f"{'slstm' if i % 2 == 0 else 'mlstm'}.{i // 2}."
+            run = (xlstm_mod.slstm_forward if i % 2 == 0
+                   else xlstm_mod.mlstm_forward)
+            xs = on_lead(st, xs, lambda x, p=prefix, r=run: r(
+                view.tree(0, p), x, cfg.n_heads)[0])
+    elif cfg.family == "vlm":
+        imgs = [tf._image_embeds(cfg, image_embeds, xs[0].new_empty(0,
+                                 device=d)) for d in view.devices]
+
+        def vlm_super(s):
+            def run(aux, *xs):
+                for i in range(cfg.cross_attn_every):
+                    prefix = f"self_blocks.{s}.{i}."
+                    aux, *xs = ckpt(self_fn(prefix), [prefix], aux, *xs)
+                xs = cross_block(view, f"cross_blocks.{s}.", cfg, st, xs,
+                                 imgs)
+                return (aux, *xs)
+            return run
+
+        for s in range(tf.n_super(cfg)):
+            aux, *xs = ckpt(vlm_super(s), [f"self_blocks.{s}.",
+                                           f"cross_blocks.{s}."], aux, *xs)
+    elif cfg.family == "hybrid":
+        def ssm_fn(prefix):
+            def run(*xs):
+                def mix(x):
+                    hn = apply_norm(view.tree(0, prefix + "norm."), x,
+                                    cfg.norm)
+                    return ssm_mod.ssd_forward(view.tree(0, prefix + "ssm."),
+                                               hn, cfg.ssm)[0]
+                return tuple(on_lead(st, xs, mix))
+            return run
+
+        def hybrid_super(s):
+            def run(aux, *xs):
+                for i in range(cfg.shared_attn_every):
+                    prefix = f"ssm_blocks.{s}.{i}."
+                    xs = ckpt(ssm_fn(prefix), [prefix], *xs)
+                return self_fn("shared_block.")(aux, *xs)
+            return run
+
+        for s in range(tf.n_super(cfg)):
+            aux, *xs = ckpt(hybrid_super(s), [f"ssm_blocks.{s}.",
+                                              "shared_block."], aux, *xs)
+    else:
+        for i in range(cfg.n_layers):
+            prefix = f"blocks.{i}."
+            aux, *xs = ckpt(self_fn(prefix), [prefix], aux, *xs)
+    return _norms(view, "final_norm.", xs, cfg), aux
+
+
+def embed(view: GridView, cfg: ArchConfig, st: Stream, tokens) -> list:
+    """The embedded tokens in the stream's layout: each position looks up
+    its own feature columns, then an all-to-all (all-gather where the
+    stream is whole) hands out whole rows."""
+    if view.lm.mdims["embed"] is None:
+        toks = st.inputs(tokens)
+        return [embed_lookup(view.own(j, "embed"), t)
+                for j, t in enumerate(toks)]
+    es = [embed_lookup(view.own(j, "embed"), tokens.to(d))
+          for j, d in enumerate(view.devices)]
+    return all_to_all(es, 1, 2) if st.split else all_gather(es, 2)
+
+
+def vocab_parallel_ce(view: GridView, cfg: ArchConfig, hs, labels,
+                      chunk: int = 128) -> torch.Tensor:
+    """``transformer.chunked_ce_loss`` over the positions (module
+    docstring): ``hs`` the final hidden whole on every position; the loss
+    on position 0, f32."""
+    t = hs[0].shape[1]
+    chunk = min(chunk, t)
+    lead, m = view.devices[0], view.m
+    labels = labels.long()
+    if cfg.tie_embeddings:
+        spans = [_span(j, m, cfg.d_model) for j in range(m)]
+        ws = [view.part(j, "embed", 1, lo, hi)
+              for j, (lo, hi) in enumerate(spans)]
+    else:
+        spans = [_span(j, m, cfg.vocab) for j in range(m)]
+        ws = [view.part(j, "lm_head", 1, lo, hi)
+              for j, (lo, hi) in enumerate(spans)]
+    live = [j for j, (lo, hi) in enumerate(spans) if hi > lo]
+
+    def tied_chunk(lx, *args):
+        hx, w = args[:m], args[m:]
+        logits = reduce_to([hx[j][..., spans[j][0]:spans[j][1]] @ w[j].T
+                            for j in live], lead).float()
+        lse = torch.logsumexp(logits, -1)
+        gold = logits.gather(-1, lx[..., None])[..., 0]
+        return (torch.mean(lse - gold),)
+
+    def split_chunk(lx, *args):
+        hx, w = args[:m], args[m:]
+        logits = {j: (hx[j] @ w[j]).float() for j in live}
+        mx = functools.reduce(torch.maximum, [
+            logits[j].max(-1).values.detach().to(lead) for j in live])
+        total = gold = None
+        for j in live:
+            lo, hi = spans[j]
+            lj = logits[j]
+            s = torch.exp(lj - mx.to(lj.device)[..., None]).sum(-1).to(lead)
+            y = lx.to(lj.device)
+            inside = (y >= lo) & (y < hi)
+            gj = lj.gather(-1, (y - lo).clamp(0, hi - lo - 1)[..., None])[
+                ..., 0]
+            gj = torch.where(inside, gj, torch.zeros_like(gj)).to(lead)
+            total = s if total is None else total + s
+            gold = gj if gold is None else gold + gj
+        return (torch.mean(mx + torch.log(total) - gold),)
+
+    per_chunk = tied_chunk if cfg.tie_embeddings else split_chunk
+    losses = [remat(per_chunk, (labels[:, s:s + chunk].to(lead),
+                                *[h[:, s:s + chunk] for h in hs], *ws))[0]
+              for s in range(0, t // chunk * chunk, chunk)]
+    return torch.mean(torch.stack(losses))
+
+
+def train_loss(view: GridView, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    """``transformer.train_loss`` over a group's model positions, on
+    position 0."""
+    t = batch["labels"].shape[1]
+    st = Stream(view.devices, t)
+    if cfg.family == "audio":
+        xs = st.inputs(batch["frames"].to(tf.DTYPES[cfg.dtype]))
+    else:
+        xs = embed(view, cfg, st, batch["tokens"])
+    hs, aux = forward(view, cfg, st, xs,
+                      image_embeds=batch.get("image_embeds"))
+    return vocab_parallel_ce(view, cfg, st.gather(hs), batch["labels"]) + aux
+
+
+def group_value_and_grad(lm, g: int, cfg: ArchConfig, batch: dict):
+    """``(loss, {(name, data part, model part): [partial gradients]})`` of
+    data group ``g``'s loss on ``batch`` over its model positions: each
+    block's partials in position order, in the parameter's dtype
+    (``launch.fsdp.step_gradients`` adds them with :func:`fold`; module
+    docstring). Blocks the loss does not reach are left out."""
+    view = GridView(lm, g)
+    with torch.enable_grad():
+        loss = train_loss(view, cfg, batch)
+        order = sorted(range(len(view.reads)), key=lambda r: view.reads[r][0])
+        grads = torch.autograd.grad(loss, [view.reads[r][2] for r in order],
+                                    allow_unused=True)
+    out: dict = {}
+    for r, gr in zip(order, grads):
+        if gr is not None:
+            out.setdefault(view.reads[r][1], []).append(gr)
+    return loss.detach(), out

@@ -61,7 +61,12 @@ back; the streams go home, and each chunk of the aggregate goes to its
 owner for the update. A participant whose groups differ from participant
 0's computes on a sharded replica over its own groups, refreshed chunk by
 chunk each step. v2's batched encode stays at home: it gathers every
-participant's full gradients and residual rows there.
+participant's full gradients and residual rows there. Where a
+participant's groups are rows of ``model`` cells, its groups compute
+tensor-parallel (``launch/tp.py``), every chunk and residual chunk is
+split along both axes, and v1 gathers a unit's chunks of both on the lead
+device as above; every participant takes one layout
+(``launch.mesh.participant_grids``).
 
 **Host synchronizations.** The gradient stage copies each participant's
 rows of the batch and refreshes the replicas before it enqueues any
@@ -100,7 +105,9 @@ from repro_torch.core.blocked import (block_layout, decode_blocked_sum,
 from repro_torch.core.types import SecureAggConfig, THGSConfig
 from repro_torch.launch import fsdp
 from repro_torch.launch import shardings as shd
-from repro_torch.launch.mesh import logical_rules, participant_groups
+from repro_torch.launch.mesh import (group_cells, lead_device,
+                                     logical_rules, participant_grids,
+                                     participant_groups)
 from repro_torch.models import transformer as tf
 
 
@@ -194,10 +201,10 @@ def make_dense_train_step(cfg: ArchConfig, lr: float = 0.01,
             loss, grads = fsdp.step_gradients(params, cfg, batch, n_micro)
             fsdp.sgd_update(params, grads, lr)
             return params, loss
-        if groups is not None and len(groups) > 1:
-            raise ValueError(f"the mesh spreads the model over {len(groups)} "
-                             "groups: place it with launch.fsdp.shard(model, "
-                             "mesh) first")
+        if groups is not None and fsdp.spread(groups):
+            raise ValueError(f"the mesh spreads the model over groups "
+                             f"{groups}: place it with launch.fsdp.shard("
+                             "model, mesh) first")
         loss, grads = step_gradients(params, cfg, batch, n_micro)
         sgd_update(params, grads, lr)
         return params, loss
@@ -229,8 +236,7 @@ def init_fl_residuals(params, n_fed: int, mesh=None, fed_axis: str = "pod",
     mesh's, else the parameters' own)."""
     if isinstance(params, fsdp.ShardedLM):
         if groups is None:
-            groups = ([participant_groups(mesh, fed_axis, p)
-                       for p in range(n_fed)] if mesh is not None
+            groups = (participant_grids(mesh, fed_axis) if mesh is not None
                       else [params.groups] * n_fed)
         if len(groups) != n_fed:
             raise ValueError(f"{n_fed} participants, {len(groups)} group "
@@ -246,9 +252,9 @@ def init_fl_residuals(params, n_fed: int, mesh=None, fed_axis: str = "pod",
         devs = []
         for p in range(n_fed):
             gs = participant_groups(mesh, fed_axis, p)
-            if len(gs) > 1:
+            if fsdp.spread(gs):
                 raise ValueError(
-                    f"participant {p} spreads over {len(gs)} groups: shard "
+                    f"participant {p} spreads over groups {gs}: shard "
                     "the parameters (launch.fsdp.shard) first")
             devs.append(gs[0][0])
     if len(set(devs)) == 1:
@@ -378,14 +384,13 @@ class _FLStep:
         self.rules = logical_rules(mesh, fed_axis=fed_axis)
         self.intra_axes = tuple(a for a in mesh.axis_names if a != fed_axis)
         if groups is None:
-            groups = [participant_groups(mesh, fed_axis, p)
-                      for p in range(self.n_fed)]
+            groups = participant_grids(mesh, fed_axis)
         elif len(groups) != self.n_fed:
             raise ValueError(f"{len(groups)} group lists for {self.n_fed} "
                              "participants")
         n_data = fsdp.n_data_of(mesh, fed_axis)
         self.groups = [fsdp.check_groups(gs, n_data) for gs in groups]
-        self.devices = [gs[0][0] for gs in self.groups]   # lead devices
+        self.devices = [lead_device(gs[0][0]) for gs in self.groups]
         # gradients fold in f32 with microbatches or a participant's groups
         self.f32 = n_micro > 1 or any(len(gs) > 1 for gs in self.groups)
         self.replicas = {}      # device (or groups) -> (params, replica)
@@ -430,7 +435,8 @@ class _FLStep:
         key = tuple((str(d), r.start, r.stop) for d, r in gs)
         cached = self.replicas.get(key)
         if cached is None or cached[0] is not params:
-            rep = fsdp.ShardedLM(params.cfg, gs, params.n_data, params.dims)
+            rep = fsdp.ShardedLM(params.cfg, gs, params.n_data, params.dims,
+                                 params.mdims)
             self.replicas[key] = cached = (params, rep)
         cached[1].refresh_from(params)
         return cached[1]
@@ -447,10 +453,11 @@ class _FLStep:
         if sharded:
             models = [self.sharded_replica(params, p)
                       for p in range(self.n_fed)]
-            devsets = [{d for d, _ in gs} for gs in self.groups]
+            devsets = [{c for d, _ in gs for c in group_cells(d)}
+                       for gs in self.groups]
             rows = _participant_batches(batch, self.n_fed)
         else:
-            if any(len(gs) > 1 for gs in self.groups):
+            if any(fsdp.spread(gs) for gs in self.groups):
                 raise ValueError("a participant spreads over several groups:"
                                  " shard the parameters (launch.fsdp.shard)")
             models = {d: self.replica(params, d) for d in self.devices}
@@ -489,36 +496,29 @@ class _FLStep:
     def update_param(self, params, named, name: str, value, sl=None) -> None:
         """``_update`` of one parameter by the aggregate ``value`` (whole,
         or slice ``k`` of it viewed as ``[per, *slice_shape]`` with ``sl =
-        (per, slice_shape, k, sd)``, ``sd`` the split dim within the
-        slice): in place, or on sharded parameters each chunk by its piece
-        of ``value`` on the chunk's device, each copy of a whole one by all
-        of it."""
+        (per, slice_shape, k)``): in place, or on sharded parameters each
+        chunk by its piece of ``value`` on the chunk's device (its block
+        along the split dims, which lie within the slice), each copy of a
+        whole one by all of it."""
         if named is not None:
             p = named[name]
             if sl is not None:
                 p = p.reshape((sl[0],) + sl[1])[sl[2]]
             _update(p, value, self.server_lr)
             return
-        d = params.dims[name]
         seen = set()
-        for g, c in enumerate(params.chunks):
-            t = c[name]
+        for c, chunk in enumerate(params.chunks):
+            t = chunk[name]
             if id(t) in seen:
                 continue
             seen.add(id(t))
-            if d is None:
-                view = t if sl is None else t.reshape((sl[0],) + sl[1])[sl[2]]
-                _update(view, value.to(t.device), self.server_lr)
-                continue
-            off, n = params.extent(g, name)
             if sl is None:
-                view, piece = t, value.narrow(d, off, n)
+                view, piece = t, params.block(c, name, value)
             else:
-                per, slice_shape, k, sd = sl
-                shape = list(slice_shape)
-                shape[sd] = -1
-                view = t.reshape((per,) + tuple(shape))[k]
-                piece = value.narrow(sd, off, n)
+                per, slice_shape, k = sl
+                lead = len(params.shapes[name]) - len(slice_shape)
+                view = t.reshape((per,) + tuple(t.shape[lead:]))[k]
+                piece = params.block(c, name, value, lead)
             _update(view, piece.to(t.device), self.server_lr)
 
     def __call__(self, params, residuals, batch, round_key, *,
@@ -620,14 +620,10 @@ class FLTrainStep(_FLStep):
                 if sl is not None:
                     i, lead, slice_shape = sl
                     per = lead // len(leaf.names)
-                    sd = (None if not sharded
-                          or params.dims[leaf.names[0]] is None
-                          else params.dims[leaf.names[0]]
-                          - (len(shape) - len(slice_shape)))
                     self.update_param(
                         params, named, leaf.names[i // per],
                         dense.reshape(slice_shape).to(gdt),
-                        (per, slice_shape, i % per, sd))
+                        (per, slice_shape, i % per))
                 else:
                     parts = dense.to(gdt).reshape((-1,) + tuple(shape))
                     for j, name in enumerate(leaf.names):
@@ -642,8 +638,8 @@ class FLTrainStep(_FLStep):
         dev = self.devices[pid]
         res = residuals[lid][pid]
         chunked = isinstance(res, fsdp.ChunkedRow)
-        want = ([d for d, _ in self.groups[pid]]
-                if chunked and res.dim is not None else [dev])
+        want = (fsdp.row_devices(self.groups[pid], res.dim, res.mdim)
+                if chunked else [dev])
         have = [p.device for p in res.parts] if chunked else [res.device]
         if have != want:
             raise ValueError(

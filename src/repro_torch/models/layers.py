@@ -74,6 +74,60 @@ def embed_init(generator: Optional[torch.Generator], vocab: int, d: int, dtype,
     return _normal_(_param((vocab, d), dtype, device), 0.02, generator)
 
 
+# ------------------------------------------------------------------ embedding
+def fold_rows(idx: torch.Tensor, rows: torch.Tensor, n: int) -> torch.Tensor:
+    """``out[idx[i]] += rows[i]`` into ``n`` zero rows, in ``i`` order, in
+    f32, rounded once to ``rows``' dtype: a stable sort gives each entry its
+    rank among the earlier entries of its index, then one pass a rank adds
+    at distinct rows. The same sums on every device and thread count (on
+    the meta device, the shape only)."""
+    out = torch.zeros((n,) + tuple(rows.shape[1:]), dtype=rows.dtype,
+                      device=rows.device)
+    m = idx.numel()
+    if m == 0 or out.device.type == "meta":
+        return out
+    order = torch.argsort(idx, stable=True)
+    pos = torch.arange(m, device=idx.device)
+    first = torch.ones(m, dtype=torch.bool, device=idx.device)
+    first[1:] = idx[order][1:] != idx[order][:-1]
+    rank = torch.empty_like(pos)
+    rank[order] = pos - torch.cummax(torch.where(first, pos, 0), 0).values
+    seg = torch.empty_like(pos)          # each entry's row among the ids
+    seg[order] = torch.cumsum(first.long(), 0) - 1
+    acc = torch.zeros((int(first.sum()),) + tuple(rows.shape[1:]),
+                      dtype=torch.float32, device=rows.device)
+    for r in range(int(rank.max()) + 1):
+        sel = rank == r
+        at = seg[sel]
+        acc[at] = acc[at] + rows[sel].float()
+    out[idx[order][first]] = acc.to(rows.dtype)
+    return out
+
+
+class _EmbedLookup(torch.autograd.Function):
+    """``table[tokens]``; the backward folds the rows of repeated tokens in
+    token order (:func:`fold_rows`) where PyTorch's index backward adds
+    them with atomics or threads in no fixed order."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.n = table.shape[0]
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, g):
+        tokens, = ctx.saved_tensors
+        flat = g.reshape((tokens.numel(),) + tuple(g.shape[tokens.dim():]))
+        return fold_rows(tokens.reshape(-1), flat, ctx.n), None
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows of ``table`` at ``tokens`` (any integer dtype), with a
+    repeatable gradient (:class:`_EmbedLookup`)."""
+    return _EmbedLookup.apply(table, tokens.long())
+
+
 # ----------------------------------------------------------------------- norms
 def init_norm(d: int, kind: str, dtype, device) -> nn.ParameterDict:
     p = nn.ParameterDict({"scale": _param((d,), dtype, device)})

@@ -47,7 +47,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.attention import KVCache
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_init,
-                                       init_mlp, init_norm)
+                                       embed_lookup, init_mlp, init_norm)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -166,7 +166,9 @@ def lm_head_weight(params: TransformerLM, cfg: ArchConfig) -> torch.Tensor:
 
 def embed_tokens(params: TransformerLM, cfg: ArchConfig,
                  tokens: torch.Tensor) -> torch.Tensor:
-    return params.embed[tokens.long()]
+    """Token embeddings; the gradient folds repeated tokens' rows in token
+    order (``layers.embed_lookup``), so it is the same on every run."""
+    return embed_lookup(params.embed, tokens)
 
 
 def param_count(params: nn.Module) -> int:

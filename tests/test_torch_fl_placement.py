@@ -130,10 +130,14 @@ def test_participant_spanning_two_devices_raises():
     assert tmesh.participant_device(mesh, "pod", 1) == META
     with pytest.raises(NotImplementedError, match="participant 0"):
         tmesh.participant_device(mesh, "pod", 0)
+    # participant 0 runs tensor-parallel over its model positions; the
+    # other participant takes the same grid layout on its one device
     for version in ("v1", "v2"):
-        with pytest.raises(NotImplementedError, match="tensor parallel"):
-            _make_step(version)(_cfg(), mesh, "pod", THGS, SA, lr=LR)
-    with pytest.raises(NotImplementedError):
+        step = _make_step(version)(_cfg(), mesh, "pod", THGS, SA, lr=LR)
+        assert step.groups == [[((CPU, META), range(0, 1))],
+                               [((META, META), range(0, 1))]]
+        assert step.devices == [CPU, META] and not step.f32
+    with pytest.raises(ValueError, match="shard the parameters"):
         ttrain.init_fl_residuals(tf.init_params(_cfg(), device="meta"), 2,
                                  mesh)
 

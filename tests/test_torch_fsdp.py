@@ -126,8 +126,19 @@ def test_participant_groups_refuse_interleaving_and_model_spreads():
     spread = tmesh.LogicalMesh((2, 1, 2), AXES, [[["cpu", "meta"]],
                                                  [["cpu", "cpu"]]])
     assert tmesh.participant_groups(spread, "pod", 1) == [(CPU, range(0, 1))]
-    with pytest.raises(NotImplementedError, match="tensor parallel"):
-        tmesh.participant_groups(spread, "pod", 0)
+    # a spread along model is the participant's (data group, model
+    # position) grid: one device a model position (tensor parallelism)
+    assert tmesh.participant_groups(spread, "pod", 0) == [((CPU, META),
+                                                          range(0, 1))]
+    grid = tmesh.LogicalMesh((1, 3, 2), AXES, [[["cpu", "meta"]] * 2
+                                               + [["meta", "meta"]]])
+    assert tmesh.participant_groups(grid, "pod", 0) == [
+        ((CPU, META), range(0, 2)), ((META, META), range(2, 3))]
+    inter2 = tmesh.LogicalMesh((3, 2), AXES[1:], [["cpu", "meta"],
+                                                  ["meta", "meta"],
+                                                  ["cpu", "meta"]])
+    with pytest.raises(ValueError, match="contiguous"):
+        tmesh.participant_groups(inter2, None)
     with pytest.raises(ValueError, match="cover"):
         fsdp.check_groups([(CPU, range(0, 1))], 2)
     with pytest.raises(ValueError, match="contiguous"):
