@@ -264,7 +264,7 @@ exits non-zero and no failure is caught:
      the decode bit-equal card (the scatter kernel) vs CPU (the plain
      fold); the kernel at the embed decode bit-equal to its plain version,
      timed beside its bound and ``index_add_``, its scratch printed. (b)
-     Yi-6B at 2 layers in f32 (TF32 off), B 2 x T 1024: one v1 step card vs
+     Yi-6B at 2 layers in f32 (TF32 off), B 2 x T 512: one v1 step card vs
      CPU (loss within ``FL_LOSS_TOL``; params within ``FL_PARAM_TOL``, at
      most ``FL_MOVED_SHARE`` of the elements apart: a top-k flip moves an
      element by its whole update). (d) Placement, (b)'s inputs and state:
@@ -291,7 +291,7 @@ exits non-zero and no failure is caught:
      exchange against the same streams with the mask values taken off,
      within ``FL_CANCEL_TOL``); step ms, tokens/s, peak memory, the
      exchange's entries against dense. (e) One participant over its data
-     positions (``launch/fsdp.py``), Yi-6B at 2 layers in f32, B 4 x T 256:
+     positions (``launch/fsdp.py``), Yi-6B at 2 layers in f32, B 4 x T 128:
      (i) each participant's data 0-7 and 8-15 as two explicit groups on
      ``cuda:0``, v1 and v2 steps bit-equal to the one-device step at
      n_micro 2 (params, residuals, loss, streams); (ii) data 0-7 of each
@@ -309,8 +309,12 @@ exits non-zero and no failure is caught:
      scatter launches; they join the kernel table's) against the
      one-device v1 step on the same (2, 1, 2) layout (params within
      ``FL_TP_PARAM_TOL``, at most ``FL_MOVED_SHARE`` apart), then a v2
-     step whose masks cancel; every loss, leaf and residual finite, every
-     matrix leaf moved; step ms, tokens/s, peak. (g)
+     step at the same size on the same grid, encoded in place (each cell
+     its own block), against the one-device v2 step (the same tolerances;
+     one scatter launch a leaf, checked apart; masks cancel; no byte
+     gathered on an aligned leaf; peak <= ``FL_PEAK_GIB``); every loss,
+     leaf and residual finite, every matrix leaf moved; step ms, tokens/s,
+     peak. (g)
      ``table2_fedavg_quick`` with dense secure aggregation, 2 rounds on the
      card and the CPU: equal ledgers.
  19. selectors (run after 15): the 'sampled' and 'local' THGS selectors.
@@ -2752,7 +2756,8 @@ def families_phase(card: str) -> dict:
 TRAIN_LR = 0.01
 TRAIN_PARITY_B, TRAIN_PARITY_T = 2, 2048    # two attend_chunked chunks
 TRAIN_B, TRAIN_T = 4, 4096      # Yi-6B: train_4k's length, 4 rows a card
-TRAIN_STEPS = 3         # 5 before the tensor-parallel cases joined
+TRAIN_STEPS = 2         # 5 before the tensor-parallel cases joined, 3
+                        # before the FL encode in place did
 TRAIN_FAMILY_T = 1024           # the families' tokens (frames) a row,
 TRAIN_XLSTM_T = 512             # but xLSTM's: its sLSTM steps on the host
 # Yi-6B at full width and 2 layers in f32 (TF32 off), card vs CPU: the loss,
@@ -3590,14 +3595,15 @@ FL_THGS = dict(s0=0.01, alpha=0.9, s_min=0.001)   # the dry run's THGS and
 FL_MASK_RATIO = 0.01                               # mask ratio
 FL_LR = 0.01                    # make_fl_train_step's defaults: lr 0.01,
 FL_B, FL_T = 4, 4096            # server_lr 1; train_4k's T, 2 rows a
-FL_STEPS = 2                    # participant (global batch 256 cut to 4);
-                                # 3 steps before the tensor-parallel cases
+FL_STEPS = 1                    # participant (global batch 256 cut to 4);
+                                # 3 steps before the tensor-parallel cases,
+                                # 2 before the FL encode in place
 FL_UNITS = 229                  # Yi-6B's decodes a step on the multi-pod
-FL_PARITY_B, FL_PARITY_T = 2, 1024     # layout: 7 x 32 slices + 5 leaves
-FL_SHARD_T = 256                # (e): one row a group, 2 groups a pod
-# (b)'s readings on an H100 80GB HBM3 at 700 W: loss 9.537e-07; params
-# 2.918e-05 apart at embed, 407,827 of 870,338,560 elements (4.7e-4: top-k
-# choices flipped by the gradients' last bits, each a whole update)
+FL_PARITY_B, FL_PARITY_T = 2, 512      # layout: 7 x 32 slices + 5 leaves
+FL_SHARD_T = 128                # (e): one row a group, 2 groups a pod
+# (b)'s readings on an H100 80GB HBM3 at 700 W (T 1024): loss 9.537e-07;
+# params 2.918e-05 apart at embed, 407,827 of 870,338,560 elements (4.7e-4:
+# top-k choices flipped by the gradients' last bits, each a whole update)
 FL_LOSS_TOL = 2e-6
 FL_PARAM_TOL = 6e-5
 FL_MOVED_SHARE = 1e-3
@@ -3608,6 +3614,7 @@ FL_CANCEL_TOL = 1e-4            # tests/test_blocked.py:31-48's rtol / atol
 # an H100 80GB HBM3 at 700 W: 2.441e-04 at embed, 78,324 of 6,061,035,520
 # elements apart (1.3e-5, under FL_MOVED_SHARE)
 FL_TP_PARAM_TOL = 4.9e-4
+FL_PEAK_GIB = 75                # PERF.md section 2's limit of a Yi-6B FL step
 
 
 def fl_config(layers=None, dtype=None):
@@ -3783,7 +3790,7 @@ def same_params(a, b) -> bool:
 
 
 def fl_parity(card: str) -> dict:
-    """(b) Yi-6B at full width, 2 layers, f32 (TF32 off), B 2 x T 1024, on
+    """(b) Yi-6B at full width, 2 layers, f32 (TF32 off), B 2 x T 512, on
     the multi-pod layout: one v1 step on the card against the CPU (loss;
     params, where a top-k flip moves an element by its whole update).
     Then (d), placement: the same step with every position on ``cuda:0``
@@ -4141,7 +4148,7 @@ def fl_yi6b(card: str) -> dict:
     ledger.record(step_wire_record(0, [math.prod(lf.shape) for lf in leaves],
                                    thgs, sa, 2, mesh.size // 2))
     tpu = ledger.totals("tpu")
-    step_ms = statistics.median(times[1:])
+    step_ms = statistics.median(times[1:] or times)
     tokens = FL_B * FL_T
     print(f"[fl_train] (c) {cfg.name} whole ({cfg.n_layers} layers, "
           f"{n_params} parameters, bf16, seed 0) federated over 2 "
@@ -4150,8 +4157,9 @@ def fl_yi6b(card: str) -> dict:
           f"participant), n_micro 1, lr {FL_LR}, server_lr 1, THGS "
           f"{FL_THGS}, mask ratio {FL_MASK_RATIO}; set-up {setup_s:.1f} s; "
           f"losses {losses} (steps 1-{FL_STEPS}, then the profiled step); "
-          f"step ms {[round(t, 3) for t in times]}, median of steps 2-"
-          f"{FL_STEPS} {step_ms:.3f} ms ({tokens / step_ms * 1e3:.1f} "
+          f"step ms {[round(t, 3) for t in times]}, median of steps "
+          f"{min(2, FL_STEPS)}-{FL_STEPS} {step_ms:.3f} ms "
+          f"({tokens / step_ms * 1e3:.1f} "
           f"tokens/s); step {FL_STEPS}'s parts (ms, device synchronized at "
           f"each): { {k: round(v, 3) for k, v in parts.items()} }; peak "
           f"memory {peak_gib:.2f} GiB; launches in steps 1-{FL_STEPS} "
@@ -4407,13 +4415,17 @@ def fl_tp(card: str) -> dict:
     read: FL_UNITS scatter launches) against the one-device v1 step on the
     same (2, 1, 2) layout (params within FL_TP_PARAM_TOL, at most
     FL_MOVED_SHARE of the elements apart); every loss, leaf and residual
-    finite, every matrix leaf moved. Then a v2 step on the same grid at 2
-    layers (v2 brings both participants' gradients home: the whole model's
-    do not fit beside its residuals) whose masks cancel. Returns the v1
-    step's launches."""
+    finite, every matrix leaf moved. Then one v2 step at the same size on
+    the same grid (each cell encodes its own block of the aligned view, one
+    participant at a time: the whole model fits) against the one-device v2
+    step from the same state (params within FL_TP_PARAM_TOL, at most
+    FL_MOVED_SHARE apart): one scatter launch a reference leaf, the masks
+    cancel, no byte gathered on an aligned leaf, peak <= FL_PEAK_GIB.
+    Returns the v1 step's launches."""
     import torch
 
     from repro_torch import convert
+    from repro_torch.core.blocked import sharding_aligned_transform
     from repro_torch.core import threefry
     from repro_torch.kernels import ops
     from repro_torch.launch import fsdp
@@ -4498,28 +4510,79 @@ def fl_tp(card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # v2 on the same grid at 2 layers
-    cfg2, _, _, _ = fl_config(layers=2)
-    lm = fsdp.shard(tf.init_params(cfg2, torch.Generator(
-        device="cuda").manual_seed(0)), mesh, "pod", groups=grid_)
+    # v2 at the same size on the same grid, against the one-device v2 step
+    model = draw()
+    res = ttrain.init_fl_residuals(model, 2)
+    step = ttrain.make_fl_train_step_v2(cfg, mesh, "pod", thgs, sa,
+                                        lr=FL_LR)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss_1v2 = step(model, res, batch, key)[2].item()
+    torch.cuda.synchronize()
+    ms_1v2 = (time.perf_counter() - t0) * 1e3
+    peak_1v2 = torch.cuda.max_memory_allocated()
+    want = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    del model, res, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    lm = fsdp.shard(draw(), mesh, "pod", groups=grid_)
     res = ttrain.init_fl_residuals(lm, 2, mesh, "pod", groups=[grid_] * 2)
-    step2 = ttrain.make_fl_train_step_v2(cfg2, mesh, "pod", thgs, sa,
+    step2 = ttrain.make_fl_train_step_v2(cfg, mesh, "pod", thgs, sa,
                                          lr=FL_LR, groups=[grid_] * 2)
     rec: list = []
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
     t0 = time.perf_counter()
     loss_v2 = step2(lm, res, batch, key, record=rec)[2].item()
     torch.cuda.synchronize()
     ms_v2 = (time.perf_counter() - t0) * 1e3
+    counts_v2 = ops.launch_counts()
+    peak_v2 = torch.cuda.max_memory_allocated()
     cancel = fl_cancel_v2(step2, lm.meta, rec, key)
+    leaves, specs, _, _ = step2.layout(lm)
+    aligned = [sharding_aligned_transform(lf.shape, sp, step2.axis_sizes,
+                                          step2.intra_axes) is not None
+               for lf, sp in zip(leaves, specs)]
+    gathered = {leaves[r["leaf"]].path: r["gathered_bytes"] for r in rec
+                if aligned[r["leaf"]] and r["gathered_bytes"]}
+    home = sum(r["home_bytes"] for r in rec)
+    del rec
     finite = math.isfinite(loss_v2) and all(
         bool(torch.isfinite(t).all()) for _, t in lm.tensors())
-    print(f"[fl_train] (f) v2 tensor parallel on {card}: {cfg2.name} 2 "
-          f"layers bf16, the same grid, B={FL_B} T={FL_T}: {ms_v2:.3f} ms, "
-          f"loss {loss_v2:.6f}, params finite {finite}; {cancel['text']}",
+    got = {n: lm.full(n, cuda0) for n in lm.shapes}
+    err, moved, total, worst = gap_on_card(got, want)
+    del got, want, lm, res, step2
+    print(f"[fl_train] (f) v2 tensor parallel on {card}: {cfg.name} whole "
+          f"bf16, the same grid, B={FL_B} T={FL_T}: v2 step {ms_v2:.3f} ms "
+          f"({FL_B * FL_T / ms_v2 * 1e3:.1f} tokens/s; the one-device v2 "
+          f"step {ms_1v2:.3f} ms, peak {peak_1v2 / 2**30:.2f} GiB), peak "
+          f"{peak_v2 / 2**30:.2f} GiB, loss {loss_v2:.6f} (one-device "
+          f"{loss_1v2:.6f}), launches {counts_v2} ({len(leaves)} leaves, "
+          f"{sum(aligned)} aligned); gathered on aligned leaves {gathered}, "
+          f"stream bytes home {home}; params vs the one-device v2 step max "
+          f"|diff| {err:.3e} at {worst} (tolerance {FL_TP_PARAM_TOL}), "
+          f"{moved} of {total} elements apart (share tolerance "
+          f"{FL_MOVED_SHARE}); params finite {finite}; {cancel['text']}",
           flush=True)
-    check(finite, "(f) v2: a non-finite loss or param")
+    check(counts_v2["stream_scatter_add"] == len(leaves),
+          f"(f) v2: {counts_v2['stream_scatter_add']} scatter launches for "
+          f"{len(leaves)} leaves")
+    check(math.isfinite(loss_1v2) and finite,
+          "(f) v2: a non-finite loss or param")
     check(cancel["ok"], f"(f) v2 masks do not cancel: {cancel['text']}")
-    del lm, res, step2, rec, batch
+    check(not gathered, f"(f) v2 gathered bytes on aligned leaves: "
+          f"{gathered}")
+    check(peak_v2 <= FL_PEAK_GIB * 2**30,
+          f"(f) v2 peaked at {peak_v2 / 2**30:.2f} GiB")
+    check(err <= FL_TP_PARAM_TOL and moved <= FL_MOVED_SHARE * total,
+          f"(f) v2 params vs the one-device v2 step {err:.3e} at {worst}, "
+          f"{moved} of {total} apart")
+    del batch
     gc.collect()
     torch.cuda.empty_cache()
     return counts

@@ -472,6 +472,21 @@ def group_value_and_grad(lm: ShardedLM, g: int, cfg: ArchConfig,
         for k, t, gr in zip(keys, leaves, grads)}
 
 
+class Tally:
+    """The bytes that reads of chunked tensors assembled (``Grads.full``,
+    ``ChunkedRow.to``, ``ChunkedRow.slice_to`` given one): a read counts
+    the whole tensor it returns when it joined several chunks or moved one
+    to another device, and nothing when it returned a chunk where it
+    lies."""
+
+    def __init__(self):
+        self.bytes = 0
+
+    def count(self, out: torch.Tensor, sources: list) -> None:
+        if len(sources) > 1 or any(s.device != out.device for s in sources):
+            self.bytes += out.numel() * out.element_size()
+
+
 class Grads:
     """One participant's gradients in its parameters' layout:
     ``chunks[c][name]`` as :attr:`ShardedLM.chunks` (a whole block's
@@ -480,14 +495,27 @@ class Grads:
     def __init__(self, lm: ShardedLM, chunks: list):
         self.lm, self.chunks = lm, chunks
 
-    def full(self, name: str, device, dtype=None) -> torch.Tensor:
+    def full(self, name: str, device, dtype=None,
+             tally: Tally | None = None) -> torch.Tensor:
         """``name``'s gradient whole on ``device`` (each chunk cast to
         ``dtype`` on its device first, when given)."""
+        sources = []
+
         def fetch(c):
             t = self.chunks[c][name]
+            sources.append(t)
             return (t if dtype is None else t.to(dtype)).to(device)
 
-        return self.lm._rows(name, fetch)
+        out = self.lm._rows(name, fetch)
+        if tally is not None:
+            tally.count(out, sources)
+        return out
+
+    def drop(self, names) -> None:
+        """Forget the gradients of ``names`` (every cell's chunk)."""
+        for chunk in self.chunks:
+            for name in names:
+                chunk.pop(name, None)
 
 
 def step_gradients(lm: ShardedLM, cfg: ArchConfig, batch: dict,
@@ -613,16 +641,46 @@ class ChunkedRow:
         return tuple(s)
 
     @staticmethod
-    def _join(grid, dim, mdim, device) -> torch.Tensor:
+    def _join(grid, dim, mdim, device, tally=None) -> torch.Tensor:
         rows = [row[0].to(device) if mdim is None
                 else torch.cat([p.to(device) for p in row], mdim)
                 for row in grid]
-        return rows[0] if dim is None else torch.cat(rows, dim)
+        out = rows[0] if dim is None else torch.cat(rows, dim)
+        if tally is not None:
+            tally.count(out, [p for row in grid for p in row])
+        return out
 
-    def to(self, device, dtype=None) -> torch.Tensor:
+    def to(self, device, dtype=None,
+           tally: Tally | None = None) -> torch.Tensor:
         """The whole row gathered on ``device`` (then cast to ``dtype``)."""
-        out = self._join(self._grid(), self.dim, self.mdim, device)
+        out = self._join(self._grid(), self.dim, self.mdim, device, tally)
         return out if dtype is None else out.to(dtype)
+
+    def cell_of(self, i: int) -> tuple[int, int]:
+        """Part ``i``'s ``(data group, model position)`` in the
+        participant's grid (0 along an axis that does not split the
+        row)."""
+        return divmod(i, self.n_model)
+
+    def locate(self, cuts: dict):
+        """The part that holds the box ``cuts`` (``{dim: (offset,
+        length)}`` of the whole row; a dim not named is whole): ``(part
+        index, the box's cuts within that part)``, or None when the box
+        spans several parts."""
+        shape = self.shape
+        for i, (p, a, b) in enumerate(self._pieces(self.parts, self.dim,
+                                                   self.mdim)):
+            local = dict(cuts)
+            for d, off in ((self.dim, a), (self.mdim, b)):
+                if d is None:
+                    continue
+                o, n = cuts.get(d, (0, shape[d]))
+                if not off <= o <= o + n <= off + p.shape[d]:
+                    break
+                local[d] = (o - off, n)
+            else:
+                return i, local
+        return None
 
     def cpu(self) -> torch.Tensor:
         return self.to("cpu")
@@ -677,11 +735,11 @@ class ChunkedRow:
             views.append(p.reshape((lead,) + tuple(shape))[i])
         return views, sd, smd
 
-    def slice_to(self, lead: int, slice_shape: tuple, i: int,
-                 device) -> torch.Tensor:
+    def slice_to(self, lead: int, slice_shape: tuple, i: int, device,
+                 tally: Tally | None = None) -> torch.Tensor:
         """Slice ``i`` whole on ``device``."""
         views, sd, smd = self._views(lead, slice_shape, i)
-        return self._join(self._grid(views), sd, smd, device)
+        return self._join(self._grid(views), sd, smd, device, tally)
 
     @torch.no_grad()
     def put_slice(self, lead: int, slice_shape: tuple, i: int,

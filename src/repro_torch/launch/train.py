@@ -36,15 +36,19 @@ a mesh of several devices one row a participant on its device
 place. A step is a gradient stage and an exchange stage
 (``step.exchange(params, residuals, grads, round_key)``, ``grads`` any
 iterable of per-participant gradient dicts), so the exchange can be fed
-other gradients. v1 draws a participant's masks and encodes on its device
-and brings its streams home for the decode; v2's one batched encode runs
-at home, so it brings every participant's bf16 gradients and residual rows
-home and sends the new rows back (Yi-6B: about 12 GB of gradients a
-participant). The environment switches keep the reference's names and
-defaults: ``REPRO_FL_ALIGNED_BLOCKS`` (v1, default off) and
-``REPRO_FL_V2_GENERIC`` (v2, default off) select the block layout;
-``REPRO_FL_STREAM_REPLICATE`` (a partitioner workaround) has no meaning in
-one process and is not read.
+other gradients. Both steps draw a participant's masks and encode on its
+devices, one participant at a time, and bring only its streams home for
+the decode. v2 (and v1 under ``REPRO_FL_ALIGNED_BLOCKS=1``) encodes on the
+sharding-aligned block view, whose block ``b`` is a box of the leaf
+(:func:`aligned_block_cuts`): each block is encoded where the
+participant holds it (:meth:`_FLStep.encode_blocks`), and v2 drops each
+leaf's gradient once encoded, so one participant's gradients are alive
+at a time. Each unit's ``record`` entry counts the bytes gathered from
+chunks and the stream bytes read at home. The environment switches keep
+the reference's names and defaults: ``REPRO_FL_ALIGNED_BLOCKS`` (v1,
+default off) and ``REPRO_FL_V2_GENERIC`` (v2, default off) select the
+block layout; ``REPRO_FL_STREAM_REPLICATE`` (a partitioner workaround)
+has no meaning in one process and is not read.
 
 **A participant over several devices.** Where a participant's ``data``
 positions span several groups, the parameters are a
@@ -54,19 +58,22 @@ gathered whole on its device, and the gradients fold in f32 onto the
 chunks' owners (``fsdp.step_gradients``: bit-equal to the one-device step
 with ``groups x n_micro`` microbatches), so they arrive as f32 sums. The
 residual rows are chunked like the parameters (``fsdp.ChunkedRow``, the
-reference's ``P(fed_axis, *gspec)``). v1 encodes a unit on the
-participant's lead device (its group 0): it gathers the unit's gradient and
-residual chunks there in position order and writes the residual chunks
-back; the streams go home, and each chunk of the aggregate goes to its
-owner for the update. A participant whose groups differ from participant
-0's computes on a sharded replica over its own groups, refreshed chunk by
-chunk each step. v2's batched encode stays at home: it gathers every
-participant's full gradients and residual rows there. Where a
-participant's groups are rows of ``model`` cells, its groups compute
-tensor-parallel (``launch/tp.py``), every chunk and residual chunk is
-split along both axes, and v1 gathers a unit's chunks of both on the lead
-device as above; every participant takes one layout
-(``launch.mesh.participant_grids``).
+reference's ``P(fed_axis, *gspec)``). On the aligned view a block is a
+cell's own chunk of gradient and residual, so each cell encodes its
+blocks and nothing is gathered, as the reference's pinned
+``P(fed_axis, front, None)`` accumulator keeps its encode on each
+device's block. A unit of generic row blocks (v1's default; v2 where a
+spec has no aligned view, or under ``REPRO_FL_V2_GENERIC=1``) is encoded
+on the participant's lead device (its group 0): its gradient and residual
+chunks are gathered there in position order and the residual chunks
+written back (the reference's GSPMD re-lays such blocks out too). The
+streams go home, and each chunk of the aggregate goes to its owner for
+the update. A participant whose groups differ from participant 0's
+computes on a sharded replica over its own groups, refreshed chunk by
+chunk each step. Where a participant's groups are rows of ``model``
+cells, its groups compute tensor-parallel (``launch/tp.py``) and every
+chunk and residual chunk is split along both axes; every participant
+takes one layout (``launch.mesh.participant_grids``).
 
 **Host synchronizations.** The gradient stage copies each participant's
 rows of the batch and refreshes the replicas before it enqueues any
@@ -80,17 +87,18 @@ on one card). The syncs left are: the ``_stage`` timings, when the caller
 asks for them; inside a participant's encode, the small host-to-device
 copies of the masks' keys and scalars and the top-k's NaN test (they wait
 for that participant's stream); and copies to or from a CPU participant
-(its rows, its replica, its stream, its loss, and v2's gradients and
-residual rows).
+(its rows, its replica, its stream, its loss).
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import os
 import time
 from typing import Callable, Iterable
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -99,7 +107,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import schedules
 from repro_torch.core import streams as se
 from repro_torch.core import threefry
-from repro_torch.core.blocked import (block_layout, decode_blocked_sum,
+from repro_torch.core.blocked import (BlockedStream, block_layout,
+                                      decode_blocked_sum,
                                       encode_leaf_blocked,
                                       sharding_aligned_transform)
 from repro_torch.core.types import SecureAggConfig, THGSConfig
@@ -355,6 +364,58 @@ def _slice_of(tensors: dict, leaf, lead: int, slice_shape: tuple,
     return t.reshape((per,) + slice_shape)[i % per]
 
 
+def _narrow(t: torch.Tensor, cuts: dict) -> torch.Tensor:
+    for d, (o, n) in cuts.items():
+        t = t.narrow(d, o, n)
+    return t
+
+
+def _box(tensors: dict, leaf, cuts: dict) -> torch.Tensor:
+    """The box ``cuts`` (``{dim: (offset, length)}`` of the reference
+    leaf, never a stacked dim: ``param_specs`` splits none) from the port's
+    tensors of ``leaf``: a view of one parameter, or the stacked
+    parameters' boxes stacked (a copy)."""
+    nl = len(leaf.lead)
+    if any(d < nl for d in cuts):
+        raise ValueError(f"{leaf.path}: a cut {cuts} of a stacked dim")
+    inner = {d - nl: c for d, c in cuts.items()}
+    if not nl:
+        return _narrow(tensors[leaf.names[0]], inner)
+    parts = [_narrow(tensors[n], inner) for n in leaf.names]
+    return torch.stack(parts).reshape(leaf.lead + tuple(parts[0].shape))
+
+
+def aligned_block_cuts(shape, spec, axis_sizes: dict,
+                       intra_axes: tuple) -> list:
+    """Each block's box in ``sharding_aligned_transform``'s view (which
+    exists for these arguments): ``{dim: (offset, length)}`` along the dims
+    the spec splits. The transform keeps the other dims in their order, so
+    block ``b`` is that box of the leaf flattened row-major: the box a
+    device holds is its block."""
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    dim_of = {ax: d for d, ax in enumerate(entries) if ax is not None}
+    front = [a for a in intra_axes if a in dim_of]
+    counts = [axis_sizes[a] for a in front]
+    out = []
+    for b in range(math.prod(counts)):
+        out.append({dim_of[a]: (int(i) * (shape[dim_of[a]] // n),
+                                shape[dim_of[a]] // n)
+                    for a, i, n in zip(front, np.unravel_index(b, counts),
+                                       counts)})
+    return out
+
+
+# elements of blocks that one encode call takes (consecutive blocks on one
+# device): bounds the f32 temporaries of a call (accumulator, |acc|, the
+# top-k's count, the new blocks) near 0.5 GB each; a larger block goes
+# alone
+ENCODE_ELEMS = 1 << 27
+
+
+def _stream_bytes(st) -> int:
+    return sum(t.numel() * t.element_size() for t in (st.indices, st.values))
+
+
 def _neg_lr(g: torch.Tensor, lr: float) -> torch.Tensor:
     """``-lr * g`` in ``g``'s dtype, the scalar rounded to that dtype first
     (JAX's weak-typed scalar)."""
@@ -493,6 +554,110 @@ class _FLStep:
             return params.device
         return next(params.parameters()).device
 
+    def check_row(self, pid: int, res) -> None:
+        """Raise unless participant ``pid``'s residual row lies on its
+        devices."""
+        chunked = isinstance(res, fsdp.ChunkedRow)
+        want = (fsdp.row_devices(self.groups[pid], res.dim, res.mdim)
+                if chunked else [self.devices[pid]])
+        have = [p.device for p in res.parts] if chunked else [res.device]
+        if have != want:
+            raise ValueError(
+                f"participant {pid}'s residuals lie on {have}, the "
+                f"participant on {want}: make them with "
+                "init_fl_residuals(params, n_fed, mesh)")
+
+    @staticmethod
+    def block(pid: int, g, leaf, cut: dict, res):
+        """Participant ``pid``'s block ``cut`` (one of
+        :func:`aligned_block_cuts`') of a leaf: ``(residual box, gradient
+        box)`` on the device that holds the residual box, the first a view
+        to write the new residual into. On a chunked row the block is a box
+        of one chunk (the aligned view's blocks are the ``fsdp`` placement's
+        chunks) and the gradient box the same cell's: nothing is
+        gathered."""
+        if isinstance(res, fsdp.ChunkedRow):
+            where = res.locate(cut)
+            if where is None:
+                raise ValueError(f"{leaf.path}: block {cut} spans "
+                                 f"participant {pid}'s residual chunks")
+            i, local = where
+            r = _narrow(res.parts[i], local)
+            gb = (_box(g.chunks[g.lm.cell(*res.cell_of(i))], leaf, local)
+                  if isinstance(g, fsdp.Grads) else _box(g, leaf, cut))
+        else:
+            r = _narrow(res, cut)
+            gb = _box(g, leaf, cut)
+        if gb.shape != r.shape:
+            raise ValueError(
+                f"{leaf.path}: participant {pid}'s gradient block "
+                f"{tuple(gb.shape)} is not its residual block "
+                f"{tuple(r.shape)}")
+        return r, gb.to(r.device)
+
+    def encode_blocks(self, pid: int, g, leaf, cuts: list, m: int, kb: int,
+                      km: int, res, signs, masks, dest, *, bf16: bool):
+        """Participant ``pid``'s stream of an aligned leaf, each block
+        encoded on the device :meth:`block` puts it on: ``f32(residual) +
+        f32(-lr * g)`` (``g`` cast to bf16 first with ``bf16``, v2's rule;
+        else ``-lr * g`` in ``g``'s dtype, v1's), block-local top-k ∪ the
+        mask row ``b`` of ``masks`` (the participant's ``[nb, n_peers *
+        km]`` draw, or None, with ``signs`` its ``[1, n_peers]`` signs),
+        the new residual block written in place. Consecutive blocks on one
+        device share an encode call up to ``ENCODE_ELEMS`` elements (the
+        encode is row-local, so the bits are a block's alone). Returns
+        ``(int32[nb, k_total] global indices b * m + col, f32 values)`` on
+        ``dest``."""
+        per = max(1, ENCODE_ELEMS // m)
+        idx, vals, batch = [], [], []
+        for b, cut in enumerate(cuts):
+            r, gb = self.block(pid, g, leaf, cut, res)
+            if batch and batch[0][1].device != r.device:
+                self._encode_batch(batch, m, kb, km, signs, masks, dest,
+                                   bf16, idx, vals)
+                batch = []
+            batch.append((b, r, gb))
+            del r, gb
+            if len(batch) == per:   # before the next block's gradient box
+                self._encode_batch(batch, m, kb, km, signs, masks, dest,
+                                   bf16, idx, vals)
+                batch = []
+        if batch:
+            self._encode_batch(batch, m, kb, km, signs, masks, dest, bf16,
+                               idx, vals)
+        return torch.cat(idx), torch.cat(vals)
+
+    def _encode_batch(self, batch, m, kb, km, signs, masks, dest, bf16,
+                      idx, vals) -> None:
+        """One encode call of consecutive blocks ``[(b, residual box,
+        gradient box)]`` on one device (:meth:`encode_blocks`); appends
+        their stream rows to ``idx`` / ``vals``."""
+        f32 = torch.float32
+        b0, dev, n = batch[0][0], batch[0][1].device, len(batch)
+        # each temporary goes once read: a Yi-6B block is 2.9 GB in f32
+        with _stage("encode", self.timings, dev):
+            acc = torch.empty((1, n, m), dtype=f32, device=dev)
+            for j, (_, r, gb) in enumerate(batch):
+                t = (_neg_lr(gb.to(torch.bfloat16).to(f32), self.lr) if bf16
+                     else _neg_lr(gb, self.lr).to(f32))
+                batch[j] = (None, r, None)
+                del gb
+                acc[0, j].view(r.shape).copy_(r).add_(t)
+                del t
+            mk = None if masks is None else tuple(
+                x[b0:b0 + n].to(dev)[None] for x in masks)
+            st, new = se.encode_batch_blocks(
+                acc, kb, pair_signs=None if mk is None else signs,
+                k_mask=0 if mk is None else km, masks=mk)
+            del acc
+            for j, (_, r, _) in enumerate(batch):
+                r.copy_(new[0, j].view(r.shape))
+            del new
+            # the call's rows are blocks b0..: its indices j * m + col
+            idx.append((st.indices[0].to(torch.int64) + b0 * m)
+                       .to(torch.int32).to(dest))
+            vals.append(st.values[0].to(dest))
+
     def update_param(self, params, named, name: str, value, sl=None) -> None:
         """``_update`` of one parameter by the aggregate ``value`` (whole,
         or slice ``k`` of it viewed as ``[per, *slice_shape]`` with ``sl =
@@ -583,17 +748,28 @@ class FLTrainStep(_FLStep):
         participants and update the parameters. ``record`` (a list)
         receives a dict a unit: ``leaf``, ``slice`` (None for a whole leaf),
         ``streams`` (one :class:`BlockedStream` a participant, on its
-        device, as encoded) and ``agg_absmax`` (a 0-d tensor: the
-        aggregate's max magnitude)."""
+        device, as encoded), ``agg_absmax`` (a 0-d tensor: the
+        aggregate's max magnitude), ``gathered_bytes`` (the gradient and
+        residual bytes the unit's encodes assembled from chunks: ``Grads.
+        full``, ``ChunkedRow.to`` / ``slice_to``, counted by
+        ``fsdp.Tally``) and ``home_bytes`` (the bytes of every
+        participant's stream, indices and values, that the decode reads at
+        home)."""
         leaves, specs, sizes, leaf_k = self.layout(params)
         dev = self.device(params)
         units = self.units(leaves, specs, sizes, leaf_k)
         streams = [[] for _ in units]
-        for pid, g in enumerate(grads):
+        tallies = [fsdp.Tally() for _ in units]
+        pid = 0
+        # not enumerate(grads): its reused result tuple would keep the
+        # previous participant's gradients while the next are made
+        for g in grads:
             for u, unit in enumerate(units):
                 streams[u].append(self.encode_unit(
-                    unit, leaves[unit[0]], g, residuals, pid, round_key))
+                    unit, leaves[unit[0]], g, residuals, pid, round_key,
+                    tally=tallies[u]))
             del g
+            pid += 1
         sharded = isinstance(params, fsdp.ShardedLM)
         named = None if sharded else dict(params.named_parameters())
         for u, (lid, sl, nb, kb, km, tr) in enumerate(units):
@@ -608,7 +784,10 @@ class FLTrainStep(_FLStep):
                 record.append({"leaf": lid,
                                "slice": None if sl is None else sl[0],
                                "streams": streams[u],
-                               "agg_absmax": dense.abs().max()})
+                               "agg_absmax": dense.abs().max(),
+                               "gathered_bytes": tallies[u].bytes,
+                               "home_bytes": sum(_stream_bytes(st)
+                                                 for st in streams[u])})
             streams[u] = None
             # the aggregate takes the gradient's dtype (the parameter's, f32
             # when microbatches or groups add up) before the f32 update
@@ -631,36 +810,45 @@ class FLTrainStep(_FLStep):
             del dense
 
     def encode_unit(self, unit, leaf, g: dict, residuals, pid: int,
-                    round_key) -> object:
+                    round_key, tally: fsdp.Tally | None = None) -> object:
         """Participant ``pid``'s stream of one (sub-)leaf, on its device;
-        its residual row (there too) written in place."""
+        its residual row written in place. An aligned unit encodes each
+        block where the participant holds it (:meth:`encode_blocks`); a
+        unit of generic row blocks, on the participant's lead device, its
+        gradient and residual chunks gathered there (``tally`` counts
+        them)."""
         lid, sl, nb, kb, km, tr = unit
         dev = self.devices[pid]
         res = residuals[lid][pid]
+        self.check_row(pid, res)
+        tally = fsdp.Tally() if tally is None else tally
+        if tr is not None:
+            masks = signs = None
+            if km:
+                with _stage("masks", self.timings, dev):
+                    m_idx, m_vals, signs_row = self.masks_for(
+                        threefry.fold_in(round_key, lid), pid,
+                        math.prod(leaf.shape), nb, km, tr, dev)
+                masks, signs = (m_idx, m_vals), signs_row[None]
+            return BlockedStream(*self.encode_blocks(
+                pid, g, leaf, self.block_cuts(leaf), tr[3], kb, km, res,
+                signs, masks, dev, bf16=False))
         chunked = isinstance(res, fsdp.ChunkedRow)
-        want = (fsdp.row_devices(self.groups[pid], res.dim, res.mdim)
-                if chunked else [dev])
-        have = [p.device for p in res.parts] if chunked else [res.device]
-        if have != want:
-            raise ValueError(
-                f"participant {pid}'s residuals lie on {have}, the "
-                f"participant on {want}: make them with "
-                "init_fl_residuals(params, n_fed, mesh)")
         if chunked:     # gather the unit's gradient and residual on dev
             per = 1 if sl is None else sl[1] // len(leaf.names)
             names = leaf.names if sl is None else [leaf.names[sl[0] // per]]
-            g = {n: (g.full(n, dev) if isinstance(g, fsdp.Grads)
+            g = {n: (g.full(n, dev, tally=tally) if isinstance(g, fsdp.Grads)
                      else g[n].to(dev)) for n in names}
         if sl is not None:
             i, lead, slice_shape = sl
             gi = _slice_of(g, leaf, lead, slice_shape, i).to(dev)
-            ri = (res.slice_to(lead, slice_shape, i, dev) if chunked
+            ri = (res.slice_to(lead, slice_shape, i, dev, tally) if chunked
                   else res.reshape((lead,) + slice_shape)[i])
             key = (threefry.fold_in(threefry.fold_in(round_key, lid), i)
                    if km else None)
         else:
             gi = _stacked(g, leaf).to(dev)
-            ri = res.to(dev) if chunked else res
+            ri = res.to(dev, tally=tally) if chunked else res
             key = threefry.fold_in(round_key, lid) if km else None
         masks = None
         if key is not None:
@@ -680,6 +868,13 @@ class FLTrainStep(_FLStep):
                 ri.copy_(r_new)
         return st
 
+    def block_cuts(self, leaf) -> list:
+        """:func:`aligned_block_cuts` of a leaf under the step's rules."""
+        spec = shd.param_specs({leaf.path: leaf.shape}, self.rules,
+                               self.axis_sizes)[leaf.path]
+        return aligned_block_cuts(leaf.shape, spec, self.axis_sizes,
+                                  self.intra_axes)
+
     def masks_for(self, key, pid, size, nb, km, tr, dev):
         """Participant ``pid``'s keyed masks of a (sub-)leaf, the blocked
         layout's ``(m_idx, m_vals, signs_row)``."""
@@ -695,75 +890,142 @@ class FLTrainStep(_FLStep):
 
 
 class FLTrainStepV2(_FLStep):
-    """``make_fl_train_step_v2``'s step: gradients cast to bf16 on the
-    participants' devices and brought home, every participant's leaf
-    encoded in one batched call there on the sharding-aligned block view
-    (the generic row blocks when the spec has none, or with
-    ``REPRO_FL_V2_GENERIC=1``), the new residual rows sent back, the
-    exchange one scatter a leaf. On sharded parameters it gathers each
-    participant's full gradients at home (cast to bf16 chunk by chunk on
-    their devices) and its residual chunks, and sends the chunks back."""
+    """``make_fl_train_step_v2``'s step: each participant's update encoded
+    in place, one participant at a time as its gradients arrive, on the
+    sharding-aligned block view (the generic row blocks when the spec has
+    none, or with ``REPRO_FL_V2_GENERIC=1``); the exchange one scatter a
+    leaf at home. An aligned block is encoded on the device that holds it
+    (:meth:`_FLStep.encode_blocks`: a cell's own chunk of gradient and
+    residual, the gradient cast to bf16 there), so only the stream rows
+    travel home, as the reference's pinned ``P(fed_axis, front, None)``
+    accumulator keeps the encode on each device's own block. A leaf of
+    generic blocks is encoded whole on the participant's lead device, its
+    chunks gathered there where the leaf is split."""
 
     def exchange(self, params, residuals, grads: Iterable, round_key,
                  *, record: list | None = None) -> None:
         """As :meth:`FLTrainStep.exchange`; a unit is a whole leaf and its
-        ``streams`` one :class:`StreamBatch` of every participant."""
+        ``streams`` one :class:`StreamBatch` ``[n_fed, nb, k_total]`` of
+        every participant, at home. Each participant's gradients are
+        consumed: a leaf's entries leave the participant's dict (or its
+        ``fsdp.Grads``' chunks) once the leaf is encoded, and the
+        participant is let go before the next one is asked for."""
         leaves, specs, sizes, leaf_k = self.layout(params)
-        dev = self.device(params)
+        home = self.device(params)
         generic = os.environ.get("REPRO_FL_V2_GENERIC", "0") == "1"
-        gs = [{n: g.full(n, dev, torch.bfloat16)
-               for n in g.lm.shapes} if isinstance(g, fsdp.Grads)
-              else {n: t.to(torch.bfloat16).to(dev) for n, t in g.items()}
-              for g in grads]
-        named = (None if isinstance(params, fsdp.ShardedLM)
-                 else dict(params.named_parameters()))
         n_intra = math.prod(self.axis_sizes[a] for a in self.intra_axes)
+        plans = []
         for lid, (leaf, spec) in enumerate(zip(leaves, specs)):
             tr = None if generic else sharding_aligned_transform(
                 leaf.shape, spec, self.axis_sizes, self.intra_axes)
             if tr is not None:
-                to_b, from_b, nb, m, _ = tr
+                from_b, nb, m = tr[1], tr[2], tr[3]
+                cuts = aligned_block_cuts(leaf.shape, spec, self.axis_sizes,
+                                          self.intra_axes)
             else:
                 nb, m, _ = block_layout(sizes[lid], n_intra)
-
-                def to_b(x, _nb=nb, _m=m):
-                    return se.to_blocks(x, _nb, _m)
-
-                def from_b(b, _s=sizes[lid], _sh=leaf.shape):
-                    return b.reshape(-1)[:_s].reshape(_sh)
+                from_b = functools.partial(se.from_blocks, size=sizes[lid],
+                                           shape=leaf.shape)
+                cuts = None
             kb = max(1, min(m, -(-leaf_k[lid] // nb)))
-            f32 = torch.float32
-            with _stage("encode", self.timings, dev):
-                acc = torch.stack([
-                    to_b(residuals[lid][p].to(dev, f32))
-                    + to_b(_neg_lr(_stacked(gs[p], leaf).to(f32), self.lr))
-                    for p in range(self.n_fed)])
             km = self.k_mask(sizes[lid], nb)
-            pair_keys = pair_signs = None
+            keys = None
             if km > 0:
-                with _stage("masks", self.timings, dev):
-                    pair_keys, pair_signs = se.fold_pair_key_matrix(
+                with _stage("masks", self.timings, home):
+                    keys = se.fold_pair_key_matrix(
                         threefry.fold_in(round_key, lid), self.n_fed)
-            with _stage("encode", self.timings, dev):
-                st, new_blocks = se.encode_batch_blocks(
-                    acc, kb, pair_keys=pair_keys, pair_signs=pair_signs,
-                    k_mask=km, mask_p=self.sa.p, mask_q=self.sa.q)
-                for p in range(self.n_fed):
-                    residuals[lid][p].copy_(from_b(new_blocks[p]))
-            del acc, new_blocks
-            with _stage("decode", self.timings, dev):
+            plans.append((from_b, nb, m, kb, km, keys, cuts))
+        rows = [[] for _ in leaves]     # each participant's stream, at home
+        tallies = [fsdp.Tally() for _ in leaves]
+        pid = 0
+        for g in grads:     # not enumerate: see FLTrainStep.exchange
+            self.encode_participant(pid, g, leaves, plans, residuals, rows,
+                                    tallies, home)
+            del g       # let the participant go before asking for the next
+            pid += 1
+        named = (None if isinstance(params, fsdp.ShardedLM)
+                 else dict(params.named_parameters()))
+        for lid, leaf in enumerate(leaves):
+            from_b, nb, m = plans[lid][:3]
+            st = se.StreamBatch(torch.stack([r[0] for r in rows[lid]]),
+                                torch.stack([r[1] for r in rows[lid]]))
+            rows[lid] = None
+            with _stage("decode", self.timings, home):
                 # the reference divides by n_fed; XLA multiplies by the f32
                 # reciprocal under jit (probed), which the weight reproduces
                 dense = decode_blocked_sum(st.indices, st.values, nb * m, nb,
                                            weight=1.0 / self.n_fed)
-                agg = from_b(dense.reshape(nb, m)).to(f32)
+                agg = from_b(dense.reshape(nb, m)).to(torch.float32)
             if record is not None:
                 record.append({"leaf": lid, "slice": None, "streams": st,
-                               "agg_absmax": dense.abs().max()})
-            with _stage("update", self.timings, dev):
+                               "agg_absmax": dense.abs().max(),
+                               "gathered_bytes": tallies[lid].bytes,
+                               "home_bytes": _stream_bytes(st)})
+            del st, dense
+            with _stage("update", self.timings, home):
                 parts = agg.reshape((-1,) + leaf.shape[len(leaf.lead):])
                 for j, name in enumerate(leaf.names):
                     self.update_param(params, named, name, parts[j])
+            del agg, parts
+
+    def encode_participant(self, pid: int, g, leaves, plans, residuals,
+                           rows, tallies, home) -> None:
+        """Participant ``pid``'s stream of every leaf, appended to
+        ``rows[leaf]`` at home; its residual rows written in place and
+        each leaf's gradient dropped once encoded."""
+        dev = self.devices[pid]
+        for lid, leaf in enumerate(leaves):
+            from_b, nb, m, kb, km, keys, cuts = plans[lid]
+            res = residuals[lid][pid]
+            self.check_row(pid, res)
+            masks = signs = None
+            if keys is not None:
+                with _stage("masks", self.timings, dev):
+                    masks = se.pairwise_mask_rows(
+                        keys[0][pid], keys[1][pid], nb, km, m, p=self.sa.p,
+                        q=self.sa.q, device=dev)
+                signs = keys[1][pid:pid + 1]
+            if cuts is not None:
+                idx, vals = self.encode_blocks(
+                    pid, g, leaf, cuts, m, kb, km, res, signs, masks, home,
+                    bf16=True)
+            else:
+                idx, vals = self.encode_generic(
+                    pid, g, leaf, nb, m, kb, km, res, tallies[lid], signs,
+                    masks)
+            rows[lid].append((idx.to(home), vals.to(home)))
+            if isinstance(g, fsdp.Grads):
+                g.drop(leaf.names)
+            else:
+                for name in leaf.names:
+                    g.pop(name, None)
+
+    def encode_generic(self, pid: int, g, leaf, nb: int, m: int, kb: int,
+                       km: int, res, tally: fsdp.Tally, signs, masks):
+        """Participant ``pid``'s stream of a leaf of generic row blocks,
+        encoded whole on its lead device (a chunked leaf's gradient, cast
+        to bf16 chunk by chunk, and residual gathered there; the new
+        residual written back): ``(int32[nb, k_total], f32[nb,
+        k_total])`` there."""
+        dev = self.devices[pid]
+        f32 = torch.float32
+        r = res.to(dev, tally=tally) if isinstance(res, fsdp.ChunkedRow) \
+            else res
+        gw = ({n: g.full(n, dev, torch.bfloat16, tally) for n in leaf.names}
+              if isinstance(g, fsdp.Grads) else g)
+        with _stage("encode", self.timings, dev):
+            acc = (se.to_blocks(r.to(f32), nb, m) + se.to_blocks(_neg_lr(
+                _stacked(gw, leaf).to(dev, torch.bfloat16).to(f32), self.lr),
+                nb, m))[None]
+            del r, gw
+            mk = None if masks is None else (masks[0][None], masks[1][None])
+            st, new = se.encode_batch_blocks(
+                acc, kb, pair_signs=None if mk is None else signs,
+                k_mask=0 if mk is None else km, masks=mk)
+            del acc
+            res.copy_(se.from_blocks(new[0], math.prod(leaf.shape),
+                                     leaf.shape))
+        return st.indices[0], st.values[0]
 
 
 def make_fl_train_step(cfg: ArchConfig, mesh, fed_axis: str,
