@@ -198,7 +198,7 @@ exits non-zero and no failure is caught:
      card from seed 0: DeepSeek-MoE-16B (8 of 28 layers) and
      Llama-4-Scout-17B-16E (2 of 48, top-1) at B 4, Llama-3.2-Vision-90B (10
      of 100 layers: 2 super-blocks, 1,024 seeded image embeddings) at B 2,
-     Zamba2-7B (all 81) and xLSTM-125M (all 12) at B 4, each a 1,024-token
+     Zamba2-7B (all 81) and xLSTM-125M (4 of 12) at B 4, each a 1,024-token
      prompt and 16 greedy tokens; HuBERT-XLarge (all 48) encodes 4 x 1,024
      seeded frames. Counts reset before the first prefill and read after it:
      flash launched once per attention layer (cross-attention included; the
@@ -215,7 +215,7 @@ exits non-zero and no failure is caught:
      decode times, peak memory, one profiled prefill and decode step.
  17. train (run after 16): LM training, which launches no kernel (counts
      reset and read: no flash launch; attention is ``attend_chunked``).
-     Yi-6B at full width and 2 layers in f32 (TF32 off), B 2 x T 2048
+     Yi-6B at full width and 1 layer in f32 (TF32 off), B 2 x T 2048
      (two attention chunks): loss, every gradient leaf and the params
      after one ``make_dense_train_step`` step on the card against the CPU
      (``TRAIN_LOSS_TOL``, ``TRAIN_GRAD_REL``, ``TRAIN_PARAM_TOL``); the
@@ -231,7 +231,7 @@ exits non-zero and no failure is caught:
      in bf16 over two explicit groups on ``cuda:0``, B 4 x T 4096: one step
      whose loss and params are bit-equal to the n_micro 2 step 1 below,
      its peak at most that run's plus a gathered block and ``lm_head``.
-     Tensor parallelism (``launch/tp.py``): (g) the same 2-layer f32 model
+     Tensor parallelism (``launch/tp.py``): (g) the same 1-layer f32 model
      over ``(data 1, model 2)`` on ``[cuda:0, cpu]``, B 2 x T 256: the
      bytes on the card after placement equal to ``param_specs``'
      prediction, one step within the card-vs-CPU tolerances of the same
@@ -264,7 +264,7 @@ exits non-zero and no failure is caught:
      the decode bit-equal card (the scatter kernel) vs CPU (the plain
      fold); the kernel at the embed decode bit-equal to its plain version,
      timed beside its bound and ``index_add_``, its scratch printed. (b)
-     Yi-6B at 2 layers in f32 (TF32 off), B 2 x T 512: one v1 step card vs
+     Yi-6B at 1 layer in f32 (TF32 off), B 2 x T 512: one v1 step card vs
      CPU (loss within ``FL_LOSS_TOL``; params within ``FL_PARAM_TOL``, at
      most ``FL_MOVED_SHARE`` of the elements apart: a top-k flip moves an
      element by its whole update). (d) Placement, (b)'s inputs and state:
@@ -291,7 +291,7 @@ exits non-zero and no failure is caught:
      exchange against the same streams with the mask values taken off,
      within ``FL_CANCEL_TOL``); step ms, tokens/s, peak memory, the
      exchange's entries against dense. (e) One participant over its data
-     positions (``launch/fsdp.py``), Yi-6B at 2 layers in f32, B 4 x T 128:
+     positions (``launch/fsdp.py``), Yi-6B at 1 layer in f32, B 4 x T 128:
      (i) each participant's data 0-7 and 8-15 as two explicit groups on
      ``cuda:0``, v1 and v2 steps bit-equal to the one-device step at
      n_micro 2 (params, residuals, loss, streams); (ii) data 0-7 of each
@@ -2392,10 +2392,12 @@ def lm_phase(kind: str, card: str, flash_main_ms: float) -> dict:
 
 # --------------------------------------------------- phase 16: families
 # (arch, layers on the card or None for all, batch): full width, random
-# bf16 weights drawn on the card from seed 0, one config at a time
+# bf16 weights drawn on the card from seed 0, one config at a time. xLSTM
+# runs 4 of its 12 layers (two sLSTM, two mLSTM): its sLSTM steps one token
+# a host call, and all 12 took ~42 s of [families] and ~13 s of [train]
 FAMILY_CELLS = (("deepseek_moe_16b", 8, 4), ("llama4_scout_17b_a16e", 2, 4),
                 ("llama32_vision_90b", 10, 2), ("zamba2_7b", None, 4),
-                ("xlstm_125m", None, 4), ("hubert_xlarge", None, 4))
+                ("xlstm_125m", 4, 4), ("hubert_xlarge", None, 4))
 FAMILY_T = 1024          # prompt tokens (audio: frames; VLM: image tokens)
 FAMILY_NEW = 16          # greedy tokens
 # the reference's contract (tests/test_models_smoke.py): forward over T + 1
@@ -2754,13 +2756,17 @@ def families_phase(card: str) -> dict:
 
 # ------------------------------------------------------ phase 17: train
 TRAIN_LR = 0.01
+# Yi-6B's depth in the f32 cases held against the CPU ([train] parity, the
+# [cuda:0, cpu] steps and (g); [fl_train] (b), (d), (e)): one layer covers
+# every leaf kind, and the CPU's share of the smoke's time is its largest
+PARITY_LAYERS = 1
 TRAIN_PARITY_B, TRAIN_PARITY_T = 2, 2048    # two attend_chunked chunks
 TRAIN_B, TRAIN_T = 4, 4096      # Yi-6B: train_4k's length, 4 rows a card
 TRAIN_STEPS = 2         # 5 before the tensor-parallel cases joined, 3
                         # before the FL encode in place did
 TRAIN_FAMILY_T = 1024           # the families' tokens (frames) a row,
 TRAIN_XLSTM_T = 512             # but xLSTM's: its sLSTM steps on the host
-# Yi-6B at full width and 2 layers in f32 (TF32 off), card vs CPU: the loss,
+# Yi-6B at full width in f32 (TF32 off), card vs CPU: the loss,
 # each gradient leaf's max |diff| over its max |g|, the params after one
 # step; n_micro = 2 against 1 on the card, per leaf likewise. About 2x the
 # readings on an H100 80GB HBM3 at 700 W: 9.537e-07, 1.281e-05 (wq),
@@ -2844,7 +2850,8 @@ def lm_batch(cfg, B: int, T: int, seed: int, device) -> dict:
 
 
 def train_parity(card: str) -> None:
-    """Yi-6B at full width and 2 layers, f32, TF32 off, B 2 x T 2048: the
+    """Yi-6B at full width and PARITY_LAYERS layer(s), f32, TF32 off, B 2 x
+    T 2048: the
     card against the CPU (loss, every gradient leaf, the params after one
     step), remat numerics-neutral, two steps from one state bit-equal,
     n_micro 2 against 1."""
@@ -2859,7 +2866,8 @@ def train_parity(card: str) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(configs.get("yi_6b"), n_layers=2,
+    cfg = dataclasses.replace(configs.get("yi_6b"),
+                              n_layers=PARITY_LAYERS,
                               dtype="float32")
     B, T = TRAIN_PARITY_B, TRAIN_PARITY_T
     model = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
@@ -2911,7 +2919,8 @@ def train_parity(card: str) -> None:
         model.parameters(), cpu_model.parameters()))
     moved = sum(int((p.cpu() != state0[n].cpu()).sum())
                 for n, p in model.named_parameters())
-    print(f"[train] parity on {card}: {cfg.name} full width, 2 layers, f32 "
+    print(f"[train] parity on {card}: {cfg.name} full width, "
+          f"{cfg.n_layers} layer(s), f32 "
           f"(TF32 off), B={B} T={T} (2 attention chunks): loss card "
           f"{loss.item():.7f} CPU {cpu_loss.item():.7f} |diff| "
           f"{loss_err:.3e} (tolerance {TRAIN_LOSS_TOL}); gradients max "
@@ -2965,7 +2974,8 @@ def fsdp_bytes_on(cfg, mesh, positions: int, n_data: int) -> int:
 
 
 def train_sharded_parity(card: str) -> None:
-    """Yi-6B at full width and 2 layers, f32, TF32 off, B 2 x T
+    """Yi-6B at full width and PARITY_LAYERS layer(s), f32, TF32 off, B 2 x
+    T
     TRAIN_SHARD_T, ``data 2`` on ``[cuda:0, cpu]``: the bytes placed on the
     card against ``param_specs``' prediction, then one dense step against
     the one-card step with ``n_micro`` 2 (each group one row)."""
@@ -2981,7 +2991,8 @@ def train_sharded_parity(card: str) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(configs.get("yi_6b"), n_layers=2,
+    cfg = dataclasses.replace(configs.get("yi_6b"),
+                              n_layers=PARITY_LAYERS,
                               dtype="float32")
     mesh = tmesh.LogicalMesh((2, 1), ("data", "model"), ["cuda:0", "cpu"])
     gc.collect()
@@ -3018,8 +3029,8 @@ def train_sharded_parity(card: str) -> None:
     del grads, grads_1
     param_err = max((p - lm.full(n, "cuda")).abs().max().item()
                     for n, p in model.named_parameters())
-    print(f"[train] sharded parity on {card}: {cfg.name} full width, 2 "
-          f"layers, f32 (TF32 off), data 2 on [cuda:0, cpu], B=2 "
+    print(f"[train] sharded parity on {card}: {cfg.name} full width, "
+          f"{cfg.n_layers} layer(s), f32 (TF32 off), data 2 on [cuda:0, cpu], B=2 "
           f"T={TRAIN_SHARD_T} (one row a group): cuda:0 holds {placed} bytes "
           f"after placement ({allocated} allocated), param_specs predict "
           f"{want} ({want / 4 / 1e6:.1f} M of {n_params / 1e6:.1f} M "
@@ -3146,7 +3157,8 @@ def placed_bytes(make) -> tuple:
 
 
 def train_tp_parity(card: str) -> None:
-    """(g) Yi-6B at full width and 2 layers, f32, TF32 off, B 2 x T TP_T,
+    """(g) Yi-6B at full width and PARITY_LAYERS layer(s), f32, TF32 off, B
+    2 x T TP_T,
     ``(data 1, model 2)`` on ``[cuda:0, cpu]`` (``launch/tp.py``): the bytes
     placed on the card against ``param_specs``' prediction, then one dense
     step against the same grid with both positions on ``cuda:0``, within
@@ -3162,7 +3174,8 @@ def train_tp_parity(card: str) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(configs.get("yi_6b"), n_layers=2,
+    cfg = dataclasses.replace(configs.get("yi_6b"),
+                              n_layers=PARITY_LAYERS,
                               dtype="float32")
     cuda0, cpu = torch.device("cuda", 0), torch.device("cpu")
     mesh = tmesh.LogicalMesh((1, 2), ("data", "model"), [["cuda:0", "cpu"]])
@@ -3201,8 +3214,8 @@ def train_tp_parity(card: str) -> None:
     rel, at = grad_gap(a["grads"], b["grads"])
     param_err = max((a["params"][n] - p).abs().max().item()
                     for n, p in b["params"].items())
-    print(f"[train] (g) tensor parallel on {card}: {cfg.name} full width, 2 "
-          f"layers, f32 (TF32 off), (data 1, model 2) on [cuda:0, cpu], B=2 "
+    print(f"[train] (g) tensor parallel on {card}: {cfg.name} full width, "
+          f"{cfg.n_layers} layer(s), f32 (TF32 off), (data 1, model 2) on [cuda:0, cpu], B=2 "
           f"T={TP_T}: cuda:0 holds {placed} bytes after placement "
           f"({allocated} allocated), param_specs predict {want}; tensors on "
           f"{a['devices']}; against the same grid on [cuda:0, cuda:0]: loss "
@@ -3325,6 +3338,337 @@ def train_tp_yi6b(card: str) -> None:
     check(err <= TP_PARAM_TOL and moved <= TP_MOVED_SHARE * total,
           f"(f) params {err:.3e} at {worst}, {moved} of {total} apart")
     check(a["launches"]["flash_attention"] == 0, "(f) launched flash")
+    del batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# (h) DeepSeek-MoE-16B at full width, cut to the depth [families] runs
+# (8 of 28 layers), in bf16, over (data 1, model 2) on cuda:0 against the
+# one-card step: the loss, the params after one step (max |diff| and the
+# share of elements apart), as (f). About 2x the readings on an H100 80GB
+# HBM3 at 700 W: 1.984e-04; 2.441e-04 (one bf16 ulp of embed's values in
+# [1/32, 1/16)); 2,426,077 of 5,122,328,576 elements (4.74e-4)
+TP_MOE_LAYERS = 8
+TP_MOE_LOSS_TOL = 4e-4
+TP_MOE_PARAM_TOL = 4.9e-4
+TP_MOE_MOVED_SHARE = 9.5e-4
+TP_MOE_PEAK_GIB = 75
+TP_MOE_LAYER_B, TP_MOE_LAYER_T = 2, 256     # the layer check's rows
+ROUTED = ("wi_gate", "wi_up", "wo")
+
+
+def moe_config(layers: int = TP_MOE_LAYERS):
+    """DeepSeek-MoE-16B at its published widths, ``layers`` deep."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    return dataclasses.replace(configs.get("deepseek_moe_16b"),
+                               n_layers=layers)
+
+
+@contextlib.contextmanager
+def tp_traffic(lm):
+    """Tallies, while the block runs, the bytes a model position reads of
+    another position's chunk of a routed expert leaf (a gather at use:
+    ``GridView.chunk`` with ``i != j``), the bytes the MoE exchange
+    hands from one position to another (the pieces of each 5-D all-to-all
+    that change position, forward and backward) with its calls, and the
+    bytes of position 0's routing broadcast (each token's expert ids and
+    gates ``[B, T, k]`` to the other positions; the gates' gradients
+    back)."""
+    from repro_torch.launch import tp
+
+    routed = {n for n in lm.shapes
+              if ".moe." in n and n.rsplit(".", 1)[1] in ROUTED}
+    k = lm.cfg.moe.top_k
+    tally = {"expert_gathered": 0, "exchange": 0, "exchange_calls": 0,
+             "route": 0}
+    chunk, fwd, bwd = (tp.GridView.chunk, tp._AllToAll.forward,
+                       tp._AllToAll.backward)
+    bfwd, bbwd = tp._Broadcast.forward, tp._Broadcast.backward
+
+    def spy_chunk(self, j, name, i):
+        t = chunk(self, j, name, i)
+        if i != j and name in routed:
+            tally["expert_gathered"] += t.numel() * t.element_size()
+        return t
+
+    def moved(ts):
+        if ts[0].dim() == 5:
+            m = len(ts)
+            tally["exchange"] += sum(t.numel() * t.element_size()
+                                     for t in ts) * (m - 1) // m
+            tally["exchange_calls"] += 1
+
+    def spy_fwd(ctx, split_dim, cat_dim, *xs):
+        moved(xs)
+        return fwd(ctx, split_dim, cat_dim, *xs)
+
+    def spy_bwd(ctx, *gs):
+        moved(gs)
+        return bwd(ctx, *gs)
+
+    def spy_bfwd(ctx, devices, x):
+        if x.shape[-1] == k:
+            tally["route"] += x.numel() * x.element_size() * (
+                len(devices) - 1)
+        return bfwd(ctx, devices, x)
+
+    def spy_bbwd(ctx, *gs):
+        if gs[0].shape[-1] == k:
+            tally["route"] += sum(g.numel() * g.element_size()
+                                  for g in gs[1:])
+        return bbwd(ctx, *gs)
+
+    tp.GridView.chunk = spy_chunk
+    tp._AllToAll.forward = staticmethod(spy_fwd)
+    tp._AllToAll.backward = staticmethod(spy_bwd)
+    tp._Broadcast.forward = staticmethod(spy_bfwd)
+    tp._Broadcast.backward = staticmethod(spy_bbwd)
+    try:
+        yield tally
+    finally:
+        tp.GridView.chunk = chunk
+        tp._AllToAll.forward = staticmethod(fwd)
+        tp._AllToAll.backward = staticmethod(bwd)
+        tp._Broadcast.forward = staticmethod(bfwd)
+        tp._Broadcast.backward = staticmethod(bbwd)
+
+
+def exchange_bytes(cfg, B: int, T: int, m: int, passes: int = 3) -> int:
+    """The MoE exchange's bytes a step, from the shapes: each layer, in the
+    forward, the recompute and the backward, every position hands each
+    other position its ``[B, T/m, k, d]`` contributions (model dtype)."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    item = torch.empty((), dtype=tf.DTYPES[cfg.dtype]).element_size()
+    return (passes * cfg.n_layers * (m - 1) * B * T * cfg.moe.top_k
+            * cfg.d_model * item)
+
+
+def route_bytes(cfg, B: int, T: int, m: int) -> int:
+    """The routing broadcast's bytes a step, from the shapes: each layer,
+    in the forward and the recompute, position 0 hands each other position
+    every token's ``top_k`` expert ids (int64) and gates (f32); in the
+    backward each other position hands back the gates' gradients (f32)."""
+    return cfg.n_layers * (m - 1) * B * T * cfg.moe.top_k * (2 * (8 + 4)
+                                                             + 4)
+
+
+def gathered_before(cfg, n_micro: int, m: int = 2) -> int:
+    """The routed expert bytes the parent's layout gathered a step onto
+    position 0 (every other position's chunk of each routed leaf, in the
+    forward and the recompute of each call)."""
+    e, d, f = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_ff_expert
+    return n_micro * cfg.n_layers * 2 * (m - 1) * (3 * e * d * f * 2) // m
+
+
+def tp_moe_layer(card: str) -> None:
+    """(h)'s layer check: one DeepSeek-MoE-16B layer at full width in bf16
+    over ``(data 1, model 2)`` on ``cuda:0`` (``tp.moe_routed`` /
+    ``tp.moe_block``) against ``moe.apply_moe`` on the same whole rows, B
+    TP_MOE_LAYER_B x T TP_MOE_LAYER_T: the routed output, the aux loss and
+    each routed expert leaf's and the router's gradient bit-equal (position
+    0 routes, as ``apply_moe`` does on its one device); the whole layer's
+    output gap (the shared expert's row-parallel partial sums) and its
+    leaves' gradients printed."""
+    import torch
+
+    from repro_torch.launch import fsdp, tp
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tf
+
+    cfg = moe_config(1)
+    cuda0 = torch.device("cuda", 0)
+    prefix = "blocks.0.moe."
+    model = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    lm = fsdp.shard(model, tmesh.LogicalMesh((1, 2), ("data", "model"),
+                                             "cuda:0"),
+                    groups=[((cuda0, cuda0), range(0, 1))])
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    shape = (TP_MOE_LAYER_B, TP_MOE_LAYER_T, cfg.d_model)
+    x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    cot = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    out = {}
+    for tag, fn in (("routed", tp.moe_routed), ("whole", tp.moe_block)):
+        p = {n[len(prefix):]: t.detach().clone().requires_grad_(True)
+             for n, t in model.named_parameters() if n.startswith(prefix)}
+        if tag == "routed":
+            p = {n: t for n, t in p.items() if not n.startswith("shared_")}
+        ref = moe_mod.apply_moe(p, x, cfg.moe)
+        g_ref = dict(zip(p, torch.autograd.grad(
+            (ref.y.float() * cot.float()).sum() + ref.aux_loss,
+            list(p.values()))))
+        view = tp.GridView(lm, 0)
+        st = tp.Stream(view.devices, TP_MOE_LAYER_T)
+        with torch.enable_grad():
+            ys, aux = fn(view, prefix, cfg, st, [x.clone(), x.clone()])
+            loss = sum((y.float() * c.float()).sum()
+                       for y, c in zip(ys, cot.chunk(2, 1))) + aux
+            reads = [r for r in view.reads if r[1][0].startswith(prefix)]
+            grads = torch.autograd.grad(loss, [a for _, _, a in reads],
+                                        allow_unused=True)
+        parts: dict = {}
+        for (j, key, _), g in sorted(zip(reads, grads),
+                                     key=lambda r: r[0][0]):
+            if g is not None:
+                parts.setdefault(key, []).append(g)
+        g_tp = {}
+        for name in sorted({k[0] for k in parts}):
+            keys = sorted((k for k in parts if k[0] == name),
+                          key=lambda k: -1 if k[2] is None else k[2])
+            chunks = [tp.fold(parts[k], cuda0) for k in keys]
+            md = lm.mdims[name]
+            g_tp[name[len(prefix):]] = (chunks[0] if md is None
+                                        else torch.cat(chunks, md))
+        y = torch.cat(ys, 1)
+        out[tag] = {
+            "y": bits_equal(y, ref.y), "aux": bits_equal(aux, ref.aux_loss),
+            "y_gap": (y.float() - ref.y.float()).abs().max().item(),
+            "grads": {n: bits_equal(g_tp[n], g_ref[n]) for n in g_ref}}
+        del p, ref, g_ref, g_tp, parts, grads, reads, ys, view
+    print(f"[train] (h) layer on {card}: {cfg.name} layer 0 at full width, "
+          f"bf16, (data 1, model 2) on cuda:0, B={TP_MOE_LAYER_B} "
+          f"T={TP_MOE_LAYER_T}, against moe.apply_moe on the same rows: "
+          f"routed y bit-equal {out['routed']['y']}, aux "
+          f"{out['routed']['aux']}, routed expert and router gradients "
+          f"bit-equal {out['routed']['grads']}; with the shared "
+          f"expert: y max |diff| {out['whole']['y_gap']:.3e} (bit-equal "
+          f"{out['whole']['y']}), aux {out['whole']['aux']}, gradients "
+          f"bit-equal {out['whole']['grads']}", flush=True)
+    check(out["routed"]["y"] and out["routed"]["aux"]
+          and all(out["routed"]["grads"].values())
+          and out["whole"]["aux"]
+          and all(out["whole"]["grads"][n] for n in ROUTED + ("router",)),
+          f"(h) the tensor-parallel MoE layer differs from apply_moe: "
+          f"{out}")
+    del lm, model, x, cot
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_tp_moe(card: str) -> None:
+    """(h) DeepSeek-MoE-16B at full width, TP_MOE_LAYERS layers, bf16, seed
+    0, B TRAIN_B x T TRAIN_T at the dry run's n_micro, over ``(data 1,
+    model 2)`` with both positions on ``cuda:0`` (``launch/tp.py``: each
+    position runs its own experts; an all-to-all hands the expert outputs
+    back to the sequence slices): the bytes placed against
+    ``param_specs``' prediction, the routed expert bytes gathered (0), the
+    exchange's bytes against :func:`exchange_bytes` and the routing
+    broadcast's against :func:`route_bytes`; one step against
+    the one-card step (TP_MOE_LOSS_TOL, TP_MOE_PARAM_TOL, at most
+    TP_MOE_MOVED_SHARE apart); two steps from one state bit-equal; step
+    ms, tokens/s, the step's own peak (<= TP_MOE_PEAK_GIB)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import fsdp
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models import transformer as tf
+
+    tp_moe_layer(card)
+    cfg = moe_config()
+    cuda0 = torch.device("cuda", 0)
+    grid_ = [((cuda0, cuda0), range(0, 1))]
+    mesh = tmesh.LogicalMesh((1, 2), ("data", "model"), "cuda:0")
+    n_micro = ttrain.micro_batches(tf.param_count(tf.init_params(
+        configs.get("deepseek_moe_16b"), device="meta")))
+    batch = lm_batch(cfg, TRAIN_B, TRAIN_T, 0, "cuda")
+
+    def draw():
+        return tf.init_params(cfg, torch.Generator(
+            device="cuda").manual_seed(0))
+
+    def tp_step():
+        lm, (placed, _) = placed_bytes(
+            lambda: fsdp.shard(draw(), mesh, groups=grid_))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        ops.reset_launch_counts()
+        with tp_traffic(lm) as tally:
+            t0 = time.perf_counter()
+            loss = ttrain.make_dense_train_step(
+                cfg, lr=TRAIN_LR, n_micro=n_micro)(lm, batch)[1]
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        return lm, {"ms": ms, "loss": loss, "placed": placed,
+                    "launches": ops.launch_counts(), **tally,
+                    "peak": torch.cuda.max_memory_allocated() - held
+                    + placed}
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = draw()          # the one-card step, kept for the comparison
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss_1 = ttrain.make_dense_train_step(cfg, lr=TRAIN_LR,
+                                          n_micro=n_micro)(model, batch)[1]
+    torch.cuda.synchronize()
+    ms_1 = (time.perf_counter() - t0) * 1e3
+    peak_1 = torch.cuda.max_memory_allocated()
+    lm, a = tp_step()
+    kept = {n: lm.full(n, cuda0) for n in lm.shapes}
+    err, moved, total, worst = gap_on_card(kept, dict(
+        model.named_parameters()))
+    del lm, model
+    gc.collect()
+    lm, b = tp_step()
+    same = bits_equal(a["loss"], b["loss"]) and all(
+        bits_equal(lm.full(n, cuda0), p) for n, p in kept.items())
+    del lm, kept
+    predicted = grid_bytes_on(cfg, mesh, grid_, cuda0)
+    want_x = exchange_bytes(cfg, TRAIN_B, TRAIN_T, 2)
+    want_r = route_bytes(cfg, TRAIN_B, TRAIN_T, 2)
+    before = gathered_before(cfg, n_micro)
+    loss_err = abs(a["loss"].item() - loss_1.item())
+    tokens = TRAIN_B * TRAIN_T
+    print(f"[train] (h) tensor parallel MoE on {card}: {cfg.name} at full "
+          f"width, {cfg.n_layers} of 28 layers, bf16, B={TRAIN_B} "
+          f"T={TRAIN_T} as n_micro={n_micro}, (data 1, model 2) with both "
+          f"positions on cuda:0: cuda:0 holds {a['placed']} bytes after "
+          f"placement, param_specs predict {predicted}; routed expert bytes "
+          f"gathered {a['expert_gathered']} / {b['expert_gathered']} "
+          f"(the parent's layout: {before}); exchange {a['exchange']} / "
+          f"{b['exchange']} bytes in {a['exchange_calls']} calls (hand "
+          f"count {want_x}); routing broadcast {a['route']} / "
+          f"{b['route']} bytes (hand count {want_r}); steps "
+          f"{a['ms']:.3f} / {b['ms']:.3f} ms "
+          f"({tokens / a['ms'] * 1e3:.1f} / {tokens / b['ms'] * 1e3:.1f} "
+          f"tokens/s; the one-card step {ms_1:.3f} ms, peak "
+          f"{peak_1 / 2**30:.2f} GiB), peak {a['peak'] / 2**30:.2f} / "
+          f"{b['peak'] / 2**30:.2f} GiB; against the one-card step: loss "
+          f"{a['loss'].item():.6f} vs {loss_1.item():.6f} |diff| "
+          f"{loss_err:.3e} (tolerance {TP_MOE_LOSS_TOL}), params max |diff| "
+          f"{err:.3e} at {worst} (tolerance {TP_MOE_PARAM_TOL}), {moved} of "
+          f"{total} elements apart (share tolerance {TP_MOE_MOVED_SHARE}); "
+          f"two steps from one state bit-equal {same}; launches "
+          f"{a['launches']}", flush=True)
+    check(a["placed"] == predicted and b["placed"] == predicted,
+          f"(h) cuda:0 holds {a['placed']} / {b['placed']} bytes after "
+          f"placement, param_specs predict {predicted}")
+    check(a["expert_gathered"] == 0 and b["expert_gathered"] == 0,
+          f"(h) routed expert bytes gathered: {a['expert_gathered']}")
+    check(a["exchange"] == want_x and b["exchange"] == want_x,
+          f"(h) exchange {a['exchange']} bytes, hand count {want_x}")
+    check(a["route"] == want_r and b["route"] == want_r,
+          f"(h) routing broadcast {a['route']} bytes, hand count {want_r}")
+    check(same, "(h) two tensor-parallel steps from one state differ")
+    check(math.isfinite(a["loss"].item()), "(h) a non-finite loss")
+    check(loss_err <= TP_MOE_LOSS_TOL, f"(h) loss {loss_err:.3e}")
+    check(err <= TP_MOE_PARAM_TOL and moved <= TP_MOE_MOVED_SHARE * total,
+          f"(h) params {err:.3e} at {worst}, {moved} of {total} apart")
+    check(max(a["peak"], b["peak"]) <= TP_MOE_PEAK_GIB * 2**30,
+          f"(h) peaked at {max(a['peak'], b['peak']) / 2**30:.2f} GiB")
+    check(a["launches"]["flash_attention"] == 0, "(h) launched flash")
     del batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -3585,9 +3929,10 @@ def train_phase(card: str) -> None:
 
 
 def train_tp_phase(card: str) -> None:
-    """[train] (f) and (g): tensor parallelism over ``model``."""
+    """[train] (f), (g) and (h): tensor parallelism over ``model``."""
     train_tp_parity(card)
     train_tp_yi6b(card)
+    train_tp_moe(card)
 
 
 # --------------------------------------------------- phase 18: fl_train
@@ -3790,7 +4135,8 @@ def same_params(a, b) -> bool:
 
 
 def fl_parity(card: str) -> dict:
-    """(b) Yi-6B at full width, 2 layers, f32 (TF32 off), B 2 x T 512, on
+    """(b) Yi-6B at full width, PARITY_LAYERS layer(s), f32 (TF32 off), B 2
+    x T 512, on
     the multi-pod layout: one v1 step on the card against the CPU (loss;
     params, where a top-k flip moves an element by its whole update).
     Then (d), placement: the same step with every position on ``cuda:0``
@@ -3805,7 +4151,7 @@ def fl_parity(card: str) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg, mesh, thgs, sa = fl_config(layers=2, dtype="float32")
+    cfg, mesh, thgs, sa = fl_config(layers=PARITY_LAYERS, dtype="float32")
     model = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     cpu_model = tf.init_params(cfg, device="cpu")
     cpu_model.load_state_dict(model.state_dict())
@@ -3830,7 +4176,8 @@ def fl_parity(card: str) -> dict:
     param_err, moved, total, worst = params_gap(model, cpu_model)
     moved_any = sum(int((p != state0[n]).sum())
                     for n, p in model.named_parameters())
-    print(f"[fl_train] (b) v1 step {cfg.name} full width, 2 layers, f32 "
+    print(f"[fl_train] (b) v1 step {cfg.name} full width, "
+          f"{cfg.n_layers} layer(s), f32 "
           f"(TF32 off), B={FL_PARITY_B} T={FL_PARITY_T}, pod 2 x data 16 x "
           f"model 16 on {card}: loss card {out['cuda'][0]:.7f} CPU "
           f"{out['cpu'][0]:.7f} |diff| {loss_err:.3e} (tolerance "
@@ -4067,7 +4414,6 @@ def fl_yi6b(card: str) -> dict:
 
     from repro_torch import convert
     from repro_torch.core import threefry
-    from repro_torch.core.blocked import decode_blocked_sum
     from repro_torch.kernels import ops
     from repro_torch.launch import train as ttrain
     from repro_torch.launch.fl_train import step_wire_record
@@ -4124,25 +4470,9 @@ def fl_yi6b(card: str) -> dict:
             for n in lf.names)
     res_ok = {lf.path: bool(torch.isfinite(r).all()) and bool(r.any())
               for lf, r in zip(leaves, residuals)}
-    # masks cancel on lm_head (step 3's streams, its masks regenerated)
-    lid = paths.index("lm_head")
-    r = next(x for x in record if x["leaf"] == lid)
-    unit = next(u for u in step.units(*step.layout(params)) if u[0] == lid)
-    _, _, nb, kb, km, _ = unit
-    size = math.prod(leaves[lid].shape)
-    key = threefry.fold_in(threefry.key(FL_STEPS - 1), lid)
-    idx = torch.stack([st.indices for st in r["streams"]])
-    vals = torch.stack([st.values for st in r["streams"]])
-    plain = vals.clone()
-    nz = 0
-    for p in range(2):
-        m_idx, m_vals, _ = step.masks_for(key, p, size, nb, km, None,
-                                          vals.device)
-        plain[p, :, kb:] -= m_vals
-        nz += int((m_vals != 0).sum())
-    cancel = fl_cancel(decode_blocked_sum(idx, vals, size, nb, 0.5),
-                       decode_blocked_sum(idx, plain, size, nb, 0.5), nz,
-                       "lm_head")
+    # masks cancel on lm_head (the last step's streams, masks regenerated)
+    cancel = fl_cancel_v1(step, params, record, threefry.key(FL_STEPS - 1),
+                          "lm_head")
     slots = sum(st.indices.numel() for x in record for st in x["streams"])
     ledger = CommLedger()
     ledger.record(step_wire_record(0, [math.prod(lf.shape) for lf in leaves],
@@ -4245,7 +4575,8 @@ def group_gradient_spy(plain: dict, seen: list):
 
 def fl_sharded(card: str) -> dict:
     """(e) one participant over its data positions, on (b)'s multi-pod
-    layout, Yi-6B at 2 layers, f32 (TF32 off), B FL_B x T FL_SHARD_T (2 rows
+    layout, Yi-6B at PARITY_LAYERS layer(s), f32 (TF32 off), B FL_B x T
+    FL_SHARD_T (2 rows
     a participant, one a group). (i) each participant's data 0-7 and 8-15
     as two explicit groups on ``cuda:0``: v1 and v2 steps bit-equal to the
     one-device step at n_micro 2 (params, residuals, loss, streams). (ii)
@@ -4265,7 +4596,7 @@ def fl_sharded(card: str) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg, mesh, thgs, sa = fl_config(layers=2, dtype="float32")
+    cfg, mesh, thgs, sa = fl_config(layers=PARITY_LAYERS, dtype="float32")
     cuda0, cpu = torch.device("cuda", 0), torch.device("cpu")
     mesh_1 = card_mesh(mesh)
     halves = [(cuda0, range(0, 8)), (cuda0, range(8, 16))]
@@ -4326,8 +4657,8 @@ def fl_sharded(card: str) -> dict:
                            for (a, b), (c, d) in zip(streams_of(rec_1),
                                                      streams_of(rec_i)))}
         print(f"[fl_train] (e)(i) {version} on {card}: each participant's "
-              f"data 0-7 and 8-15 as two groups on cuda:0, {cfg.name} 2 "
-              f"layers f32, B={FL_B} T={FL_SHARD_T}: {t_i:.2f} s (the "
+              f"data 0-7 and 8-15 as two groups on cuda:0, {cfg.name} "
+              f"{cfg.n_layers} layer(s) f32, B={FL_B} T={FL_SHARD_T}: {t_i:.2f} s (the "
               f"one-device n_micro 2 step {t_1:.2f} s), loss {loss_i:.7f}; "
               f"bit-equal to the one-device step {same}", flush=True)
         check(all(same.values()), f"(e)(i) {version} differs from the "
@@ -4588,8 +4919,187 @@ def fl_tp(card: str) -> dict:
     return counts
 
 
+# (g) DeepSeek-MoE-16B (8 layers, bf16), each participant over (data 1,
+# model 2) on cuda:0, against the one-device step of its version: the
+# params' max |diff|. About 2x the readings on an H100 80GB HBM3 at 700 W:
+# 2.441e-04 at lm_head for v2 and v1 (one bf16 ulp), 127,305 / 92,105 of
+# 5,122,328,576 elements apart (2.5e-5 / 1.8e-5, under FL_MOVED_SHARE)
+FL_TP_MOE_PARAM_TOL = 4.9e-4
+
+
+def fl_cancel_v1(step, params, record, round_key, path: str) -> dict:
+    """The mask check on v1's whole-leaf unit ``path`` (its masks
+    regenerated by ``step.masks_for`` and taken off the streams' mask
+    slots)."""
+    import torch
+
+    from repro_torch.core import threefry
+    from repro_torch.core.blocked import decode_blocked_sum
+
+    layout = step.layout(params)
+    leaves = layout[0]
+    lid = [lf.path for lf in leaves].index(path)
+    r = next(x for x in record if x["leaf"] == lid)
+    _, _, nb, kb, km, _ = next(u for u in step.units(*layout)
+                               if u[0] == lid)
+    size = math.prod(leaves[lid].shape)
+    key = threefry.fold_in(round_key, lid)
+    idx = torch.stack([st.indices for st in r["streams"]])
+    vals = torch.stack([st.values for st in r["streams"]])
+    plain = vals.clone()
+    nz = 0
+    for p in range(len(r["streams"])):
+        _, m_vals, _ = step.masks_for(key, p, size, nb, km, None,
+                                      vals.device)
+        plain[p, :, kb:] -= m_vals
+        nz += int((m_vals != 0).sum())
+    return fl_cancel(decode_blocked_sum(idx, vals, size, nb, 0.5),
+                     decode_blocked_sum(idx, plain, size, nb, 0.5), nz,
+                     f"v1 {path}")
+
+
+def fl_tp_moe(card: str) -> dict:
+    """(g) DeepSeek-MoE-16B at full width, TP_MOE_LAYERS layers, bf16, seed
+    0, federated over 2 participants, each ``(data 1, model 2)`` with both
+    positions on ``cuda:0`` (``launch/tp.py``'s expert-parallel MoE), B
+    FL_B x T FL_T. The v2 step (the reference's production step, encoded
+    in place) and the v1 step, each against its one-device step on the
+    same (2, 1, 2) layout: params within FL_TP_MOE_PARAM_TOL with at most
+    FL_MOVED_SHARE apart, the masks cancel (v2 on ``embed``, v1 on
+    ``lm_head``), one scatter launch a unit (counts reset and read around
+    each grid step; they join the kernel table's), no byte gathered on an
+    aligned leaf (v2) and no routed expert byte gathered, the exchange's
+    bytes against :func:`exchange_bytes` and the routing broadcast's
+    against :func:`route_bytes`, peak <= FL_PEAK_GIB. Returns the
+    two grid steps' launches."""
+    import torch
+
+    from repro_torch.core.blocked import sharding_aligned_transform
+    from repro_torch.core import threefry
+    from repro_torch.kernels import ops
+    from repro_torch.launch import fsdp
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models import transformer as tf
+
+    _, _, thgs, sa = fl_config()
+    cfg = moe_config()
+    cuda0 = torch.device("cuda", 0)
+    mesh = tmesh.LogicalMesh((2, 1, 2), ("pod", "data", "model"), "cuda:0")
+    grid_ = [((cuda0, cuda0), range(0, 1))]
+    batch = lm_batch(cfg, FL_B, FL_T, 0, "cuda")
+    key = threefry.key(0)
+    want_x = exchange_bytes(cfg, FL_B, FL_T, 2)
+    want_r = route_bytes(cfg, FL_B, FL_T, 2)
+    total_counts = {k: 0 for k in ops.KERNELS}
+
+    def draw():
+        return tf.init_params(cfg, torch.Generator(
+            device="cuda").manual_seed(0))
+
+    for version, make in (("v2", ttrain.make_fl_train_step_v2),
+                          ("v1", ttrain.make_fl_train_step)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = draw()
+        res = ttrain.init_fl_residuals(model, 2)
+        step = make(cfg, mesh, "pod", thgs, sa, lr=FL_LR)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss_1 = step(model, res, batch, key)[2].item()
+        torch.cuda.synchronize()
+        ms_1 = (time.perf_counter() - t0) * 1e3
+        want = {n: p.detach().cpu() for n, p in model.named_parameters()}
+        del model, res, step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        lm = fsdp.shard(draw(), mesh, "pod", groups=grid_)
+        res = ttrain.init_fl_residuals(lm, 2, mesh, "pod",
+                                       groups=[grid_] * 2)
+        step = make(cfg, mesh, "pod", thgs, sa, lr=FL_LR,
+                    groups=[grid_] * 2)
+        rec: list = []
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        with tp_traffic(lm) as tally:
+            t0 = time.perf_counter()
+            loss = step(lm, res, batch, key, record=rec)[2].item()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        total_counts = {k: total_counts[k] + counts[k] for k in counts}
+        layout = step.layout(lm)
+        leaves, specs = layout[:2]
+        units = (len(leaves) if version == "v2"
+                 else len(step.units(*layout)))
+        cancel = (fl_cancel_v2(step, lm.meta, rec, key) if version == "v2"
+                  else fl_cancel_v1(step, lm, rec, key, "lm_head"))
+        aligned = [sharding_aligned_transform(lf.shape, sp, step.axis_sizes,
+                                              step.intra_axes) is not None
+                   for lf, sp in zip(leaves, specs)]
+        gathered = {leaves[r["leaf"]].path: r["gathered_bytes"] for r in rec
+                    if aligned[r["leaf"]] and r["gathered_bytes"]}
+        all_gathered = sum(r["gathered_bytes"] for r in rec)
+        del rec
+        finite = math.isfinite(loss) and all(
+            bool(torch.isfinite(t).all()) for _, t in lm.tensors())
+        got = {n: lm.full(n, cuda0) for n in lm.shapes}
+        err, moved, total, worst = gap_on_card(got, want)
+        del got, want, lm, res, step
+        print(f"[fl_train] (g) {version} tensor parallel MoE on {card}: "
+              f"{cfg.name} at full width, {cfg.n_layers} of 28 layers, bf16, "
+              f"2 participants each (data 1, model 2) on cuda:0, B={FL_B} "
+              f"T={FL_T}: step {ms:.3f} ms "
+              f"({FL_B * FL_T / ms * 1e3:.1f} tokens/s; the one-device "
+              f"step {ms_1:.3f} ms), peak {peak / 2**30:.2f} GiB, loss "
+              f"{loss:.6f} (one-device {loss_1:.6f}), launches {counts} "
+              f"({units} units, {len(leaves)} leaves, {sum(aligned)} "
+              f"aligned); the encode gathered {all_gathered} bytes, "
+              f"{gathered if version == 'v2' else 'v1: generic units'} on "
+              f"aligned leaves; routed expert bytes gathered "
+              f"{tally['expert_gathered']}, exchange {tally['exchange']} "
+              f"bytes in {tally['exchange_calls']} calls (hand count "
+              f"{want_x}), routing broadcast {tally['route']} bytes (hand "
+              f"count {want_r}); params vs the one-device step max |diff| "
+              f"{err:.3e} at {worst} (tolerance {FL_TP_MOE_PARAM_TOL}), "
+              f"{moved} of {total} elements apart (share tolerance "
+              f"{FL_MOVED_SHARE}); params finite {finite}; {cancel['text']}",
+              flush=True)
+        check(counts["stream_scatter_add"] == units,
+              f"(g) {version}: {counts['stream_scatter_add']} scatter "
+              f"launches for {units} units")
+        check(math.isfinite(loss_1) and finite,
+              f"(g) {version}: a non-finite loss or param")
+        check(cancel["ok"], f"(g) {version} masks do not cancel: "
+              f"{cancel['text']}")
+        check(version == "v1" or not gathered,
+              f"(g) v2 gathered bytes on aligned leaves: {gathered}")
+        check(tally["expert_gathered"] == 0,
+              f"(g) {version}: routed expert bytes gathered "
+              f"{tally['expert_gathered']}")
+        check(tally["exchange"] == want_x,
+              f"(g) {version}: exchange {tally['exchange']} bytes, hand "
+              f"count {want_x}")
+        check(tally["route"] == want_r,
+              f"(g) {version}: routing broadcast {tally['route']} bytes, "
+              f"hand count {want_r}")
+        check(peak <= FL_PEAK_GIB * 2**30,
+              f"(g) {version} peaked at {peak / 2**30:.2f} GiB")
+        check(err <= FL_TP_MOE_PARAM_TOL and moved <= FL_MOVED_SHARE * total,
+              f"(g) {version} params vs the one-device step {err:.3e} at "
+              f"{worst}, {moved} of {total} apart")
+    del batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total_counts
+
+
 def fl_dense_secagg(card: str) -> None:
-    """(g) table2_fedavg_quick with dense secure aggregation, 2 rounds on
+    """(h) table2_fedavg_quick with dense secure aggregation, 2 rounds on
     the card and on the CPU: the ledgers are equal."""
     from repro_torch.core.types import SecureAggConfig
     from repro_torch.sim import presets
@@ -4603,7 +5113,7 @@ def fl_dense_secagg(card: str) -> None:
     same = facts["cuda"] == facts["cpu"] and all(
         res["cuda"].ledger.totals(a) == res["cpu"].ledger.totals(a)
         for a in ("paper", "tpu"))
-    print(f"[fl_train] (g) table2_fedavg_quick with dense secure "
+    print(f"[fl_train] (h) table2_fedavg_quick with dense secure "
           f"aggregation, 2 rounds on {card}: accuracies card "
           f"{res['cuda'].accuracies} CPU {res['cpu'].accuracies}; ledger "
           f"equal {same}", flush=True)
@@ -4626,12 +5136,14 @@ def fl_train_phase(card: str, device) -> tuple[dict, dict]:
     t4 = time.perf_counter()
     tp = fl_tp(card)
     t5 = time.perf_counter()
+    tp_moe = fl_tp_moe(card)
+    t6 = time.perf_counter()
     fl_dense_secagg(card)
     print(f"[fl_train] phase 18 took {time.perf_counter() - t0:.1f} s on "
           f"{card} ((a) {t1 - t0:.1f} s, (b) and (d) {t2 - t1:.1f} s, (c) "
-          f"{t3 - t2:.1f} s, (e) {t4 - t3:.1f} s, (f) {t5 - t4:.1f} s)",
-          flush=True)
-    return row, {k: counts[k] + placed[k] + sharded[k] + tp[k]
+          f"{t3 - t2:.1f} s, (e) {t4 - t3:.1f} s, (f) {t5 - t4:.1f} s, (g) "
+          f"{t6 - t5:.1f} s)", flush=True)
+    return row, {k: counts[k] + placed[k] + sharded[k] + tp[k] + tp_moe[k]
                  for k in counts}
 
 
@@ -6155,9 +6667,8 @@ def main() -> int:
                     "probe, the pair-mask kernel's flat and round rows "
                     "and one round's mask path probe, [sharded], [bench], "
                     "[families], [train], [fl_train], [selectors], "
-                    "[secagg_demo] or the tensor-parallel cases ([train] "
-                    "(f), (g) and [fl_train] (f)) "
-                    "alone, with no "
+                    "[secagg_demo], the tensor-parallel cases ([train] "
+                    "(f), (g), (h) and [fl_train] (f), (g)) alone, with no "
                     "result line: a "
                     "kernel's "
                     "times on a "
@@ -6246,6 +6757,7 @@ def main() -> int:
     if args.only == "tp":
         train_tp_phase(card)
         fl_tp(card)
+        fl_tp_moe(card)
         print(f"[done] --only tp passed in "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
         return 0

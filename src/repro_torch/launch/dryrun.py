@@ -37,7 +37,9 @@ and each block names its ``source``:
 * ``collectives``: the reference's keys (``all-reduce``, ``all-gather``,
   ``reduce-scatter``, ``all-to-all``, ``collective-permute``, each
   ``{bytes, count}``, and ``total_bytes``), counted from the layout, not
-  parsed from a compiled program (:func:`layout_collectives`): one device's
+  parsed from a compiled program (:func:`layout_collectives`; the
+  tensor-parallel terms traced from ``launch/tp.py`` on a meta grid,
+  :func:`tp_collectives`): one device's
   result bytes, as the reference sums the result shapes of its
   per-partition HLO. Under ``--fl`` the exchange of the stream plan
   (``train.fl_leaf_plan`` / ``fl_train.step_wire_record``: every stream
@@ -56,7 +58,9 @@ the records.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -68,10 +72,11 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch import configs, convert
 from repro_torch.core.types import SecureAggConfig, THGSConfig
-from repro_torch.launch import serve
+from repro_torch.launch import fsdp, serve, tp
 from repro_torch.launch import shardings as shd
 from repro_torch.launch import train
-from repro_torch.launch.mesh import logical_rules, make_production_mesh
+from repro_torch.launch.mesh import (LogicalMesh, logical_rules,
+                                     make_production_mesh)
 from repro_torch.launch.specs import (SHAPES, _state_leaves, arch_for_shape,
                                       input_pspecs, input_specs, meta)
 from repro_torch.models import transformer as tf
@@ -270,12 +275,134 @@ _COLLECTIVE_SOURCE = (
     "gathered) in the forward and again in the backward, one a stacked "
     "layer a call, and its gradient reduce-scattered once a call; a leaf "
     "replicated over a data-parallel axis has its gradient all-reduced. "
-    "Tensor parallel: each row-parallel product (a 2-D rule whose input dim "
-    "is 'model': wo, out_proj, w_out, shared_wo) all-reduces its output "
-    "[rows a device, T, d_out] in the model dtype in the forward and its "
-    "partner's input gradient in the backward; the checkpoints' recompute, "
-    "MoE dispatch and sequence sharding are not counted. Prefill and decode: "
-    "the forward's gathers and all-reduces only (decode: T 1)")
+    "Tensor parallel: what launch/tp.py runs, as model position 0 sees it "
+    "(tp_collectives: its step traced on a meta grid of the model axis's "
+    "positions, each tp collective's forward and adjoint backward counted "
+    "where it runs, one row with no layer and with one period of the layer "
+    "pattern, at two lengths where T is long, carried along the lines "
+    "through them to the rows, depth and T): the all-gathers and "
+    "reduce-scatters along the sequence (all-reduces where the model axis "
+    "does not divide T), the MoE exchange (an all-to-all of each token's "
+    "top-k expert outputs) and "
+    "position 0's routing broadcast, the embedding's all-to-all, the loss's "
+    "combine, the moves to and from position 0 of the blocks it runs alone "
+    "(SSM, xLSTM; broadcast and scatter count as collective-permute), the "
+    "checkpoints' recompute included. Weights a position gathers whole at "
+    "use are not counted. Prefill and decode: the forward's gathers and "
+    "the traced forward (decode: T 1)")
+
+# launch/tp.py's collectives under the reference's keys: each Function's
+# forward, then its backward (the adjoint), with the index of position 0's
+# tensor in what it returns (None: the tensor itself)
+_TP_KEYS = {
+    "_AllGather": (("all-gather", 0), ("reduce-scatter", 1)),
+    "_ReduceScatter": (("reduce-scatter", 0), ("all-gather", 1)),
+    "_AllReduce": (("all-reduce", 0), ("all-reduce", 0)),
+    "_AllToAll": (("all-to-all", 0), ("all-to-all", 2)),
+    "_Broadcast": (("collective-permute", 0), ("collective-permute", 1)),
+    "_Scatter": (("collective-permute", 0), ("collective-permute", 2)),
+    "_ReduceTo": (("all-reduce", None), ("all-reduce", 1)),
+}
+
+
+@contextlib.contextmanager
+def counting_tp():
+    """While open, each ``launch/tp.py`` collective (and ``max_to``, the
+    loss's running max: an all-reduce) adds position 0's result bytes and
+    one call under its reference key to the yielded ``{op: {"bytes",
+    "count"}}``."""
+    counted = {op: {"bytes": 0, "count": 0} for op in COLLECTIVE_OPS}
+
+    def add(op: str, t: torch.Tensor) -> None:
+        counted[op]["bytes"] += t.numel() * t.element_size()
+        counted[op]["count"] += 1
+
+    def wrap(fn, op: str, at):
+        def counted_fn(ctx, *args):
+            out = fn(ctx, *args)
+            add(op, out if at is None else out[at])
+            return out
+        return staticmethod(counted_fn)
+
+    def max_to(parts, device):
+        out = real_max(parts, device)
+        add("all-reduce", out)
+        return out
+
+    real_max = tp.max_to
+    saved = [(tp, "max_to", real_max)]
+    for name, ((fop, fat), (bop, bat)) in _TP_KEYS.items():
+        cls = getattr(tp, name)
+        for attr, op, at in (("forward", fop, fat), ("backward", bop, bat)):
+            saved.append((cls, attr, cls.__dict__[attr]))
+            setattr(cls, attr, wrap(getattr(cls, attr), op, at))
+    tp.max_to = max_to
+    try:
+        yield counted
+    finally:
+        for obj, attr, orig in saved:
+            setattr(obj, attr, orig)
+
+
+def _tp_traced(cfg, rows: int, t: int, m: int, train: bool) -> dict:
+    """:func:`counting_tp` over one call of ``launch/tp.py``'s step (the
+    loss and its gradient; else the forward) on a meta grid of ``m`` model
+    positions, ``rows`` rows of ``t`` tokens."""
+    dev = torch.device("meta")
+    lm = fsdp.empty(cfg, LogicalMesh((1, m), ("data", "model"), "meta"),
+                    groups=[((dev,) * m, range(0, 1))])
+    batch = {k: meta((rows, t), torch.int32) for k in ("tokens", "labels")}
+    if cfg.family == "audio":
+        batch["frames"] = meta((rows, t, cfg.d_model), torch.float32)
+    if cfg.family == "vlm":
+        batch["image_embeds"] = meta((rows, cfg.n_image_tokens, cfg.d_model),
+                                     tf.DTYPES[cfg.dtype])
+    with counting_tp() as counted:
+        if train:
+            tp.group_value_and_grad(lm, 0, cfg, batch)
+        else:
+            with torch.no_grad():
+                tp.hidden(tp.GridView(lm, 0), cfg, batch)
+    return counted
+
+
+def tp_collectives(cfg, rows: int, t: int, m: int, train: bool) -> dict:
+    """``{op: (bytes, count)}`` of one call of ``launch/tp.py``'s training
+    step (``train``; else its forward) on ``rows`` rows of ``t`` tokens over
+    ``m`` model positions, position 0's (:func:`counting_tp`): one row's
+    count (:func:`_tp_row`), its bytes times ``rows`` (every collective
+    moves activations that lead with the rows)."""
+    return {op: (rows * nbytes, count)
+            for op, (nbytes, count) in _tp_row(cfg, t, m, train).items()}
+
+
+@functools.lru_cache(maxsize=None)
+def _tp_row(cfg, t: int, m: int, train: bool) -> dict:
+    """:func:`tp_collectives` of one row, traced with no layer and with one
+    period of the layer pattern (a VLM's or hybrid's super-block, else a
+    layer) and,
+    where ``t`` is a multiple of ``L = lcm(LOSS_CHUNK, m)`` above ``2 L``,
+    at ``L`` and ``2 L`` tokens; carried to ``cfg``'s depth and ``t`` along
+    the lines through them. Each term is a whole number of layers' and loss
+    chunks' collectives, each of bytes linear in T and split over ``m`` or
+    not as ``t`` is, so the lines are exact."""
+    period = (cfg.n_layers // tf.n_super(cfg)
+              if cfg.family in ("vlm", "hybrid") else 1)
+    depth = cfg.n_layers // period
+    unit = math.lcm(tp.LOSS_CHUNK, m)
+    ts = (unit, 2 * unit) if t % unit == 0 and t > 2 * unit else (t, t)
+    at = {(n, u): _tp_traced(dataclasses.replace(cfg,
+                                                 n_layers=n * period),
+                             1, u, m, train)
+          for n in (0, 1) for u in dict.fromkeys(ts)}
+
+    def line(a: int, b: int, x: int, x0: int, x1: int) -> int:
+        return a if x1 == x0 else a + (b - a) * (x - x0) // (x1 - x0)
+
+    return {op: tuple(
+        line(*[line(at[0, u][op][key], at[1, u][op][key], depth, 0, 1)
+               for u in ts], t, *ts)
+        for key in ("bytes", "count")) for op in COLLECTIVE_OPS}
 
 
 def _add(out: dict, op: str, nbytes: int, count: int) -> None:
@@ -301,9 +428,7 @@ def layout_collectives(cfg, shape, mesh, rules, layout: dict, calls: int,
     split = n_fed * math.prod(sizes[a] for a in dp_axes) * max(calls, 1)
     rows = -(-shape.global_batch // split)
     t = shape.seq_len if shape.kind != "decode" else 1
-    act_bytes = torch.empty((), dtype=tf.DTYPES[cfg.dtype],
-                            device="meta").element_size()
-    tp = sizes.get("model", 1) > 1
+    m = sizes.get("model", 1)
     for path, shp, dt, spec in layout["params"]:
         rule = shd.leaf_rule(path, shp)
         stack = math.prod(shp[:len(shp) - len(rule)])
@@ -322,9 +447,10 @@ def layout_collectives(cfg, shape, mesh, rules, layout: dict, calls: int,
         if train_step and any(a not in on for a in dp_axes):
             _add(out, "all-reduce", calls * shard_bytes(shp, dt, spec, sizes),
                  calls * stack)
-        if tp and len(rule) == 2 and rule[0] == "model":
-            n = passes * calls * stack
-            _add(out, "all-reduce", n * rows * t * shp[-1] * act_bytes, n)
+    if m > 1:
+        for op, (nbytes, count) in tp_collectives(cfg, rows, t, m,
+                                                  train_step).items():
+            _add(out, op, calls * nbytes, calls * count)
     out["total_bytes"] = sum(v["bytes"] for v in out.values())
     out["source"] = _COLLECTIVE_SOURCE
     return out

@@ -29,6 +29,29 @@ compute its rows together, Megatron-style:
   every position.
 * **Dense MLP.** ``wi`` / ``wi_gate`` / ``wi_up`` column-parallel, ``wo``
   row-parallel, reduce-scattered.
+* **MoE, expert-parallel** (the reference's ``"expert"`` axis, which maps
+  to ``model``). A dispatch group is a row of the batch at its whole
+  length, as in the reference: capacity and the stable sort by expert
+  depend on the whole row. Position 0 routes the whole normed rows once
+  (the router is whole along ``model``) and broadcasts each token's expert
+  ids and gates, so that no two positions can disagree on a near-tie;
+  every position derives the dispatch slots from those ids by integer ops
+  alone, the same on any device type. Position ``j`` then fills the
+  dispatch slots of its own experts ``[j E/m, (j+1) E/m)`` only (each
+  assignment's slot from the whole row's sorted order) and runs
+  ``wi_gate`` / ``wi_up`` / ``wo`` on its own ``model`` chunk (its span of
+  the whole where ``m`` does not divide E). It forms, for every token and
+  rank, ``gate * y_expert`` (f32, cast to the model dtype) of its own
+  experts and +0.0 elsewhere, and an all-to-all hands each position its
+  sequence slice of every position's ``[B, T/m, k, d]`` (an all-gather
+  where the stream is whole). Each position takes each rank's value from
+  the position owning that rank's expert and folds a token's ``top_k``
+  values in ascending expert id from +0.0, as ``moe.apply_moe`` does: the
+  exchange moves values and never sums them, so the routed output is
+  bit-equal to ``apply_moe``'s on the same rows. The shared experts are a
+  dense MLP (column- / row-parallel, reduce-scattered) added after the
+  routed output; the aux loss comes from position 0's whole-row
+  probabilities.
 * **Embedding.** Split by feature (``"embed": (None, "model")``): each
   position looks up its own columns for every token, then an all-to-all
   hands each position its sequence slice of whole rows.
@@ -38,12 +61,12 @@ compute its rows together, Megatron-style:
   position order, per 128-token chunk, recomputed in the backward. With
   tied embeddings (xLSTM) ``embed.T`` is split along the contraction, so
   the positions' partial logits are reduced whole at the loss.
-* **Blocks this slice does not split** (MoE experts and router, the SSM
-  mixer, the xLSTM cells): their weights stay stored split; their input is
-  gathered whole along the sequence, they run with gathered weights on the
-  group's model position 0, and each position is handed its own slice of
-  the output. MoE capacity and the recurrences depend on the whole
-  sequence, so a split by sequence would change their numerics.
+* **Blocks not split** (the SSM mixer, the xLSTM cells): their weights
+  stay stored split; their input is gathered whole along the sequence,
+  they run with gathered weights on the group's model position 0, and each
+  position is handed its own slice of the output. The recurrences depend
+  on the whole sequence, so a split by sequence would change their
+  numerics.
 
 **Collectives, in position order.** :func:`all_gather`,
 :func:`reduce_scatter`, :func:`all_reduce`, :func:`all_to_all`,
@@ -51,7 +74,8 @@ compute its rows together, Megatron-style:
 ``torch.autograd.Function`` s over one tensor a position, each with its
 adjoint as its backward (all-gather and reduce-scatter; all-reduce and
 itself, the identity on the reduced value; broadcast and reduce;
-all-to-all and its inverse). Moves between devices are ``Tensor.to``; no
+all-to-all and its inverse); :func:`max_to` (the loss's running max)
+carries no gradient. Moves between devices are ``Tensor.to``; no
 ``torch.distributed``, no host sync between devices. **Every sum adds the
 positions' partials in position order, starting from partial 0, in f32,
 and rounds once to the partials' dtype.** A result is therefore independent
@@ -65,7 +89,9 @@ positions' contributions itself: :func:`group_value_and_grad` hands
 back each block's partial gradients in position order, and
 ``launch.fsdp.step_gradients`` adds them in that order in f32
 (:func:`fold`; the gradient of a leaf replicated across model
-positions, such as a norm scale, is the sum of every position's partial),
+positions, such as a norm scale, is the sum of every position's partial;
+a routed expert's arises only on the position that owns it, and the MoE
+router's only on position 0, which routes),
 then folds the sums in (data group, microbatch) order as without tensor
 parallelism; one group of one microbatch rounds each sum once to the
 parameter's dtype, as one device's step keeps it.
@@ -247,6 +273,13 @@ def reduce_to(parts, device) -> torch.Tensor:
     """The sum of the positions' partials on ``device`` (backward: the
     gradient copied to every partial)."""
     return _ReduceTo.apply(device, *parts)
+
+
+def max_to(parts, device) -> torch.Tensor:
+    """The elementwise max of the positions' values on ``device``, taken in
+    position order; no gradient."""
+    return functools.reduce(torch.maximum, [p.detach().to(device)
+                                            for p in parts])
 
 
 class _Remat(torch.autograd.Function):
@@ -456,16 +489,22 @@ def attention_partials(view: GridView, prefix: str, hs, cfg: ArchConfig, *,
     return out
 
 
-def mlp_partials(view: GridView, prefix: str, hs, cfg: ArchConfig) -> list:
-    """Each position's ``wo`` partial sum of the dense MLP under
-    ``prefix`` (``...mlp.``): its share of the hidden columns."""
+def mlp_partials(view: GridView, prefix: str, hs, cfg: ArchConfig, *,
+                 width: Optional[int] = None,
+                 act: Optional[str] = None) -> list:
+    """Each position's ``wo`` partial sum of the dense MLP whose leaves are
+    ``prefix`` + ``wi_gate`` / ``wi_up`` / ``wi`` / ``wo`` (``...mlp.``;
+    ``...moe.shared_`` for the shared experts, ``width`` their hidden
+    width, ``act`` "swiglu"): its share of the hidden columns."""
+    width = cfg.d_ff if width is None else width
+    act = cfg.act if act is None else act
     out = []
     for j, h in enumerate(hs):
-        lo, hi = _span(j, view.m, cfg.d_ff)
+        lo, hi = _span(j, view.m, width)
         if hi == lo:
             out.append(h.new_zeros(h.shape))
             continue
-        if cfg.act == "swiglu":
+        if act == "swiglu":
             a = (F.silu(h @ view.part(j, prefix + "wi_gate", 1, lo, hi))
                  * (h @ view.part(j, prefix + "wi_up", 1, lo, hi)))
         else:
@@ -475,19 +514,82 @@ def mlp_partials(view: GridView, prefix: str, hs, cfg: ArchConfig) -> list:
     return out
 
 
+def moe_routed(view: GridView, prefix: str, cfg: ArchConfig, st: Stream,
+               hs) -> tuple:
+    """The routed experts under ``prefix`` (``...moe.``) over the
+    positions, on the whole normed rows ``hs[j]`` (module docstring):
+    returns (each position's routed output in the stream's layout, the aux
+    loss on position 0). Position 0 routes; the ids and gates are
+    broadcast (the gates' gradients come back to position 0 by the
+    broadcast's adjoint). Bit-equal to ``moe.apply_moe``'s routed output
+    on the same rows, whatever the other positions' router copies hold."""
+    spec = cfg.moe
+    e, k, m = spec.n_experts, spec.top_k, view.m
+    b, t, d = hs[0].shape
+    probs, gate_vals, eidx = moe_mod.router(
+        {"router": view.own(0, prefix + "router")}, hs[0], spec)
+    aux = moe_mod.aux_loss(probs, eidx, spec)
+    eidxs = broadcast(eidx, view.devices)
+    gates = broadcast(gate_vals, view.devices)
+    owner = torch.tensor([j for j in range(m)
+                          for _ in range(*_span(j, m, e))])
+    cap = moe_mod.capacity(t, spec)
+    sends, owners = [], []
+    for j, (h, ej, gj) in enumerate(zip(hs, eidxs, gates)):
+        lo, hi = _span(j, m, e)
+        buf, slot, order = moe_mod._dispatch(h, ej, e, k, cap, (lo, hi))
+        slot_u, gate_u, by_e = moe_mod._ranked(slot, order, ej, gj)
+        if hi > lo:
+            yexp = moe_mod.experts(
+                buf, *[view.part(j, prefix + n, 0, lo, hi)
+                       for n in ("wi_gate", "wi_up", "wo")])
+            flat = yexp.reshape(b, (hi - lo) * cap, d)
+            c = torch.stack([moe_mod._gated(flat, slot_u[:, :, r],
+                                            gate_u[:, :, r], h.dtype)
+                             for r in range(k)], 2)
+        else:
+            c = h.new_zeros((b, t, k, d))
+        sends.append(c[:, :, None])                 # [B, T, 1, k, d]
+        owners.append(owner.to(h.device)[ej.gather(2, by_e)])
+    got = all_to_all(sends, 1, 2) if st.split else all_gather(sends, 2)
+    ys = []
+    for j, (g, own) in enumerate(zip(got, owners)):   # g [B, T/m, m, k, d]
+        n = g.shape[1]
+        own = own.narrow(1, j * n if st.split else 0, n)
+        sel = g[:, :, 0]
+        for i in range(1, m):
+            sel = torch.where((own == i)[..., None], g[:, :, i], sel)
+        ys.append(moe_mod.fold_ranks(sel[:, :, r] for r in range(k)))
+    return ys, aux
+
+
+def moe_block(view: GridView, prefix: str, cfg: ArchConfig, st: Stream,
+              hs) -> tuple:
+    """The MoE layer under ``prefix`` (``...moe.``) over the positions:
+    the routed experts (:func:`moe_routed`) plus the shared experts,
+    column- / row-parallel and reduced to the stream's layout. Returns
+    (each position's output slice, the aux loss on position 0)."""
+    ys, aux = moe_routed(view, prefix, cfg, st, hs)
+    if cfg.moe.n_shared:
+        ss = st.reduce(mlp_partials(
+            view, prefix + "shared_", hs, cfg, act="swiglu",
+            width=cfg.moe.n_shared * cfg.moe.d_ff_expert))
+        ys = [y + s for y, s in zip(ys, ss)]
+    return ys, aux
+
+
 def self_block(view: GridView, prefix: str, cfg: ArchConfig, st: Stream,
                xs, aux, *, causal: bool, window: Optional[int]):
-    """Pre-norm attention + MLP (or MoE on position 0) on the stream's
-    slices. Returns ``(xs, aux)``."""
+    """Pre-norm attention + MLP (or MoE) on the stream's slices. Returns
+    ``(xs, aux)``."""
     hs = st.gather(_norms(view, prefix + "attn_norm.", xs, cfg))
     a = st.reduce(attention_partials(view, prefix + "attn.", hs, cfg,
                                      causal=causal, window=window))
     xs = [x + y for x, y in zip(xs, a)]
     hs = st.gather(_norms(view, prefix + "mlp_norm.", xs, cfg))
     if cfg.family == "moe" and cfg.moe is not None:
-        out = moe_mod.apply_moe(view.tree(0, prefix + "moe."), hs[0],
-                                cfg.moe)
-        ys, aux = st.spread(out.y), aux + out.aux_loss
+        ys, a = moe_block(view, prefix + "moe.", cfg, st, hs)
+        aux = aux + a
     else:
         ys = st.reduce(mlp_partials(view, prefix + "mlp.", hs, cfg))
     return [x + y for x, y in zip(xs, ys)], aux
@@ -599,8 +701,11 @@ def embed(view: GridView, cfg: ArchConfig, st: Stream, tokens) -> list:
     return all_to_all(es, 1, 2) if st.split else all_gather(es, 2)
 
 
+LOSS_CHUNK = 128     # tokens a chunk of the loss (``chunked_ce_loss``'s)
+
+
 def vocab_parallel_ce(view: GridView, cfg: ArchConfig, hs, labels,
-                      chunk: int = 128) -> torch.Tensor:
+                      chunk: int = LOSS_CHUNK) -> torch.Tensor:
     """``transformer.chunked_ce_loss`` over the positions (module
     docstring): ``hs`` the final hidden whole on every position; the loss
     on position 0, f32."""
@@ -629,20 +734,18 @@ def vocab_parallel_ce(view: GridView, cfg: ArchConfig, hs, labels,
     def split_chunk(lx, *args):
         hx, w = args[:m], args[m:]
         logits = {j: (hx[j] @ w[j]).float() for j in live}
-        mx = functools.reduce(torch.maximum, [
-            logits[j].max(-1).values.detach().to(lead) for j in live])
-        total = gold = None
+        mx = max_to([logits[j].max(-1).values for j in live], lead)
+        sums, golds = [], []
         for j in live:
             lo, hi = spans[j]
             lj = logits[j]
-            s = torch.exp(lj - mx.to(lj.device)[..., None]).sum(-1).to(lead)
+            sums.append(torch.exp(lj - mx.to(lj.device)[..., None]).sum(-1))
             y = lx.to(lj.device)
             inside = (y >= lo) & (y < hi)
             gj = lj.gather(-1, (y - lo).clamp(0, hi - lo - 1)[..., None])[
                 ..., 0]
-            gj = torch.where(inside, gj, torch.zeros_like(gj)).to(lead)
-            total = s if total is None else total + s
-            gold = gj if gold is None else gold + gj
+            golds.append(torch.where(inside, gj, torch.zeros_like(gj)))
+        total, gold = reduce_to(sums, lead), reduce_to(golds, lead)
         return (torch.mean(mx + torch.log(total) - gold),)
 
     per_chunk = tied_chunk if cfg.tie_embeddings else split_chunk
@@ -652,9 +755,9 @@ def vocab_parallel_ce(view: GridView, cfg: ArchConfig, hs, labels,
     return torch.mean(torch.stack(losses))
 
 
-def train_loss(view: GridView, cfg: ArchConfig, batch: dict) -> torch.Tensor:
-    """``transformer.train_loss`` over a group's model positions, on
-    position 0."""
+def hidden(view: GridView, cfg: ArchConfig, batch: dict) -> tuple:
+    """The final hidden state of ``batch`` over a group's model positions:
+    ``(stream, each position's slice, aux loss)``."""
     t = batch["labels"].shape[1]
     st = Stream(view.devices, t)
     if cfg.family == "audio":
@@ -663,6 +766,13 @@ def train_loss(view: GridView, cfg: ArchConfig, batch: dict) -> torch.Tensor:
         xs = embed(view, cfg, st, batch["tokens"])
     hs, aux = forward(view, cfg, st, xs,
                       image_embeds=batch.get("image_embeds"))
+    return st, hs, aux
+
+
+def train_loss(view: GridView, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    """``transformer.train_loss`` over a group's model positions, on
+    position 0."""
+    st, hs, aux = hidden(view, cfg, batch)
     return vocab_parallel_ce(view, cfg, st.gather(hs), batch["labels"]) + aux
 
 

@@ -11,7 +11,10 @@ roofline over its records (``bench/paper/roofline.py``) against
 * the record's keys and the skip record are the reference's;
 * one full-size Yi-6B ``train_4k`` record, and its FL twin on the
   multi-pod mesh, on meta in seconds; the layout's collective count,
-  hand-counted on a toy mesh;
+  hand-counted on a toy mesh, and its tensor-parallel term (traced on
+  the meta device at a cut depth and length) equal to the bytes and calls
+  a counted ``launch/tp.py`` step returns on a CPU grid, for every arch;
+  Yi-6B's tensor-parallel term by hand;
 * ``chip_smoke.py``'s ``train_flops`` against the meta trace's
   ``FlopCounterMode`` count within 1%, at reduced widths and at Yi-6B's
   B 4 x T 4096 (8.7109e14);
@@ -267,7 +270,29 @@ def test_yi6b_train_records_on_meta(tmp_path):
     ops = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
            "collective-permute")
     assert col["total_bytes"] == sum(col[op]["bytes"] for op in ops) > 0
-    assert col["all-gather"]["count"] == col["reduce-scatter"]["count"] * 2
+    # launch/tp.py's collectives, by hand, a call (2 calls): model 16
+    # splits T 4096, the stream [8 rows, 4096, 4096] bf16 (X bytes). Each
+    # of 32 blocks all-gathers its two normed inputs (X) and reduce-scatters
+    # its two row-parallel partials (X / 16) in the forward and the
+    # recompute, and runs their adjoints once: 128 + 64 all-gathers, 64 +
+    # 128 reduce-scatters; the loss's input one more of each. The
+    # embedding (its 4096 features split) one all-to-all of X / 16 and its
+    # adjoint. The loss's 32 chunks: the max, the exponentials' sums and
+    # the gold logits ([8, 128] f32, 4096 B) combined in the forward and
+    # the recompute, the last two's adjoints once: 256 all-reduces
+    x = 8 * 4096 * 4096 * 2
+    tp_terms = {"all-gather": (193 * x, 193),
+                "reduce-scatter": (193 * x // 16, 193),
+                "all-to-all": (2 * x // 16, 2),
+                "all-reduce": (256 * 4096, 256),
+                "collective-permute": (0, 0)}
+    cfg = tconfigs.get("yi_6b")
+    assert dryrun.tp_collectives(cfg, 8, 4096, 16, True) == tp_terms
+    # the FSDP terms, on top, gather twice for each reduce-scatter
+    fsdp_gathers = col["all-gather"]["count"] - 2 * 193
+    fsdp_scatters = col["reduce-scatter"]["count"] - 2 * 193
+    assert fsdp_gathers == fsdp_scatters * 2 > 0
+    assert col["all-to-all"] == {"bytes": 2 * 2 * x // 16, "count": 2 * 2}
     assert "the layout's count, not XLA's" in col["source"]
     assert {"source"} <= set(mem) & set(cost) & set(col)
 
@@ -286,11 +311,12 @@ def test_yi6b_train_records_on_meta(tmp_path):
     assert col["total_bytes"] == sum(col[op]["bytes"] for op in ops)
     assert col["participants"] == 2
     # a participant's data x model sub-mesh gathers the single pod's
-    # parameters; the exchange adds one gather a leaf of a device's block
-    # of every participant's streams
+    # parameters, its tensor-parallel collectives carry half the rows (4 a
+    # device a call); the exchange adds one gather a leaf of a device's
+    # block of every participant's streams
     single = rec["collectives"]["all-gather"]
-    assert col["all-gather"]["bytes"] == single["bytes"] + (
-        col["stream_exchange_bytes"] // col["blocks_per_participant"])
+    assert col["all-gather"]["bytes"] == single["bytes"] - 2 * 193 * x // 2 \
+        + col["stream_exchange_bytes"] // col["blocks_per_participant"]
     n_leaves = len(dryrun.convert.reference_leaves(
         dryrun.tf.init_params(tconfigs.get("yi_6b"), device="meta")))
     assert col["all-gather"]["count"] == single["count"] + n_leaves
@@ -343,8 +369,11 @@ def test_dryrun_and_roofline_import_no_jax():
 # ---------------------------------------------- the layout's collectives
 def test_layout_collectives_hand_counted_on_a_toy_mesh():
     """data 2 x model 2, a train step of 2 calls over 8 rows of T 4 (2 rows
-    a device a call), bf16 activations: a column-parallel, a row-parallel
-    (2 stacked layers each) and a replicated leaf, counted by hand."""
+    a device a call), reduced Yi-6B (2 layers, d 256) in bf16: a
+    column-parallel, a row-parallel (2 stacked layers each) and a
+    replicated leaf, and ``launch/tp.py``'s collectives, counted by
+    hand."""
+    from repro_torch.configs.base import reduced
     from repro_torch.launch.mesh import LogicalMesh, logical_rules
     from repro_torch.models.sharding import P
 
@@ -356,29 +385,111 @@ def test_layout_collectives_hand_counted_on_a_toy_mesh():
         ("blocks.mlp.wo", (2, 16, 8), bf16, P(None, "model", "data")),
         ("final_norm.scale", (8,), f32, P(None))]}
     shape = types.SimpleNamespace(kind="train", global_batch=8, seq_len=4)
-    cfg = tconfigs.get("yi_6b")                        # bf16 activations
+    cfg = reduced(tconfigs.get("yi_6b"), dtype="bfloat16")
+    assert (cfg.n_layers, cfg.d_model) == (2, 256)
     got = dryrun.layout_collectives(cfg, shape, mesh, rules, layout, calls=2)
     # each FSDP leaf: gathered over data to 2 x 8 x 8 bf16 (256 B), in the
     # forward and the backward of 2 calls, one a stacked layer; its
-    # gradient's shard (128 B) reduce-scattered once a call and layer
-    assert got["all-gather"] == {"bytes": 2 * 2 * 2 * 256, "count": 2 * 8}
-    assert got["reduce-scatter"] == {"bytes": 2 * 2 * 128, "count": 2 * 4}
-    # wo's output [2 rows, T 4, 8] bf16 (128 B) in the forward and the
-    # backward of 2 calls and 2 layers; the norm's f32 gradient (32 B)
-    # all-reduced over data once a call
-    assert got["all-reduce"] == {"bytes": 8 * 128 + 2 * 32, "count": 8 + 2}
-    assert got["all-to-all"] == got["collective-permute"] == {"bytes": 0,
-                                                              "count": 0}
-    assert got["total_bytes"] == 2048 + 512 + 1088
-    # prefill: the forward's gathers and all-reduces of one call, T 4
+    # gradient's shard (128 B) reduce-scattered once a call and layer.
+    # Tensor parallel, a call: the stream [2 rows, T 4, 256] bf16 (X = 4096
+    # B) splits by sequence; each block all-gathers its two normed inputs
+    # (X) and reduce-scatters its two row-parallel partials (X / 2) in the
+    # forward and the recompute, and runs their adjoints once; the loss
+    # gathers the final hidden (X; backward X / 2)
+    x = 2 * 4 * 256 * 2
+    assert got["all-gather"] == {"bytes": 2 * 2 * 2 * 256 + 2 * 13 * x,
+                                 "count": 2 * 8 + 2 * 13}
+    assert got["reduce-scatter"] == {
+        "bytes": 2 * 2 * 128 + 2 * 13 * x // 2, "count": 2 * 4 + 2 * 13}
+    # the norm's f32 gradient (32 B) all-reduced over data once a call;
+    # the loss's one 4-token chunk: the max, the sums of exponentials and
+    # the gold logit ([2, 4] f32, 32 B) combined in the forward and the
+    # recompute, the two sums' gradients once
+    assert got["all-reduce"] == {"bytes": 2 * 32 + 2 * 8 * 32,
+                                 "count": 2 + 2 * 8}
+    # the embedding (256 features, split over model) hands each position
+    # its sequence slice (X / 2) by an all-to-all and its adjoint
+    assert got["all-to-all"] == {"bytes": 2 * 2 * x // 2, "count": 2 * 2}
+    assert got["collective-permute"] == {"bytes": 0, "count": 0}
+    assert got["total_bytes"] == sum(got[op]["bytes"]
+                                     for op in dryrun.COLLECTIVE_OPS)
+    # prefill: the forward's gathers and the blocks' forward of one call,
+    # 4 rows of T 4 (X = 8192 B): no loss
     prefill = types.SimpleNamespace(kind="prefill", global_batch=8,
                                     seq_len=4)
     got = dryrun.layout_collectives(cfg, prefill, mesh, rules, layout,
                                     calls=1)
-    assert got["all-gather"] == {"bytes": 2 * 256, "count": 4}
-    assert got["reduce-scatter"]["count"] == 0
-    # 4 rows a device: [4, 4, 8] bf16 = 256 B, once a layer
-    assert got["all-reduce"] == {"bytes": 2 * 256, "count": 2}
+    x = 4 * 4 * 256 * 2
+    assert got["all-gather"] == {"bytes": 2 * 256 + 4 * x, "count": 8}
+    assert got["reduce-scatter"] == {"bytes": 4 * x // 2, "count": 4}
+    assert got["all-reduce"] == {"bytes": 0, "count": 0}
+    assert got["all-to-all"] == {"bytes": x // 2, "count": 1}
+
+
+def _counted_grid_step(cfg, m: int, B: int, T: int) -> dict:
+    """One dense step of ``cfg`` over ``(data 1, model m)`` positions
+    sharing the CPU, counted by ``dryrun.counting_tp``."""
+    from repro_torch.launch import fsdp
+    from repro_torch.launch.mesh import LogicalMesh
+    from repro_torch.models import transformer as tf
+
+    cpu = torch.device("cpu")
+    mesh = LogicalMesh((1, m), ("data", "model"), "cpu")
+    lm = fsdp.shard(tf.init_params(cfg, torch.Generator().manual_seed(0),
+                                   device="cpu"),
+                    mesh, groups=[((cpu,) * m, range(0, 1))])
+    rs = np.random.RandomState(0)
+    batch = {"labels": torch.from_numpy(
+        rs.randint(0, cfg.vocab, (B, T)).astype(np.int32))}
+    if cfg.family == "audio":
+        batch["frames"] = torch.from_numpy(
+            rs.randn(B, T, cfg.d_model).astype(np.float32))
+    else:
+        batch["tokens"] = torch.from_numpy(
+            rs.randint(0, cfg.vocab, (B, T)).astype(np.int32))
+    if cfg.family == "vlm":
+        batch["image_embeds"] = torch.from_numpy(rs.randn(
+            B, cfg.n_image_tokens, cfg.d_model).astype(np.float32))
+    with dryrun.counting_tp() as counted:
+        fsdp.step_gradients(lm, cfg, batch)
+    return counted, mesh
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("m,T", [(2, 32), (4, 30), (3, 32), (2, 384)],
+                         ids=["split-2", "whole-4", "whole-3", "split-2-T384"])
+def test_layout_collectives_equal_a_counted_grid_step(arch, m, T):
+    """``layout_collectives`` on a ``(data 1, model m)`` toy grid (no FSDP
+    term: one data position), which traces one row with no layer and one
+    layer (super-block) on the meta device and carries them to 4 layers, 2
+    rows and, at T 384, from T 128 and 256, equals the bytes and calls position
+    0's collectives return in one counted step of the reduced model on the
+    CPU, for a split stream and a whole one."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.launch import shardings as shd
+    from repro_torch.launch.mesh import logical_rules
+    from repro_torch.models import transformer as tf
+    from repro_torch import convert
+
+    cfg = reduced(tconfigs.get(arch), dtype="float32", n_layers=4)
+    B = 2
+    counted, mesh = _counted_grid_step(cfg, m, B, T)
+    rules = logical_rules(mesh)
+    model = tf.init_params(cfg, device="meta")
+    named = dict(model.named_parameters())
+    leaves = convert.reference_leaves(model)
+    specs = shd.param_specs({lf.path: lf.shape for lf in leaves}, rules,
+                            mesh)
+    layout = {"params": [(lf.path, lf.shape, named[lf.names[0]].dtype,
+                          specs[lf.path]) for lf in leaves]}
+    shape = types.SimpleNamespace(kind="train", global_batch=B, seq_len=T)
+    want = dryrun.layout_collectives(cfg, shape, mesh, rules, layout,
+                                     calls=1)
+    assert counted == {op: want[op] for op in dryrun.COLLECTIVE_OPS}
+    if cfg.family == "moe":
+        assert counted["all-to-all" if T % m == 0 else "all-gather"][
+            "bytes"] >= 3 * cfg.n_layers * B * T * cfg.moe.top_k \
+            * cfg.d_model * 4
 
 
 # ----------------------------------------------- chip_smoke's train FLOPs
