@@ -41,7 +41,8 @@ and each block names its ``source``:
   tensor-parallel terms traced from ``launch/tp.py`` on a meta grid,
   :func:`tp_collectives`): one device's
   result bytes, as the reference sums the result shapes of its
-  per-partition HLO. Under ``--fl`` the exchange of the stream plan
+  per-partition HLO; and ``weight-reads``, the weight bytes a model
+  position reads of the others' chunks at use (in ``total_bytes``). Under ``--fl`` the exchange of the stream plan
   (``train.fl_leaf_plan`` / ``fl_train.step_wire_record``: every stream
   entry an int32 index and an f32 value, from every participant) is added
   as one all-gather a leaf, and its totals are kept beside.
@@ -268,6 +269,12 @@ def cost_summary(cfg, shape, model, mesh, fl: bool, n_params: int) -> dict:
 
 COLLECTIVE_OPS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                   "collective-permute")
+# the weight bytes a model position reads of other positions' chunks at
+# use (launch/tp.py's GridView.chunk with i != j): no reference key (XLA
+# lowers such reads to the collectives above), a record entry of its own,
+# in total_bytes
+WEIGHT_READS = "weight-reads"
+COUNTED = COLLECTIVE_OPS + (WEIGHT_READS,)
 _COLLECTIVE_SOURCE = (
     "the layout's count, not XLA's (no compiled program): one device's "
     "result bytes a step. FSDP: every parameter leaf sharded over a "
@@ -284,12 +291,14 @@ _COLLECTIVE_SOURCE = (
     "reduce-scatters along the sequence (all-reduces where the model axis "
     "does not divide T), the MoE exchange (an all-to-all of each token's "
     "top-k expert outputs) and "
-    "position 0's routing broadcast, the embedding's all-to-all, the loss's "
-    "combine, the moves to and from position 0 of the blocks it runs alone "
-    "(SSM, xLSTM; broadcast and scatter count as collective-permute), the "
-    "checkpoints' recompute included. Weights a position gathers whole at "
-    "use are not counted. Prefill and decode: the forward's gathers and "
-    "the traced forward (decode: T 1)")
+    "position 0's routing broadcast (a collective-permute), the "
+    "embedding's all-to-all, the loss's combine, "
+    "the checkpoints' recompute included; and, as weight-reads, the weight "
+    "bytes position 0 reads of other positions' chunks (GridView.chunk with "
+    "i != j: K/V gathered whole at use, the SSM's and xLSTM's columns that "
+    "do not fall in its own chunk), a read at each use, independent of the "
+    "rows and T. Prefill and decode: the forward's gathers and the traced "
+    "forward (decode: T 1)")
 
 # launch/tp.py's collectives under the reference's keys: each Function's
 # forward, then its backward (the adjoint), with the index of position 0's
@@ -309,9 +318,11 @@ _TP_KEYS = {
 def counting_tp():
     """While open, each ``launch/tp.py`` collective (and ``max_to``, the
     loss's running max: an all-reduce) adds position 0's result bytes and
-    one call under its reference key to the yielded ``{op: {"bytes",
-    "count"}}``."""
-    counted = {op: {"bytes": 0, "count": 0} for op in COLLECTIVE_OPS}
+    one call under its reference key, and each read position 0 makes of
+    another position's weight chunk (``GridView.chunk``, ``i != j``) its
+    bytes and one read under :data:`WEIGHT_READS`, to the yielded ``{op:
+    {"bytes", "count"}}`` (keys :data:`COUNTED`)."""
+    counted = {op: {"bytes": 0, "count": 0} for op in COUNTED}
 
     def add(op: str, t: torch.Tensor) -> None:
         counted[op]["bytes"] += t.numel() * t.element_size()
@@ -329,14 +340,21 @@ def counting_tp():
         add("all-reduce", out)
         return out
 
-    real_max = tp.max_to
-    saved = [(tp, "max_to", real_max)]
+    def chunk(self, j, name, i, *args):
+        out = real_chunk(self, j, name, i, *args)
+        if j == 0 and i != 0:
+            add(WEIGHT_READS, out)
+        return out
+
+    real_max, real_chunk = tp.max_to, tp.GridView.chunk
+    saved = [(tp, "max_to", real_max), (tp.GridView, "chunk", real_chunk)]
     for name, ((fop, fat), (bop, bat)) in _TP_KEYS.items():
         cls = getattr(tp, name)
         for attr, op, at in (("forward", fop, fat), ("backward", bop, bat)):
             saved.append((cls, attr, cls.__dict__[attr]))
             setattr(cls, attr, wrap(getattr(cls, attr), op, at))
     tp.max_to = max_to
+    tp.GridView.chunk = chunk
     try:
         yield counted
     finally:
@@ -371,23 +389,24 @@ def tp_collectives(cfg, rows: int, t: int, m: int, train: bool) -> dict:
     step (``train``; else its forward) on ``rows`` rows of ``t`` tokens over
     ``m`` model positions, position 0's (:func:`counting_tp`): one row's
     count (:func:`_tp_row`), its bytes times ``rows`` (every collective
-    moves activations that lead with the rows)."""
-    return {op: (rows * nbytes, count)
+    moves activations that lead with the rows), the weight reads' as they
+    are (a read at each use, whatever the rows)."""
+    return {op: (nbytes if op == WEIGHT_READS else rows * nbytes, count)
             for op, (nbytes, count) in _tp_row(cfg, t, m, train).items()}
 
 
 @functools.lru_cache(maxsize=None)
 def _tp_row(cfg, t: int, m: int, train: bool) -> dict:
     """:func:`tp_collectives` of one row, traced with no layer and with one
-    period of the layer pattern (a VLM's or hybrid's super-block, else a
-    layer) and,
+    period of the layer pattern (a VLM's or hybrid's super-block, xLSTM's
+    sLSTM and mLSTM, else a layer) and,
     where ``t`` is a multiple of ``L = lcm(LOSS_CHUNK, m)`` above ``2 L``,
     at ``L`` and ``2 L`` tokens; carried to ``cfg``'s depth and ``t`` along
     the lines through them. Each term is a whole number of layers' and loss
     chunks' collectives, each of bytes linear in T and split over ``m`` or
     not as ``t`` is, so the lines are exact."""
     period = (cfg.n_layers // tf.n_super(cfg)
-              if cfg.family in ("vlm", "hybrid") else 1)
+              if cfg.family in ("vlm", "hybrid") else 2 if cfg.xlstm else 1)
     depth = cfg.n_layers // period
     unit = math.lcm(tp.LOSS_CHUNK, m)
     ts = (unit, 2 * unit) if t % unit == 0 and t > 2 * unit else (t, t)
@@ -402,7 +421,7 @@ def _tp_row(cfg, t: int, m: int, train: bool) -> dict:
     return {op: tuple(
         line(*[line(at[0, u][op][key], at[1, u][op][key], depth, 0, 1)
                for u in ts], t, *ts)
-        for key in ("bytes", "count")) for op in COLLECTIVE_OPS}
+        for key in ("bytes", "count")) for op in COUNTED}
 
 
 def _add(out: dict, op: str, nbytes: int, count: int) -> None:
@@ -424,7 +443,7 @@ def layout_collectives(cfg, shape, mesh, rules, layout: dict, calls: int,
                                 else (batch,)) if a and sizes[a] > 1)
     train_step = shape.kind == "train"
     passes = 2 if train_step else 1            # forward (+ backward)
-    out = {op: {"bytes": 0, "count": 0} for op in COLLECTIVE_OPS}
+    out = {op: {"bytes": 0, "count": 0} for op in COUNTED}
     split = n_fed * math.prod(sizes[a] for a in dp_axes) * max(calls, 1)
     rows = -(-shape.global_batch // split)
     t = shape.seq_len if shape.kind != "decode" else 1
@@ -467,7 +486,7 @@ def fl_exchange(mesh, n_fed: int, model, collectives: dict) -> dict:
     n_blocks = mesh.size // n_fed
     rec = step_wire_record(0, sizes, FL_THGS, FL_SA, n_fed, n_blocks)
     entries = rec.upload_bits // 64
-    out = {op: dict(collectives[op]) for op in COLLECTIVE_OPS}
+    out = {op: dict(collectives[op]) for op in COUNTED}
     _add(out, "all-gather", entries * 8 // n_blocks, len(leaves))
     out["total_bytes"] = sum(v["bytes"] for v in out.values())
     return {**out,

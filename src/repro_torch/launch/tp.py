@@ -61,12 +61,29 @@ compute its rows together, Megatron-style:
   position order, per 128-token chunk, recomputed in the backward. With
   tied embeddings (xLSTM) ``embed.T`` is split along the contraction, so
   the positions' partial logits are reduced whole at the loss.
-* **Blocks not split** (the SSM mixer, the xLSTM cells): their weights
-  stay stored split; their input is gathered whole along the sequence,
-  they run with gathered weights on the group's model position 0, and each
-  position is handed its own slice of the output. The recurrences depend
-  on the whole sequence, so a split by sequence would change their
-  numerics.
+* **The Mamba2 mixer, head-split** (the reference's ``"heads"``, which
+  maps to ``model``). Each position norms its stream slice and the normed
+  rows are all-gathered. Position ``j`` runs SSM heads ``[j H/m, (j+1)
+  H/m)`` (uneven where ``m`` does not divide H): it reads the ``in_proj``
+  columns of their z, x and dt and of their groups' B and C, and the
+  ``conv_w`` / ``conv_b`` channels of their x, B and C
+  (``ssm.head_columns``), each from the chunks that hold them
+  (:meth:`GridView.cols`: the reference's column split does not fall on
+  head boundaries), and ``A_log`` / ``D`` / ``dt_bias`` of its heads;
+  the conv, the chunked scan and the z gate run on those heads alone
+  (``ssm.ssd_heads``), and ``out_proj`` is row-parallel on their rows,
+  its partial sums reduce-scattered back to the stream's slices.
+* **The xLSTM cells, head-split.** Position ``j`` runs cell heads ``[j
+  H/m, (j+1) H/m)`` on the gathered rows: the sLSTM the four gates'
+  ``w_in`` / ``b`` columns of those heads and their ``r`` rows, every
+  position's heads advanced in one host loop over ``t`` (so positions on
+  two devices run side by side); the mLSTM q, k, v of those heads from
+  ``w_qkv``, their i and f columns of ``w_if`` and their ``w_o``
+  columns. ``w_out`` is row-parallel, reduce-scattered. A position with
+  no head (4 heads over 8 positions) contributes zeros. A recurrence
+  depends on its head's columns alone, so splitting by head changes no
+  recurrence; only the row-parallel product and the narrower column
+  products round otherwise.
 
 **Collectives, in position order.** :func:`all_gather`,
 :func:`reduce_scatter`, :func:`all_reduce`, :func:`all_to_all`,
@@ -364,14 +381,21 @@ class GridView:
             self.reads.append((j, lm.logical_key(c, name), a))
         return a
 
-    def chunk(self, j: int, name: str, i: int) -> torch.Tensor:
+    def chunk(self, j: int, name: str, i: int, dim: Optional[int] = None,
+              start: int = 0, length: int = 0) -> torch.Tensor:
         """Model chunk ``i`` of ``name`` (all of it where ``model`` does
-        not split it), whole along data, on position ``j``'s device."""
+        not split it), whole along data, on position ``j``'s device; with
+        ``dim``, only its ``[start, start + length)`` along ``dim`` (cut
+        where the chunk lies, before it moves)."""
         d, dev = self.lm.dims[name], self.devices[j]
+
+        def piece(h):
+            t = self._read(j, name, h, i)
+            return (t if dim is None else t.narrow(dim, start, length)).to(
+                dev)
         if d is None:
-            return self._read(j, name, self.g, i).to(dev)
-        return torch.cat([self._read(j, name, h, i).to(dev)
-                          for h in range(len(self.lm.groups))], d)
+            return piece(self.g)
+        return torch.cat([piece(h) for h in range(len(self.lm.groups))], d)
 
     def own(self, j: int, name: str) -> torch.Tensor:
         """What position ``j`` holds of ``name``, whole along data."""
@@ -393,6 +417,29 @@ class GridView:
         if lm.mdims[name] == dim and lm.mextent(j, name) == (lo, hi - lo):
             return self.own(j, name)
         return self.whole(j, name).narrow(dim, lo, hi - lo)
+
+    def cols(self, j: int, name: str, dim: int, runs) -> torch.Tensor:
+        """``name``'s runs ``[(start, stop)]`` along ``dim``, concatenated
+        in order on position ``j``'s device. Each run is read from the
+        chunks that hold it, each chunk cut to the run where it lies: a
+        position moves only what it reads, and reads another position's
+        chunk only where a run overlaps it."""
+        lm, md = self.lm, self.lm.mdims[name]
+        pieces = []
+        for a, b in runs:
+            if md is None:
+                pieces.append(self.own(j, name).narrow(dim, a, b - a))
+            elif md != dim:
+                pieces.append(torch.cat([self.chunk(j, name, i, dim, a,
+                                                    b - a)
+                                         for i in range(self.m)], md))
+            else:
+                per = lm.shapes[name][md] // self.m
+                for i in range(a // per, (b - 1) // per + 1):
+                    lo, hi = max(a, i * per), min(b, (i + 1) * per)
+                    pieces.append(self.chunk(j, name, i, dim, lo - i * per,
+                                             hi - lo))
+        return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim)
 
     def leaves(self, prefix: str) -> list:
         """Every alias a position may read of the parameters under
@@ -429,11 +476,6 @@ class Stream:
     def reduce(self, parts) -> list:
         """Row-parallel partial sums back to the stream's layout."""
         return reduce_scatter(parts, 1) if self.split else all_reduce(parts)
-
-    def spread(self, y: torch.Tensor) -> list:
-        """A whole output on position 0 to the stream's layout."""
-        return (scatter(y, self.devices, 1) if self.split
-                else broadcast(y, self.devices))
 
     def inputs(self, x: torch.Tensor) -> list:
         """A whole input (no gradient) to the stream's layout."""
@@ -607,11 +649,74 @@ def cross_block(view: GridView, prefix: str, cfg: ArchConfig, st: Stream,
     return [x + y for x, y in zip(xs, ys)]
 
 
-def on_lead(st: Stream, xs, fn) -> list:
-    """``x + fn(x whole on position 0)`` in the stream's layout (a block
-    this slice does not split)."""
-    ys = st.spread(fn(st.gather(xs)[0]))
-    return [x + y for x, y in zip(xs, ys)]
+def ssm_mixer(view: GridView, prefix: str, cfg: ArchConfig, st: Stream,
+              xs) -> list:
+    """``x`` plus the Mamba2 mixer under ``prefix`` (``ssm_blocks.s.i.``)
+    on the stream's slices, each position on its own heads (module
+    docstring)."""
+    spec, w = cfg.ssm, prefix + "ssm."
+    _, n_heads, _ = ssm_mod.dims(cfg.d_model, spec)
+    hs = st.gather(_norms(view, prefix + "norm.", xs, cfg))
+    parts = []
+    for j, h in enumerate(hs):
+        lo, hi = _span(j, view.m, n_heads)
+        if hi == lo:
+            parts.append(h.new_zeros(h.shape))
+            continue
+        proj, conv = ssm_mod.head_columns(cfg.d_model, spec, lo, hi)
+        p = {"conv_w": view.cols(j, w + "conv_w", 1, conv),
+             "conv_b": view.cols(j, w + "conv_b", 0, conv),
+             **{n: view.cols(j, w + n, 0, [(lo, hi)])
+                for n in ("A_log", "D", "dt_bias")}}
+        y, _ = ssm_mod.ssd_heads(p, h @ view.cols(j, w + "in_proj", 1, proj),
+                                 spec, (lo, hi), n_heads)
+        rows = [(lo * spec.head_dim, hi * spec.head_dim)]
+        parts.append(y @ view.cols(j, w + "out_proj", 0, rows))
+    return [x + y for x, y in zip(xs, st.reduce(parts))]
+
+
+def xlstm_cell(view: GridView, prefix: str, cfg: ArchConfig, st: Stream,
+               xs) -> list:
+    """``x`` plus the xLSTM cell under ``prefix`` (``slstm.i.`` or
+    ``mlstm.i.``) on the stream's slices, each position on its own heads
+    (module docstring)."""
+    n_heads = cfg.n_heads
+    d_inner, dh = xlstm_mod._cell_dims(cfg.d_model, n_heads)
+    hs = st.gather(xs)
+    b, t, _ = hs[0].shape
+    spans = {j: _span(j, view.m, n_heads) for j in range(view.m)}
+    live = [j for j, (lo, hi) in spans.items() if hi > lo]
+
+    def gates(j, n):        # gate-major columns of j's heads, n gates
+        lo, hi = spans[j]
+        return [(g * d_inner + lo * dh, g * d_inner + hi * dh)
+                for g in range(n)]
+
+    ys = {}
+    if prefix.startswith("slstm."):
+        pres = [xlstm_mod.slstm_pre(
+            hs[j], view.cols(j, prefix + "w_in", 1, gates(j, 4)),
+            view.cols(j, prefix + "b", 0, gates(j, 4)),
+            spans[j][1] - spans[j][0], dh) for j in live]
+        rs = [view.cols(j, prefix + "r", 0, [spans[j]]) for j in live]
+        outs = xlstm_mod.slstm_scan(pres, rs, [xlstm_mod.slstm_init(
+            b, r.shape[0], dh, r.device) for r in rs])
+        for j, (h, _) in zip(live, outs):
+            ys[j] = h.reshape(b, t, -1).to(hs[j].dtype)
+    else:
+        for j in live:
+            lo, hi = spans[j]
+            p = {"w_qkv": view.cols(j, prefix + "w_qkv", 1, gates(j, 3)),
+                 "w_if": view.cols(j, prefix + "w_if", 1,
+                                   [(lo, hi), (n_heads + lo, n_heads + hi)]),
+                 "w_o": view.cols(j, prefix + "w_o", 1, [(lo * dh,
+                                                           hi * dh)])}
+            ys[j] = xlstm_mod.mlstm_heads(p, hs[j], hi - lo, dh)[0]
+    parts = [ys[j] @ view.cols(j, prefix + "w_out", 0,
+                               [(spans[j][0] * dh, spans[j][1] * dh)])
+             if j in ys else hs[j].new_zeros(hs[j].shape)
+             for j in range(view.m)]
+    return [x + y for x, y in zip(xs, st.reduce(parts))]
 
 
 # -------------------------------------------------------------- the forward
@@ -637,11 +742,8 @@ def forward(view: GridView, cfg: ArchConfig, st: Stream, xs, *,
     aux = torch.zeros((), dtype=torch.float32, device=view.devices[0])
     if cfg.xlstm:
         for i in range(cfg.n_layers):
-            prefix = f"{'slstm' if i % 2 == 0 else 'mlstm'}.{i // 2}."
-            run = (xlstm_mod.slstm_forward if i % 2 == 0
-                   else xlstm_mod.mlstm_forward)
-            xs = on_lead(st, xs, lambda x, p=prefix, r=run: r(
-                view.tree(0, p), x, cfg.n_heads)[0])
+            xs = xlstm_cell(view, f"{'slstm' if i % 2 == 0 else 'mlstm'}."
+                            f"{i // 2}.", cfg, st, xs)
     elif cfg.family == "vlm":
         imgs = [tf._image_embeds(cfg, image_embeds, xs[0].new_empty(0,
                                  device=d)) for d in view.devices]
@@ -662,12 +764,7 @@ def forward(view: GridView, cfg: ArchConfig, st: Stream, xs, *,
     elif cfg.family == "hybrid":
         def ssm_fn(prefix):
             def run(*xs):
-                def mix(x):
-                    hn = apply_norm(view.tree(0, prefix + "norm."), x,
-                                    cfg.norm)
-                    return ssm_mod.ssd_forward(view.tree(0, prefix + "ssm."),
-                                               hn, cfg.ssm)[0]
-                return tuple(on_lead(st, xs, mix))
+                return tuple(ssm_mixer(view, prefix, cfg, st, xs))
             return run
 
         def hybrid_super(s):

@@ -7,6 +7,12 @@ attention-like form inside chunks of length Q and a linear recurrence of the
 state across chunks (the reference's ``lax.scan``, a loop here). The decode
 is the O(1) recurrent update carried in ``SSMCache``.
 
+Heads do not mix between the two projections, so the prefill is written
+on a range of heads (:func:`ssd_heads`, given the ``in_proj`` columns and
+conv channels those heads read, :func:`head_columns`): ``ssd_forward``
+runs it on every head, and ``launch/tp.py`` runs each model position's
+heads on its own.
+
 Multi-operand einsums are written as products of two operands (the reference
 lets XLA order them): a left-to-right contraction would build a
 ``[B, nc, Q, Q, H, P]`` intermediate at full width. The sums run in another
@@ -55,12 +61,49 @@ def init_ssm(generator: Optional[torch.Generator], d_model: int,
     })
 
 
-def _split_proj(zxbcdt: torch.Tensor, d_inner: int, spec: SSMSpec):
-    gn = spec.n_groups * spec.d_state
+def _split_proj(zxbcdt: torch.Tensor, d_inner: int, spec: SSMSpec,
+                n_groups: Optional[int] = None):
+    gn = (spec.n_groups if n_groups is None else n_groups) * spec.d_state
     z = zxbcdt[..., :d_inner]
     xbc = zxbcdt[..., d_inner: 2 * d_inner + 2 * gn]
     dt = zxbcdt[..., 2 * d_inner + 2 * gn:]
     return z, xbc, dt
+
+
+def head_groups(lo: int, hi: int, n_heads: int,
+                spec: SSMSpec) -> tuple[int, int]:
+    """The B/C groups ``[g_lo, g_hi)`` that heads ``[lo, hi)`` read."""
+    per = n_heads // spec.n_groups
+    return lo // per, (hi - 1) // per + 1
+
+
+def head_columns(d_model: int, spec: SSMSpec, lo: int,
+                 hi: int) -> tuple[list, list]:
+    """What heads ``[lo, hi)`` read, as ``[(start, stop)]`` runs in order:
+    of ``in_proj``'s columns (their z, x, their groups' B and C, their dt)
+    and of the conv's channels (``conv_w`` / ``conv_b``: their x, B, C).
+    Adjacent runs are merged."""
+    d_inner, n_heads, _ = dims(d_model, spec)
+    p, n = spec.head_dim, spec.d_state
+    gn = spec.n_groups * n
+    g_lo, g_hi = head_groups(lo, hi, n_heads, spec)
+    conv = [(lo * p, hi * p), (d_inner + g_lo * n, d_inner + g_hi * n),
+            (d_inner + gn + g_lo * n, d_inner + gn + g_hi * n)]
+    proj = ([(lo * p, hi * p)] + [(d_inner + a, d_inner + b) for a, b in conv]
+            + [(2 * d_inner + 2 * gn + lo, 2 * d_inner + 2 * gn + hi)])
+    return _merge_runs(proj), _merge_runs(conv)
+
+
+def _merge_runs(runs) -> list:
+    """``[(start, stop)]`` with each run that starts where the last one
+    stops joined to it."""
+    out: list = []
+    for a, b in runs:
+        if out and out[-1][1] == a:
+            out[-1] = (out[-1][0], b)
+        else:
+            out.append((a, b))
+    return out
 
 
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
@@ -85,34 +128,61 @@ def chunk_len(t: int, chunk: int) -> int:
     return next(d for d in range(min(chunk, t), 0, -1) if t % d == 0)
 
 
-def _heads(xbc: torch.Tensor, d_inner: int, spec: SSMSpec, n_heads: int):
-    """xs ``[..., H, P]`` and B, C repeated from their groups to the heads
-    ``[..., H, N]``."""
-    g, n = spec.n_groups, spec.d_state
+def _heads(xbc: torch.Tensor, spec: SSMSpec, heads: tuple[int, int],
+           n_heads: int):
+    """xs ``[..., h, P]`` of heads ``[lo, hi)`` of ``n_heads`` and B, C
+    repeated from their groups to those heads ``[..., h, N]``; ``xbc``
+    holds the heads' x channels, then B and C of their groups
+    (:func:`head_groups`)."""
+    lo, hi = heads
+    n = spec.d_state
+    g_lo, g_hi = head_groups(lo, hi, n_heads, spec)
+    ng, d_in = g_hi - g_lo, (hi - lo) * spec.head_dim
     lead = xbc.shape[:-1]
-    xs = xbc[..., :d_inner].reshape(*lead, n_heads, spec.head_dim)
-    bv = xbc[..., d_inner: d_inner + g * n].reshape(*lead, g, n)
-    cv = xbc[..., d_inner + g * n:].reshape(*lead, g, n)
-    rep = n_heads // g
-    return (xs, bv.repeat_interleave(rep, dim=-2),
-            cv.repeat_interleave(rep, dim=-2))
+    xs = xbc[..., :d_in].reshape(*lead, hi - lo, spec.head_dim)
+    bv = xbc[..., d_in: d_in + ng * n].reshape(*lead, ng, n)
+    cv = xbc[..., d_in + ng * n:].reshape(*lead, ng, n)
+    rep = n_heads // spec.n_groups
+    off = lo - g_lo * rep
+    return (xs, bv.repeat_interleave(rep, dim=-2).narrow(-2, off, hi - lo),
+            cv.repeat_interleave(rep, dim=-2).narrow(-2, off, hi - lo))
 
 
 def ssd_forward(p: Params, x: torch.Tensor, spec: SSMSpec,
                 init_state: Optional[torch.Tensor] = None):
     """Chunked SSD scan. x: [B, T, d_model] -> (y, final state [B,H,N,P])."""
-    b, t, d_model = x.shape
-    d_inner, n_heads, _ = dims(d_model, spec)
+    _, n_heads, _ = dims(x.shape[-1], spec)
+    y, s = ssd_heads(p, x @ p["in_proj"], spec, (0, n_heads), n_heads,
+                     init_state)
+    return y @ p["out_proj"], s
+
+
+def ssd_heads(p: Params, zxbcdt: torch.Tensor, spec: SSMSpec,
+              heads: tuple[int, int], n_heads: int,
+              init_state: Optional[torch.Tensor] = None):
+    """The mixer between its two projections, on heads ``[lo, hi)`` of
+    ``n_heads``: ``zxbcdt [B, T, .]`` the input's product with the
+    ``in_proj`` columns those heads read (:func:`head_columns`), ``p``'s
+    ``conv_w`` / ``conv_b`` their conv channels and ``A_log`` / ``D`` /
+    ``dt_bias`` their entries. Returns (the gated output ``[B, T, (hi -
+    lo) P]`` in ``zxbcdt``'s dtype, final state ``[B, hi - lo, N, P]``).
+    Heads do not mix: each one's output depends on its own columns
+    alone."""
+    b, t, _ = zxbcdt.shape
+    lo, hi = heads
+    nh = hi - lo
+    g_lo, g_hi = head_groups(lo, hi, n_heads, spec)
     n, pdim = spec.d_state, spec.head_dim
+    d_in = nh * pdim
     q = chunk_len(t, spec.chunk)
     nc = t // q
 
-    z, xbc, dt = _split_proj(x @ p["in_proj"], d_inner, spec)
+    z, xbc, dt = _split_proj(zxbcdt, d_in, spec, g_hi - g_lo)
     xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
-    xs, bh, ch = _heads(xbc, d_inner, spec, n_heads)          # [B,T,H,.]
+    xs, bh, ch = _heads(xbc, spec, heads, n_heads)            # [B,T,h,.]
 
-    dtv = softplus(dt.float() + p["dt_bias"])                 # [B,T,H]
-    a = -torch.exp(p["A_log"])                                # [H] (< 0)
+    dtv = softplus(dt.float() + p["dt_bias"])                 # [B,T,h]
+    a = -torch.exp(p["A_log"])                                # [h] (< 0)
     loga = dtv * a                                            # log decay
 
     def ch_(u):
@@ -120,10 +190,11 @@ def ssd_forward(p: Params, x: torch.Tensor, spec: SSMSpec,
     xs_c, b_c, c_c, loga_c, dt_c = map(ch_, (xs, bh, ch, loga, dtv))
     xs_f = xs_c.float()
 
-    cum = torch.cumsum(loga_c, dim=2)                         # [B,nc,Q,H]
+    cum = torch.cumsum(loga_c, dim=2)                         # [B,nc,Q,h]
     # intra-chunk (attention-like) term; the mask goes on BEFORE the exp
-    rel = cum[:, :, :, None, :] - cum[:, :, None, :, :]       # [B,nc,Qq,Qk,H]
-    causal = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    rel = cum[:, :, :, None, :] - cum[:, :, None, :, :]       # [B,nc,Qq,Qk,h]
+    causal = torch.ones((q, q), dtype=torch.bool,
+                        device=zxbcdt.device).tril()
     rel = rel.masked_fill(~causal[None, None, :, :, None], -math.inf)
     gamma = torch.exp(rel)
     scores = torch.einsum("bcqhn,bckhn->bcqkh", c_c, b_c) * gamma
@@ -131,29 +202,28 @@ def ssd_forward(p: Params, x: torch.Tensor, spec: SSMSpec,
                            scores * dt_c[:, :, None, :, :], xs_f)
 
     # per-chunk input -> state contribution
-    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)          # [B,nc,Q,H]
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)          # [B,nc,Q,h]
     chunk_state = torch.einsum("bcqhn,bcqhp->bchnp",
                                b_c.float() * (dt_c * decay_to_end)[..., None],
                                xs_f)
-    chunk_decay = torch.exp(cum[:, :, -1, :])                  # [B,nc,H]
+    chunk_decay = torch.exp(cum[:, :, -1, :])                  # [B,nc,h]
 
     s = (init_state if init_state is not None
-         else torch.zeros((b, n_heads, n, pdim), dtype=torch.float32,
-                          device=x.device))
+         else torch.zeros((b, nh, n, pdim), dtype=torch.float32,
+                          device=zxbcdt.device))
     s_prevs = []
     for c in range(nc):
         s_prevs.append(s)
         s = s * chunk_decay[:, c, :, None, None] + chunk_state[:, c]
-    s_prevs = torch.stack(s_prevs, 1)                         # [B,nc,H,N,P]
+    s_prevs = torch.stack(s_prevs, 1)                         # [B,nc,h,N,P]
 
     # inter-chunk: the carried state's contribution to each position
     y_inter = torch.einsum("bcqhn,bchnp->bcqhp",
                            c_c.float() * torch.exp(cum)[..., None], s_prevs)
-    y = (y_intra + y_inter).reshape(b, t, n_heads, pdim)
+    y = (y_intra + y_inter).reshape(b, t, nh, pdim)
     y = y + xs * p["D"][None, None, :, None]
-    y = y.reshape(b, t, d_inner).to(x.dtype)
-    y = y * F.silu(z)
-    return y @ p["out_proj"], s
+    y = y.reshape(b, t, d_in).to(zxbcdt.dtype)
+    return y * F.silu(z), s
 
 
 def ssd_decode_step(p: Params, x: torch.Tensor, cache: SSMCache,
@@ -168,7 +238,7 @@ def ssd_decode_step(p: Params, x: torch.Tensor, cache: SSMCache,
     xbc_t = F.silu(torch.einsum("bkc,kc->bc", ctx, p["conv_w"])
                    + p["conv_b"])
     new_conv = ctx[:, 1:, :]
-    xs, bh, ch = _heads(xbc_t, d_inner, spec, n_heads)         # [B,H,.]
+    xs, bh, ch = _heads(xbc_t, spec, (0, n_heads), n_heads)    # [B,H,.]
 
     dtv = softplus(dt[:, 0].float() + p["dt_bias"])           # [B,H]
     a = torch.exp(dtv * (-torch.exp(p["A_log"])))             # [B,H]

@@ -12,6 +12,11 @@ Prefill:
     reference's remat chunks (``CHUNK_T``) only save memory in its backward
     and change no value, so the loop has none.
 
+Heads do not mix inside a cell: the sLSTM's recurrence is written for
+several sets of heads advanced in one loop (:func:`slstm_scan`) and the
+mLSTM's on a set of heads (:func:`mlstm_heads`), given those heads'
+columns, so ``launch/tp.py`` runs each model position's heads on its own.
+
 Decode: O(1) recurrent steps for both cells, carrying (c, n, m, h) and
 (C, n, m). Blocks alternate sLSTM (even index) and mLSTM (odd). The
 configuration's d_ff = 0: each cell carries its own factor-2 up/down
@@ -79,34 +84,57 @@ def _slstm_step(r: torch.Tensor, n_heads: int, dh: int):
     return step
 
 
+def slstm_pre(x: torch.Tensor, w_in: torch.Tensor, b: torch.Tensor,
+              n_heads: int, dh: int) -> torch.Tensor:
+    """The gates' input pre-activations ``[B, T, 4, H, dh]`` f32 of the
+    ``n_heads`` heads whose ``w_in`` / ``b`` columns are given (gate-major:
+    each gate's columns of those heads in turn)."""
+    bsz, t, _ = x.shape
+    return (x @ w_in + b).reshape(bsz, t, 4, n_heads, dh).float()
+
+
+def slstm_init(bsz: int, n_heads: int, dh: int, device) -> tuple:
+    """The state without a cache: c = m = h = 0, n = 1."""
+    zeros = torch.zeros((bsz, n_heads, dh), dtype=torch.float32,
+                        device=device)
+    return (zeros, torch.ones_like(zeros), zeros, zeros)
+
+
+def slstm_scan(pres, rs, carries) -> list:
+    """Several sets of heads' recurrences advanced together, one host loop
+    over T (each set's step at ``t`` before any set's at ``t + 1``): set
+    ``k`` its pre-activations ``pres[k] [B, T, 4, h, dh]``, its ``r``
+    rows ``rs[k] [h, dh, 4 dh]`` and its state ``carries[k]``. Returns each
+    set's ``(h [B, T, h, dh] f32, final (c, n, m, h))``."""
+    steps = [_slstm_step(r.float(), r.shape[0], r.shape[1]) for r in rs]
+    carries, hs = list(carries), [[] for _ in pres]
+    for i in range(pres[0].shape[1]):
+        for k, (step, pre) in enumerate(zip(steps, pres)):
+            carries[k] = step(carries[k], pre[:, i])
+            hs[k].append(carries[k][3])
+    return [(torch.stack(h, 1), c) for h, c in zip(hs, carries)]
+
+
 def slstm_forward(p: Params, x: torch.Tensor, n_heads: int,
                   cache: Optional[tuple] = None):
     """x: [B,T,d] -> (y, final (c, n, m, h)). Without a cache the state
     starts at c = m = h = 0, n = 1."""
     b, t, _ = x.shape
     d_inner, dh = _cell_dims(x.shape[-1], n_heads)
-    pre = (x @ p["w_in"] + p["b"]).reshape(b, t, 4, n_heads, dh).float()
-
-    if cache is None:
-        zeros = torch.zeros((b, n_heads, dh), dtype=torch.float32,
-                            device=x.device)
-        carry = (zeros, torch.ones_like(zeros), zeros, zeros)
-    else:
-        carry = tuple(cache)
-
-    step = _slstm_step(p["r"].float(), n_heads, dh)
-    hs = []
-    for i in range(t):
-        carry = step(carry, pre[:, i])
-        hs.append(carry[3])
-    y = torch.stack(hs, 1).reshape(b, t, d_inner).to(x.dtype)
+    pre = slstm_pre(x, p["w_in"], p["b"], n_heads, dh)
+    carry = (slstm_init(b, n_heads, dh, x.device) if cache is None
+             else tuple(cache))
+    [(h, carry)] = slstm_scan([pre], [p["r"]], [carry])
+    y = h.reshape(b, t, d_inner).to(x.dtype)
     return y @ p["w_out"], carry
 
 
 # ------------------------------------------------------------------- mLSTM
-def _mlstm_proj(p: Params, x: torch.Tensor, n_heads: int):
-    b, t, d_model = x.shape
-    d_inner, dh = _cell_dims(d_model, n_heads)
+def _mlstm_proj(p: Params, x: torch.Tensor, n_heads: int, dh: int):
+    """q, k, v, the gates and o of the ``n_heads`` heads whose ``w_qkv``
+    (``(3, h, dh)``), ``w_if`` (``(2, h)``) and ``w_o`` columns ``p``
+    holds."""
+    b, t, _ = x.shape
     qkv = (x @ p["w_qkv"]).reshape(b, t, 3, n_heads, dh)
     gif = (x @ p["w_if"]).reshape(b, t, 2, n_heads).float()
     o = torch.sigmoid(x @ p["w_o"]).reshape(b, t, n_heads, dh)
@@ -115,7 +143,7 @@ def _mlstm_proj(p: Params, x: torch.Tensor, n_heads: int):
     v = qkv[:, :, 2].float()
     logi = gif[:, :, 0]                      # input gate pre-act (exp gate)
     logf = F.logsigmoid(gif[:, :, 1])        # forget gate in log space
-    return q, k, v, logi, logf, o, dh, d_inner
+    return q, k, v, logi, logf, o
 
 
 def mlstm_forward(p: Params, x: torch.Tensor, n_heads: int,
@@ -123,8 +151,19 @@ def mlstm_forward(p: Params, x: torch.Tensor, n_heads: int,
     """Chunked-parallel mLSTM. x: [B,T,d] -> (y, (C, n, m)), m zeros (the
     chunked form is unstabilized-exact; the decode step re-stabilizes from
     m = 0)."""
+    _, dh = _cell_dims(x.shape[-1], n_heads)
+    y, state = mlstm_heads(p, x, n_heads, dh, cache)
+    return y @ p["w_out"], state
+
+
+def mlstm_heads(p: Params, x: torch.Tensor, n_heads: int, dh: int,
+                cache: Optional[tuple] = None):
+    """The mLSTM between its projections on the ``n_heads`` heads whose
+    ``w_qkv`` / ``w_if`` / ``w_o`` columns ``p`` holds (:func:`_mlstm_proj`):
+    (the gated output ``[B, T, h dh]`` in ``x``'s dtype, (C, n, m)). Heads
+    do not mix."""
     b, t, _ = x.shape
-    q, k, v, logi, logf, o, dh, d_inner = _mlstm_proj(p, x, n_heads)
+    q, k, v, logi, logf, o = _mlstm_proj(p, x, n_heads, dh)
 
     if cache is None:
         c0 = torch.zeros((b, n_heads, dh, dh), dtype=torch.float32,
@@ -184,16 +223,17 @@ def mlstm_forward(p: Params, x: torch.Tensor, n_heads: int,
     den = floor_at(torch.abs(den_intra + den_inter), 1.0)
     h = (y_intra + y_inter) / den[..., None]
     h = h.reshape(b, t, n_heads, dh)
-    y = (o.float() * h).reshape(b, t, d_inner).to(x.dtype)
+    y = (o.float() * h).reshape(b, t, n_heads * dh).to(x.dtype)
     m_f = torch.zeros((b, n_heads), dtype=torch.float32, device=x.device)
-    return y @ p["w_out"], (cs, ns, m_f)
+    return y, (cs, ns, m_f)
 
 
 def mlstm_decode_step(p: Params, x: torch.Tensor, cache: tuple,
                       n_heads: int):
     """O(1) stabilized recurrent step. x: [B,1,d] -> (y, (C, n, m))."""
     b = x.shape[0]
-    q, k, v, logi, logf, o, dh, d_inner = _mlstm_proj(p, x, n_heads)
+    d_inner, dh = _cell_dims(x.shape[-1], n_heads)
+    q, k, v, logi, logf, o = _mlstm_proj(p, x, n_heads, dh)
     c, n, m = cache
     it, ft = logi[:, 0], logf[:, 0]                   # [B,H]
     m_new = torch.maximum(ft + m, it)

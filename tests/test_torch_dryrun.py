@@ -268,7 +268,7 @@ def test_yi6b_train_records_on_meta(tmp_path):
     assert by["batch"] == 2 * (256 // 16) * 4096 * 4   # tokens, labels
     col = rec["collectives"]
     ops = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
-           "collective-permute")
+           "collective-permute", "weight-reads")
     assert col["total_bytes"] == sum(col[op]["bytes"] for op in ops) > 0
     # launch/tp.py's collectives, by hand, a call (2 calls): model 16
     # splits T 4096, the stream [8 rows, 4096, 4096] bf16 (X bytes). Each
@@ -279,13 +279,18 @@ def test_yi6b_train_records_on_meta(tmp_path):
     # embedding (its 4096 features split) one all-to-all of X / 16 and its
     # adjoint. The loss's 32 chunks: the max, the exponentials' sums and
     # the gold logits ([8, 128] f32, 4096 B) combined in the forward and
-    # the recompute, the last two's adjoints once: 256 all-reduces
+    # the recompute, the last two's adjoints once: 256 all-reduces. Weight
+    # reads: position 0's two query heads read KV head 0 of 4, which its
+    # own 32 of wk's / wv's 512 columns do not hold, so it reads both whole
+    # at each use: the 15 other chunks ([4096, 32] bf16, 262,144 B) of
+    # each, in the forward and the recompute of 32 blocks, whatever the rows
     x = 8 * 4096 * 4096 * 2
     tp_terms = {"all-gather": (193 * x, 193),
                 "reduce-scatter": (193 * x // 16, 193),
                 "all-to-all": (2 * x // 16, 2),
                 "all-reduce": (256 * 4096, 256),
-                "collective-permute": (0, 0)}
+                "collective-permute": (0, 0),
+                "weight-reads": (2 * 32 * 2 * 15 * 262144, 1920)}
     cfg = tconfigs.get("yi_6b")
     assert dryrun.tp_collectives(cfg, 8, 4096, 16, True) == tp_terms
     # the FSDP terms, on top, gather twice for each reduce-scatter
@@ -461,10 +466,12 @@ def _counted_grid_step(cfg, m: int, B: int, T: int) -> dict:
 def test_layout_collectives_equal_a_counted_grid_step(arch, m, T):
     """``layout_collectives`` on a ``(data 1, model m)`` toy grid (no FSDP
     term: one data position), which traces one row with no layer and one
-    layer (super-block) on the meta device and carries them to 4 layers, 2
-    rows and, at T 384, from T 128 and 256, equals the bytes and calls position
-    0's collectives return in one counted step of the reduced model on the
-    CPU, for a split stream and a whole one."""
+    period of the layers (a layer, a super-block, xLSTM's sLSTM and
+    mLSTM) on the meta device and carries them to 4 layers, 2 rows and, at
+    T 384, from T 128 and 256, equals the bytes and calls position 0's
+    collectives and weight reads across positions return in one counted
+    step of the reduced model on the CPU, for a split stream and a whole
+    one."""
     from repro_torch.configs.base import reduced
     from repro_torch.launch import shardings as shd
     from repro_torch.launch.mesh import logical_rules
@@ -485,7 +492,7 @@ def test_layout_collectives_equal_a_counted_grid_step(arch, m, T):
     shape = types.SimpleNamespace(kind="train", global_batch=B, seq_len=T)
     want = dryrun.layout_collectives(cfg, shape, mesh, rules, layout,
                                      calls=1)
-    assert counted == {op: want[op] for op in dryrun.COLLECTIVE_OPS}
+    assert counted == {op: want[op] for op in dryrun.COUNTED}
     if cfg.family == "moe":
         assert counted["all-to-all" if T % m == 0 else "all-gather"][
             "bytes"] >= 3 * cfg.n_layers * B * T * cfg.moe.top_k \
