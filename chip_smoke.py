@@ -112,9 +112,21 @@ exits non-zero and no failure is caught:
      under ``LoadGenerator``: 8 requests, 0 errors, 16 tokens each in the
      vocabulary, 32 flash launches per prefill (counts reset before and read
      after), a valid ``repro.serve/v1`` document; prefill and decode times,
-     tokens/s, peak memory; then Yi-6B at full width and 2 layers in f32
-     (TF32 off), one 256-token prompt and 4 new tokens, on the card against
-     the CPU's plain path: logits within 2e-4 and equal tokens.
+     tokens/s, peak memory; then the same weights served over a grid
+     (``launch/tp_serve.py`` through ``launch/serve.py``'s steps, ``(data
+     1, model 2)`` with both positions on ``cuda:0``): a prefill of 4 x
+     1,024 tokens into 1,048 slots (counts reset before, read after: 64
+     flash launches, once a layer a position, each new flash shape against
+     the plain version), the parameter bytes placed against ``param_specs``,
+     the state's against ``input_pspecs`` and the K/V (274,726,912 B) and
+     the relayout's moved bytes (134,217,728 B) against hand counts, the
+     prefill logits and 16 teacher-forced decode steps against the one
+     card's within ``FAMILY_TOL`` * max(1, max |logit|), the greedy tokens
+     (a differing token a near tie of the one card's top two), two decodes
+     from one cloned state bit-equal, times and peak beside the one card's;
+     then Yi-6B at full width and 2 layers in f32 (TF32 off), one 256-token
+     prompt and 4 new tokens, on the card against the CPU's plain path:
+     logits within 2e-4 and equal tokens.
  12. resume: ``table2_quick`` killed by a round hook after round 6 and
      resumed to 12 (a checkpoint every 6 rounds under ``build/smoke``), then
      ``async_quick`` killed after round 4 of 8: ledger entries, accuracies,
@@ -214,6 +226,19 @@ exits non-zero and no failure is caught:
      same inputs on the CPU (equal experts and slots, some token dropped, y
      within ``MOE_CAP_ATOL``); the encoder's decode step raises. Prefill and
      decode times, peak memory, one profiled prefill and decode step.
+     Then DeepSeek-MoE-16B (8 layers) served over the grid as in phase 11
+     (16 flash launches, 4 decode steps), in bf16 with its logits printed,
+     not held (a bf16 ulp of the router's input moves a top-6 near tie of
+     64 experts, so rows route otherwise), and in f32 (TF32 off) held
+     within ``SERVE_TP_MOE_F32_TOL`` (a row whose token goes to other
+     experts in some layer is reported from then on, not held); and the
+     layer checks: one decode attention layer at full width in f32 (TF32
+     off) over the grid with a cache of 4,096 slots split 2 x 2,048, against
+     ``decode_self_attention`` on the whole cache, the new slot on position
+     0, on position 1, at slot 2,047 and 2,048, for Yi-6B (GQA 32 / 4),
+     Granite-20B (MQA 48 / 1), Llama-4-Scout's width with a window of 512
+     and Yi-6B with an int8 cache (``SERVE_TP_TOL``,
+     ``SERVE_TP_CACHE_TOL``).
  17. train (run after 16): LM training, which launches no kernel (counts
      reset and read: no flash launch; attention is ``attend_chunked``).
      Yi-6B at full width and 1 layer in f32 (TF32 off), B 2 x T 2048
@@ -380,8 +405,9 @@ phases 1 and 14, ``--only bench`` phases 1 and 15, ``--only families``
 phases 1 and 16, ``--only train`` phases 1 and 17, ``--only fl_train``
 phases 1 and 18, ``--only selectors`` phases 1 and 19, ``--only
 secagg_demo`` phases 1 and 20, ``--only tp`` phase 1 and the
-tensor-parallel cases (``[train]`` (f) to (j), ``[fl_train]`` (f), (g),
-(h)). Without a
+tensor-parallel cases (the serving grid's layer checks and its Yi-6B and
+DeepSeek-MoE-16B cases of phases 11 and 16, ``[train]`` (f) to (j),
+``[fl_train]`` (f), (g), (h)). Without a
 CUDA device, or outside a checkout, it exits
 non-zero and prints no result.
 """
@@ -2378,7 +2404,11 @@ def lm_phase(kind: str, card: str, flash_main_ms: float) -> dict:
               f"{flash_ms:.3f} ms; top: " + "; ".join(
                   f"{k[:48]} x{c} {t / 1e3:.3f} ms" for k, c, t in top),
               flush=True)
-    del params, state, logits
+    del state, logits
+    torch.cuda.empty_cache()
+    counts = {**counts, "flash_attention": counts["flash_attention"]
+              + serve_grid_yi6b(card, params)}
+    del params
     torch.cuda.empty_cache()
 
     # parity at full width, reduced depth: the card against the CPU
@@ -2768,10 +2798,448 @@ def families_phase(card: str) -> dict:
         total["flash_attention"] += family_cell(arch, layers, B, card)
         gc.collect()                 # free one config before the next
         torch.cuda.empty_cache()
+    total["flash_attention"] += serve_grid_moe(card)
+    serve_tp_layers(card)
     print(f"[families] phase 16 took {time.perf_counter() - t0:.1f} s on "
           f"{card}; flash launches {total['flash_attention']} over "
           f"{len(FAMILY_CELLS)} first prefills", flush=True)
     return total
+
+
+# -------------------------------------- serving over a grid ([lm], [families])
+# launch/tp_serve.py through launch/serve.py's steps over (data 1, model 2)
+# with both positions on cuda:0, against the one-card steps on the same
+# weights: Yi-6B whole in [lm], DeepSeek-MoE-16B (8 layers) in [families]
+SERVE_TP_T = 1024               # prompt tokens a row
+SERVE_TP_CACHE = 1048           # LMAdapter's cache_len at T 1024 and 16 new:
+                                # 524 slots a position
+SERVE_TP_NEW = 16               # Yi-6B's teacher-forced decode steps
+SERVE_TP_MOE_NEW = 4            # DeepSeek-MoE-16B's
+# the layer checks: one decode attention layer at full width in f32 (TF32
+# off) on a cache of 4,096 slots split over two positions (2,048 each),
+# against decode_self_attention on the whole cache; rows whose new slot
+# lies on position 0, on position 1, at the last slot of position 0 and the
+# first of position 1
+SERVE_TP_S = 4096
+SERVE_TP_LENGTHS = (100, 3000, 2047, 2048)
+# about 2x the readings on an H100 80GB HBM3 at 700 W (Yi-6B, Granite-20B,
+# the window, int8): |y - want| over max |want| 1.086e-06; the cache's
+# written entries 2.384e-06 (an int8 cache: equal)
+SERVE_TP_TOL = 2.2e-6
+SERVE_TP_CACHE_TOL = 4.8e-6
+# DeepSeek-MoE-16B over the grid in f32 (TF32 off) against the one card:
+# |logit gap| over max(1, max |logit|), about 2x the reading (2.95e-06 at
+# the prefill). In bf16 it is not held: a bf16 ulp of the router's input
+# moves a top-6 near tie of 64 experts, and every row of the 4 routed its
+# token otherwise in some layer from the first decode step on
+SERVE_TP_MOE_F32_TOL = 6e-6
+
+
+def serve_grid_lm(cuda0):
+    """A ``(data 1, model 2)`` mesh with both positions on ``cuda0`` and
+    its explicit grid."""
+    from repro_torch.launch import mesh as tmesh
+
+    return (tmesh.LogicalMesh((1, 2), ("data", "model"), "cuda:0"),
+            [((cuda0, cuda0), range(0, 1))])
+
+
+def serve_state_bytes(cfg, mesh, B: int, cache_len: int) -> int:
+    """The decode state's bytes on the card when both of ``mesh``'s model
+    positions lie there, from ``specs.input_pspecs`` alone
+    (``dryrun.shard_bytes`` a position, times 2)."""
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import logical_rules
+
+    shape = specs.InputShape("serve", cache_len, B, "decode")
+    leaves = specs._state_leaves(specs.input_specs(cfg, shape)["state"])
+    pspecs = specs.input_pspecs(cfg, shape, logical_rules(mesh))["state"]
+    return 2 * sum(dryrun.shard_bytes(x.shape, x.dtype, spec, mesh.shape)
+                   for x, spec in zip(leaves, pspecs))
+
+
+def relayout_bytes(cfg, B: int, T: int, m: int = 2) -> int:
+    """The K/V bytes the grid prefill's relayout moves between positions,
+    from the shapes: each layer's K and V, each position's ``K/m`` KV heads
+    at every prompt slot that another position holds."""
+    per = cfg.n_kv_heads // m * cfg.hd * (2 if cfg.dtype == "bfloat16"
+                                          else 4)
+    return cfg.n_layers * 2 * B * per * (m - 1) * T
+
+
+def serve_grid_case(tag: str, card: str, cfg, params, B: int, n_decode: int,
+                    *, tol: float = FAMILY_TOL, hold: bool = True,
+                    kv_bytes: int | None = None,
+                    moved: int | None = None) -> int:
+    """``params`` (one card, bf16) served over ``(data 1, model 2)`` on
+    ``cuda:0`` through ``launch/serve.py``'s steps: a prefill of B x
+    SERVE_TP_T into SERVE_TP_CACHE slots (counts reset before, read after:
+    flash once a layer a position, each new flash shape against the plain
+    version), the bytes placed (parameters: ``param_specs``; the state:
+    ``input_pspecs``, and ``kv_bytes`` of K/V when given), the relayout's
+    moved bytes (``moved``), the prefill logits and ``n_decode``
+    teacher-forced decode steps against the one card's within ``tol`` *
+    max(1, max |logit|), the greedy tokens (a differing token must be a
+    near tie of the one card's top two logits; neither held but printed
+    unless ``hold``), two decodes from one cloned state bit-equal; times
+    and peak beside the one card's. Returns the counted prefill's flash
+    launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import make_lm_tokens
+    from repro_torch.kernels import ops
+    from repro_torch.launch import fsdp, serve, tp_serve
+
+    cuda0 = torch.device("cuda", 0)
+    t_case = time.perf_counter()
+    toks, _ = make_lm_tokens(cfg.vocab, B, SERVE_TP_T, seed=3)
+    prompt = torch.from_numpy(np.asarray(toks, np.int32)).cuda()
+    pre = serve.make_prefill_step(cfg, SERVE_TP_CACHE)
+    dec = serve.make_decode_step(cfg)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    # the one card: its logits at the prefill and each decode step, fed its
+    # own greedy tokens (after a warm-up prefill, as the grid's is timed
+    # after its counted one)
+    pre(params, prompt)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    route1 = [[] for _ in range(n_decode + 1)]
+    with routings(route1[0]):
+        (l1, st1), pre_ms1 = timed(lambda: pre(params, prompt))
+    want, fed = [l1.float()], []
+    dec_ms1 = 0.0
+    for i in range(n_decode):
+        fed.append(serve.next_token(want[-1]))
+        with routings(route1[i + 1]):
+            (lg, st1), ms = timed(lambda: dec(params, fed[-1], st1))
+        dec_ms1 += ms
+        want.append(lg.float())
+    peak1 = (torch.cuda.max_memory_allocated() - base) / 2**30
+    del st1
+
+    mesh, grid_ = serve_grid_lm(cuda0)
+    lm, (placed, _) = placed_bytes(lambda: fsdp.shard(params, mesh,
+                                                      groups=grid_))
+    predicted = grid_bytes_on(cfg, mesh, grid_, cuda0)
+    check(placed == predicted, f"{tag}: {placed} parameter bytes placed, "
+          f"param_specs predicts {predicted}")
+    flash_seen = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    route2 = [[] for _ in range(n_decode + 1)]
+    with first_calls(flash_seen, []), tp_traffic(lm) as tally, \
+            routings(route2[0]):
+        l2, st2 = pre(lm, prompt)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    flash_line = flash_calls_check(tag, flash_seen)
+    del flash_seen
+    check(counts["flash_attention"] == 2 * cfg.n_layers,
+          f"{tag}: the grid prefill launched flash_attention "
+          f"{counts['flash_attention']} times, not once a layer a position "
+          f"({2 * cfg.n_layers})")
+    check(isinstance(st2, tp_serve.GridState) and st2.split,
+          f"{tag}: the grid state's cache is not split by sequence")
+    kv = sum(t.numel() * t.element_size() for t in tp_serve.state_tensors(st2)
+             if t.dim() == 4)
+    held = sum(t.numel() * t.element_size()
+               for t in tp_serve.state_tensors(st2))
+    want_state = serve_state_bytes(cfg, mesh, B, SERVE_TP_CACHE)
+    check(held == want_state, f"{tag}: the state holds {held} B, "
+          f"input_pspecs predicts {want_state}")
+    check(kv_bytes is None or kv == kv_bytes,
+          f"{tag}: {kv} K/V bytes, hand count {kv_bytes}")
+    check(moved is None or tally["relayout"] == moved,
+          f"{tag}: the relayout moved {tally['relayout']} B, hand count "
+          f"{moved}")
+
+    def bound(w):
+        return tol * max(1.0, w.abs().max().item())
+
+    # a row whose token went to other experts in some layer (a top-k near
+    # tie moved by a bf16 ulp of the router's input) is reported from then
+    # on, not held: top-k is not continuous
+    apart = torch.zeros(B, dtype=torch.bool)
+    flips = []
+
+    def held_gap(i, lg):
+        """The largest gap over the rows still routed alike (over every
+        row unless ``hold``)."""
+        apart[:] |= rerouted(route1[i], route2[i], B)
+        if apart.any():
+            flips.append((i, apart.nonzero().flatten().tolist()))
+        keep = (~apart if hold else torch.ones_like(apart)).to(lg.device)
+        gap = (lg.float() - want[i]).abs()[keep]
+        return gap.max().item() if gap.numel() else 0.0
+
+    gaps = [held_gap(0, l2)]
+    check(not hold or gaps[0] <= bound(want[0]), f"{tag}: grid prefill "
+          f"logits differ "
+          f"from the one card's by {gaps[0]:.3e} (bound "
+          f"{bound(want[0]):.3e})")
+    clone = state_copy(st2)
+    got_tok, ties, dec_ms2 = [serve.next_token(l2)], [], 0.0
+    for i, tok in enumerate(fed):
+        with routings(route2[i + 1]):
+            (lg, st2), ms = timed(lambda: dec(lm, tok, st2))
+        dec_ms2 += ms
+        gaps.append(held_gap(i + 1, lg))
+        check(not hold or gaps[-1] <= bound(want[i + 1]),
+              f"{tag}: decode step {i + 1} logits differ from the one "
+              f"card's by {gaps[-1]:.3e} (bound {bound(want[i + 1]):.3e})")
+        got_tok.append(serve.next_token(lg))
+    check(not hold or int(apart.sum()) < B, f"{tag}: every row was "
+          "routed otherwise: nothing held")
+    peak2 = (torch.cuda.max_memory_allocated() - base) / 2**30
+    ref_tok = fed + [serve.next_token(want[-1])]
+    for i, (a, b) in enumerate(zip(got_tok, ref_tok)):
+        for r in torch.nonzero(a[:, 0] != b[:, 0]).flatten().tolist():
+            if apart[r]:
+                ties.append((i, r, "rerouted"))
+                continue
+            top2 = torch.topk(want[i][r, -1], 2).values
+            gap = (top2[0] - top2[1]).item()
+            check(not hold or gap <= bound(want[i]), f"{tag}: step {i} "
+                  f"row {r} token "
+                  f"{int(a[r])} != the one card's {int(b[r])}, whose top "
+                  f"two logits are {gap:.3e} apart (bound "
+                  f"{bound(want[i]):.3e}): not a near tie")
+            ties.append((i, r, gap))
+    # two decodes from one cloned state
+    (la, sa), (lb, sb) = [dec(lm, fed[0], state_copy(clone))
+                          for _ in range(2)]
+    same = bits_equal(la, lb) and all(
+        bits_equal(x, y) for x, y in zip(tp_serve.state_tensors(sa),
+                                         tp_serve.state_tensors(sb)))
+    check(same, f"{tag}: two grid decodes from one state differ")
+    _, pre_ms2 = timed(lambda: pre(lm, prompt))
+    print(f"[{tag}] grid serving (data 1, model 2) on {card}: parameters "
+          f"{placed} B placed (param_specs {predicted}); prefill B={B} "
+          f"T={SERVE_TP_T} into {SERVE_TP_CACHE} slots: flash "
+          f"{counts['flash_attention']} launches, state {held} B "
+          f"(input_pspecs {want_state}; K/V {kv} B, "
+          f"{kv // 2} a position), relayout moved {tally['relayout']} B"
+          f"{'' if moved is None else f' (hand count {moved})'}; logits "
+          f"vs the one card: prefill {gaps[0]:.3e}, {n_decode} "
+          f"teacher-forced decode steps max {max(gaps[1:]):.3e} ("
+          f"{'bound' if hold else 'not held; would be'} "
+          f"{tol} * max(1, max |logit|) = {bound(want[0]):.3e}); "
+          f"rows routed otherwise (step, rows) {flips or 'none'}; "
+          f"greedy tokens equal at {sum(bool(torch.equal(a, b)) for a, b in zip(got_tok, ref_tok))} "
+          f"of {len(ref_tok)} steps, near ties {ties}; two decodes "
+          f"bit-equal {same}; prefill {pre_ms2:.3f} ms (one card "
+          f"{pre_ms1:.3f}), decode {dec_ms2 / n_decode:.3f} ms a step "
+          f"(one card {dec_ms1 / n_decode:.3f}), peak {peak2:.2f} GiB above "
+          f"the weights (one card {peak1:.2f}); flash calls vs plain: "
+          f"{flash_line}; the case took "
+          f"{time.perf_counter() - t_case:.1f} s", flush=True)
+    del lm, st2, clone, sa, sb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts["flash_attention"]
+
+
+@contextlib.contextmanager
+def routings(rec: list):
+    """Within the block, each MoE router call appends its rows' last
+    token's experts (sorted, ``[B, k]``) to ``rec``: a layer a call, on
+    the one card and on the grid alike (position 0 routes)."""
+    from repro_torch.models import moe as moe_mod
+
+    real = moe_mod.router
+
+    def spy(p, x, spec):
+        out = real(p, x, spec)
+        rec.append(out[2][:, -1].sort(-1).values.clone())
+        return out
+
+    moe_mod.router = spy
+    try:
+        yield
+    finally:
+        moe_mod.router = real
+
+
+def rerouted(a: list, b: list, rows: int):
+    """``[B]`` bool: the rows whose last token goes to other experts in some
+    layer of two runs' routings (:func:`routings`)."""
+    import torch
+
+    out = torch.zeros(rows, dtype=torch.bool)
+    for x, y in zip(a, b):
+        out |= (x != y).any(-1).cpu()
+    return out
+
+
+def state_copy(state):
+    """A grid state whose caches are fresh copies of ``state``'s."""
+    from repro_torch.launch import tp_serve
+
+    return tp_serve.GridState(
+        caches=[[[tp_serve.KVCache(k=c.k.clone(), v=c.v.clone(),
+                                   length=c.length.clone()) for c in layer]
+                 for layer in group] for group in state.caches],
+        cache_len=state.cache_len)
+
+
+def serve_grid_yi6b(card: str, params=None) -> int:
+    """[lm]'s grid case: Yi-6B whole (``params``: [lm]'s, else drawn from
+    seed 0), 16 teacher-forced decode steps; the K/V and relayout bytes
+    against the hand counts."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as tf
+
+    cfg = configs.get("yi_6b")
+    if params is None:
+        params = tf.init_params(cfg, torch.Generator(
+            device="cuda").manual_seed(0))
+    B = 4
+    kv = cfg.n_layers * 2 * B * SERVE_TP_CACHE * cfg.n_kv_heads * cfg.hd * 2
+    return serve_grid_case("lm", card, cfg, params, B, SERVE_TP_NEW,
+                           kv_bytes=kv,
+                           moved=relayout_bytes(cfg, B, SERVE_TP_T))
+
+
+def serve_grid_moe(card: str) -> int:
+    """[families]' grid case: DeepSeek-MoE-16B, 8 of 28 layers, 4
+    teacher-forced decode steps, in bf16 (the logits printed, not held: a
+    routing near tie moves; module docstring) and in f32 (TF32 off) within
+    ``SERVE_TP_MOE_F32_TOL``. Returns the bf16 prefill's flash launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(configs.get("deepseek_moe_16b"), n_layers=8)
+    B, out = 4, 0
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for c in (cfg, dataclasses.replace(cfg, dtype="float32")):
+        params = tf.init_params(c, torch.Generator(device="cuda").manual_seed(
+            0))
+        f32 = c.dtype == "float32"
+        n = serve_grid_case(
+            "families" + (" f32" if f32 else ""), card, c, params, B,
+            SERVE_TP_MOE_NEW, tol=SERVE_TP_MOE_F32_TOL if f32 else FAMILY_TOL,
+            hold=f32, moved=relayout_bytes(c, B, SERVE_TP_T))
+        out = out or n
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_tp_layer(card: str, name: str, cfg) -> str:
+    """One decode attention layer of ``cfg`` (1 layer, f32, TF32 off) over
+    ``(data 1, model 2)`` on ``cuda:0`` with the cache split by sequence
+    (``tp_serve.decode_attention``, partials all-reduced) against
+    ``decode_self_attention`` on the whole cache: random cache contents, the
+    rows' lengths ``SERVE_TP_LENGTHS``; the output and the cache after the
+    write within ``SERVE_TP_TOL`` of max |want| and ``SERVE_TP_CACHE_TOL``
+    (an int8 cache equal)."""
+    import torch
+
+    from repro_torch.launch import fsdp, tp, tp_serve
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer as tf
+
+    cuda0 = torch.device("cuda", 0)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    model = tf.init_params(cfg, gen)
+    mesh, grid_ = serve_grid_lm(cuda0)
+    lm = fsdp.shard(model, mesh, groups=grid_)
+    B, S, K, hd = len(SERVE_TP_LENGTHS), SERVE_TP_S, cfg.n_kv_heads, cfg.hd
+    if cfg.kv_dtype == "int8":
+        k = torch.randint(-127, 128, (B, S, K, hd), generator=gen,
+                          device="cuda").to(torch.int8)
+        v = torch.randint(-127, 128, (B, S, K, hd), generator=gen,
+                          device="cuda").to(torch.int8)
+    else:
+        k = torch.randn((B, S, K, hd), generator=gen, device="cuda")
+        v = torch.randn((B, S, K, hd), generator=gen, device="cuda")
+    lengths = torch.tensor(SERVE_TP_LENGTHS, dtype=torch.int32,
+                           device="cuda")
+    x = torch.randn((B, 1, cfg.d_model), generator=gen, device="cuda")
+    half = S // 2
+    with torch.inference_mode():
+        one = attn.KVCache(k=k.clone(), v=v.clone(), length=lengths.clone())
+        want, _ = attn.decode_self_attention(
+            dict(model.blocks[0]["attn"].items()), x, one,
+            n_heads=cfg.n_heads, n_kv=K, hd=hd, rope=cfg.rope,
+            window=cfg.window)
+        caches = [attn.KVCache(k=k[:, j * half:(j + 1) * half].clone(),
+                               v=v[:, j * half:(j + 1) * half].clone(),
+                               length=lengths.clone()) for j in range(2)]
+        parts = tp_serve.decode_attention(
+            tp.GridView(lm, 0), "blocks.0.attn.", [x, x], caches, cfg, S)
+        got = tp.all_reduce(parts)[0]
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item() / scale
+    ck = torch.cat([c.k for c in caches], 1)
+    cv = torch.cat([c.v for c in caches], 1)
+    if cfg.kv_dtype == "int8":
+        cache_err = float(not (torch.equal(ck, one.k)
+                               and torch.equal(cv, one.v)))
+    else:
+        cache_err = max((ck - one.k).abs().max().item(),
+                        (cv - one.v).abs().max().item())
+    check(err <= SERVE_TP_TOL and cache_err <= SERVE_TP_CACHE_TOL
+          and all(torch.equal(c.length, one.length) for c in caches),
+          f"[serve_tp] {name}: grid decode attention vs "
+          f"decode_self_attention {err:.3e} of max |y| {scale:.3f}, cache "
+          f"{cache_err:.3e} (tolerances {SERVE_TP_TOL}, "
+          f"{SERVE_TP_CACHE_TOL})")
+    del model, lm, k, v, one, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return f"{name} {err:.3e} (cache {cache_err:.3e})"
+
+
+def serve_tp_layers(card: str) -> None:
+    """The layer checks: Yi-6B (GQA 32 / 4), Granite-20B (MQA 48 / 1, more
+    positions than KV heads), Llama-4-Scout's attention width with its
+    windowed variant's window cut to 512, Yi-6B with an int8 cache; each at
+    full attention width, one layer, a 512-wide MLP and vocab (which the
+    layer does not read)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+
+    def small(arch, **over):
+        return dataclasses.replace(configs.get(arch), n_layers=1, d_ff=512,
+                                   vocab=512, dtype="float32", **over)
+
+    lines = [serve_tp_layer(card, name, cfg) for name, cfg in (
+        ("yi_6b", small("yi_6b")),
+        ("granite_20b", small("granite_20b")),
+        ("llama4_scout window 512", small("llama4_scout_17b_a16e",
+                                          family="dense", moe=None,
+                                          window=512)),
+        ("yi_6b int8 cache", small("yi_6b", kv_dtype="int8")))]
+    print(f"[serve_tp] decode attention layer over (data 1, model 2) on "
+          f"{card}, f32, cache {SERVE_TP_S} slots split 2 x "
+          f"{SERVE_TP_S // 2}, new slots at {list(SERVE_TP_LENGTHS)}: "
+          + "; ".join(lines) + f" (tolerances {SERVE_TP_TOL} of max |y|, "
+          f"{SERVE_TP_CACHE_TOL} the cache); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 # ------------------------------------------------------ phase 17: train
@@ -3317,16 +3785,20 @@ def tp_traffic(lm):
     pieces of each 5-D all-to-all that change position, forward and
     backward) with its calls, the bytes of position 0's routing broadcast
     (each token's expert ids and gates ``[B, T, k]`` to the other
-    positions; the gates' gradients back), and the scatters of a whole
+    positions; the gates' gradients back), the scatters of a whole
     tensor from one position to the others (``scatter_calls``: what the
-    blocks run on position 0 alone once handed back)."""
+    blocks run on position 0 alone once handed back), and the K/V bytes the
+    serving prefill's cache relayout hands from one position to another
+    (``relayout``: the pieces of each 4-D all-to-all that change
+    position)."""
     from repro_torch.launch import tp
 
     routed = {n for n in lm.shapes
               if ".moe." in n and n.rsplit(".", 1)[1] in ROUTED}
     k = lm.cfg.moe.top_k if lm.cfg.moe is not None else None
     tally = {"across": 0, "expert_gathered": 0, "exchange": 0,
-             "exchange_calls": 0, "route": 0, "scatter_calls": 0}
+             "exchange_calls": 0, "route": 0, "scatter_calls": 0,
+             "relayout": 0}
     chunk, fwd, bwd = (tp.GridView.chunk, tp._AllToAll.forward,
                        tp._AllToAll.backward)
     bfwd, bbwd = tp._Broadcast.forward, tp._Broadcast.backward
@@ -3351,9 +3823,13 @@ def tp_traffic(lm):
                                      for t in ts) * (m - 1) // m
             tally["exchange_calls"] += 1
 
-    def spy_fwd(ctx, split_dim, cat_dim, *xs):
+    def spy_fwd(ctx, split_dim, cat_dim, pieces, *xs):
         moved(xs)
-        return fwd(ctx, split_dim, cat_dim, *xs)
+        if xs[0].dim() == 4:        # the serving prefill's cache relayout
+            tally["relayout"] += sum(
+                x.narrow(split_dim, *pieces[j]).numel() * x.element_size()
+                for i, x in enumerate(xs) for j in range(len(xs)) if i != j)
+        return fwd(ctx, split_dim, cat_dim, pieces, *xs)
 
     def spy_bwd(ctx, *gs):
         moved(gs)
@@ -7101,8 +7577,9 @@ def main() -> int:
                     "probe, the pair-mask kernel's flat and round rows "
                     "and one round's mask path probe, [sharded], [bench], "
                     "[families], [train], [fl_train], [selectors], "
-                    "[secagg_demo], the tensor-parallel cases ([train] "
-                    "(f) to (j) and [fl_train] (f), (g), (h)) alone, with no "
+                    "[secagg_demo], the tensor-parallel cases (the serving "
+                    "grid's, [train] (f) to (j) and [fl_train] (f), (g), "
+                    "(h)) alone, with no "
                     "result line: a "
                     "kernel's "
                     "times on a "
@@ -7189,6 +7666,9 @@ def main() -> int:
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
         return 0
     if args.only == "tp":
+        serve_tp_layers(card)
+        serve_grid_yi6b(card)
+        serve_grid_moe(card)
         train_tp_phase(card)
         fl_tp(card)
         fl_tp_moe(card)

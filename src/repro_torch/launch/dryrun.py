@@ -73,7 +73,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch import configs, convert
 from repro_torch.core.types import SecureAggConfig, THGSConfig
-from repro_torch.launch import fsdp, serve, tp
+from repro_torch.launch import fsdp, serve, tp, tp_serve
 from repro_torch.launch import shardings as shd
 from repro_torch.launch import train
 from repro_torch.launch.mesh import (LogicalMesh, logical_rules,
@@ -297,17 +297,25 @@ _COLLECTIVE_SOURCE = (
     "bytes position 0 reads of other positions' chunks (GridView.chunk with "
     "i != j: K/V gathered whole at use, the SSM's and xLSTM's columns that "
     "do not fall in its own chunk), a read at each use, independent of the "
-    "rows and T. Prefill and decode: the forward's gathers and the traced "
-    "forward (decode: T 1)")
+    "rows and T. Prefill and decode: the forward's gathers and, for the "
+    "dense and MoE families (serve_collectives), the grid serve steps of "
+    "launch/tp_serve.py traced the same way at the shape's length and cache "
+    "(the prefill's flash attention on each position's heads, the cache "
+    "relayout's all-to-all, the last row's hand-off and the vocab-parallel "
+    "logits' all-gather; the decode's q / k / v all-gathers, the cache "
+    "statistics' all-reduces, the P.V reduce-scatter by wo's row chunks, the "
+    "row-parallel all-reduces); for the other families and long_500k "
+    "(its cache over data and model) the traced training forward (decode: "
+    "T 1)")
 
 # launch/tp.py's collectives under the reference's keys: each Function's
 # forward, then its backward (the adjoint), with the index of position 0's
 # tensor in what it returns (None: the tensor itself)
 _TP_KEYS = {
     "_AllGather": (("all-gather", 0), ("reduce-scatter", 1)),
-    "_ReduceScatter": (("reduce-scatter", 0), ("all-gather", 1)),
+    "_ReduceScatter": (("reduce-scatter", 0), ("all-gather", 2)),
     "_AllReduce": (("all-reduce", 0), ("all-reduce", 0)),
-    "_AllToAll": (("all-to-all", 0), ("all-to-all", 2)),
+    "_AllToAll": (("all-to-all", 0), ("all-to-all", 3)),
     "_Broadcast": (("collective-permute", 0), ("collective-permute", 1)),
     "_Scatter": (("collective-permute", 0), ("collective-permute", 2)),
     "_ReduceTo": (("all-reduce", None), ("all-reduce", 1)),
@@ -424,6 +432,53 @@ def _tp_row(cfg, t: int, m: int, train: bool) -> dict:
         for key in ("bytes", "count")) for op in COUNTED}
 
 
+def serves_on_grid(cfg, shape, rules) -> bool:
+    """Whether the dry run counts ``shape``'s serve step as the grid's
+    (``launch/tp_serve.py``): prefill and decode of the dense and MoE
+    families with the cache's sequence over ``model`` alone (not
+    ``long_500k``'s, over the data axes too)."""
+    return (shape.kind in ("prefill", "decode") and tp_serve.serves(cfg)
+            and rules["kv_seq"] == "model")
+
+
+def _serve_traced(cfg, kind: str, t: int, m: int) -> dict:
+    """:func:`counting_tp` over one call of the grid serve step on a meta
+    grid of ``m`` model positions, one row: a prefill of ``t`` tokens into
+    a cache of ``t`` slots, or a decode step on a cache of ``t`` slots."""
+    dev = torch.device("meta")
+    lm = fsdp.empty(cfg, LogicalMesh((1, m), ("data", "model"), "meta"),
+                    groups=[((dev,) * m, range(0, 1))])
+    with counting_tp() as counted:
+        if kind == "prefill":
+            tp_serve.prefill(lm, cfg, meta((1, t), torch.int32), t)
+        else:
+            state = tp_serve.init_state(lm, cfg, 1, t)
+            tp_serve.decode_step(lm, cfg, meta((1, 1), torch.int32), state)
+    return counted
+
+
+@functools.lru_cache(maxsize=None)
+def _serve_row(cfg, kind: str, t: int, m: int) -> dict:
+    """:func:`serve_collectives` of one row, traced with no layer and one
+    layer and carried along the line through them to ``cfg``'s depth (each
+    layer runs the same collectives)."""
+    at = [_serve_traced(dataclasses.replace(cfg, n_layers=n), kind, t, m)
+          for n in (0, 1)]
+    return {op: tuple(at[0][op][key] + cfg.n_layers
+                      * (at[1][op][key] - at[0][op][key])
+                      for key in ("bytes", "count")) for op in COUNTED}
+
+
+def serve_collectives(cfg, rows: int, kind: str, t: int, m: int) -> dict:
+    """``{op: (bytes, count)}`` of one grid serve step (``kind`` prefill
+    or decode, ``t`` the prompt's tokens and the cache's slots) on ``rows``
+    rows over ``m`` model positions, position 0's (:func:`counting_tp`):
+    one row's count, its bytes times ``rows``, the weight reads' as they
+    are."""
+    return {op: (nbytes if op == WEIGHT_READS else rows * nbytes, count)
+            for op, (nbytes, count) in _serve_row(cfg, kind, t, m).items()}
+
+
 def _add(out: dict, op: str, nbytes: int, count: int) -> None:
     out[op]["bytes"] += int(nbytes)
     out[op]["count"] += int(count)
@@ -467,8 +522,10 @@ def layout_collectives(cfg, shape, mesh, rules, layout: dict, calls: int,
             _add(out, "all-reduce", calls * shard_bytes(shp, dt, spec, sizes),
                  calls * stack)
     if m > 1:
-        for op, (nbytes, count) in tp_collectives(cfg, rows, t, m,
-                                                  train_step).items():
+        terms = (serve_collectives(cfg, rows, shape.kind, shape.seq_len, m)
+                 if serves_on_grid(cfg, shape, rules)
+                 else tp_collectives(cfg, rows, t, m, train_step))
+        for op, (nbytes, count) in terms.items():
             _add(out, op, calls * nbytes, calls * count)
     out["total_bytes"] = sum(v["bytes"] for v in out.values())
     out["source"] = _COLLECTIVE_SOURCE

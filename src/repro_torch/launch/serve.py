@@ -4,6 +4,12 @@
 The reference jits both steps and donates the decode state so the KV cache
 updates in place; the port runs them eagerly and the decode writes the cache
 in place itself (``models/attention.py::decode_self_attention``).
+
+``params`` is a ``TransformerLM`` on one device, or a
+``launch.fsdp.ShardedLM`` placed over a participant's ``(data, model)``
+grid: the steps then serve the dense and MoE families over it
+(``launch/tp_serve.py``), the decode state a ``tp_serve.GridState`` placed
+as ``launch/specs.py::input_pspecs`` places the reference's.
 """
 from __future__ import annotations
 
@@ -12,11 +18,14 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch import fsdp, tp_serve
 from repro_torch.models import transformer as tf
 
 
 def make_prefill_step(cfg: ArchConfig, cache_len: int) -> Callable:
     def step(params, tokens, image_embeds=None):
+        if isinstance(params, fsdp.ShardedLM):
+            return tp_serve.prefill(params, cfg, tokens, cache_len)
         return tf.prefill(params, cfg, tokens, cache_len,
                           image_embeds=image_embeds)
 
@@ -25,6 +34,8 @@ def make_prefill_step(cfg: ArchConfig, cache_len: int) -> Callable:
 
 def make_decode_step(cfg: ArchConfig) -> Callable:
     def step(params, token, state):
+        if isinstance(params, fsdp.ShardedLM):
+            return tp_serve.decode_step(params, cfg, token, state)
         return tf.decode_step(params, cfg, token, state)
 
     return step

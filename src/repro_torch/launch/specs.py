@@ -41,6 +41,11 @@ SHAPES = {
 }
 
 
+# a KV cache's sequence splits over ``kv_seq`` from this many slots (the
+# reference's rule); a shorter cache is whole on every ``model`` position
+KV_SPLIT_SLOTS = 1024
+
+
 def meta(shape, dtype) -> torch.Tensor:
     return torch.empty(tuple(shape), dtype=dtype, device="meta")
 
@@ -130,7 +135,7 @@ def input_pspecs(cfg: ArchConfig, shape: InputShape, rules: dict) -> Any:
         for i, d in enumerate(leaf.shape):
             if d == shape.global_batch:
                 names[i] = bspec
-                if leaf.dim() > i + 1 and leaf.shape[i + 1] >= 1024:
+                if leaf.dim() > i + 1 and leaf.shape[i + 1] >= KV_SPLIT_SLOTS:
                     names[i + 1] = rules["kv_seq"]
                 break
         return P(*names)

@@ -85,6 +85,10 @@ compute its rows together, Megatron-style:
   recurrence; only the row-parallel product and the narrower column
   products round otherwise.
 
+Serving over the same grid (``launch/tp_serve.py``) runs these blocks
+and collectives forward only, with the flash kernel in the prefill and a
+KV cache split by sequence over ``model`` in the decode.
+
 **Collectives, in position order.** :func:`all_gather`,
 :func:`reduce_scatter`, :func:`all_reduce`, :func:`all_to_all`,
 :func:`broadcast`, :func:`scatter` and :func:`reduce_to` are
@@ -168,18 +172,16 @@ class _AllGather(torch.autograd.Function):
 
 class _ReduceScatter(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, dim, *parts):
+    def forward(ctx, dim, pieces, *parts):
         ctx.dim = dim
         ctx.devices = [p.device for p in parts]
         return tuple(fold([p.narrow(dim, off, n) for p in parts], dev)
-                     for dev, (off, n) in zip(
-                         ctx.devices, _pieces(parts[0].shape[dim],
-                                              len(parts))))
+                     for dev, (off, n) in zip(ctx.devices, pieces))
 
     @staticmethod
     def backward(ctx, *gs):
-        return (None, *(torch.cat([g.to(d) for g in gs], ctx.dim)
-                        for d in ctx.devices))
+        return (None, None, *(torch.cat([g.to(d) for g in gs], ctx.dim)
+                              for d in ctx.devices))
 
 
 class _AllReduce(torch.autograd.Function):
@@ -195,14 +197,13 @@ class _AllReduce(torch.autograd.Function):
 
 class _AllToAll(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, split_dim, cat_dim, *xs):
+    def forward(ctx, split_dim, cat_dim, pieces, *xs):
         ctx.split_dim, ctx.cat_dim = split_dim, cat_dim
         ctx.devices = [x.device for x in xs]
         ctx.sizes = [x.shape[cat_dim] for x in xs]
         return tuple(torch.cat([x.narrow(split_dim, off, n).to(d)
                                 for x in xs], cat_dim)
-                     for d, (off, n) in zip(ctx.devices, _pieces(
-                         xs[0].shape[split_dim], len(xs))))
+                     for d, (off, n) in zip(ctx.devices, pieces))
 
     @staticmethod
     def backward(ctx, *gs):
@@ -211,7 +212,7 @@ class _AllToAll(torch.autograd.Function):
             out.append(torch.cat([g.narrow(ctx.cat_dim, off, n).to(dev)
                                   for g in gs], ctx.split_dim))
             off += n
-        return (None, None, *out)
+        return (None, None, None, *out)
 
 
 class _Broadcast(torch.autograd.Function):
@@ -256,10 +257,13 @@ def all_gather(xs, dim: int) -> list:
     return list(_AllGather.apply(dim, *xs))
 
 
-def reduce_scatter(parts, dim: int) -> list:
+def reduce_scatter(parts, dim: int, pieces=None) -> list:
     """Position ``i``: the sum of every position's ``i``-th equal piece
-    along ``dim`` (backward: all-gather)."""
-    return list(_ReduceScatter.apply(dim, *parts))
+    along ``dim``, or its ``pieces[i]`` ``(offset, length)`` (backward:
+    all-gather)."""
+    if pieces is None:
+        pieces = _pieces(parts[0].shape[dim], len(parts))
+    return list(_ReduceScatter.apply(dim, pieces, *parts))
 
 
 def all_reduce(parts) -> list:
@@ -268,10 +272,13 @@ def all_reduce(parts) -> list:
     return list(_AllReduce.apply(*parts))
 
 
-def all_to_all(xs, split_dim: int, cat_dim: int) -> list:
-    """Position ``i``: every position's ``i``-th piece along ``split_dim``,
-    concatenated along ``cat_dim`` (backward: the inverse exchange)."""
-    return list(_AllToAll.apply(split_dim, cat_dim, *xs))
+def all_to_all(xs, split_dim: int, cat_dim: int, pieces=None) -> list:
+    """Position ``i``: every position's ``i``-th equal piece along
+    ``split_dim``, or its ``pieces[i]`` ``(offset, length)``, concatenated
+    along ``cat_dim`` (backward: the inverse exchange)."""
+    if pieces is None:
+        pieces = _pieces(xs[0].shape[split_dim], len(xs))
+    return list(_AllToAll.apply(split_dim, cat_dim, pieces, *xs))
 
 
 def broadcast(x: torch.Tensor, devices) -> list:
@@ -297,6 +304,13 @@ def max_to(parts, device) -> torch.Tensor:
     position order; no gradient."""
     return functools.reduce(torch.maximum, [p.detach().to(device)
                                             for p in parts])
+
+
+def all_max(parts) -> list:
+    """:func:`max_to` on every position's device (one exchange: the max
+    is exact, so every copy holds the same bits); no gradient."""
+    mx = max_to(parts, parts[0].device)
+    return [mx.to(p.device) for p in parts]
 
 
 class _Remat(torch.autograd.Function):
@@ -491,6 +505,34 @@ def _norms(view: GridView, prefix: str, xs, cfg: ArchConfig) -> list:
             for j, x in enumerate(xs)]
 
 
+def query_heads(j: int, m: int, cfg: ArchConfig) -> tuple:
+    """Position ``j``'s query heads ``[lo, hi)`` and the KV head each
+    reads."""
+    lo, hi = _span(j, m, cfg.n_heads)
+    per_kv = cfg.n_heads // cfg.n_kv_heads
+    return lo, hi, [(lo + i) // per_kv for i in range(hi - lo)]
+
+
+def project_heads(view: GridView, j: int, name: str, x: torch.Tensor,
+                  lo: int, hi: int, hd: int) -> torch.Tensor:
+    """``x`` times the columns of heads ``[lo, hi)`` of ``name`` (wq, wk,
+    wv), split into heads ``[..., hi - lo, hd]``."""
+    return _split_heads(x @ view.part(j, name, 1, lo * hd, hi * hd), hi - lo,
+                        hd)
+
+
+def for_queries(k: torch.Tensor, v: torch.Tensor, kmap: list,
+                klo: int) -> tuple:
+    """K/V of heads ``[klo, ...)`` laid out for the query heads that read
+    KV heads ``kmap``: as they are where those are GQA groups, else one a
+    query head."""
+    nq, nk = len(kmap), k.shape[2]
+    if nq % nk or kmap != [klo + i // (nq // nk) for i in range(nq)]:
+        sel = torch.tensor([x - klo for x in kmap], device=k.device)
+        return k[:, :, sel], v[:, :, sel]
+    return k, v
+
+
 def attention_partials(view: GridView, prefix: str, hs, cfg: ArchConfig, *,
                        causal: bool, window: Optional[int],
                        kv_srcs=None) -> list:
@@ -498,35 +540,26 @@ def attention_partials(view: GridView, prefix: str, hs, cfg: ArchConfig, *,
     under ``prefix`` (``...attn.``) on its whole normed input ``hs[j]``;
     ``kv_srcs`` (one a position): cross-attention's K/V source, no
     rotation (module docstring)."""
-    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    per_kv = H // K
+    hd = cfg.hd
     out = []
     for j, h in enumerate(hs):
         b, t, _ = h.shape
-        lo, hi = _span(j, view.m, H)
+        lo, hi, kmap = query_heads(j, view.m, cfg)
         if hi == lo:
             out.append(h.new_zeros((b, t, cfg.d_model)))
             continue
-        nq = hi - lo
-        kmap = [(lo + i) // per_kv for i in range(nq)]
         klo, khi = kmap[0], kmap[-1] + 1
-        nk = khi - klo
         src = h if kv_srcs is None else kv_srcs[j]
-        q = _split_heads(h @ view.part(j, prefix + "wq", 1, lo * hd, hi * hd),
-                         nq, hd)
-        k = _split_heads(src @ view.part(j, prefix + "wk", 1, klo * hd,
-                                         khi * hd), nk, hd)
-        v = _split_heads(src @ view.part(j, prefix + "wv", 1, klo * hd,
-                                         khi * hd), nk, hd)
+        q = project_heads(view, j, prefix + "wq", h, lo, hi, hd)
+        k = project_heads(view, j, prefix + "wk", src, klo, khi, hd)
+        v = project_heads(view, j, prefix + "wv", src, klo, khi, hd)
         if kv_srcs is None:
             positions = torch.arange(t, device=h.device)[None, :]
             q = apply_rope(q, positions, cfg.rope)
             k = apply_rope(k, positions, cfg.rope)
-        if nq % nk or kmap != [klo + i // (nq // nk) for i in range(nq)]:
-            sel = torch.tensor([x - klo for x in kmap], device=h.device)
-            k, v = k[:, :, sel], v[:, :, sel]
+        k, v = for_queries(k, v, kmap, klo)
         o = attend_chunked(q, k, v, hd=hd, causal=causal, window=window)
-        out.append(o.reshape(b, t, nq * hd)
+        out.append(o.reshape(b, t, (hi - lo) * hd)
                    @ view.part(j, prefix + "wo", 0, lo * hd, hi * hd))
     return out
 
@@ -620,14 +653,10 @@ def moe_block(view: GridView, prefix: str, cfg: ArchConfig, st: Stream,
     return ys, aux
 
 
-def self_block(view: GridView, prefix: str, cfg: ArchConfig, st: Stream,
-               xs, aux, *, causal: bool, window: Optional[int]):
-    """Pre-norm attention + MLP (or MoE) on the stream's slices. Returns
-    ``(xs, aux)``."""
-    hs = st.gather(_norms(view, prefix + "attn_norm.", xs, cfg))
-    a = st.reduce(attention_partials(view, prefix + "attn.", hs, cfg,
-                                     causal=causal, window=window))
-    xs = [x + y for x, y in zip(xs, a)]
+def mlp_block(view: GridView, prefix: str, cfg: ArchConfig, st: Stream,
+              xs, aux):
+    """``x`` plus the pre-norm MLP (or MoE) of the block under ``prefix``
+    on the stream's slices. Returns ``(xs, aux)``."""
     hs = st.gather(_norms(view, prefix + "mlp_norm.", xs, cfg))
     if cfg.family == "moe" and cfg.moe is not None:
         ys, a = moe_block(view, prefix + "moe.", cfg, st, hs)
@@ -635,6 +664,17 @@ def self_block(view: GridView, prefix: str, cfg: ArchConfig, st: Stream,
     else:
         ys = st.reduce(mlp_partials(view, prefix + "mlp.", hs, cfg))
     return [x + y for x, y in zip(xs, ys)], aux
+
+
+def self_block(view: GridView, prefix: str, cfg: ArchConfig, st: Stream,
+               xs, aux, *, causal: bool, window: Optional[int]):
+    """Pre-norm attention + MLP (or MoE) on the stream's slices. Returns
+    ``(xs, aux)``."""
+    hs = st.gather(_norms(view, prefix + "attn_norm.", xs, cfg))
+    a = st.reduce(attention_partials(view, prefix + "attn.", hs, cfg,
+                                     causal=causal, window=window))
+    return mlp_block(view, prefix, cfg, st, [x + y for x, y in zip(xs, a)],
+                     aux)
 
 
 def cross_block(view: GridView, prefix: str, cfg: ArchConfig, st: Stream,

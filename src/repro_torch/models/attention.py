@@ -7,7 +7,10 @@ the un-repeated K/V. The prefill's attention product goes through
 ``kernels.ops.flash_attention`` (the hand-written CUDA kernel on the card),
 where the reference calls ``attend_chunked``, its XLA stand-in for the
 Pallas flash kernel. The decode attends over the whole pre-allocated cache
-with a validity mask in plain PyTorch (``attend``), as the reference does.
+with a validity mask in plain PyTorch (``attend``), as the reference does;
+on a grid each position runs the same arithmetic on its slice of a cache
+split by sequence, the softmax statistics combined across positions (the
+pieces at the end of this module, ``launch/tp_serve.py``).
 
 Training (``train=True``) runs the reference's own ``attend_chunked`` in
 plain PyTorch under autograd: neither the flash kernel nor the Pallas one
@@ -214,34 +217,15 @@ def decode_self_attention(
     b, t, _ = x.shape
     if t != 1:
         raise ValueError(f"decode step consumes exactly one new token, got {t}")
-    pos = cache.length[:, None]  # [B,1]
-    q, k_new, v_new = _qkv(p, x, pos, n_heads=n_heads, n_kv=n_kv, hd=hd,
-                           rope=rope)
-
-    s = cache.k.shape[1]
-    quant = cache.k.dtype == torch.int8
-    if quant:  # int8 cache: quantize the new entry, store it in int8
-        k_new = torch.clamp(torch.round(k_new.float() / KV_QSCALE),
-                            -127, 127).to(torch.int8)
-        v_new = torch.clamp(torch.round(v_new.float() / KV_QSCALE),
-                            -127, 127).to(torch.int8)
-    rows = torch.arange(b, device=x.device)
-    slot = cache.length.clamp(max=s - 1).long()
-    fits = (cache.length < s)[:, None, None]
-    cache.k[rows, slot] = torch.where(fits, k_new[:, 0], cache.k[rows, slot])
-    cache.v[rows, slot] = torch.where(fits, v_new[:, 0], cache.v[rows, slot])
-    if quant:
-        k_att = cache.k.to(x.dtype) * KV_QSCALE
-        v_att = cache.v.to(x.dtype) * KV_QSCALE
-    else:
-        k_att, v_att = cache.k, cache.v
-
-    ki = torch.arange(s, device=x.device)[None, :]
-    valid = ki <= cache.length[:, None]  # includes the newly written slot
-    if window is not None:
-        valid &= ki > (cache.length[:, None] - window)
-    mask = valid[:, None, None, None, :]  # [B,1,1,1,S]
-
+    q, k_new, v_new = decode_entry(
+        _split_heads(x @ p["wq"], n_heads, hd),
+        _split_heads(x @ p["wk"], n_kv, hd),
+        _split_heads(x @ p["wv"], n_kv, hd), cache.length, rope=rope,
+        kv_dtype=cache.k.dtype)
+    write_slice(cache, k_new, v_new, 0)
+    k_att, v_att = attended(cache, x.dtype)
+    mask = decode_valid(cache.length, 0, cache.k.shape[1],
+                        window)[:, None, None, None]  # [B,1,1,1,S]
     out = attend(q, k_att, v_att, mask, hd)
     out = out.reshape(b, 1, n_heads * hd) @ p["wo"]
     cache.length += 1
@@ -268,3 +252,96 @@ def prefill_cache(
     vc[:, :t] = v
     length = torch.full((b,), t, dtype=torch.int32, device=x.device)
     return out, KVCache(k=kc, v=vc, length=length)
+
+
+# ------------------------------------------- the decode over a cache's slice
+# What one position of a grid runs on its own slots ``[off, off + S_j)`` of
+# a cache split by sequence (``launch/tp_serve.py``; the reference's
+# ``kv_seq`` flash-decode). Each piece is ``decode_self_attention``'s
+# arithmetic on that slice (it runs the first four on the whole cache,
+# ``off`` 0); the softmax statistics combine across positions between the
+# last three (:func:`slice_scores` -> the max -> :func:`slice_exp` -> the
+# sum -> :func:`slice_pv`).
+def quantize_kv(x: torch.Tensor) -> torch.Tensor:
+    """K/V as an int8 cache stores them (``KV_QSCALE`` steps)."""
+    return torch.clamp(torch.round(x.float() / KV_QSCALE), -127,
+                       127).to(torch.int8)
+
+
+def decode_entry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 length: torch.Tensor, *, rope: str,
+                 kv_dtype: torch.dtype) -> tuple:
+    """The new token's q / k / v ``[B, 1, heads, hd]`` rotated at each
+    row's ``length``, K/V as a cache of ``kv_dtype`` stores them."""
+    pos = length[:, None]
+    q, k = apply_rope(q, pos, rope), apply_rope(k, pos, rope)
+    if kv_dtype == torch.int8:
+        k, v = quantize_kv(k), quantize_kv(v)
+    return q, k, v
+
+
+def write_slice(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+                off: int) -> None:
+    """Write each row's new entry at slot ``cache.length`` into the slots
+    ``[off, off + S_j)`` that ``cache.k`` / ``cache.v`` hold: only where
+    that slot lies in them, so a full row (length >= S) lies in no slice
+    and gets no write, as in ``decode_self_attention``."""
+    b, s = cache.k.shape[:2]
+    local = cache.length.long() - off
+    inside = ((local >= 0) & (local < s))[:, None, None]
+    rows = torch.arange(b, device=cache.k.device)
+    slot = local.clamp(0, s - 1)
+    cache.k[rows, slot] = torch.where(inside, k_new[:, 0], cache.k[rows, slot])
+    cache.v[rows, slot] = torch.where(inside, v_new[:, 0], cache.v[rows, slot])
+
+
+def attended(cache: KVCache, dtype) -> tuple:
+    """The cache's K/V in the model ``dtype`` (an int8 cache dequantised)."""
+    if cache.k.dtype == torch.int8:
+        return cache.k.to(dtype) * KV_QSCALE, cache.v.to(dtype) * KV_QSCALE
+    return cache.k, cache.v
+
+
+def decode_valid(length: torch.Tensor, off: int, s: int,
+                 window: Optional[int]) -> torch.Tensor:
+    """``[B, s]``: which of slots ``[off, off + s)`` a row's decode reads
+    (the new slot included; the last ``window`` slots with a window)."""
+    ki = off + torch.arange(s, device=length.device)[None, :]
+    valid = ki <= length[:, None]
+    if window is not None:
+        valid &= ki > (length[:, None] - window)
+    return valid
+
+
+def slice_scores(q: torch.Tensor, k: torch.Tensor, length: torch.Tensor,
+                 off: int, *, hd: int,
+                 window: Optional[int]) -> torch.Tensor:
+    """``attend``'s scores of the new token's q ``[B, 1, H, hd]`` against
+    the slice's keys ``[B, S_j, kv, hd]`` (slots from ``off``):
+    ``[B, kv, g, 1, S_j]`` in the model dtype, ``NEG_INF`` at a slot the
+    row does not read."""
+    scores = torch.einsum("btkgd,bskd->bkgts", _q_groups(q, k.shape[2]),
+                          k) / (hd ** 0.5)
+    mask = decode_valid(length, off, k.shape[1], window)[:, None, None, None]
+    return torch.where(mask, scores, torch.tensor(
+        NEG_INF, dtype=scores.dtype, device=scores.device))
+
+
+def slice_exp(scores: torch.Tensor, mx: torch.Tensor) -> tuple:
+    """``exp(s - max)`` in f32 over the slice and its sum along the slots,
+    ``mx`` the max over every position's slots (``[B, kv, g, 1]``). A slice
+    with no slot to read adds exactly 0 (``exp(NEG_INF - max)`` is 0)."""
+    e = torch.exp(scores.float() - mx[..., None])
+    return e, e.sum(-1)
+
+
+def slice_pv(e: torch.Tensor, total: torch.Tensor,
+             v: torch.Tensor) -> torch.Tensor:
+    """The slice's P·V partial ``[B, 1, H, hd]`` in f32: the probabilities
+    ``e / total`` (``total`` the sum over every position) cast to the
+    model dtype as ``attend`` casts them, their products with the slice's
+    values added in f32; the positions' partials add and round once."""
+    b, n_kv, g = e.shape[:3]
+    probs = (e / total[..., None]).to(v.dtype)
+    out = torch.einsum("bkgts,bskd->btkgd", probs.float(), v.float())
+    return out.reshape(b, 1, n_kv * g, v.shape[-1])

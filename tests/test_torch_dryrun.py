@@ -418,17 +418,42 @@ def test_layout_collectives_hand_counted_on_a_toy_mesh():
     assert got["collective-permute"] == {"bytes": 0, "count": 0}
     assert got["total_bytes"] == sum(got[op]["bytes"]
                                      for op in dryrun.COLLECTIVE_OPS)
-    # prefill: the forward's gathers and the blocks' forward of one call,
-    # 4 rows of T 4 (X = 8192 B): no loss
+    # prefill: the forward's gathers and the grid serve step's blocks
+    # (launch/tp_serve.py) of one call, 4 rows of T 4 (X = 8192 B): no
+    # loss. The serve terms: the last row ([4, 1, 256] bf16) handed from
+    # position 1 to position 0, its logits ([4, 1, 512] bf16) all-gathered
+    # whole; the cache (4 slots) is whole, so each position projects every
+    # KV head from wk / wv read whole: position 0 reads the other chunk
+    # ([256, 64] bf16) of both in each of 2 layers, and no K/V moves
     prefill = types.SimpleNamespace(kind="prefill", global_batch=8,
                                     seq_len=4)
     got = dryrun.layout_collectives(cfg, prefill, mesh, rules, layout,
                                     calls=1)
     x = 4 * 4 * 256 * 2
-    assert got["all-gather"] == {"bytes": 2 * 256 + 4 * x, "count": 8}
+    assert got["all-gather"] == {"bytes": 2 * 256 + 4 * x + 4 * 512 * 2,
+                                 "count": 9}
     assert got["reduce-scatter"] == {"bytes": 4 * x // 2, "count": 4}
     assert got["all-reduce"] == {"bytes": 0, "count": 0}
     assert got["all-to-all"] == {"bytes": x // 2, "count": 1}
+    assert got["collective-permute"] == {"bytes": 4 * 256 * 2, "count": 1}
+    assert got["weight-reads"] == {"bytes": 2 * 2 * 256 * 64 * 2, "count": 4}
+    # decode, one call of 4 rows on a cache of 4 slots (whole): the FSDP
+    # gathers as for the prefill; the embed
+    # all-gather ([4, 1, 128] a position), q / k / v all-gathered from
+    # each position's columns ([4, 1, 256 | 128 | 128] whole) and the
+    # attention's and MLP's [4, 1, 256] partials all-reduced in each of 2
+    # layers, the logits all-gathered; each position attends its own
+    # heads over the whole cache, so no statistic moves
+    decode = types.SimpleNamespace(kind="decode", global_batch=8, seq_len=4)
+    got = dryrun.layout_collectives(cfg, decode, mesh, rules, layout,
+                                    calls=1)
+    row = 4 * 256 * 2
+    assert got["all-gather"] == {
+        "bytes": 2 * 256 + row + 2 * (row + 2 * row // 2) + 4 * 512 * 2,
+        "count": 4 + 1 + 2 * 3 + 1}
+    assert got["all-reduce"] == {"bytes": 2 * 2 * row, "count": 4}
+    assert got["reduce-scatter"] == {"bytes": 0, "count": 0}
+    assert got["weight-reads"] == {"bytes": 0, "count": 0}
 
 
 def _counted_grid_step(cfg, m: int, B: int, T: int) -> dict:
@@ -460,6 +485,22 @@ def _counted_grid_step(cfg, m: int, B: int, T: int) -> dict:
     return counted, mesh
 
 
+def _params_layout(cfg, mesh) -> tuple:
+    from repro_torch import convert
+    from repro_torch.launch import shardings as shd
+    from repro_torch.launch.mesh import logical_rules
+    from repro_torch.models import transformer as tf
+
+    rules = logical_rules(mesh)
+    model = tf.init_params(cfg, device="meta")
+    named = dict(model.named_parameters())
+    leaves = convert.reference_leaves(model)
+    specs = shd.param_specs({lf.path: lf.shape for lf in leaves}, rules,
+                            mesh)
+    return rules, {"params": [(lf.path, lf.shape, named[lf.names[0]].dtype,
+                               specs[lf.path]) for lf in leaves]}
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("m,T", [(2, 32), (4, 30), (3, 32), (2, 384)],
                          ids=["split-2", "whole-4", "whole-3", "split-2-T384"])
@@ -473,22 +514,11 @@ def test_layout_collectives_equal_a_counted_grid_step(arch, m, T):
     step of the reduced model on the CPU, for a split stream and a whole
     one."""
     from repro_torch.configs.base import reduced
-    from repro_torch.launch import shardings as shd
-    from repro_torch.launch.mesh import logical_rules
-    from repro_torch.models import transformer as tf
-    from repro_torch import convert
 
     cfg = reduced(tconfigs.get(arch), dtype="float32", n_layers=4)
     B = 2
     counted, mesh = _counted_grid_step(cfg, m, B, T)
-    rules = logical_rules(mesh)
-    model = tf.init_params(cfg, device="meta")
-    named = dict(model.named_parameters())
-    leaves = convert.reference_leaves(model)
-    specs = shd.param_specs({lf.path: lf.shape for lf in leaves}, rules,
-                            mesh)
-    layout = {"params": [(lf.path, lf.shape, named[lf.names[0]].dtype,
-                          specs[lf.path]) for lf in leaves]}
+    rules, layout = _params_layout(cfg, mesh)
     shape = types.SimpleNamespace(kind="train", global_batch=B, seq_len=T)
     want = dryrun.layout_collectives(cfg, shape, mesh, rules, layout,
                                      calls=1)
@@ -497,6 +527,59 @@ def test_layout_collectives_equal_a_counted_grid_step(arch, m, T):
         assert counted["all-to-all" if T % m == 0 else "all-gather"][
             "bytes"] >= 3 * cfg.n_layers * B * T * cfg.moe.top_k \
             * cfg.d_model * 4
+
+
+@pytest.mark.parametrize("arch", ["yi_6b", "deepseek_moe_16b"])
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("m,S", [(2, 1040), (4, 1040), (2, 40)],
+                         ids=["split-2", "split-4", "whole-2"])
+def test_layout_collectives_equal_a_counted_grid_serve_step(arch, kind, m,
+                                                            S):
+    """The serve rows of the dense and MoE families: ``layout_collectives``
+    on a ``(data 1, model m)`` toy grid, which traces the grid serve step
+    (``launch/tp_serve.py``) on the meta device at one row with no layer
+    and one, carried to 3 layers and 2 rows, equals what position 0's
+    collectives return in one counted prefill of ``S`` tokens into a cache
+    of ``S`` slots, or one counted decode step on such a cache, of the
+    reduced model on the CPU: a cache split over ``model`` (1,040 slots;
+    Yi-6B's K/V by the all-to-all at model 2, narrowed locally at 4) and a
+    whole one."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.launch import fsdp, serve, specs
+    from repro_torch.launch.mesh import LogicalMesh
+    from repro_torch.models import transformer as tf
+
+    cfg = reduced(tconfigs.get(arch), dtype="float32", n_layers=3)
+    B = 2
+    cpu = torch.device("cpu")
+    mesh = LogicalMesh((1, m), ("data", "model"), "cpu")
+    lm = fsdp.shard(tf.init_params(cfg, torch.Generator().manual_seed(0),
+                                   device="cpu"),
+                    mesh, groups=[((cpu,) * m, range(0, 1))])
+    rs = np.random.RandomState(1)
+    if kind == "prefill":
+        tokens = torch.from_numpy(rs.randint(0, cfg.vocab, (B, S))
+                                  .astype(np.int32))
+        with dryrun.counting_tp() as counted:
+            serve.make_prefill_step(cfg, S)(lm, tokens)
+    else:
+        _, state = serve.make_prefill_step(cfg, S)(lm, torch.from_numpy(
+            rs.randint(0, cfg.vocab, (B, 8)).astype(np.int32)))
+        tok = torch.from_numpy(rs.randint(0, cfg.vocab, (B, 1))
+                               .astype(np.int32))
+        with dryrun.counting_tp() as counted:
+            serve.make_decode_step(cfg)(lm, tok, state)
+        assert state.split == (S >= specs.KV_SPLIT_SLOTS)
+    rules, layout = _params_layout(cfg, mesh)
+    shape = types.SimpleNamespace(kind=kind, global_batch=B, seq_len=S)
+    assert dryrun.serves_on_grid(cfg, shape, rules)
+    want = dryrun.layout_collectives(cfg, shape, mesh, rules, layout,
+                                     calls=1)
+    assert counted == {op: want[op] for op in dryrun.COUNTED}
+    if kind == "decode" and S >= specs.KV_SPLIT_SLOTS:
+        # per layer: the max and the sums all-reduced, the P.V partials
+        # reduce-scattered
+        assert counted["reduce-scatter"]["count"] == cfg.n_layers
 
 
 # ----------------------------------------------- chip_smoke's train FLOPs
