@@ -226,6 +226,19 @@ exits non-zero and no failure is caught:
      same inputs on the CPU (equal experts and slots, some token dropped, y
      within ``MOE_CAP_ATOL``); the encoder's decode step raises. Prefill and
      decode times, peak memory, one profiled prefill and decode step.
+     Right after the Llama-3.2-Vision, Zamba2, xLSTM and HuBERT cells, each
+     served over the grid as in phase 11 on that cell's weights and depth
+     (``serve_grid_family``): B x 1,024 tokens (frames; the VLM with seeded
+     image embeddings) into 1,040 slots, 520 a position, and 4
+     teacher-forced decode steps (the encoder's grid decode raises): flash
+     once an attention layer a position (20, 18, 0 and 96 launches; the
+     VLM's cross layers and the encoder non-causal), each new flash shape
+     against the plain version, the bytes placed (parameters by
+     ``param_specs``, the state by ``input_pspecs``) and the self K/V,
+     cross K/V (split by image token), recurrent states (whole on both
+     positions) and relayout bytes against hand counts, the logits within
+     ``FAMILY_TOL`` * max(1, max |logit|) of the one card's, greedy tokens,
+     two decodes bit-equal, times and peak beside the one card's.
      Then DeepSeek-MoE-16B (8 layers) served over the grid as in phase 11
      (16 flash launches, 4 decode steps), in bf16 with its logits printed,
      not held (a bf16 ulp of the router's input moves a top-6 near tie of
@@ -238,7 +251,12 @@ exits non-zero and no failure is caught:
      0, on position 1, at slot 2,047 and 2,048, for Yi-6B (GQA 32 / 4),
      Granite-20B (MQA 48 / 1), Llama-4-Scout's width with a window of 512
      and Yi-6B with an int8 cache (``SERVE_TP_TOL``,
-     ``SERVE_TP_CACHE_TOL``).
+     ``SERVE_TP_CACHE_TOL``); and the family layers at full width in f32
+     over the grid against their one-device functions, output and state
+     (``SERVE_FAMILY_TOL``): the VLM's cross read over 1,024 image tokens
+     split 2 x 512, a Zamba2 mixer and an xLSTM-125M sLSTM and mLSTM cell
+     each 4 decode steps from a 256-token prefill, and the tied head's
+     logits against ``final_norm(h) @ embed.T``.
  17. train (run after 16): LM training, which launches no kernel (counts
      reset and read: no flash launch; attention is ``attend_chunked``).
      Yi-6B at full width and 1 layer in f32 (TF32 off), B 2 x T 2048
@@ -266,7 +284,7 @@ exits non-zero and no failure is caught:
      ``cuda:0``: the bytes placed, one step against the one-card step
      (``TP_LOSS_TOL``, ``TP_PARAM_TOL``, ``TP_MOVED_SHARE``), two steps
      from one state bit-equal, step ms, tokens/s, peak. (h) DeepSeek-MoE-16B
-     (8 of 28 layers) the same way, expert-parallel, after one layer
+     (4 of 28 layers) the same way, expert-parallel, after one layer
      against ``moe.apply_moe``. (i) Zamba2-7B (9 of 81 layers: 9 Mamba2
      mixers and the shared block), bf16, B 2 x T 4096, and (j) xLSTM-125M
      (2 of 12 layers: an sLSTM, an mLSTM), bf16, B 2 x T 512, head-split
@@ -352,7 +370,7 @@ exits non-zero and no failure is caught:
      one scatter launch a leaf, checked apart; masks cancel; no byte
      gathered on an aligned leaf; peak <= ``FL_PEAK_GIB``); every loss,
      leaf and residual finite, every matrix leaf moved; step ms, tokens/s,
-     peak. (g) DeepSeek-MoE-16B (8 of 28 layers), v2 then v1 on (2, 1, 2)
+     peak. (g) DeepSeek-MoE-16B (4 of 28 layers), v2 then v1 on (2, 1, 2)
      against the one-device steps. (h) [train] (i)'s Zamba2-7B, v2 on (2,
      1, 2), head-split, against the one-device v2 step: one scatter launch
      a leaf (counts reset and read; they join the kernel table's), the
@@ -2593,8 +2611,10 @@ def attention_layers(cfg) -> int:
 
 
 def family_cell(arch: str, layers, B: int, card: str) -> int:
-    """One config through the checks and timings of phase 16; returns the
-    flash launches of its first prefill."""
+    """One config through the checks and timings of phase 16, then, for
+    the VLM, hybrid, xLSTM and audio cells, its grid case on the same
+    weights (``serve_grid_family``); returns the flash launches of its
+    first prefill and of the grid's counted prefill."""
     import dataclasses
 
     import numpy as np
@@ -2782,8 +2802,10 @@ def family_cell(arch: str, layers, B: int, card: str) -> int:
              f"; greedy tokens row 0 {tokens[0].tolist()}")
           + f"; the cell took {time.perf_counter() - t_cell:.1f} s",
           flush=True)
+    grid_flash = (serve_grid_family(card, cfg, params, B)
+                  if arch in GRID_FAMILIES else 0)
     del params, inp, img
-    return counts["flash_attention"]
+    return counts["flash_attention"] + grid_flash
 
 
 def families_phase(card: str) -> dict:
@@ -2800,9 +2822,11 @@ def families_phase(card: str) -> dict:
         torch.cuda.empty_cache()
     total["flash_attention"] += serve_grid_moe(card)
     serve_tp_layers(card)
+    serve_family_layers(card)
     print(f"[families] phase 16 took {time.perf_counter() - t0:.1f} s on "
           f"{card}; flash launches {total['flash_attention']} over "
-          f"{len(FAMILY_CELLS)} first prefills", flush=True)
+          f"{len(FAMILY_CELLS)} first prefills and "
+          f"{len(GRID_FAMILIES) + 1} grid prefills", flush=True)
     return total
 
 
@@ -2833,6 +2857,23 @@ SERVE_TP_CACHE_TOL = 4.8e-6
 # moves a top-6 near tie of 64 experts, and every row of the 4 routed its
 # token otherwise in some layer from the first decode step on
 SERVE_TP_MOE_F32_TOL = 6e-6
+# the VLM, hybrid, xLSTM and audio cells of [families] over the same grid,
+# on each cell's weights: a 1,024-token prompt (frames) into 1,040 slots,
+# 520 a position, and 4 teacher-forced decode steps
+SERVE_FAMILY_CACHE = 1040
+SERVE_FAMILY_NEW = 4
+GRID_FAMILIES = ("llama32_vision_90b", "zamba2_7b", "xlstm_125m",
+                 "hubert_xlarge")
+# the families' layer checks (serve_family_layer): the VLM's cross read over
+# Llama-3.2-Vision's 1,024 image tokens, split 2 x 512; (y, state)
+# tolerances of max |want|, about 2.5x the readings on an H100 80GB HBM3 at
+# 700 W (cross 1.009e-06; the mixer 6.240e-08, its state and conv tail
+# equal, held at 1e-7; sLSTM 7.012e-08 / 2.890e-07; mLSTM 2.827e-07 /
+# 3.104e-07; the tied head 1.944e-07)
+SERVE_TP_IMAGE = 1024
+SERVE_FAMILY_TOL = {"cross": (2.6e-6, 0.0), "ssm": (1.6e-7, 1e-7),
+                    "slstm": (1.8e-7, 7.3e-7), "mlstm": (7.1e-7, 7.8e-7),
+                    "tied": (4.9e-7, 0.0)}
 
 
 def serve_grid_lm(cuda0):
@@ -2858,32 +2899,52 @@ def serve_state_bytes(cfg, mesh, B: int, cache_len: int) -> int:
                    for x, spec in zip(leaves, pspecs))
 
 
-def relayout_bytes(cfg, B: int, T: int, m: int = 2) -> int:
+def relayout_bytes(cfg, B: int, T: int, m: int = 2,
+                   layers: int | None = None) -> int:
     """The K/V bytes the grid prefill's relayout moves between positions,
-    from the shapes: each layer's K and V, each position's ``K/m`` KV heads
-    at every prompt slot that another position holds."""
+    from the shapes: each of ``layers`` attention layers' (default every
+    layer) K and V, each position's ``K/m`` KV heads at every prompt slot
+    (image token) that another position holds."""
     per = cfg.n_kv_heads // m * cfg.hd * (2 if cfg.dtype == "bfloat16"
                                           else 4)
-    return cfg.n_layers * 2 * B * per * (m - 1) * T
+    return (cfg.n_layers if layers is None else layers) * 2 * B * per * (
+        m - 1) * T
+
+
+def state_bytes(state) -> dict:
+    """A grid state's bytes: the self-attention K/V, the cross K/V and the
+    recurrent states (whole on every position), over every position."""
+    def size(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    return {"kv": size(t for g in state.caches for layer in g for c in layer
+                       for t in (c.k, c.v)),
+            "cross": size(t for g in state.cross_kv or [] for layer in g
+                          for kv in layer for t in kv),
+            "recurrent": size(t for g in state.recurrent or [] for layer in g
+                              for leaf in layer for t in leaf)}
 
 
 def serve_grid_case(tag: str, card: str, cfg, params, B: int, n_decode: int,
                     *, tol: float = FAMILY_TOL, hold: bool = True,
-                    kv_bytes: int | None = None,
-                    moved: int | None = None) -> int:
+                    kv_bytes: int | None = None, moved: int | None = None,
+                    cache_len: int = SERVE_TP_CACHE, img=None,
+                    frames=None, held_bytes: dict | None = None) -> int:
     """``params`` (one card, bf16) served over ``(data 1, model 2)`` on
     ``cuda:0`` through ``launch/serve.py``'s steps: a prefill of B x
-    SERVE_TP_T into SERVE_TP_CACHE slots (counts reset before, read after:
-    flash once a layer a position, each new flash shape against the plain
-    version), the bytes placed (parameters: ``param_specs``; the state:
-    ``input_pspecs``, and ``kv_bytes`` of K/V when given), the relayout's
-    moved bytes (``moved``), the prefill logits and ``n_decode``
-    teacher-forced decode steps against the one card's within ``tol`` *
-    max(1, max |logit|), the greedy tokens (a differing token must be a
-    near tie of the one card's top two logits; neither held but printed
-    unless ``hold``), two decodes from one cloned state bit-equal; times
-    and peak beside the one card's. Returns the counted prefill's flash
-    launches."""
+    SERVE_TP_T (``frames`` for the encoder; the VLM with its image
+    embeddings ``img``) into ``cache_len`` slots (counts reset before, read
+    after: flash once an attention layer a position, each new flash shape
+    against the plain version), the bytes placed (parameters:
+    ``param_specs``; the state: ``input_pspecs``, ``kv_bytes`` of K/V and
+    ``held_bytes``' cross K/V and recurrent states when given), the
+    relayout's moved bytes (``moved``), the prefill logits and
+    ``n_decode`` teacher-forced decode steps against the one card's within
+    ``tol`` * max(1, max |logit|), the greedy tokens (a differing token
+    must be a near tie of the one card's top two logits; neither held but
+    printed unless ``hold``), two decodes from one cloned state bit-equal
+    (the encoder: its decode raises); times and peak beside the one card's.
+    Returns the counted prefill's flash launches."""
     import numpy as np
     import torch
 
@@ -2893,10 +2954,14 @@ def serve_grid_case(tag: str, card: str, cfg, params, B: int, n_decode: int,
 
     cuda0 = torch.device("cuda", 0)
     t_case = time.perf_counter()
-    toks, _ = make_lm_tokens(cfg.vocab, B, SERVE_TP_T, seed=3)
-    prompt = torch.from_numpy(np.asarray(toks, np.int32)).cuda()
-    pre = serve.make_prefill_step(cfg, SERVE_TP_CACHE)
+    if frames is None:
+        toks, _ = make_lm_tokens(cfg.vocab, B, SERVE_TP_T, seed=3)
+        prompt = torch.from_numpy(np.asarray(toks, np.int32)).cuda()
+    else:
+        prompt = frames
+    pre = serve.make_prefill_step(cfg, cache_len)
     dec = serve.make_decode_step(cfg)
+    encoder = cfg.family == "audio"
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -2908,12 +2973,12 @@ def serve_grid_case(tag: str, card: str, cfg, params, B: int, n_decode: int,
     # the one card: its logits at the prefill and each decode step, fed its
     # own greedy tokens (after a warm-up prefill, as the grid's is timed
     # after its counted one)
-    pre(params, prompt)
+    pre(params, prompt, img)
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     route1 = [[] for _ in range(n_decode + 1)]
     with routings(route1[0]):
-        (l1, st1), pre_ms1 = timed(lambda: pre(params, prompt))
+        (l1, st1), pre_ms1 = timed(lambda: pre(params, prompt, img))
     want, fed = [l1.float()], []
     dec_ms1 = 0.0
     for i in range(n_decode):
@@ -2939,26 +3004,34 @@ def serve_grid_case(tag: str, card: str, cfg, params, B: int, n_decode: int,
     route2 = [[] for _ in range(n_decode + 1)]
     with first_calls(flash_seen, []), tp_traffic(lm) as tally, \
             routings(route2[0]):
-        l2, st2 = pre(lm, prompt)
+        l2, st2 = pre(lm, prompt, img)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    flash_line = flash_calls_check(tag, flash_seen)
+    flash_line = flash_calls_check(tag, flash_seen) or "none"
     del flash_seen
-    check(counts["flash_attention"] == 2 * cfg.n_layers,
+    n_flash = 2 * attention_layers(cfg)
+    check(counts["flash_attention"] == n_flash,
           f"{tag}: the grid prefill launched flash_attention "
-          f"{counts['flash_attention']} times, not once a layer a position "
-          f"({2 * cfg.n_layers})")
-    check(isinstance(st2, tp_serve.GridState) and st2.split,
-          f"{tag}: the grid state's cache is not split by sequence")
-    kv = sum(t.numel() * t.element_size() for t in tp_serve.state_tensors(st2)
-             if t.dim() == 4)
-    held = sum(t.numel() * t.element_size()
-               for t in tp_serve.state_tensors(st2))
-    want_state = serve_state_bytes(cfg, mesh, B, SERVE_TP_CACHE)
+          f"{counts['flash_attention']} times, not once an attention layer "
+          f"a position ({n_flash})")
+    if encoder:
+        check(st2 is None, f"{tag}: the encoder's grid prefill returned a "
+              "state")
+        sizes, held, want_state = {}, 0, 0
+    else:
+        check(isinstance(st2, tp_serve.GridState) and st2.split,
+              f"{tag}: the grid state's cache is not split by sequence")
+        sizes = state_bytes(st2)
+        held = sum(t.numel() * t.element_size()
+                   for t in tp_serve.state_tensors(st2))
+        want_state = serve_state_bytes(cfg, mesh, B, cache_len)
     check(held == want_state, f"{tag}: the state holds {held} B, "
           f"input_pspecs predicts {want_state}")
-    check(kv_bytes is None or kv == kv_bytes,
-          f"{tag}: {kv} K/V bytes, hand count {kv_bytes}")
+    check(kv_bytes is None or sizes["kv"] == kv_bytes,
+          f"{tag}: {sizes.get('kv')} K/V bytes, hand count {kv_bytes}")
+    for key, n in (held_bytes or {}).items():
+        check(sizes[key] == n, f"{tag}: {sizes[key]} B of {key} state, "
+              f"hand count {n}")
     check(moved is None or tally["relayout"] == moved,
           f"{tag}: the relayout moved {tally['relayout']} B, hand count "
           f"{moved}")
@@ -2987,7 +3060,7 @@ def serve_grid_case(tag: str, card: str, cfg, params, B: int, n_decode: int,
           f"logits differ "
           f"from the one card's by {gaps[0]:.3e} (bound "
           f"{bound(want[0]):.3e})")
-    clone = state_copy(st2)
+    clone = None if encoder else tp_serve.clone_state(st2)
     got_tok, ties, dec_ms2 = [serve.next_token(l2)], [], 0.0
     for i, tok in enumerate(fed):
         with routings(route2[i + 1]):
@@ -3015,35 +3088,47 @@ def serve_grid_case(tag: str, card: str, cfg, params, B: int, n_decode: int,
                   f"two logits are {gap:.3e} apart (bound "
                   f"{bound(want[i]):.3e}): not a near tie")
             ties.append((i, r, gap))
-    # two decodes from one cloned state
-    (la, sa), (lb, sb) = [dec(lm, fed[0], state_copy(clone))
-                          for _ in range(2)]
-    same = bits_equal(la, lb) and all(
-        bits_equal(x, y) for x, y in zip(tp_serve.state_tensors(sa),
-                                         tp_serve.state_tensors(sb)))
-    check(same, f"{tag}: two grid decodes from one state differ")
-    _, pre_ms2 = timed(lambda: pre(lm, prompt))
-    print(f"[{tag}] grid serving (data 1, model 2) on {card}: parameters "
-          f"{placed} B placed (param_specs {predicted}); prefill B={B} "
-          f"T={SERVE_TP_T} into {SERVE_TP_CACHE} slots: flash "
+    if encoder:
+        try:
+            dec(lm, got_tok[0], st2)
+            check(False, f"{tag}: the encoder took a grid decode step")
+        except ValueError:
+            pass
+        same = "none (encoder: its grid decode raises ValueError)"
+    else:
+        # two decodes from one cloned state
+        (la, sa), (lb, sb) = [dec(lm, fed[0], tp_serve.clone_state(clone))
+                              for _ in range(2)]
+        same = bits_equal(la, lb) and all(
+            bits_equal(x, y) for x, y in zip(tp_serve.state_tensors(sa),
+                                             tp_serve.state_tensors(sb)))
+        check(same, f"{tag}: two grid decodes from one state differ")
+        del sa, sb
+    _, pre_ms2 = timed(lambda: pre(lm, prompt, img))
+    steps = (f"{n_decode} teacher-forced decode steps max "
+             f"{max(gaps[1:]):.3e}" if n_decode else "no decode")
+    print(f"[{tag}] grid serving (data 1, model 2) of {cfg.name} on {card}: "
+          f"parameters {placed} B placed (param_specs {predicted}); prefill "
+          f"B={B} T={SERVE_TP_T} into {cache_len} slots: flash "
           f"{counts['flash_attention']} launches, state {held} B "
-          f"(input_pspecs {want_state}; K/V {kv} B, "
-          f"{kv // 2} a position), relayout moved {tally['relayout']} B"
+          f"(input_pspecs {want_state}; K/V {sizes.get('kv')} B, cross "
+          f"K/V {sizes.get('cross')} B, recurrent {sizes.get('recurrent')} "
+          f"B over the 2 positions), relayout moved {tally['relayout']} B"
           f"{'' if moved is None else f' (hand count {moved})'}; logits "
-          f"vs the one card: prefill {gaps[0]:.3e}, {n_decode} "
-          f"teacher-forced decode steps max {max(gaps[1:]):.3e} ("
+          f"vs the one card: prefill {gaps[0]:.3e}, {steps} ("
           f"{'bound' if hold else 'not held; would be'} "
           f"{tol} * max(1, max |logit|) = {bound(want[0]):.3e}); "
           f"rows routed otherwise (step, rows) {flips or 'none'}; "
           f"greedy tokens equal at {sum(bool(torch.equal(a, b)) for a, b in zip(got_tok, ref_tok))} "
           f"of {len(ref_tok)} steps, near ties {ties}; two decodes "
           f"bit-equal {same}; prefill {pre_ms2:.3f} ms (one card "
-          f"{pre_ms1:.3f}), decode {dec_ms2 / n_decode:.3f} ms a step "
-          f"(one card {dec_ms1 / n_decode:.3f}), peak {peak2:.2f} GiB above "
+          f"{pre_ms1:.3f}), decode "
+          f"{dec_ms2 / max(n_decode, 1):.3f} ms a step (one card "
+          f"{dec_ms1 / max(n_decode, 1):.3f}), peak {peak2:.2f} GiB above "
           f"the weights (one card {peak1:.2f}); flash calls vs plain: "
           f"{flash_line}; the case took "
           f"{time.perf_counter() - t_case:.1f} s", flush=True)
-    del lm, st2, clone, sa, sb
+    del lm, st2, clone
     gc.collect()
     torch.cuda.empty_cache()
     return counts["flash_attention"]
@@ -3079,17 +3164,6 @@ def rerouted(a: list, b: list, rows: int):
     for x, y in zip(a, b):
         out |= (x != y).any(-1).cpu()
     return out
-
-
-def state_copy(state):
-    """A grid state whose caches are fresh copies of ``state``'s."""
-    from repro_torch.launch import tp_serve
-
-    return tp_serve.GridState(
-        caches=[[[tp_serve.KVCache(k=c.k.clone(), v=c.v.clone(),
-                                   length=c.length.clone()) for c in layer]
-                 for layer in group] for group in state.caches],
-        cache_len=state.cache_len)
 
 
 def serve_grid_yi6b(card: str, params=None) -> int:
@@ -3140,6 +3214,193 @@ def serve_grid_moe(card: str) -> int:
         gc.collect()
         torch.cuda.empty_cache()
     return out
+
+
+def serve_grid_family(card: str, cfg, params, B: int) -> int:
+    """[families]' grid case of a VLM, hybrid, xLSTM or audio cell, on the
+    cell's weights and depth (``serve_grid_case``): a prompt of B x
+    SERVE_TP_T (the encoder: seeded frames; the VLM: seeded image
+    embeddings) into SERVE_FAMILY_CACHE slots, SERVE_FAMILY_NEW decode
+    steps, the state's bytes against hand counts from the shapes: the self
+    K/V (every attention call's K and V of every slot), the cross K/V
+    (every image token), the recurrent states whole on both positions, and
+    the relayout (each attention layer's, the cross layers' along the image
+    tokens). Returns the grid prefill's flash launches."""
+    import torch
+
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models import transformer as tf
+    from repro_torch.models import xlstm as xlstm_mod
+
+    S, bf16, f32 = SERVE_FAMILY_CACHE, 2, 4
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    frames = img = None
+    if cfg.family == "audio":
+        frames = torch.randn((B, SERVE_TP_T, cfg.d_model), generator=gen,
+                             device="cuda").to(torch.bfloat16)
+    if cfg.family == "vlm":
+        img = torch.randn((B, cfg.n_image_tokens, cfg.d_model), generator=gen,
+                          device="cuda").to(torch.bfloat16)
+    calls = attention_layers(cfg) - (tf.n_super(cfg) if cfg.family == "vlm"
+                                     else 0)
+    kv = calls * 2 * B * S * cfg.n_kv_heads * cfg.hd * bf16
+    held, moved = {}, None
+    if cfg.family == "vlm":
+        held["cross"] = (tf.n_super(cfg) * 2 * B * cfg.n_image_tokens
+                         * cfg.n_kv_heads * cfg.hd * bf16)
+        moved = (relayout_bytes(cfg, B, SERVE_TP_T, layers=calls)
+                 + relayout_bytes(cfg, B, cfg.n_image_tokens,
+                                  layers=tf.n_super(cfg)))
+    elif cfg.family == "hybrid":
+        _, n_heads, conv_ch = ssm_mod.dims(cfg.d_model, cfg.ssm)
+        spec = cfg.ssm
+        held["recurrent"] = 2 * cfg.n_layers * B * (
+            n_heads * spec.d_state * spec.head_dim * f32
+            + (spec.d_conv - 1) * conv_ch * bf16)
+        moved = relayout_bytes(cfg, B, SERVE_TP_T, layers=calls)
+    elif cfg.xlstm:
+        _, dh = xlstm_mod._cell_dims(cfg.d_model, cfg.n_heads)
+        h = cfg.n_heads
+        held["recurrent"] = 2 * B * h * f32 * (
+            (cfg.n_layers + 1) // 2 * 4 * dh
+            + cfg.n_layers // 2 * (dh * dh + dh + 1))
+    if cfg.family == "audio":
+        kv = None
+    out = serve_grid_case(
+        "families", card, cfg, params, B,
+        0 if cfg.family == "audio" else SERVE_FAMILY_NEW, kv_bytes=kv,
+        moved=moved, cache_len=S, img=img, frames=frames, held_bytes=held)
+    del frames, img
+    return out
+
+
+def serve_family_layer(card: str, name: str) -> str:
+    """One layer of a family at full width (f32, TF32 off) over ``(data 1,
+    model 2)`` on ``cuda:0`` against its one-device function, output and
+    state (``SERVE_FAMILY_TOL``, of max |want|): ``cross`` one VLM cross
+    read over SERVE_TP_IMAGE image tokens split 2 x 512 against
+    ``decode_cross_attention``; ``ssm`` one Zamba2 mixer, SERVE_FAMILY_NEW
+    decode steps from a state prefilled over 256 tokens, against
+    ``ssd_decode_step``; ``slstm`` / ``mlstm`` one xLSTM-125M cell each, the
+    same, against ``slstm_forward`` / ``mlstm_decode_step``; ``tied`` the
+    tied head's logits against ``final_norm(h) @ embed.T``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch import fsdp, tp, tp_serve
+    from repro_torch.models import attention as attn
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models import transformer as tf
+    from repro_torch.models import xlstm as xlstm_mod
+    from repro_torch.models.layers import apply_norm
+
+    arch = {"cross": "llama32_vision_90b", "ssm": "zamba2_7b"}.get(
+        name, "xlstm_125m")
+    over = {"cross": dict(n_layers=2, cross_attn_every=1),
+            "ssm": dict(n_layers=1, shared_attn_every=1)}.get(
+        name, dict(n_layers=2))
+    cfg = dataclasses.replace(configs.get(arch), d_ff=512, dtype="float32",
+                              **({} if name == "tied" else {"vocab": 512}),
+                              **over)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    model = tf.init_params(cfg, gen)
+    mesh, grid_ = serve_grid_lm(torch.device("cuda", 0))
+    lm = fsdp.shard(model, mesh, groups=grid_)
+    view = tp.GridView(lm, 0)
+    st = tp.Stream(view.devices, 1)
+    B, d = 4, cfg.d_model
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    errs, state_errs = [], []
+    with torch.inference_mode():
+        if name == "cross":
+            n = SERVE_TP_IMAGE
+            k, v = randn(B, n, cfg.n_kv_heads, cfg.hd), randn(
+                B, n, cfg.n_kv_heads, cfg.hd)
+            x = randn(B, 1, d)
+            want = attn.decode_cross_attention(
+                dict(model.cross_blocks[0]["attn"].items()), x, (k, v),
+                n_heads=cfg.n_heads, hd=cfg.hd)
+            got = tp.all_reduce(tp_serve.cross_attention(
+                view, "cross_blocks.0.attn.", [x, x],
+                [(k[:, :n // 2], v[:, :n // 2]),
+                 (k[:, n // 2:], v[:, n // 2:])], cfg))[0]
+            errs.append(rel(got, want))
+        elif name == "tied":
+            h = randn(B, 1, d)
+            got = tp_serve.logits(view, cfg, [h, h])
+            want = apply_norm(model.final_norm, h, cfg.norm) @ model.embed.T
+            errs.append(rel(got, want))
+        else:
+            xp = randn(B, 256, d)
+            if name == "ssm":
+                bp, prefix = model.ssm_blocks[0][0], "ssm_blocks.0.0."
+                hn = apply_norm(bp["norm"], xp, cfg.norm)
+                _, s0 = ssm_mod.ssd_forward(bp["ssm"], hn, cfg.ssm)
+                one = ssm_mod.SSMCache(s0, tf._conv_tail(hn, bp["ssm"], cfg))
+            else:
+                is_s = name == "slstm"
+                bp = (model.slstm if is_s else model.mlstm)[0]
+                prefix = f"{name}.0."
+                run = (xlstm_mod.slstm_forward if is_s
+                       else xlstm_mod.mlstm_forward)
+                _, one = run(bp, xp, cfg.n_heads)
+            states = [tp_serve.rebuild(one, [t.clone() for t in one])
+                      for _ in range(2)]
+            for _ in range(SERVE_FAMILY_NEW):
+                x = randn(B, 1, d)
+                if name == "ssm":
+                    y, one = ssm_mod.ssd_decode_step(
+                        bp["ssm"], apply_norm(bp["norm"], x, cfg.norm), one,
+                        cfg.ssm)
+                    xs, states = tp_serve.ssm_decode(view, prefix, cfg, st,
+                                                     [x, x], states)
+                else:
+                    y, one = (xlstm_mod.slstm_forward(bp, x, cfg.n_heads,
+                                                      cache=one) if is_s
+                              else xlstm_mod.mlstm_decode_step(
+                                  bp, x, one, cfg.n_heads))
+                    xs, states = tp_serve.xlstm_decode(view, prefix, cfg, st,
+                                                       [x, x], states)
+                errs.append(rel(xs[0], x + y))
+                state_errs.append(max(rel(a, b) for a, b in zip(states[0],
+                                                                 one)))
+                check(all(bits_equal(a, b) for a, b in zip(*states)),
+                      f"[serve_tp] {name}: the positions' state copies "
+                      "differ")
+    err = max(errs)
+    state_err = max(state_errs) if state_errs else 0.0
+    check(err <= SERVE_FAMILY_TOL[name][0]
+          and state_err <= SERVE_FAMILY_TOL[name][1],
+          f"[serve_tp] {name}: grid vs one device {err:.3e} of max |want|, "
+          f"state {state_err:.3e} (tolerances {SERVE_FAMILY_TOL[name]})")
+    del model, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (f"{name} ({cfg.name}) {err:.3e}"
+            + (f" (state {state_err:.3e})" if state_errs else ""))
+
+
+def serve_family_layers(card: str) -> None:
+    """The families' layer checks (``serve_family_layer``)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    lines = [serve_family_layer(card, name)
+             for name in ("cross", "ssm", "slstm", "mlstm", "tied")]
+    print(f"[serve_tp] family layers over (data 1, model 2) on {card}, "
+          f"f32, {SERVE_FAMILY_NEW} decode steps from a 256-token prefill: "
+          + "; ".join(lines) + f" (tolerances (y, state) of max |want|: "
+          f"{SERVE_FAMILY_TOL}); {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
 
 def serve_tp_layer(card: str, name: str, cfg) -> str:
@@ -3751,13 +4012,14 @@ def gap_on_card(got, want) -> tuple[float, int, int, str]:
     return err, moved, total, worst
 
 
-# (h) DeepSeek-MoE-16B at full width, cut to the depth [families] runs
-# (8 of 28 layers), in bf16, over (data 1, model 2) on cuda:0 against the
+# (h) DeepSeek-MoE-16B at full width, 4 of 28 layers (8, the depth
+# [families] runs, until the families' grid serving cases joined the
+# smoke), in bf16, over (data 1, model 2) on cuda:0 against the
 # one-card step: the loss, the params after one step (max |diff| and the
 # share of elements apart), as (f). About 2x the readings on an H100 80GB
-# HBM3 at 700 W: 1.984e-04; 2.441e-04 (one bf16 ulp of embed's values in
-# [1/32, 1/16)); 2,426,077 of 5,122,328,576 elements (4.74e-4)
-TP_MOE_LAYERS = 8
+# HBM3 at 700 W at 8 layers: 1.984e-04; 2.441e-04 (one bf16 ulp of embed's
+# values in [1/32, 1/16)); 2,426,077 of 5,122,328,576 elements (4.74e-4)
+TP_MOE_LAYERS = 4
 TP_MOE_LOSS_TOL = 4e-4
 TP_MOE_PARAM_TOL = 4.9e-4
 TP_MOE_MOVED_SHARE = 9.5e-4
@@ -5685,9 +5947,10 @@ def fl_tp(card: str) -> dict:
     return counts
 
 
-# (g) DeepSeek-MoE-16B (8 layers, bf16), each participant over (data 1,
-# model 2) on cuda:0, against the one-device step of its version: the
-# params' max |diff|. About 2x the readings on an H100 80GB HBM3 at 700 W:
+# (g) DeepSeek-MoE-16B (TP_MOE_LAYERS layers, bf16), each participant over
+# (data 1, model 2) on cuda:0, against the one-device step of its version:
+# the params' max |diff|. About 2x the readings on an H100 80GB HBM3 at
+# 700 W at 8 layers:
 # 2.441e-04 at lm_head for v2 and v1 (one bf16 ulp), 127,305 / 92,105 of
 # 5,122,328,576 elements apart (2.5e-5 / 1.8e-5, under FL_MOVED_SHARE)
 FL_TP_MOE_PARAM_TOL = 4.9e-4
@@ -7667,6 +7930,7 @@ def main() -> int:
         return 0
     if args.only == "tp":
         serve_tp_layers(card)
+        serve_family_layers(card)
         serve_grid_yi6b(card)
         serve_grid_moe(card)
         train_tp_phase(card)

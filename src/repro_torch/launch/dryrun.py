@@ -297,16 +297,19 @@ _COLLECTIVE_SOURCE = (
     "bytes position 0 reads of other positions' chunks (GridView.chunk with "
     "i != j: K/V gathered whole at use, the SSM's and xLSTM's columns that "
     "do not fall in its own chunk), a read at each use, independent of the "
-    "rows and T. Prefill and decode: the forward's gathers and, for the "
-    "dense and MoE families (serve_collectives), the grid serve steps of "
-    "launch/tp_serve.py traced the same way at the shape's length and cache "
-    "(the prefill's flash attention on each position's heads, the cache "
-    "relayout's all-to-all, the last row's hand-off and the vocab-parallel "
-    "logits' all-gather; the decode's q / k / v all-gathers, the cache "
-    "statistics' all-reduces, the P.V reduce-scatter by wo's row chunks, the "
-    "row-parallel all-reduces); for the other families and long_500k "
-    "(its cache over data and model) the traced training forward (decode: "
-    "T 1)")
+    "rows and T. Prefill and decode: the forward's gathers and the grid "
+    "serve steps of launch/tp_serve.py (serve_collectives, every family) "
+    "traced the same way at the shape's length and cache, one period of the "
+    "layer pattern carried along the depth, xLSTM's prefill at two lengths "
+    "carried to T (the prefill's flash attention on each position's heads, "
+    "the cache and cross K/V relayout's all-to-all, the recurrent states' "
+    "and conv tails' all-gathers along the heads, the last row's hand-off "
+    "and the vocab-parallel logits' all-gather, or the tied head's "
+    "all-reduce; the decode's q / k / v all-gathers, the cache statistics' "
+    "all-reduces, the P.V reduce-scatter by wo's row chunks, the "
+    "row-parallel all-reduces, the new recurrent states' all-gathers); "
+    "long_500k (its cache over data and model, not yet over the grid) "
+    "keeps the traced training forward at T 1")
 
 # launch/tp.py's collectives under the reference's keys: each Function's
 # forward, then its backward (the adjoint), with the index of position 0's
@@ -413,60 +416,87 @@ def _tp_row(cfg, t: int, m: int, train: bool) -> dict:
     the lines through them. Each term is a whole number of layers' and loss
     chunks' collectives, each of bytes linear in T and split over ``m`` or
     not as ``t`` is, so the lines are exact."""
-    period = (cfg.n_layers // tf.n_super(cfg)
-              if cfg.family in ("vlm", "hybrid") else 2 if cfg.xlstm else 1)
+    return _carried(lambda c, u: _tp_traced(c, 1, u, m, train), cfg, t,
+                    _lengths(t, m))
+
+
+def _carried(trace, cfg, t: int, ts: tuple) -> dict:
+    """``trace(config, length)`` (counted ``{op: {bytes, count}}``) of
+    ``cfg`` cut to no period and to one period of its layer pattern
+    (:func:`_period`), at the lengths ``ts``, carried to ``cfg``'s depth
+    and to ``t`` along the lines through them."""
+    period = _period(cfg)
     depth = cfg.n_layers // period
-    unit = math.lcm(tp.LOSS_CHUNK, m)
-    ts = (unit, 2 * unit) if t % unit == 0 and t > 2 * unit else (t, t)
-    at = {(n, u): _tp_traced(dataclasses.replace(cfg,
-                                                 n_layers=n * period),
-                             1, u, m, train)
+    at = {(n, u): trace(dataclasses.replace(cfg, n_layers=n * period), u)
           for n in (0, 1) for u in dict.fromkeys(ts)}
-
-    def line(a: int, b: int, x: int, x0: int, x1: int) -> int:
-        return a if x1 == x0 else a + (b - a) * (x - x0) // (x1 - x0)
-
     return {op: tuple(
-        line(*[line(at[0, u][op][key], at[1, u][op][key], depth, 0, 1)
-               for u in ts], t, *ts)
+        _line(*[_line(at[0, u][op][key], at[1, u][op][key], depth, 0, 1)
+                for u in ts], t, *ts)
         for key in ("bytes", "count")) for op in COUNTED}
 
 
 def serves_on_grid(cfg, shape, rules) -> bool:
     """Whether the dry run counts ``shape``'s serve step as the grid's
-    (``launch/tp_serve.py``): prefill and decode of the dense and MoE
-    families with the cache's sequence over ``model`` alone (not
-    ``long_500k``'s, over the data axes too)."""
-    return (shape.kind in ("prefill", "decode") and tp_serve.serves(cfg)
+    (``launch/tp_serve.py``, every family): prefill and decode with the
+    cache's sequence over ``model`` alone (not ``long_500k``'s, over the
+    data axes too)."""
+    return (shape.kind in ("prefill", "decode")
             and rules["kv_seq"] == "model")
 
 
 def _serve_traced(cfg, kind: str, t: int, m: int) -> dict:
     """:func:`counting_tp` over one call of the grid serve step on a meta
-    grid of ``m`` model positions, one row: a prefill of ``t`` tokens into
+    grid of ``m`` model positions, one row: a prefill of ``t`` tokens
+    (frames for the audio encoder; the VLM with its image embeddings) into
     a cache of ``t`` slots, or a decode step on a cache of ``t`` slots."""
     dev = torch.device("meta")
     lm = fsdp.empty(cfg, LogicalMesh((1, m), ("data", "model"), "meta"),
                     groups=[((dev,) * m, range(0, 1))])
+    dtype = tf.DTYPES[cfg.dtype]
     with counting_tp() as counted:
         if kind == "prefill":
-            tp_serve.prefill(lm, cfg, meta((1, t), torch.int32), t)
+            tokens = (meta((1, t, cfg.d_model), dtype)
+                      if cfg.family == "audio" else meta((1, t), torch.int32))
+            img = (meta((1, cfg.n_image_tokens, cfg.d_model), dtype)
+                   if cfg.family == "vlm" else None)
+            tp_serve.prefill(lm, cfg, tokens, t, image_embeds=img)
         else:
             state = tp_serve.init_state(lm, cfg, 1, t)
             tp_serve.decode_step(lm, cfg, meta((1, 1), torch.int32), state)
     return counted
 
 
+def _period(cfg) -> int:
+    """Layers of one period of the layer pattern: a VLM's or hybrid's
+    super-block, xLSTM's sLSTM and mLSTM, else a layer."""
+    return (cfg.n_layers // tf.n_super(cfg)
+            if cfg.family in ("vlm", "hybrid") else 2 if cfg.xlstm else 1)
+
+
+def _line(a: int, b: int, x: int, x0: int, x1: int) -> int:
+    """The value at ``x`` of the line through ``(x0, a)`` and ``(x1, b)``
+    (``a`` where the points coincide)."""
+    return a if x1 == x0 else a + (b - a) * (x - x0) // (x1 - x0)
+
+
+def _lengths(t: int, m: int) -> tuple:
+    """The two lengths a row is traced at to carry a count to ``t``:
+    ``L = lcm(LOSS_CHUNK, m)`` and ``2 L`` where ``t`` is a multiple of
+    ``L`` above ``2 L`` (both split over ``m`` as ``t`` is), else ``t``."""
+    unit = math.lcm(tp.LOSS_CHUNK, m)
+    return (unit, 2 * unit) if t % unit == 0 and t > 2 * unit else (t, t)
+
+
 @functools.lru_cache(maxsize=None)
 def _serve_row(cfg, kind: str, t: int, m: int) -> dict:
     """:func:`serve_collectives` of one row, traced with no layer and one
-    layer and carried along the line through them to ``cfg``'s depth (each
-    layer runs the same collectives)."""
-    at = [_serve_traced(dataclasses.replace(cfg, n_layers=n), kind, t, m)
-          for n in (0, 1)]
-    return {op: tuple(at[0][op][key] + cfg.n_layers
-                      * (at[1][op][key] - at[0][op][key])
-                      for key in ("bytes", "count")) for op in COUNTED}
+    period of the layer pattern and carried along the line through them
+    to ``cfg``'s depth (each period runs the same collectives). xLSTM's
+    prefill, whose sLSTM steps one token a host call, is traced at two
+    lengths (:func:`_lengths`) and carried to ``t`` along the line through
+    them: it keeps no cache, so each term is linear in T."""
+    ts = _lengths(t, m) if cfg.xlstm and kind == "prefill" else (t, t)
+    return _carried(lambda c, u: _serve_traced(c, kind, u, m), cfg, t, ts)
 
 
 def serve_collectives(cfg, rows: int, kind: str, t: int, m: int) -> dict:

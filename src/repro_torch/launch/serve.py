@@ -7,9 +7,9 @@ in place itself (``models/attention.py::decode_self_attention``).
 
 ``params`` is a ``TransformerLM`` on one device, or a
 ``launch.fsdp.ShardedLM`` placed over a participant's ``(data, model)``
-grid: the steps then serve the dense and MoE families over it
-(``launch/tp_serve.py``), the decode state a ``tp_serve.GridState`` placed
-as ``launch/specs.py::input_pspecs`` places the reference's.
+grid: the steps then serve every family over it (``launch/tp_serve.py``),
+the decode state a ``tp_serve.GridState`` placed as
+``launch/specs.py::input_pspecs`` places the reference's.
 """
 from __future__ import annotations
 
@@ -25,7 +25,8 @@ from repro_torch.models import transformer as tf
 def make_prefill_step(cfg: ArchConfig, cache_len: int) -> Callable:
     def step(params, tokens, image_embeds=None):
         if isinstance(params, fsdp.ShardedLM):
-            return tp_serve.prefill(params, cfg, tokens, cache_len)
+            return tp_serve.prefill(params, cfg, tokens, cache_len,
+                                    image_embeds=image_embeds)
         return tf.prefill(params, cfg, tokens, cache_len,
                           image_embeds=image_embeds)
 

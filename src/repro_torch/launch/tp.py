@@ -86,8 +86,10 @@ compute its rows together, Megatron-style:
   products round otherwise.
 
 Serving over the same grid (``launch/tp_serve.py``) runs these blocks
-and collectives forward only, with the flash kernel in the prefill and a
-KV cache split by sequence over ``model`` in the decode.
+and collectives forward only, with the flash kernel in the prefill, a KV
+cache split by sequence over ``model`` in the decode, and the recurrent
+cells' per-position partials and final states (:func:`ssm_partials`,
+:func:`xlstm_partials`).
 
 **Collectives, in position order.** :func:`all_gather`,
 :func:`reduce_scatter`, :func:`all_reduce`, :func:`all_to_all`,
@@ -689,40 +691,64 @@ def cross_block(view: GridView, prefix: str, cfg: ArchConfig, st: Stream,
     return [x + y for x, y in zip(xs, ys)]
 
 
-def ssm_mixer(view: GridView, prefix: str, cfg: ArchConfig, st: Stream,
-              xs) -> list:
-    """``x`` plus the Mamba2 mixer under ``prefix`` (``ssm_blocks.s.i.``)
-    on the stream's slices, each position on its own heads (module
-    docstring)."""
+def ssm_head_params(view: GridView, j: int, w: str, cfg: ArchConfig,
+                    lo: int, hi: int) -> tuple:
+    """Position ``j``'s reads of the mixer ``w`` (``...ssm.``) for SSM
+    heads ``[lo, hi)``: (``conv_w`` / ``conv_b`` of their conv channels and
+    ``A_log`` / ``D`` / ``dt_bias`` of the heads, the ``in_proj`` column
+    runs and the conv channel runs they read; ``ssm.head_columns``)."""
+    proj, conv = ssm_mod.head_columns(cfg.d_model, cfg.ssm, lo, hi)
+    p = {"conv_w": view.cols(j, w + "conv_w", 1, conv),
+         "conv_b": view.cols(j, w + "conv_b", 0, conv),
+         **{n: view.cols(j, w + n, 0, [(lo, hi)])
+            for n in ("A_log", "D", "dt_bias")}}
+    return p, proj, conv
+
+
+def ssm_partials(view: GridView, prefix: str, cfg: ArchConfig,
+                 hs) -> tuple:
+    """Each position's ``out_proj`` partial of the Mamba2 mixer under
+    ``prefix`` (``ssm_blocks.s.i.``) on its whole normed rows ``hs[j]``,
+    each position on its own heads (module docstring), and ``{j: (final
+    state [B, h_j, N, P], its in_proj product [B, T, .])}`` of the
+    positions with heads."""
     spec, w = cfg.ssm, prefix + "ssm."
     _, n_heads, _ = ssm_mod.dims(cfg.d_model, spec)
-    hs = st.gather(_norms(view, prefix + "norm.", xs, cfg))
-    parts = []
+    parts, ran = [], {}
     for j, h in enumerate(hs):
         lo, hi = _span(j, view.m, n_heads)
         if hi == lo:
             parts.append(h.new_zeros(h.shape))
             continue
-        proj, conv = ssm_mod.head_columns(cfg.d_model, spec, lo, hi)
-        p = {"conv_w": view.cols(j, w + "conv_w", 1, conv),
-             "conv_b": view.cols(j, w + "conv_b", 0, conv),
-             **{n: view.cols(j, w + n, 0, [(lo, hi)])
-                for n in ("A_log", "D", "dt_bias")}}
-        y, _ = ssm_mod.ssd_heads(p, h @ view.cols(j, w + "in_proj", 1, proj),
-                                 spec, (lo, hi), n_heads)
+        p, proj, _ = ssm_head_params(view, j, w, cfg, lo, hi)
+        zx = h @ view.cols(j, w + "in_proj", 1, proj)
+        y, s = ssm_mod.ssd_heads(p, zx, spec, (lo, hi), n_heads)
+        ran[j] = (s, zx)
         rows = [(lo * spec.head_dim, hi * spec.head_dim)]
         parts.append(y @ view.cols(j, w + "out_proj", 0, rows))
+    return parts, ran
+
+
+def ssm_mixer(view: GridView, prefix: str, cfg: ArchConfig, st: Stream,
+              xs) -> list:
+    """``x`` plus the Mamba2 mixer under ``prefix`` (``ssm_blocks.s.i.``)
+    on the stream's slices, each position on its own heads (module
+    docstring)."""
+    hs = st.gather(_norms(view, prefix + "norm.", xs, cfg))
+    parts, _ = ssm_partials(view, prefix, cfg, hs)
     return [x + y for x, y in zip(xs, st.reduce(parts))]
 
 
-def xlstm_cell(view: GridView, prefix: str, cfg: ArchConfig, st: Stream,
-               xs) -> list:
-    """``x`` plus the xLSTM cell under ``prefix`` (``slstm.i.`` or
-    ``mlstm.i.``) on the stream's slices, each position on its own heads
-    (module docstring)."""
+def xlstm_partials(view: GridView, prefix: str, cfg: ArchConfig, hs,
+                   carries=None) -> tuple:
+    """Each position's ``w_out`` partial of the xLSTM cell under ``prefix``
+    (``slstm.i.`` or ``mlstm.i.``) on its whole rows ``hs[j]``, each
+    position on its own heads (module docstring), and ``{j: the final
+    state of its heads}`` of the positions with heads. ``carries[j]``: the
+    state its heads start from (a decode step: ``T`` 1, the mLSTM's
+    recurrent step); else the cell's initial state."""
     n_heads = cfg.n_heads
     d_inner, dh = xlstm_mod._cell_dims(cfg.d_model, n_heads)
-    hs = st.gather(xs)
     b, t, _ = hs[0].shape
     spans = {j: _span(j, view.m, n_heads) for j in range(view.m)}
     live = [j for j, (lo, hi) in spans.items() if hi > lo]
@@ -732,17 +758,19 @@ def xlstm_cell(view: GridView, prefix: str, cfg: ArchConfig, st: Stream,
         return [(g * d_inner + lo * dh, g * d_inner + hi * dh)
                 for g in range(n)]
 
-    ys = {}
+    ys, states = {}, {}
     if prefix.startswith("slstm."):
         pres = [xlstm_mod.slstm_pre(
             hs[j], view.cols(j, prefix + "w_in", 1, gates(j, 4)),
             view.cols(j, prefix + "b", 0, gates(j, 4)),
             spans[j][1] - spans[j][0], dh) for j in live]
         rs = [view.cols(j, prefix + "r", 0, [spans[j]]) for j in live]
-        outs = xlstm_mod.slstm_scan(pres, rs, [xlstm_mod.slstm_init(
-            b, r.shape[0], dh, r.device) for r in rs])
-        for j, (h, _) in zip(live, outs):
+        outs = xlstm_mod.slstm_scan(pres, rs, [
+            xlstm_mod.slstm_init(b, r.shape[0], dh, r.device)
+            if carries is None else carries[j] for j, r in zip(live, rs)])
+        for j, (h, c) in zip(live, outs):
             ys[j] = h.reshape(b, t, -1).to(hs[j].dtype)
+            states[j] = c
     else:
         for j in live:
             lo, hi = spans[j]
@@ -751,11 +779,25 @@ def xlstm_cell(view: GridView, prefix: str, cfg: ArchConfig, st: Stream,
                                    [(lo, hi), (n_heads + lo, n_heads + hi)]),
                  "w_o": view.cols(j, prefix + "w_o", 1, [(lo * dh,
                                                            hi * dh)])}
-            ys[j] = xlstm_mod.mlstm_heads(p, hs[j], hi - lo, dh)[0]
+            if carries is None:
+                ys[j], states[j] = xlstm_mod.mlstm_heads(p, hs[j], hi - lo,
+                                                         dh)
+            else:
+                ys[j], states[j] = xlstm_mod.mlstm_decode_heads(
+                    p, hs[j], carries[j], hi - lo, dh)
     parts = [ys[j] @ view.cols(j, prefix + "w_out", 0,
                                [(spans[j][0] * dh, spans[j][1] * dh)])
              if j in ys else hs[j].new_zeros(hs[j].shape)
              for j in range(view.m)]
+    return parts, states
+
+
+def xlstm_cell(view: GridView, prefix: str, cfg: ArchConfig, st: Stream,
+               xs) -> list:
+    """``x`` plus the xLSTM cell under ``prefix`` (``slstm.i.`` or
+    ``mlstm.i.``) on the stream's slices, each position on its own heads
+    (module docstring)."""
+    parts, _ = xlstm_partials(view, prefix, cfg, st.gather(xs))
     return [x + y for x, y in zip(xs, st.reduce(parts))]
 
 

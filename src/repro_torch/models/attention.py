@@ -313,15 +313,18 @@ def decode_valid(length: torch.Tensor, off: int, s: int,
     return valid
 
 
-def slice_scores(q: torch.Tensor, k: torch.Tensor, length: torch.Tensor,
-                 off: int, *, hd: int,
+def slice_scores(q: torch.Tensor, k: torch.Tensor,
+                 length: Optional[torch.Tensor], off: int, *, hd: int,
                  window: Optional[int]) -> torch.Tensor:
     """``attend``'s scores of the new token's q ``[B, 1, H, hd]`` against
     the slice's keys ``[B, S_j, kv, hd]`` (slots from ``off``):
     ``[B, kv, g, 1, S_j]`` in the model dtype, ``NEG_INF`` at a slot the
-    row does not read."""
+    row does not read (``length`` None: every slot is read, as by the
+    cross-attention's decode)."""
     scores = torch.einsum("btkgd,bskd->bkgts", _q_groups(q, k.shape[2]),
                           k) / (hd ** 0.5)
+    if length is None:
+        return scores
     mask = decode_valid(length, off, k.shape[1], window)[:, None, None, None]
     return torch.where(mask, scores, torch.tensor(
         NEG_INF, dtype=scores.dtype, device=scores.device))

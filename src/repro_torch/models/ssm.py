@@ -7,11 +7,12 @@ attention-like form inside chunks of length Q and a linear recurrence of the
 state across chunks (the reference's ``lax.scan``, a loop here). The decode
 is the O(1) recurrent update carried in ``SSMCache``.
 
-Heads do not mix between the two projections, so the prefill is written
-on a range of heads (:func:`ssd_heads`, given the ``in_proj`` columns and
-conv channels those heads read, :func:`head_columns`): ``ssd_forward``
-runs it on every head, and ``launch/tp.py`` runs each model position's
-heads on its own.
+Heads do not mix between the two projections, so the prefill and the
+decode step are written on a range of heads (:func:`ssd_heads`,
+:func:`ssd_decode_heads`, given the ``in_proj`` columns and conv channels
+those heads read, :func:`head_columns`): ``ssd_forward`` and
+``ssd_decode_step`` run them on every head, and ``launch/tp.py`` /
+``launch/tp_serve.py`` run each model position's heads on its own.
 
 Multi-operand einsums are written as products of two operands (the reference
 lets XLA order them): a left-to-right contraction would build a
@@ -229,26 +230,44 @@ def ssd_heads(p: Params, zxbcdt: torch.Tensor, spec: SSMSpec,
 def ssd_decode_step(p: Params, x: torch.Tensor, cache: SSMCache,
                     spec: SSMSpec):
     """One-token recurrent update. x: [B, 1, d_model] -> (y, new cache)."""
-    b, _, d_model = x.shape
-    d_inner, n_heads, _ = dims(d_model, spec)
+    _, n_heads, _ = dims(x.shape[-1], spec)
+    y, s, new_conv = ssd_decode_heads(p, x @ p["in_proj"], cache.conv,
+                                      cache.state, spec, (0, n_heads),
+                                      n_heads)
+    return y @ p["out_proj"], SSMCache(state=s, conv=new_conv)
 
-    z, xbc, dt = _split_proj(x @ p["in_proj"], d_inner, spec)
+
+def ssd_decode_heads(p: Params, zxbcdt: torch.Tensor, conv: torch.Tensor,
+                     state: torch.Tensor, spec: SSMSpec,
+                     heads: tuple[int, int], n_heads: int):
+    """The one-token step between the two projections on heads ``[lo,
+    hi)`` of ``n_heads`` (as :func:`ssd_heads` for the prefill):
+    ``zxbcdt [B, 1, .]`` the token's product with the heads' ``in_proj``
+    columns, ``conv [B, K-1, .]`` the rolling context of their conv
+    channels, ``state [B, hi - lo, N, P]`` theirs. Returns (the gated
+    output ``[B, 1, (hi - lo) P]``, the new state, the new context)."""
+    b = zxbcdt.shape[0]
+    lo, hi = heads
+    g_lo, g_hi = head_groups(lo, hi, n_heads, spec)
+    d_in = (hi - lo) * spec.head_dim
+
+    z, xbc, dt = _split_proj(zxbcdt, d_in, spec, g_hi - g_lo)
     # rolling causal conv: context = the last (K-1) inputs + the current one
-    ctx = torch.cat([cache.conv, xbc], dim=1)                 # [B,K,C]
+    ctx = torch.cat([conv, xbc], dim=1)                       # [B,K,C]
     xbc_t = F.silu(torch.einsum("bkc,kc->bc", ctx, p["conv_w"])
                    + p["conv_b"])
     new_conv = ctx[:, 1:, :]
-    xs, bh, ch = _heads(xbc_t, spec, (0, n_heads), n_heads)    # [B,H,.]
+    xs, bh, ch = _heads(xbc_t, spec, heads, n_heads)          # [B,h,.]
 
-    dtv = softplus(dt[:, 0].float() + p["dt_bias"])           # [B,H]
-    a = torch.exp(dtv * (-torch.exp(p["A_log"])))             # [B,H]
+    dtv = softplus(dt[:, 0].float() + p["dt_bias"])           # [B,h]
+    a = torch.exp(dtv * (-torch.exp(p["A_log"])))             # [B,h]
     xs_f = xs.float()
-    s = cache.state * a[..., None, None] + torch.einsum(
+    s = state * a[..., None, None] + torch.einsum(
         "bhn,bhp->bhnp", bh.float() * dtv[..., None], xs_f)
     y = torch.einsum("bhn,bhnp->bhp", ch.float(), s)
     y = y + xs_f * p["D"][None, :, None]
-    y = y.reshape(b, 1, d_inner).to(x.dtype) * F.silu(z)
-    return y @ p["out_proj"], SSMCache(state=s, conv=new_conv)
+    y = y.reshape(b, 1, d_in).to(zxbcdt.dtype) * F.silu(z)
+    return y, s, new_conv
 
 
 def init_cache(batch: int, d_model: int, spec: SSMSpec, dtype,

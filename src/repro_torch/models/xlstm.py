@@ -14,8 +14,10 @@ Prefill:
 
 Heads do not mix inside a cell: the sLSTM's recurrence is written for
 several sets of heads advanced in one loop (:func:`slstm_scan`) and the
-mLSTM's on a set of heads (:func:`mlstm_heads`), given those heads'
-columns, so ``launch/tp.py`` runs each model position's heads on its own.
+mLSTM's prefill and decode step on a set of heads (:func:`mlstm_heads`,
+:func:`mlstm_decode_heads`), given those heads' columns, so
+``launch/tp.py`` and ``launch/tp_serve.py`` run each model position's
+heads on its own.
 
 Decode: O(1) recurrent steps for both cells, carrying (c, n, m, h) and
 (C, n, m). Blocks alternate sLSTM (even index) and mLSTM (odd). The
@@ -231,8 +233,17 @@ def mlstm_heads(p: Params, x: torch.Tensor, n_heads: int, dh: int,
 def mlstm_decode_step(p: Params, x: torch.Tensor, cache: tuple,
                       n_heads: int):
     """O(1) stabilized recurrent step. x: [B,1,d] -> (y, (C, n, m))."""
+    _, dh = _cell_dims(x.shape[-1], n_heads)
+    y, state = mlstm_decode_heads(p, x, cache, n_heads, dh)
+    return y @ p["w_out"], state
+
+
+def mlstm_decode_heads(p: Params, x: torch.Tensor, cache: tuple,
+                       n_heads: int, dh: int):
+    """The step between the projections on the ``n_heads`` heads whose
+    ``w_qkv`` / ``w_if`` / ``w_o`` columns ``p`` holds and whose state
+    ``cache`` is: (the gated output ``[B, 1, h dh]``, (C, n, m))."""
     b = x.shape[0]
-    d_inner, dh = _cell_dims(x.shape[-1], n_heads)
     q, k, v, logi, logf, o = _mlstm_proj(p, x, n_heads, dh)
     c, n, m = cache
     it, ft = logi[:, 0], logf[:, 0]                   # [B,H]
@@ -248,5 +259,5 @@ def mlstm_decode_step(p: Params, x: torch.Tensor, cache: tuple,
     den = torch.maximum(torch.abs(torch.einsum("bhk,bhk->bh", n_new, q0)),
                         torch.exp(-m_new))
     h = num / den[..., None]
-    y = (o[:, 0].float() * h).reshape(b, 1, d_inner).to(x.dtype)
-    return y @ p["w_out"], (c_new, n_new, m_new)
+    y = (o[:, 0].float() * h).reshape(b, 1, n_heads * dh).to(x.dtype)
+    return y, (c_new, n_new, m_new)

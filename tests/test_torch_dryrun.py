@@ -582,6 +582,73 @@ def test_layout_collectives_equal_a_counted_grid_serve_step(arch, kind, m,
         assert counted["reduce-scatter"]["count"] == cfg.n_layers
 
 
+FAMILY_SERVE = [(a, k) for a in ("llama32_vision_90b", "zamba2_7b",
+                                 "xlstm_125m") for k in ("prefill", "decode")
+                ] + [("hubert_xlarge", "prefill")]
+
+
+@pytest.mark.parametrize("arch,kind", FAMILY_SERVE,
+                         ids=[f"{a}-{k}" for a, k in FAMILY_SERVE])
+@pytest.mark.parametrize("m,S", [(2, 1024), (4, 1024), (2, 40)],
+                         ids=["split-2", "split-4", "whole-2"])
+def test_layout_collectives_equal_a_counted_grid_serve_step_of_a_family(
+        arch, kind, m, S):
+    """The serve rows of the VLM (1,024 image tokens: its cross K/V split
+    over ``model``), hybrid, xLSTM and audio families, as the dense and
+    MoE rows above: ``layout_collectives`` on a ``(data 1, model m)`` toy
+    grid, which traces the grid serve step at one row with no period of
+    the layer pattern and one (a VLM or hybrid super-block, xLSTM's two
+    cells), carried to two periods (three hybrid super-blocks, three audio
+    layers) and 2 rows, and xLSTM's prefill at T 128 and 256 carried to T
+    1,024, equals what position 0's collectives return in one counted
+    prefill or decode step of the reduced model on the CPU."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.launch import fsdp, serve
+    from repro_torch.launch.mesh import LogicalMesh
+    from repro_torch.models import transformer as tf
+
+    over = {"n_image_tokens": 1024} if arch.startswith("llama32") else {}
+    layers = {"zamba2_7b": 3, "hubert_xlarge": 3}.get(arch, 4)
+    cfg = reduced(tconfigs.get(arch), dtype="float32", n_layers=layers,
+                  **over)
+    B = 2
+    cpu = torch.device("cpu")
+    mesh = LogicalMesh((1, m), ("data", "model"), "cpu")
+    lm = fsdp.shard(tf.init_params(cfg, torch.Generator().manual_seed(0),
+                                   device="cpu"),
+                    mesh, groups=[((cpu,) * m, range(0, 1))])
+    rs = np.random.RandomState(2)
+    img = (torch.from_numpy(rs.randn(B, cfg.n_image_tokens, cfg.d_model)
+                            .astype(np.float32))
+           if cfg.family == "vlm" else None)
+
+    def prompt(t):
+        if cfg.family == "audio":
+            return torch.from_numpy(rs.randn(B, t, cfg.d_model)
+                                    .astype(np.float32))
+        return torch.from_numpy(rs.randint(0, cfg.vocab, (B, t))
+                                .astype(np.int32))
+
+    if kind == "prefill":
+        tokens = prompt(S)
+        with dryrun.counting_tp() as counted:
+            serve.make_prefill_step(cfg, S)(lm, tokens, img)
+    else:
+        _, state = serve.make_prefill_step(cfg, S)(lm, prompt(8), img)
+        tok = torch.from_numpy(rs.randint(0, cfg.vocab, (B, 1))
+                               .astype(np.int32))
+        with dryrun.counting_tp() as counted:
+            serve.make_decode_step(cfg)(lm, tok, state)
+    rules, layout = _params_layout(cfg, mesh)
+    shape = types.SimpleNamespace(kind=kind, global_batch=B, seq_len=S)
+    assert dryrun.serves_on_grid(cfg, shape, rules)
+    want = dryrun.layout_collectives(cfg, shape, mesh, rules, layout,
+                                     calls=1)
+    assert counted == {op: want[op] for op in dryrun.COUNTED}
+    if cfg.xlstm and kind == "prefill" and S == 1024:
+        assert dryrun._lengths(S, m) == (128, 256)
+
+
 # ----------------------------------------------- chip_smoke's train FLOPs
 def _train_flops():
     import importlib.util

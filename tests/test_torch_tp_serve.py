@@ -28,7 +28,8 @@ slots, so the reference's rule (a KV cache's sequence splits over
 * **Placement**: the state's bytes on every cell equal
   ``dryrun.shard_bytes`` of ``specs.input_pspecs``' specs (a CPU grid, and
   Yi-6B's ``decode_32k`` state on the production meta grid).
-* **Refusals**: VLM, hybrid, xLSTM and audio raise ``ValueError``.
+* **The other families** are served over the grid too:
+  ``tests/test_torch_tp_serve_families.py``.
 * **Repeatability**: two grid decodes from one cloned state are bit-equal,
   and the grid prefill launches the flash kernel once a layer a position.
 * **The one-device path** (``decode_self_attention``, ``prefill_cache``,
@@ -386,21 +387,6 @@ def test_yi6b_decode_32k_state_on_the_production_grid():
     want = _predicted(cfg, mesh, 128, 32768)
     assert want == 32 * (2 * 8 * 2048 * 4 * 128 * 2 + 8 * 4)
     assert _cell_bytes(state, lm) == [want] * 256
-
-
-# -------------------------------------------------------------- refusals
-@pytest.mark.parametrize("arch", ["llama32_vision_90b", "zamba2_7b",
-                                  "xlstm_125m", "hubert_xlarge"])
-def test_other_families_are_refused(arch):
-    cfg = _cfg(arch)
-    lm = _lm(_model(cfg), (1, 2))
-    family = "ssm" if cfg.xlstm else cfg.family
-    with pytest.raises(ValueError, match=family):
-        serve.make_prefill_step(cfg, S)(lm, _tokens(cfg, B, T, 0))
-    with pytest.raises(ValueError, match=family):
-        serve.make_decode_step(cfg)(lm, _tokens(cfg, B, 1, 0), None)
-    with pytest.raises(ValueError, match=family):
-        tp_serve.init_state(lm, cfg, B, S)
 
 
 # --------------------------------------------------------- repeatability
