@@ -124,9 +124,27 @@ exits non-zero and no failure is caught:
      card's within ``FAMILY_TOL`` * max(1, max |logit|), the greedy tokens
      (a differing token a near tie of the one card's top two), two decodes
      from one cloned state bit-equal, times and peak beside the one card's;
-     then Yi-6B at full width and 2 layers in f32 (TF32 off), one 256-token
-     prompt and 4 new tokens, on the card against the CPU's plain path:
-     logits within 2e-4 and equal tokens.
+     then ``long_500k``'s decode, one row folded over ``(data 2, model 2)``
+     on ``cuda:0`` (every data group runs the row; each cache split over
+     the four cells): (a) the same weights in the long-context variant
+     (window 8,192) at 524,288 slots, 8 teacher-forced steps from a seeded
+     fill of 262,140 slots (across cell 1 | cell 2) on the one card first,
+     its cache freed, then on the grid from the same fill
+     (``tp_serve.place_state``): parameter bytes against ``param_specs``,
+     state bytes against ``input_pspecs`` under the rewritten rules and
+     the hand count 34,359,738,880, logits within ``FAMILY_TOL`` * max(1,
+     max |logit|) of the one card's, greedy tokens, decode ms a step beside
+     the one card's with a profiled step of each, peak within 75 GiB; (b)
+     Yi-6B at 2 layers, a 3,068-token prompt into 4,096 slots (8 flash
+     launches, once a layer a cell, each shape against the plain version),
+     state bytes, 8 decode steps against the one card's, two decodes
+     bit-equal; (c) one decode attention layer in f32 (TF32 off) over the
+     four cells of 4,096 slots with a window of 512 straddling the data
+     groups' boundary, against ``decode_self_attention``
+     (``SERVE_TP_TOL``, ``SERVE_TP_CACHE_TOL``); then Yi-6B at full width
+     and 2 layers in f32 (TF32 off), one 256-token prompt and 4 new
+     tokens, on the card against the CPU's plain path: logits within 2e-4
+     and equal tokens.
  12. resume: ``table2_quick`` killed by a round hook after round 6 and
      resumed to 12 (a checkpoint every 6 rounds under ``build/smoke``), then
      ``async_quick`` killed after round 4 of 8: ledger entries, accuracies,
@@ -423,9 +441,12 @@ phases 1 and 14, ``--only bench`` phases 1 and 15, ``--only families``
 phases 1 and 16, ``--only train`` phases 1 and 17, ``--only fl_train``
 phases 1 and 18, ``--only selectors`` phases 1 and 19, ``--only
 secagg_demo`` phases 1 and 20, ``--only tp`` phase 1 and the
-tensor-parallel cases (the serving grid's layer checks and its Yi-6B and
-DeepSeek-MoE-16B cases of phases 11 and 16, ``[train]`` (f) to (j),
-``[fl_train]`` (f), (g), (h)). Without a
+tensor-parallel cases (the serving grid's layer checks, its ``long_500k``
+cases (a) to (c) and its Yi-6B and DeepSeek-MoE-16B cases of phases 11
+and 16, ``[train]`` (f) to (j), ``[fl_train]`` (f), (g), (h)). Phases 17
+and 18 run their CPU reference steps of Yi-6B at 1 layer (``[train]``'s
+parity, ``[fl_train]`` (b)) on a worker thread while the card trains, and
+join them before their checks. Without a
 CUDA device, or outside a checkout, it exits
 non-zero and prints no result.
 """
@@ -2426,8 +2447,10 @@ def lm_phase(kind: str, card: str, flash_main_ms: float) -> dict:
     torch.cuda.empty_cache()
     counts = {**counts, "flash_attention": counts["flash_attention"]
               + serve_grid_yi6b(card, params)}
+    serve_long_yi6b(card, params)
     del params
     torch.cuda.empty_cache()
+    counts["flash_attention"] += serve_long_layers(card)
 
     # parity at full width, reduced depth: the card against the CPU
     small = dataclasses.replace(cfg, n_layers=2, dtype="float32")
@@ -3328,10 +3351,11 @@ def serve_family_layer(card: str, name: str) -> str:
             want = attn.decode_cross_attention(
                 dict(model.cross_blocks[0]["attn"].items()), x, (k, v),
                 n_heads=cfg.n_heads, hd=cfg.hd)
-            got = tp.all_reduce(tp_serve.cross_attention(
-                view, "cross_blocks.0.attn.", [x, x],
-                [(k[:, :n // 2], v[:, :n // 2]),
-                 (k[:, n // 2:], v[:, n // 2:])], cfg))[0]
+            [parts] = tp_serve.grid_cross(
+                [view], "cross_blocks.0.attn.", [[x, x]],
+                [[(k[:, :n // 2], v[:, :n // 2]),
+                  (k[:, n // 2:], v[:, n // 2:])]], cfg, False)
+            got = tp.all_reduce(parts)[0]
             errs.append(rel(got, want))
         elif name == "tied":
             h = randn(B, 1, d)
@@ -3406,7 +3430,7 @@ def serve_family_layers(card: str) -> None:
 def serve_tp_layer(card: str, name: str, cfg) -> str:
     """One decode attention layer of ``cfg`` (1 layer, f32, TF32 off) over
     ``(data 1, model 2)`` on ``cuda:0`` with the cache split by sequence
-    (``tp_serve.decode_attention``, partials all-reduced) against
+    (``tp_serve.grid_attention``, partials all-reduced) against
     ``decode_self_attention`` on the whole cache: random cache contents, the
     rows' lengths ``SERVE_TP_LENGTHS``; the output and the cache after the
     write within ``SERVE_TP_TOL`` of max |want| and ``SERVE_TP_CACHE_TOL``
@@ -3444,8 +3468,9 @@ def serve_tp_layer(card: str, name: str, cfg) -> str:
         caches = [attn.KVCache(k=k[:, j * half:(j + 1) * half].clone(),
                                v=v[:, j * half:(j + 1) * half].clone(),
                                length=lengths.clone()) for j in range(2)]
-        parts = tp_serve.decode_attention(
-            tp.GridView(lm, 0), "blocks.0.attn.", [x, x], caches, cfg, S)
+        [parts] = tp_serve.grid_attention(
+            [tp.GridView(lm, 0)], "blocks.0.attn.", [[x, x]], [caches], cfg,
+            S, False)
         got = tp.all_reduce(parts)[0]
     scale = want.abs().max().item()
     err = (got - want).abs().max().item() / scale
@@ -3501,6 +3526,390 @@ def serve_tp_layers(card: str) -> None:
           + "; ".join(lines) + f" (tolerances {SERVE_TP_TOL} of max |y|, "
           f"{SERVE_TP_CACHE_TOL} the cache); "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# ------------------------------- a batch of one row over the whole grid
+# long_500k's decode (one row): the idle batch axes fold into the cache's
+# sequence split (launch/tp_serve.py, specs.folds), so over (data 2, model
+# 2) on cuda:0 the cache splits over the four cells in input_pspecs'
+# data-major order and every data group runs the row
+LONG_SLOTS = 524288             # long_500k's cache: 131,072 slots a cell
+LONG_FILL = 262140              # seeded slots; the 8 steps write 262,140-147,
+LONG_NEW = 8                    # across cell 1 (g 0, j 1) | cell 2 (g 1, j 0)
+LONG_PEAK_GIB = 75
+LONG_T, LONG_CACHE = 3068, 4096     # (b): 1,024 slots a cell, the prompt on
+                                    # three cells, the steps into cell 3
+# (c): one decode attention layer, f32 (TF32 off), at Yi-6B's width over
+# the four cells of a 4,096-slot cache (1,024 each), window 512; the new
+# slot at the last of cell 1, the first of cell 2 (the data groups'
+# boundary), and two where the window straddles that boundary
+LONG_LAYER_WINDOW = 512
+LONG_LAYER_LENGTHS = (2047, 2048, 2200, 2500)
+
+
+def long_grid_lm(cuda0):
+    """A ``(data 2, model 2)`` mesh with every cell on ``cuda0`` and its
+    explicit grid (one data position a group)."""
+    from repro_torch.launch import mesh as tmesh
+
+    return (tmesh.LogicalMesh((2, 2), ("data", "model"), "cuda:0"),
+            [((cuda0, cuda0), range(g, g + 1)) for g in range(2)])
+
+
+def long_state_bytes(cfg, mesh, cache_len: int) -> int:
+    """A one-row decode state's bytes on the card when every cell of
+    ``mesh`` lies there, from ``specs.input_pspecs`` under the rewritten
+    rules (``dryrun.step_rules``) alone: ``dryrun.shard_bytes`` a cell,
+    times the cells."""
+    from repro_torch.launch import dryrun, specs
+
+    shape = specs.InputShape("long_500k", cache_len, 1, "decode")
+    rules = dryrun.step_rules(mesh, shape, None)
+    leaves = specs._state_leaves(specs.input_specs(cfg, shape)["state"])
+    pspecs = specs.input_pspecs(cfg, shape, rules)["state"]
+    return math.prod(mesh.shape.values()) * sum(
+        dryrun.shard_bytes(x.shape, x.dtype, spec, mesh.shape)
+        for x, spec in zip(leaves, pspecs))
+
+
+def long_fill(cfg, length: int, seed: int):
+    """A one-row one-device decode state of ``LONG_SLOTS`` slots on the
+    card: each layer's first ``length`` K/V slots drawn from ``seed`` (the
+    rest zero), the lengths at ``length``."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    state = tf.init_decode_state(cfg, 1, LONG_SLOTS, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.inference_mode():
+        for c in state.caches:
+            for x in (c.k, c.v):
+                x[:, :length].normal_(generator=gen)
+            c.length.fill_(length)
+    return state
+
+
+def held_near_ties(tag: str, got: list, want: list, bound) -> list:
+    """The steps and rows whose greedy token differs from the one card's,
+    each a near tie of the one card's top two logits (checked)."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    ties = []
+    for i, (a, w) in enumerate(zip(got, want)):
+        ta, tw = serve.next_token(a), serve.next_token(w)
+        for r in torch.nonzero(ta[:, 0] != tw[:, 0]).flatten().tolist():
+            top2 = torch.topk(w[r, -1], 2).values
+            gap = (top2[0] - top2[1]).item()
+            check(gap <= bound(w), f"{tag}: step {i} row {r} token "
+                  f"{int(ta[r])} != the one card's {int(tw[r])}, whose top "
+                  f"two logits are {gap:.3e} apart: not a near tie")
+            ties.append((i, r, gap))
+    return ties
+
+
+def serve_long_yi6b(card: str, params=None) -> None:
+    """(a) Yi-6B whole (``params``: [lm]'s bf16 weights, else drawn from
+    seed 0), its long-context
+    variant (window 8,192), one row over ``LONG_SLOTS`` slots: first the
+    one card's ``LONG_NEW`` teacher-forced decode steps from a seeded fill
+    of ``LONG_FILL`` slots (its cache then freed), then the same fill
+    placed over ``(data 2, model 2)`` on ``cuda:0`` (``place_state``):
+    parameter bytes against ``param_specs``, the state's against
+    ``input_pspecs`` under the rewritten rules and the hand count
+    (34,359,738,880 B), the logits of every step against the one card's
+    within ``FAMILY_TOL`` * max(1, max |logit|), greedy tokens, decode ms
+    a step beside the one card's, the peak."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch import fsdp, serve, tp_serve
+    from repro_torch.models import transformer as tf
+
+    cuda0 = torch.device("cuda", 0)
+    t_case = time.perf_counter()
+    cfg = configs.get("yi_6b").long_context_variant()
+    dec = serve.make_decode_step(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    tok = torch.randint(0, cfg.vocab, (1, 1), generator=gen, device="cuda",
+                        dtype=torch.int32)
+
+    def run(model, state, feed=None):
+        """``LONG_NEW`` steps fed ``feed``, else the model's own greedy
+        tokens: logits, tokens fed, ms a step, the state."""
+        out, fed, ms = [], [], []
+        t = tok
+        for i in range(LONG_NEW):
+            t = t if feed is None else feed[i]
+            fed.append(t)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, state = dec(model, t, state)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            out.append(lg.float())
+            t = serve.next_token(lg)
+        return out, fed, ms, state
+
+    if params is None:
+        params = tf.init_params(configs.get("yi_6b"), torch.Generator(
+            device="cuda").manual_seed(0))
+    one = long_fill(cfg, LONG_FILL, 11)
+    want, fed1, ms1, one = run(params, one)
+    lengths1 = int(one.caches[0].length[0])
+    # where a step's time goes: one more step of each, profiled
+    extra = serve.next_token(want[-1])
+    prof1 = profiled(lambda: dec(params, extra, one), top=4, name_len=60)
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mesh, grid_ = long_grid_lm(cuda0)
+    lm, (placed, _) = placed_bytes(lambda: fsdp.shard(params, mesh,
+                                                      groups=grid_))
+    predicted = grid_bytes_on(cfg, mesh, grid_, cuda0)
+    check(placed == predicted, f"[lm] (a): {placed} parameter bytes placed, "
+          f"param_specs predicts {predicted}")
+    state = tp_serve.place_state(lm, cfg, long_fill(cfg, LONG_FILL, 11))
+    gc.collect()
+    held = sum(t.numel() * t.element_size()
+               for t in tp_serve.state_tensors(state))
+    want_state = long_state_bytes(cfg, mesh, LONG_SLOTS)
+    esize = torch.empty((), dtype=tf.DTYPES[cfg.dtype]).element_size()
+    kv = cfg.n_layers * 2 * (LONG_SLOTS // 4) * cfg.n_kv_heads * cfg.hd * esize
+    hand = 4 * kv + 4 * cfg.n_layers * 4
+    check(state.folded and held == want_state == hand == 34_359_738_880,
+          f"[lm] (a): the grid state holds {held} B, input_pspecs under the "
+          f"rewritten rules predict {want_state}, the hand count {hand}")
+    cells = [[tuple(tp_serve.slots(2 * g + j, 4, LONG_SLOTS)) for j in
+              range(2)] for g in range(2)]
+    got, fed2, ms2, state = run(lm, state, fed1)
+    lengths2 = [int(c.length[0]) for g in state.caches for c in g[0]]
+    prof2 = profiled(lambda: dec(lm, extra, state), top=4, name_len=60)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    def bound(w):
+        return FAMILY_TOL * max(1.0, w.abs().max().item())
+
+    gaps = [(a - w).abs().max().item() for a, w in zip(got, want)]
+    for i, (g_, w) in enumerate(zip(gaps, want)):
+        check(g_ <= bound(w), f"[lm] (a): decode step {i + 1} logits differ "
+              f"from the one card's by {g_:.3e} (bound {bound(w):.3e})")
+    check(all(torch.equal(a, b) for a, b in zip(fed1, fed2)),
+          "[lm] (a): the grid was fed other tokens than the one card")
+    check(lengths2 == [lengths1] * 4 == [LONG_FILL + LONG_NEW] * 4,
+          f"[lm] (a): lengths {lengths2} after the steps, one card "
+          f"{lengths1}")
+    check(peak <= LONG_PEAK_GIB, f"[lm] (a): peak {peak:.2f} GiB")
+    ties = held_near_ties("[lm] (a)", got, want, bound)
+    print(f"[lm] (a) long_500k decode of {cfg.name} (window {cfg.window}, "
+          f"bf16) on {card}: one row over {LONG_SLOTS} slots, the first "
+          f"{LONG_FILL} seeded, {LONG_NEW} teacher-forced steps writing "
+          f"slots {LONG_FILL}-{LONG_FILL + LONG_NEW - 1}; (data 2, model 2) "
+          f"on cuda:0, cells' slots {cells}; parameters {placed} B placed "
+          f"(param_specs {predicted}); state {held} B (input_pspecs under "
+          f"the rewritten rules {want_state}, hand count {hand}); logits vs "
+          f"the one card max {max(gaps):.3e} (bound {FAMILY_TOL} * max(1, "
+          f"max |logit|) = {bound(want[0]):.3e}); near ties {ties}; decode "
+          f"{statistics.median(ms2):.3f} ms a step (median; one card "
+          f"{statistics.median(ms1):.3f}; steps {[round(x, 3) for x in ms2]}"
+          f" vs {[round(x, 3) for x in ms1]}); peak {peak:.2f} GiB (limit "
+          f"{LONG_PEAK_GIB}); the case took "
+          f"{time.perf_counter() - t_case:.1f} s", flush=True)
+    for what, prof in (("one card", prof1), ("grid", prof2)):
+        print(f"[lm] (a) profiled decode step {LONG_NEW + 1}, {what}: wall "
+              f"{prof['wall_ms']:.3f} ms, {prof['kernels']} kernels, device "
+              f"{prof['device_ms']:.3f} ms (busy {prof['busy']:.1%}); top: "
+              + "; ".join(f"{k} x{c} {t:.3f} ms" for k, c, t in prof["top"]),
+              flush=True)
+    del lm, state, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_long_layers(card: str) -> int:
+    """(b) Yi-6B at full width and 2 layers, bf16, long-context variant,
+    one row: a prompt of ``LONG_T`` tokens into ``LONG_CACHE`` slots over
+    ``(data 2, model 2)`` on ``cuda:0`` through ``serve.make_prefill_step``
+    (counts reset before, read after: flash once a layer on every cell,
+    each group running the prompt; each flash shape against the plain
+    version), state bytes against ``input_pspecs`` under the rewritten
+    rules, the prefill and ``LONG_NEW`` teacher-forced decode steps across
+    slot 3,072 (cell 2 | cell 3) against the one card's within
+    ``FAMILY_TOL`` * max(1, max |logit|), two decodes from one cloned
+    state bit-equal. (c) the layer check (``LONG_LAYER_*``) in f32 against
+    ``decode_self_attention`` within ``SERVE_TP_TOL`` /
+    ``SERVE_TP_CACHE_TOL``. Returns (b)'s flash launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data import make_lm_tokens
+    from repro_torch.kernels import ops
+    from repro_torch.launch import fsdp, serve, tp_serve
+    from repro_torch.models import transformer as tf
+
+    cuda0 = torch.device("cuda", 0)
+    t_case = time.perf_counter()
+    cfg = dataclasses.replace(configs.get("yi_6b"), n_layers=2
+                              ).long_context_variant()
+    params = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        0))
+    toks, _ = make_lm_tokens(cfg.vocab, 1, LONG_T, seed=4)
+    prompt = torch.from_numpy(np.asarray(toks, np.int32)).cuda()
+    pre = serve.make_prefill_step(cfg, LONG_CACHE)
+    dec = serve.make_decode_step(cfg)
+    l1, one = pre(params, prompt)
+    want, fed = [l1.float()], []
+    for _ in range(LONG_NEW):
+        fed.append(serve.next_token(want[-1]))
+        lg, one = dec(params, fed[-1], one)
+        want.append(lg.float())
+    del one
+    mesh, grid_ = long_grid_lm(cuda0)
+    lm = fsdp.shard(params, mesh, groups=grid_)
+    flash_seen = {}
+    ops.reset_launch_counts()
+    with first_calls(flash_seen, []):
+        l2, state = pre(lm, prompt)
+    n_flash = ops.launch_counts()["flash_attention"]
+    flash_line = flash_calls_check("[lm] (b)", flash_seen)
+    hand = 4 * cfg.n_layers
+    check(n_flash == hand, f"[lm] (b): the folded prefill launched flash "
+          f"{n_flash} times, hand count {hand} (once a layer a cell: every "
+          f"group runs the prompt)")
+    held = sum(t.numel() * t.element_size()
+               for t in tp_serve.state_tensors(state))
+    want_state = long_state_bytes(cfg, mesh, LONG_CACHE)
+    check(state.folded and held == want_state, f"[lm] (b): the state holds "
+          f"{held} B, input_pspecs under the rewritten rules {want_state}")
+    clone = tp_serve.clone_state(state)
+    got = [l2.float()]
+    for t in fed:
+        lg, state = dec(lm, t, state)
+        got.append(lg.float())
+
+    def bound(w):
+        return FAMILY_TOL * max(1.0, w.abs().max().item())
+
+    gaps = [(a - w).abs().max().item() for a, w in zip(got, want)]
+    for i, (g_, w) in enumerate(zip(gaps, want)):
+        check(g_ <= bound(w), f"[lm] (b): step {i} logits differ from the "
+              f"one card's by {g_:.3e} (bound {bound(w):.3e})")
+    ties = held_near_ties("[lm] (b)", got, want, bound)
+    (la, sa), (lb, sb) = [dec(lm, fed[0], tp_serve.clone_state(clone))
+                          for _ in range(2)]
+    same = bits_equal(la, lb) and all(
+        bits_equal(x, y) for x, y in zip(tp_serve.state_tensors(sa),
+                                         tp_serve.state_tensors(sb)))
+    check(same, "[lm] (b): two grid decodes from one state differ")
+    cells = [tuple(tp_serve.slots(c, 4, LONG_CACHE)) for c in range(4)]
+    print(f"[lm] (b) {cfg.name} full width, {cfg.n_layers} layers, bf16, "
+          f"window {cfg.window}, one row on {card}: prompt {LONG_T} into "
+          f"{LONG_CACHE} slots over (data 2, model 2) on cuda:0, cells' "
+          f"slots {cells}; flash {n_flash} launches (hand count {hand}); "
+          f"flash calls vs plain: {flash_line}; state {held} B "
+          f"(input_pspecs {want_state}); logits vs the one card: prefill "
+          f"{gaps[0]:.3e}, {LONG_NEW} decode steps max {max(gaps[1:]):.3e} "
+          f"(bound {bound(want[0]):.3e}); near ties {ties}; two decodes "
+          f"bit-equal {same}; the case took "
+          f"{time.perf_counter() - t_case:.1f} s", flush=True)
+    del params, lm, state, clone, sa, sb
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_long_layer(card)
+    return n_flash
+
+
+def serve_long_layer(card: str) -> None:
+    """(c) one decode attention layer of Yi-6B's width (1 layer, f32, TF32
+    off, window ``LONG_LAYER_WINDOW``) over ``(data 2, model 2)`` on
+    ``cuda:0``, the row's cache of ``SERVE_TP_S`` slots split over the four
+    cells (``tp_serve.grid_attention``, each group's partials all-reduced),
+    against ``decode_self_attention`` on the whole cache, one row at each
+    of ``LONG_LAYER_LENGTHS``: the output (both groups' bit-equal) within
+    ``SERVE_TP_TOL`` of max |want| and the cache after the write within
+    ``SERVE_TP_CACHE_TOL``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch import fsdp, tp, tp_serve
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer as tf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    cuda0 = torch.device("cuda", 0)
+    cfg = dataclasses.replace(configs.get("yi_6b"), n_layers=1, d_ff=512,
+                              vocab=512, dtype="float32",
+                              window=LONG_LAYER_WINDOW)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    model = tf.init_params(cfg, gen)
+    mesh, grid_ = long_grid_lm(cuda0)
+    lm = fsdp.shard(model, mesh, groups=grid_)
+    views = [tp.GridView(lm, g) for g in range(2)]
+    S, K, hd, per = SERVE_TP_S, cfg.n_kv_heads, cfg.hd, SERVE_TP_S // 4
+    lines, worst = [], (0.0, 0.0)
+    p = dict(model.blocks[0]["attn"].items())
+    for length in LONG_LAYER_LENGTHS:
+        k = torch.randn((1, S, K, hd), generator=gen, device="cuda")
+        v = torch.randn((1, S, K, hd), generator=gen, device="cuda")
+        lengths = torch.tensor([length], dtype=torch.int32, device="cuda")
+        x = torch.randn((1, 1, cfg.d_model), generator=gen, device="cuda")
+        with torch.inference_mode():
+            one = attn.KVCache(k=k.clone(), v=v.clone(),
+                               length=lengths.clone())
+            want, _ = attn.decode_self_attention(
+                p, x, one, n_heads=cfg.n_heads, n_kv=K, hd=hd,
+                rope=cfg.rope, window=cfg.window)
+            caches = [[attn.KVCache(
+                k=k[:, c * per:(c + 1) * per].clone(),
+                v=v[:, c * per:(c + 1) * per].clone(),
+                length=lengths.clone()) for c in (2 * g, 2 * g + 1)]
+                for g in range(2)]
+            partss = tp_serve.grid_attention(
+                views, "blocks.0.attn.", [[x, x], [x, x]], caches, cfg, S,
+                True)
+            outs = [tp.all_reduce(parts)[0] for parts in partss]
+        scale = want.abs().max().item()
+        err = (outs[0] - want).abs().max().item() / scale
+        cells = [c for g in caches for c in g]
+        cache_err = max((torch.cat([c.k for c in cells], 1) - one.k).abs()
+                        .max().item(),
+                        (torch.cat([c.v for c in cells], 1) - one.v).abs()
+                        .max().item())
+        check(bits_equal(outs[0], outs[1]), f"[serve_tp] (c) length "
+              f"{length}: the two data groups' outputs differ")
+        check(err <= SERVE_TP_TOL and cache_err <= SERVE_TP_CACHE_TOL
+              and all(torch.equal(c.length, one.length) for c in cells),
+              f"[serve_tp] (c) length {length}: grid decode attention vs "
+              f"decode_self_attention {err:.3e} of max |y| {scale:.3f}, "
+              f"cache {cache_err:.3e} (tolerances {SERVE_TP_TOL}, "
+              f"{SERVE_TP_CACHE_TOL})")
+        reading = [c for c in range(4)
+                   if c * per <= length
+                   and (c + 1) * per - 1 >= length - cfg.window + 1]
+        lines.append(f"slot {length} (cells read {reading}) {err:.3e} "
+                     f"(cache {cache_err:.3e})")
+        worst = max(worst[0], err), max(worst[1], cache_err)
+    print(f"[serve_tp] (c) folded decode attention layer, {cfg.name} width, "
+          f"f32, window {cfg.window}, one row over (data 2, model 2) on "
+          f"{card}, cache {S} slots split 4 x {per}: " + "; ".join(lines)
+          + f"; max {worst[0]:.3e} / {worst[1]:.3e} (tolerances "
+          f"{SERVE_TP_TOL}, {SERVE_TP_CACHE_TOL}); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del model, lm, views
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------ phase 17: train
@@ -3598,12 +4007,15 @@ def lm_batch(cfg, B: int, T: int, seed: int, device) -> dict:
     return {k: v.to(device) for k, v in batch.items()}
 
 
-def train_parity(card: str) -> None:
+def train_parity(card: str):
     """Yi-6B at full width and PARITY_LAYERS layer(s), f32, TF32 off, B 2 x
     T 2048: the
     card against the CPU (loss, every gradient leaf, the params after one
     step), remat numerics-neutral, two steps from one state bit-equal,
-    n_micro 2 against 1."""
+    n_micro 2 against 1. The card's part runs here; the CPU's gradient and
+    step then run on a worker thread (``on_host``) while the card runs on
+    (``train_phase``). Returns the function that joins it and holds the
+    card against the CPU."""
     import dataclasses
 
     import torch
@@ -3634,11 +4046,6 @@ def train_parity(card: str) -> None:
     card_ms = (time.perf_counter() - t0) * 1e3
     check(ops.launch_counts()["flash_attention"] == 0,
           "a training step launched the flash kernel")
-    t0 = time.perf_counter()
-    cpu_loss, cpu_grads = ttrain.step_gradients(cpu_model, cfg, cpu_batch)
-    cpu_s = time.perf_counter() - t0
-    loss_err = abs(loss.item() - cpu_loss.item())
-    grad_rel, grad_at = grad_gap(grads, cpu_grads)
 
     # without the per-block and per-chunk checkpoints: the same numbers
     with no_checkpoints():
@@ -3650,7 +4057,7 @@ def train_parity(card: str) -> None:
     loss_m, grads_m = ttrain.step_gradients(model, cfg, batch, 2)
     micro_loss = abs(loss_m.item() - loss.item())
     micro_rel, micro_at = grad_gap(grads_m, grads)
-    del grads_m, grads
+    del grads_m
 
     # two make_dense_train_step steps from one state
     step = ttrain.make_dense_train_step(cfg, lr=TRAIN_LR)
@@ -3662,39 +4069,75 @@ def train_parity(card: str) -> None:
     _, l2 = step(model, batch)
     steps_same = bits_equal(l1, l2) and all(
         bits_equal(after[n], p) for n, p in model.named_parameters())
-    # the CPU's step: the same two parts on its gradient
-    ttrain.sgd_update(cpu_model, cpu_grads, TRAIN_LR)
-    param_err = max((p.cpu() - q).abs().max().item() for p, q in zip(
-        model.parameters(), cpu_model.parameters()))
-    moved = sum(int((p.cpu() != state0[n].cpu()).sum())
+    moved = sum(int((p != state0[n]).sum())
                 for n, p in model.named_parameters())
-    print(f"[train] parity on {card}: {cfg.name} full width, "
-          f"{cfg.n_layers} layer(s), f32 "
-          f"(TF32 off), B={B} T={T} (2 attention chunks): loss card "
-          f"{loss.item():.7f} CPU {cpu_loss.item():.7f} |diff| "
-          f"{loss_err:.3e} (tolerance {TRAIN_LOSS_TOL}); gradients max "
-          f"|diff| / max |g| {grad_rel:.3e} at {grad_at} (tolerance "
-          f"{TRAIN_GRAD_REL}); params after one step max |diff| "
-          f"{param_err:.3e} (tolerance {TRAIN_PARAM_TOL}, {moved} of "
-          f"{tf.param_count(model)} elements moved); remat bit-equal "
-          f"{remat_same}; two steps from one state bit-equal {steps_same}; "
-          f"n_micro 2 vs 1: loss |diff| {micro_loss:.3e}, gradients "
-          f"{micro_rel:.3e} at {micro_at} (tolerance {TRAIN_MICRO_REL}); "
-          f"card gradient {card_ms:.1f} ms, CPU {cpu_s:.1f} s", flush=True)
-    check(loss_err <= TRAIN_LOSS_TOL, f"train loss card vs CPU {loss_err:.3e}")
-    check(grad_rel <= TRAIN_GRAD_REL,
-          f"gradient {grad_at} card vs CPU {grad_rel:.3e} of its max |g|")
-    check(param_err <= TRAIN_PARAM_TOL,
-          f"params after one step card vs CPU {param_err:.3e}")
-    check(remat_same, "the step without checkpoints differs from the "
-          "step with them")
-    check(steps_same, "two steps from one state differ on the card")
-    check(micro_loss <= TRAIN_LOSS_TOL and micro_rel <= TRAIN_MICRO_REL,
-          f"n_micro 2 vs 1: loss {micro_loss:.3e}, gradient {micro_at} "
-          f"{micro_rel:.3e}")
-    del model, cpu_model, state0, after, cpu_grads
+    n_params = tf.param_count(model)
+    # what the CPU's comparison needs, on the host; the card freed
+    loss = loss.item()
+    grads = {n: g.float().cpu() for n, g in grads.items()}
+    params = [p.detach().cpu() for p in model.parameters()]
+    del model, state0, after, batch
     gc.collect()
     torch.cuda.empty_cache()
+
+    def cpu_step():
+        t0 = time.perf_counter()
+        cpu_loss, cpu_grads = ttrain.step_gradients(cpu_model, cfg,
+                                                    cpu_batch)
+        cpu_s = time.perf_counter() - t0
+        # the CPU's step: the same two parts on its gradient
+        ttrain.sgd_update(cpu_model, cpu_grads, TRAIN_LR)
+        return cpu_loss.item(), cpu_grads, cpu_s
+
+    job = on_host(cpu_step)
+
+    def finish() -> None:
+        cpu_loss, cpu_grads, cpu_s = job()
+        loss_err = abs(loss - cpu_loss)
+        grad_rel, grad_at = grad_gap(grads, cpu_grads)
+        param_err = max((p - q).abs().max().item() for p, q in zip(
+            params, cpu_model.parameters()))
+        print(f"[train] parity on {card}: {cfg.name} full width, "
+              f"{cfg.n_layers} layer(s), f32 "
+              f"(TF32 off), B={B} T={T} (2 attention chunks): loss card "
+              f"{loss:.7f} CPU {cpu_loss:.7f} |diff| "
+              f"{loss_err:.3e} (tolerance {TRAIN_LOSS_TOL}); gradients max "
+              f"|diff| / max |g| {grad_rel:.3e} at {grad_at} (tolerance "
+              f"{TRAIN_GRAD_REL}); params after one step max |diff| "
+              f"{param_err:.3e} (tolerance {TRAIN_PARAM_TOL}, {moved} of "
+              f"{n_params} elements moved); remat bit-equal "
+              f"{remat_same}; two steps from one state bit-equal "
+              f"{steps_same}; n_micro 2 vs 1: loss |diff| {micro_loss:.3e}, "
+              f"gradients {micro_rel:.3e} at {micro_at} (tolerance "
+              f"{TRAIN_MICRO_REL}); card gradient {card_ms:.1f} ms, CPU "
+              f"{cpu_s:.1f} s (on a worker thread while the card trained)",
+              flush=True)
+        check(loss_err <= TRAIN_LOSS_TOL,
+              f"train loss card vs CPU {loss_err:.3e}")
+        check(grad_rel <= TRAIN_GRAD_REL,
+              f"gradient {grad_at} card vs CPU {grad_rel:.3e} of its max |g|")
+        check(param_err <= TRAIN_PARAM_TOL,
+              f"params after one step card vs CPU {param_err:.3e}")
+        check(remat_same, "the step without checkpoints differs from the "
+              "step with them")
+        check(steps_same, "two steps from one state differ on the card")
+        check(micro_loss <= TRAIN_LOSS_TOL and micro_rel <= TRAIN_MICRO_REL,
+              f"n_micro 2 vs 1: loss {micro_loss:.3e}, gradient {micro_at} "
+              f"{micro_rel:.3e}")
+
+    return finish
+
+
+def on_host(fn):
+    """``fn()`` started on a worker thread (a CPU-bound reference run the
+    card does not wait for); the returned function joins it and returns
+    its result, or raises what it raised."""
+    import concurrent.futures
+
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    future = pool.submit(fn)
+    pool.shutdown(wait=False)
+    return future.result
 
 
 def fsdp_bytes_on(cfg, mesh, positions: int, n_data: int) -> int:
@@ -4918,42 +5361,57 @@ def train_reduced_parity(arch: str) -> str:
 
 
 def train_phase(card: str) -> None:
-    """Phase 17: LM training on the card."""
+    """Phase 17: LM training on the card. The parity's CPU step runs on a
+    worker thread behind (f) to (j) and the families' steps, which copy
+    nothing large to the host; the cases with a CPU part run outside that
+    window."""
     import torch
 
     t0 = time.perf_counter()
-    train_parity(card)
     train_sharded_parity(card)
     t1 = time.perf_counter()
     train_yi6b(card, train_sharded_yi6b(card))
     t2 = time.perf_counter()
-    train_tp_phase(card)
-    t_tp = time.perf_counter()
+    train_tp_parity(card)
+    parity = train_parity(card)
+    t3 = time.perf_counter()
+    train_tp_steps(card)
+    t4 = time.perf_counter()
     for arch, layers, B in FAMILY_CELLS:
         train_family(arch, layers, B, card)
         gc.collect()
         torch.cuda.empty_cache()
-    t3 = time.perf_counter()
+    t5 = time.perf_counter()
+    parity()
+    del parity
+    t6 = time.perf_counter()
     lines = [train_reduced_parity(arch) for arch, _, _ in FAMILY_CELLS]
     print(f"[train] families at reduced width, f32 (TF32 off), card vs CPU "
           f"(tolerances {FAMILY_TRAIN_LOSS_TOL} on the loss, "
           f"{FAMILY_TRAIN_GRAD_REL} of each leaf's max |g|): "
           + "; ".join(lines), flush=True)
     print(f"[train] phase 17 took {time.perf_counter() - t0:.1f} s on {card} "
-          f"(parity {t1 - t0:.1f} s, Yi-6B {t2 - t1:.1f} s, tensor parallel "
-          f"{t_tp - t2:.1f} s, families {t3 - t_tp:.1f} s)", flush=True)
+          f"(sharded parity {t1 - t0:.1f} s, Yi-6B {t2 - t1:.1f} s, (g) and "
+          f"the parity's card part {t3 - t2:.1f} s, tensor parallel (f) to "
+          f"(j) {t4 - t3:.1f} s and families {t5 - t4:.1f} s with the "
+          f"parity's CPU step meanwhile, then its wait {t6 - t5:.1f} s)",
+          flush=True)
 
 
 def train_tp_phase(card: str) -> None:
-    """[train] (f) to (j): tensor parallelism over ``model``. (f) Yi-6B
-    whole at the dry run's n_micro (:func:`train_tp_heads`): its K/V at
-    model 2 fall on the positions' own chunks, so no weight is read across
-    positions."""
+    """[train] (f) to (j): tensor parallelism over ``model``."""
+    train_tp_parity(card)
+    train_tp_steps(card)
+
+
+def train_tp_steps(card: str) -> None:
+    """[train] (f), (h), (i), (j). (f) Yi-6B whole at the dry run's
+    n_micro (:func:`train_tp_heads`): its K/V at model 2 fall on the
+    positions' own chunks, so no weight is read across positions."""
     from repro_torch import configs
     from repro_torch.launch import train as ttrain
     from repro_torch.models import transformer as tf
 
-    train_tp_parity(card)
     cfg = configs.get("yi_6b")
     train_tp_heads(card, "(f)", cfg, TRAIN_B, TRAIN_T,
                    (TP_LOSS_TOL, TP_PARAM_TOL, TP_MOVED_SHARE), (0, 0),
@@ -5043,11 +5501,13 @@ def fl_units_check(card: str, device) -> dict:
         key = threefry.fold_in(round_key, lid)
         if sl is not None:
             key = threefry.fold_in(key, sl[0])
-        gen = torch.Generator().manual_seed(lid)
-        gs = [(torch.randn(shape, generator=gen) * 1e-3).to(torch.bfloat16)
-              for _ in range(2)]
-        rs = [(torch.randn(shape, generator=gen) * 1e-4).to(torch.bfloat16)
-              for _ in range(2)]
+        # drawn on the card, where a draw of the embed's 262,144,000
+        # values takes milliseconds, not seconds
+        gen = torch.Generator(device="cuda").manual_seed(lid)
+        gs = [(torch.randn(shape, generator=gen, device="cuda") * 1e-3).to(
+            torch.bfloat16) for _ in range(2)]
+        rs = [(torch.randn(shape, generator=gen, device="cuda") * 1e-4).to(
+            torch.bfloat16) for _ in range(2)]
         out = {}
         t_dev = {}
         for dev in (device, torch.device("cpu")):
@@ -5162,7 +5622,7 @@ def same_params(a, b) -> bool:
                for p, q in zip(a.parameters(), b.parameters()))
 
 
-def fl_parity(card: str) -> dict:
+def fl_parity(card: str):
     """(b) Yi-6B at full width, PARITY_LAYERS layer(s), f32 (TF32 off), B 2
     x T 512, on
     the multi-pod layout: one v1 step on the card against the CPU (loss;
@@ -5170,7 +5630,9 @@ def fl_parity(card: str) -> dict:
     Then (d), placement: the same step with every position on ``cuda:0``
     by a device array (i), all on the CPU ((b)'s CPU run, ii), and pod 0
     on ``cuda:0``, pod 1 on the CPU (iii); v2 steps on (i) and (iii).
-    Returns (iii)'s v1 step's launches."""
+    The card's step runs here, the CPU's on a worker thread (``on_host``)
+    while the card runs (c). Returns the function that joins it, holds
+    (b), runs (d) and returns (iii)'s v1 step's launches."""
     import torch
 
     from repro_torch.core import threefry
@@ -5189,8 +5651,8 @@ def fl_parity(card: str) -> dict:
     cpu_mesh = type(mesh)(mesh.devices.shape, mesh.axis_names, "cpu")
     key = threefry.key(0)
     out, kept = {}, {"cuda": {0: None}, "cpu": {1: None}}
-    for dev, m, mesh_ in (("cuda", model, mesh), ("cpu", cpu_model,
-                                                  cpu_mesh)):
+
+    def run(dev, m, mesh_):
         step = ttrain.make_fl_train_step(cfg, mesh_, "pod", thgs, sa,
                                          lr=FL_LR)
         keep_gradients(step, kept[dev], to="cuda")
@@ -5200,31 +5662,42 @@ def fl_parity(card: str) -> dict:
         t0 = time.perf_counter()
         _, _, loss = step(m, res, b, key, record=record)
         out[dev] = (loss.item(), time.perf_counter() - t0, res, record)
-    loss_err = abs(out["cuda"][0] - out["cpu"][0])
-    param_err, moved, total, worst = params_gap(model, cpu_model)
-    moved_any = sum(int((p != state0[n]).sum())
-                    for n, p in model.named_parameters())
-    print(f"[fl_train] (b) v1 step {cfg.name} full width, "
-          f"{cfg.n_layers} layer(s), f32 "
-          f"(TF32 off), B={FL_PARITY_B} T={FL_PARITY_T}, pod 2 x data 16 x "
-          f"model 16 on {card}: loss card {out['cuda'][0]:.7f} CPU "
-          f"{out['cpu'][0]:.7f} |diff| {loss_err:.3e} (tolerance "
-          f"{FL_LOSS_TOL}); params max |diff| {param_err:.3e} at {worst} "
-          f"(tolerance {FL_PARAM_TOL}), {moved} of {total} elements differ "
-          f"(share tolerance {FL_MOVED_SHARE}), {moved_any} moved by the "
-          f"step; card {out['cuda'][1]:.2f} s, CPU {out['cpu'][1]:.2f} s",
-          flush=True)
-    check(loss_err <= FL_LOSS_TOL, f"FL loss card vs CPU {loss_err:.3e}")
-    check(param_err <= FL_PARAM_TOL and moved <= FL_MOVED_SHARE * total,
-          f"FL params card vs CPU {param_err:.3e}, {moved} elements")
-    check(moved_any > 0, "the FL step moved no parameter")
-    del step
-    counts = fl_placement(card, cfg, mesh, thgs, sa, model, state0, batch,
-                          out, kept)
-    del cpu_model, out, kept
-    gc.collect()
-    torch.cuda.empty_cache()
-    return counts
+
+    run("cuda", model, mesh)
+    job = on_host(lambda: run("cpu", cpu_model, cpu_mesh))
+
+    def finish() -> dict:
+        job()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        loss_err = abs(out["cuda"][0] - out["cpu"][0])
+        param_err, moved, total, worst = params_gap(model, cpu_model)
+        moved_any = sum(int((p != state0[n]).sum())
+                        for n, p in model.named_parameters())
+        print(f"[fl_train] (b) v1 step {cfg.name} full width, "
+              f"{cfg.n_layers} layer(s), f32 "
+              f"(TF32 off), B={FL_PARITY_B} T={FL_PARITY_T}, pod 2 x data 16 "
+              f"x model 16 on {card}: loss card {out['cuda'][0]:.7f} CPU "
+              f"{out['cpu'][0]:.7f} |diff| {loss_err:.3e} (tolerance "
+              f"{FL_LOSS_TOL}); params max |diff| {param_err:.3e} at {worst} "
+              f"(tolerance {FL_PARAM_TOL}), {moved} of {total} elements "
+              f"differ (share tolerance {FL_MOVED_SHARE}), {moved_any} moved "
+              f"by the step; card {out['cuda'][1]:.2f} s, CPU "
+              f"{out['cpu'][1]:.2f} s (on a worker thread while the card ran "
+              f"(c))", flush=True)
+        check(loss_err <= FL_LOSS_TOL, f"FL loss card vs CPU {loss_err:.3e}")
+        check(param_err <= FL_PARAM_TOL and moved <= FL_MOVED_SHARE * total,
+              f"FL params card vs CPU {param_err:.3e}, {moved} elements")
+        check(moved_any > 0, "the FL step moved no parameter")
+        counts = fl_placement(card, cfg, mesh, thgs, sa, model, state0,
+                              batch, out, kept)
+        out.clear()
+        kept.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        return counts
+
+    return finish
 
 
 def fl_placement(card: str, cfg, mesh, thgs, sa, model_b, state0, batch,
@@ -6276,9 +6749,12 @@ def fl_train_phase(card: str, device) -> tuple[dict, dict]:
     t0 = time.perf_counter()
     row = fl_units_check(card, device)
     t1 = time.perf_counter()
-    placed = fl_parity(card)
-    t2 = time.perf_counter()
+    parity = fl_parity(card)        # the CPU's step runs while the card
+    t_b = time.perf_counter()       # runs (c)
     counts = fl_yi6b(card)
+    t_c = time.perf_counter()
+    placed = parity()
+    del parity
     t3 = time.perf_counter()
     sharded = fl_sharded(card)
     t4 = time.perf_counter()
@@ -6290,8 +6766,9 @@ def fl_train_phase(card: str, device) -> tuple[dict, dict]:
     t7 = time.perf_counter()
     fl_dense_secagg(card)
     print(f"[fl_train] phase 18 took {time.perf_counter() - t0:.1f} s on "
-          f"{card} ((a) {t1 - t0:.1f} s, (b) and (d) {t2 - t1:.1f} s, (c) "
-          f"{t3 - t2:.1f} s, (e) {t4 - t3:.1f} s, (f) {t5 - t4:.1f} s, (g) "
+          f"{card} ((a) {t1 - t0:.1f} s, (b) and (d) "
+          f"{t_b - t1 + t3 - t_c:.1f} s, (b)'s CPU step meanwhile; (c) "
+          f"{t_c - t_b:.1f} s, (e) {t4 - t3:.1f} s, (f) {t5 - t4:.1f} s, (g) "
           f"{t6 - t5:.1f} s, (h) {t7 - t6:.1f} s)", flush=True)
     return row, {k: counts[k] + placed[k] + sharded[k] + tp[k] + tp_moe[k]
                  + tp_ssm[k] for k in counts}
@@ -7931,6 +8408,8 @@ def main() -> int:
     if args.only == "tp":
         serve_tp_layers(card)
         serve_family_layers(card)
+        serve_long_layers(card)
+        serve_long_yi6b(card)
         serve_grid_yi6b(card)
         serve_grid_moe(card)
         train_tp_phase(card)

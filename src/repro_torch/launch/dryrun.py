@@ -79,7 +79,7 @@ from repro_torch.launch import train
 from repro_torch.launch.mesh import (LogicalMesh, logical_rules,
                                      make_production_mesh)
 from repro_torch.launch.specs import (SHAPES, _state_leaves, arch_for_shape,
-                                      input_pspecs, input_specs, meta)
+                                      folds, input_pspecs, input_specs, meta)
 from repro_torch.models import transformer as tf
 from repro_torch.models.sharding import P
 
@@ -129,7 +129,7 @@ def step_rules(mesh, shape, fed_axis: str | None) -> dict:
     batch of 1 carries no parallelism, so the idle batch axes fold into the
     KV cache's sequence sharding."""
     rules = logical_rules(mesh, fed_axis=fed_axis)
-    if shape.global_batch == 1:
+    if folds(shape.global_batch):
         batch_axes = rules["batch"] if isinstance(rules["batch"], tuple) \
             else (rules["batch"],)
         rules = {**rules,
@@ -308,8 +308,11 @@ _COLLECTIVE_SOURCE = (
     "all-reduce; the decode's q / k / v all-gathers, the cache statistics' "
     "all-reduces, the P.V reduce-scatter by wo's row chunks, the "
     "row-parallel all-reduces, the new recurrent states' all-gathers); "
-    "long_500k (its cache over data and model, not yet over the grid) "
-    "keeps the traced training forward at T 1")
+    "long_500k's decode (one row, its cache over the data axes and model) "
+    "traced on a meta grid of every cell kv_seq names (pod x data as "
+    "data groups), every group running the row: the cache statistics' "
+    "all-reduces and the P.V reduce-scatter over every cell counted once, "
+    "a group's own collectives once, group 0's")
 
 # launch/tp.py's collectives under the reference's keys: each Function's
 # forward, then its backward (the adjoint), with the index of position 0's
@@ -326,35 +329,51 @@ _TP_KEYS = {
 
 
 @contextlib.contextmanager
-def counting_tp():
+def counting_tp(grid: tuple = (1, 1)):
     """While open, each ``launch/tp.py`` collective (and ``max_to``, the
     loss's running max: an all-reduce) adds position 0's result bytes and
     one call under its reference key, and each read position 0 makes of
-    another position's weight chunk (``GridView.chunk``, ``i != j``) its
-    bytes and one read under :data:`WEIGHT_READS`, to the yielded ``{op:
-    {"bytes", "count"}}`` (keys :data:`COUNTED`)."""
+    another position's weight chunk (``GridView.chunk``, ``i != j``, on
+    data group 0's view) its bytes and one read under
+    :data:`WEIGHT_READS`, to the yielded ``{op: {"bytes", "count"}}``
+    (keys :data:`COUNTED`). A call over one position moves nothing and
+    counts nothing. ``grid`` ``(n, m)``: ``n`` data groups of ``m``
+    positions serving one row alike (a folded batch, ``launch/tp_serve.py``):
+    a collective over every cell counts once; one over a group's
+    positions runs in every group alike, and only group 0's, the one cell
+    ``(0, 0)`` takes part in, counts."""
+    n, m = grid
     counted = {op: {"bytes": 0, "count": 0} for op in COUNTED}
+    local = {op: {"bytes": 0, "count": 0} for op in COUNTED}
 
-    def add(op: str, t: torch.Tensor) -> None:
-        counted[op]["bytes"] += t.numel() * t.element_size()
-        counted[op]["count"] += 1
+    def add(op: str, t: torch.Tensor, width: int = 2) -> None:
+        if width < 2:
+            return
+        into = local if n > 1 and width != n * m else counted
+        into[op]["bytes"] += t.numel() * t.element_size()
+        into[op]["count"] += 1
+
+    def width(*trees) -> int:
+        return max(sum(isinstance(x, torch.Tensor) for x in (
+            tree if isinstance(tree, tuple) else (tree,))) for tree in trees)
 
     def wrap(fn, op: str, at):
         def counted_fn(ctx, *args):
             out = fn(ctx, *args)
-            add(op, out if at is None else out[at])
+            add(op, out if at is None else out[at], width(args, out))
             return out
         return staticmethod(counted_fn)
 
     def max_to(parts, device):
         out = real_max(parts, device)
-        add("all-reduce", out)
+        add("all-reduce", out, len(parts))
         return out
 
     def chunk(self, j, name, i, *args):
         out = real_chunk(self, j, name, i, *args)
-        if j == 0 and i != 0:
-            add(WEIGHT_READS, out)
+        if j == 0 and i != 0 and self.g == 0:
+            counted[WEIGHT_READS]["bytes"] += out.numel() * out.element_size()
+            counted[WEIGHT_READS]["count"] += 1
         return out
 
     real_max, real_chunk = tp.max_to, tp.GridView.chunk
@@ -371,6 +390,9 @@ def counting_tp():
     finally:
         for obj, attr, orig in saved:
             setattr(obj, attr, orig)
+        for op, tally in local.items():
+            for key, v in tally.items():
+                counted[op][key] += v // n
 
 
 def _tp_traced(cfg, rows: int, t: int, m: int, train: bool) -> dict:
@@ -438,22 +460,36 @@ def _carried(trace, cfg, t: int, ts: tuple) -> dict:
 def serves_on_grid(cfg, shape, rules) -> bool:
     """Whether the dry run counts ``shape``'s serve step as the grid's
     (``launch/tp_serve.py``, every family): prefill and decode with the
-    cache's sequence over ``model`` alone (not ``long_500k``'s, over the
-    data axes too)."""
-    return (shape.kind in ("prefill", "decode")
-            and rules["kv_seq"] == "model")
+    cache's sequence over ``model``, or, where the batch folds
+    (``long_500k``), over the data axes and ``model``."""
+    kv = rules["kv_seq"]
+    return shape.kind in ("prefill", "decode") and (
+        kv == "model" or (folds(shape.global_batch) and isinstance(kv, tuple)
+                          and kv[-1] == "model"))
 
 
-def _serve_traced(cfg, kind: str, t: int, m: int) -> dict:
+def fold_groups(shape, rules, sizes: dict) -> int:
+    """The data groups a folded batch's cache spans (the product of the
+    sizes of ``kv_seq``'s axes before ``model``; 1 where it does not
+    fold)."""
+    kv = rules["kv_seq"]
+    if not (folds(shape.global_batch) and isinstance(kv, tuple)):
+        return 1
+    return math.prod(sizes[a] for a in kv if a != "model")
+
+
+def _serve_traced(cfg, kind: str, t: int, m: int, n: int = 1) -> dict:
     """:func:`counting_tp` over one call of the grid serve step on a meta
-    grid of ``m`` model positions, one row: a prefill of ``t`` tokens
-    (frames for the audio encoder; the VLM with its image embeddings) into
-    a cache of ``t`` slots, or a decode step on a cache of ``t`` slots."""
+    grid of ``n`` data groups of ``m`` model positions, one row: a prefill
+    of ``t`` tokens (frames for the audio encoder; the VLM with its image
+    embeddings) into a cache of ``t`` slots, or a decode step on a cache
+    of ``t`` slots (split over every cell where ``n > 1``: the row
+    folds)."""
     dev = torch.device("meta")
-    lm = fsdp.empty(cfg, LogicalMesh((1, m), ("data", "model"), "meta"),
-                    groups=[((dev,) * m, range(0, 1))])
+    lm = fsdp.empty(cfg, LogicalMesh((n, m), ("data", "model"), "meta"),
+                    groups=[((dev,) * m, range(g, g + 1)) for g in range(n)])
     dtype = tf.DTYPES[cfg.dtype]
-    with counting_tp() as counted:
+    with counting_tp((n, m)) as counted:
         if kind == "prefill":
             tokens = (meta((1, t, cfg.d_model), dtype)
                       if cfg.family == "audio" else meta((1, t), torch.int32))
@@ -488,7 +524,7 @@ def _lengths(t: int, m: int) -> tuple:
 
 
 @functools.lru_cache(maxsize=None)
-def _serve_row(cfg, kind: str, t: int, m: int) -> dict:
+def _serve_row(cfg, kind: str, t: int, m: int, n: int = 1) -> dict:
     """:func:`serve_collectives` of one row, traced with no layer and one
     period of the layer pattern and carried along the line through them
     to ``cfg``'s depth (each period runs the same collectives). xLSTM's
@@ -496,17 +532,20 @@ def _serve_row(cfg, kind: str, t: int, m: int) -> dict:
     lengths (:func:`_lengths`) and carried to ``t`` along the line through
     them: it keeps no cache, so each term is linear in T."""
     ts = _lengths(t, m) if cfg.xlstm and kind == "prefill" else (t, t)
-    return _carried(lambda c, u: _serve_traced(c, kind, u, m), cfg, t, ts)
+    return _carried(lambda c, u: _serve_traced(c, kind, u, m, n), cfg, t,
+                    ts)
 
 
-def serve_collectives(cfg, rows: int, kind: str, t: int, m: int) -> dict:
+def serve_collectives(cfg, rows: int, kind: str, t: int, m: int,
+                      n: int = 1) -> dict:
     """``{op: (bytes, count)}`` of one grid serve step (``kind`` prefill
     or decode, ``t`` the prompt's tokens and the cache's slots) on ``rows``
-    rows over ``m`` model positions, position 0's (:func:`counting_tp`):
-    one row's count, its bytes times ``rows``, the weight reads' as they
-    are."""
+    rows over ``m`` model positions (and ``n`` data groups of one folded
+    row), position 0's (:func:`counting_tp`): one row's count, its bytes
+    times ``rows``, the weight reads' as they are."""
     return {op: (nbytes if op == WEIGHT_READS else rows * nbytes, count)
-            for op, (nbytes, count) in _serve_row(cfg, kind, t, m).items()}
+            for op, (nbytes, count) in _serve_row(cfg, kind, t, m,
+                                                  n).items()}
 
 
 def _add(out: dict, op: str, nbytes: int, count: int) -> None:
@@ -551,8 +590,10 @@ def layout_collectives(cfg, shape, mesh, rules, layout: dict, calls: int,
         if train_step and any(a not in on for a in dp_axes):
             _add(out, "all-reduce", calls * shard_bytes(shp, dt, spec, sizes),
                  calls * stack)
-    if m > 1:
-        terms = (serve_collectives(cfg, rows, shape.kind, shape.seq_len, m)
+    n = fold_groups(shape, rules, sizes)
+    if m > 1 or n > 1:
+        terms = (serve_collectives(cfg, rows, shape.kind, shape.seq_len, m,
+                                   n)
                  if serves_on_grid(cfg, shape, rules)
                  else tp_collectives(cfg, rows, t, m, train_step))
         for op, (nbytes, count) in terms.items():

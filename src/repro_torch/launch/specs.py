@@ -46,6 +46,15 @@ SHAPES = {
 KV_SPLIT_SLOTS = 1024
 
 
+def folds(global_batch: int) -> bool:
+    """Whether a batch of ``global_batch`` rows folds the idle batch axes
+    into the KV cache's sequence split (the reference's ``long_500k``
+    rewrite in ``repro/launch/dryrun.py``): a batch of 1 carries no
+    parallelism, so ``batch`` maps to no axis and ``kv_seq`` to the batch
+    axes, then ``model``."""
+    return global_batch == 1
+
+
 def meta(shape, dtype) -> torch.Tensor:
     return torch.empty(tuple(shape), dtype=dtype, device="meta")
 

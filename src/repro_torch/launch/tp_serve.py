@@ -20,6 +20,17 @@ together:
   never holds none). The recurrent states (the hybrid's SSM state and conv
   tail, xLSTM's cell states) lie by batch alone, so every position holds
   them whole.
+* **A batch of one row** (``specs.folds``, the reference's ``long_500k``
+  rewrite: ``batch`` on no axis, ``kv_seq`` over the data axes, then
+  ``model``) is served by every data group alike, as ``batch = None``
+  replicates it: each group runs the same stream on its own weights'
+  reads. The caches' sequence then splits over every cell of the grid in
+  ``input_pspecs``' data-major order: cell ``(g, j)``, ``c = g m + j`` of
+  ``N = n m``, holds slots ``[c S/N, (c+1) S/N)`` of every KV head (the
+  VLM's cross K/V likewise along the image tokens), and a cache read
+  combines its statistics over all ``N`` cells in cell order (below); the
+  recurrent states stay whole on every cell. A grid whose groups each hold
+  one data position can fold; the logits are group 0's.
 * **Prefill** (:func:`prefill`). The residual stream, the norms, the MLP
   and the expert-parallel MoE run as in training (``tp.Stream``,
   ``tp.mlp_partials``, ``tp.moe_block``). Attention: position ``j`` runs
@@ -27,7 +38,9 @@ together:
   the KV heads they read, and keeps its K/V for the cache. Where each
   position's KV heads are exactly its own ``wk`` / ``wv`` chunk and the
   cache is split, an all-to-all moves them from "my KV heads, every slot"
-  to "every KV head, my slots" (the relayout). Otherwise (more positions
+  to "every KV head, my slots" (the relayout; "my cell's slots" where
+  the batch folds: no exchange across groups, each ran the prompt).
+  Otherwise (more positions
   than KV heads, a split off KV-head boundaries, or a whole cache) each
   position projects every KV head from ``wk`` / ``wv`` read whole and keeps
   its slots of them: a local narrow, no exchange. The VLM's cross layer
@@ -56,7 +69,10 @@ together:
   by ``wo``'s row chunks (by head where ``m`` divides the heads) in
   position order and cast once (``attention.slice_*``): the
   probabilities are ``attend``'s up to the order of one sum, and a
-  position with no slot to read adds exactly 0. With a whole cache each
+  position with no slot to read adds exactly 0. Where the batch folds the
+  three reductions run over every cell of the grid in cell order, and
+  position ``j`` of each group receives ``wo``'s row chunk ``j`` of the
+  sum. With a whole cache each
   position attends its own query heads (``attention.attend``). The VLM's
   cross read is the same combine over each position's image tokens, every
   token valid. ``wo`` is row-parallel and its ``[B, 1, d]`` partials
@@ -114,11 +130,14 @@ class GridState:
     * ``recurrent[g][i][j]``: layer ``i``'s state, whole: the hybrid's
       ``SSMCache`` of each SSM layer in order, xLSTM's cell state tuple
       (``(c, n, m, h)`` sLSTM, ``(C, n, m)`` mLSTM); replaced by each
-      step."""
+      step;
+    * ``folded``: a batch of one row, its caches split over every cell
+      (:func:`cell_range`)."""
     caches: list
     cache_len: int
     cross_kv: Optional[list] = None
     recurrent: Optional[list] = None
+    folded: bool = False
 
     @property
     def split(self) -> bool:
@@ -151,8 +170,25 @@ def image_slots(j: int, m: int, n_image: int) -> tuple[int, int]:
     return off, n
 
 
+def cell_range(lm, g: int, folded: bool) -> tuple[int, int]:
+    """``(c0, n)``: data group ``g``'s model position ``j`` is cell ``c0 +
+    j`` of the ``n`` cells a cache (or the image tokens) splits over: every
+    cell of the grid, data-major, where the batch folds, else the group's
+    own ``m`` positions."""
+    m = lm.n_model
+    return (g * m, len(lm.groups) * m) if folded else (0, m)
+
+
 def group_rows(lm, n_rows: int) -> list:
-    """Each data group's ``(first row, rows)`` of a batch of ``n_rows``."""
+    """Each data group's ``(first row, rows)`` of a batch of ``n_rows``: a
+    share each, or the one row on every group where the batch folds
+    (``specs.folds``; each group must then hold one data position)."""
+    if specs.folds(n_rows):
+        if lm.n_data > 1 and any(len(pos) != 1 for _, pos in lm.groups):
+            raise ValueError("a batch of one row folds over the data "
+                             "groups only where each holds one data "
+                             "position")
+        return [(0, 1)] * len(lm.groups)
     if n_rows % lm.n_data:
         raise ValueError(f"batch {n_rows} does not split over {lm.n_data} "
                          "data positions")
@@ -190,9 +226,11 @@ def init_state(lm, cfg: ArchConfig, batch: int, cache_len: int) -> GridState:
     check_decode(cfg)
     dtype = tf.DTYPES[cfg.dtype]
     kv_dt = torch.int8 if cfg.kv_dtype == "int8" else dtype
+    folded = specs.folds(batch)
     caches, cross, rec = [], [], []
     for g, (_, rows) in enumerate(group_rows(lm, batch)):
         devs = tp.GridView(lm, g).devices
+        c0, n_cells = cell_range(lm, g, folded)
         calls, images, layers = leaves_by_kind(cfg, tf.init_decode_state(
             cfg, rows, 1, device="meta"))
 
@@ -204,11 +242,11 @@ def init_state(lm, cfg: ArchConfig, batch: int, cache_len: int) -> GridState:
             k=kv(n, d, kv_dt), v=kv(n, d, kv_dt),
             length=torch.zeros((rows,), dtype=torch.int32, device=d))
             for j, d in enumerate(devs)
-            for n in [slots(j, lm.n_model, cache_len)[1]]]
+            for n in [slots(c0 + j, n_cells, cache_len)[1]]]
             for _ in calls])
         cross.append([[(kv(n, d, dtype), kv(n, d, dtype))
                        for j, d in enumerate(devs)
-                       for n in [image_slots(j, lm.n_model,
+                       for n in [image_slots(c0 + j, n_cells,
                                              cfg.n_image_tokens)[1]]]
                       for _ in images])
         rec.append([[rebuild(c, [torch.zeros(x.shape, dtype=x.dtype,
@@ -216,7 +254,51 @@ def init_state(lm, cfg: ArchConfig, batch: int, cache_len: int) -> GridState:
                      for d in devs] for c in layers])
     return GridState(caches=caches, cache_len=cache_len,
                      cross_kv=cross if cfg.family == "vlm" else None,
-                     recurrent=rec if has_recurrent(cfg) else None)
+                     recurrent=rec if has_recurrent(cfg) else None,
+                     folded=folded)
+
+
+def place_state(lm, cfg: ArchConfig, state: tf.DecodeState) -> GridState:
+    """A one-device decode state (``transformer.prefill`` /
+    ``init_decode_state``'s) laid out over ``lm``'s grid as
+    :func:`init_state` lays one out: each cell's rows and slots of every
+    KV cache and of the VLM's cross K/V, its own copy of the lengths, the
+    recurrent states whole. A split leaf's slice is a view of ``state``'s
+    tensor where the cell lies on its device (the grid decode then writes
+    ``state``'s storage), else a copy there; a whole leaf is copied to
+    every cell."""
+    check_decode(cfg)
+    calls, images, layers = leaves_by_kind(cfg, state)
+    batch = specs._state_leaves(state)[0].shape[0]
+    cache_len = calls[0].k.shape[1] if calls else 0
+    folded = specs.folds(batch)
+    caches, cross, rec = [], [], []
+    for g, (r0, rows) in enumerate(group_rows(lm, batch)):
+        devs = tp.GridView(lm, g).devices
+        c0, n_cells = cell_range(lm, g, folded)
+
+        def take(x, span, d):
+            part = x[r0:r0 + rows].narrow(1, *span)
+            return part.to(d, copy=part.shape[1] == x.shape[1])
+
+        caches.append([[KVCache(
+            k=take(c.k, span, d), v=take(c.v, span, d),
+            length=c.length[r0:r0 + rows].to(d, copy=True))
+            for j, d in enumerate(devs)
+            for span in [slots(c0 + j, n_cells, cache_len)]]
+            for c in calls])
+        cross.append([[(take(k, span, d), take(v, span, d))
+                       for j, d in enumerate(devs)
+                       for span in [image_slots(c0 + j, n_cells,
+                                                cfg.n_image_tokens)]]
+                      for k, v in images])
+        rec.append([[rebuild(c, [x[r0:r0 + rows].to(d, copy=True)
+                                 for x in c])
+                     for d in devs] for c in layers])
+    return GridState(caches=caches, cache_len=cache_len,
+                     cross_kv=cross if cfg.family == "vlm" else None,
+                     recurrent=rec if has_recurrent(cfg) else None,
+                     folded=folded)
 
 
 def rebuild(leaf, tensors) -> tuple:
@@ -312,12 +394,16 @@ def prefill_attention(view, prefix: str, hs, cfg: ArchConfig, *,
     return parts, kvs
 
 
-def relayout(kvs, m: int, cache_len: int, exchange: bool) -> tuple:
+def relayout(kvs, m: int, cache_len: int, exchange: bool,
+             cells: Optional[tuple] = None) -> tuple:
     """Each position's slots of the prefill's K/V
     (:func:`prefill_attention`; ``cache_len`` slots or image tokens, the
-    prompt's first): by the all-to-all, or narrowed where they lie."""
+    prompt's first): by the all-to-all, or narrowed where they lie.
+    ``cells``: :func:`cell_range`'s ``(c0, n)`` (default the group's
+    own)."""
     t = kvs[0][0].shape[1]
-    spans = [slots(j, m, cache_len) for j in range(m)]
+    c0, n_cells = cells or (0, m)
+    spans = [slots(c0 + j, n_cells, cache_len) for j in range(m)]
     pieces = [(min(off, t), max(0, min(off + n, t) - off))
               for off, n in spans]
     if exchange:
@@ -329,10 +415,11 @@ def relayout(kvs, m: int, cache_len: int, exchange: bool) -> tuple:
     return ks, vs, spans
 
 
-def to_cache(kvs, m: int, cache_len: int, exchange: bool) -> list:
+def to_cache(kvs, m: int, cache_len: int, exchange: bool,
+             cells: Optional[tuple] = None) -> list:
     """Each position's ``KVCache`` of one layer from the prefill's K/V
     (:func:`prefill_attention`): the prompt's slots, zero past them."""
-    ks, vs, spans = relayout(kvs, m, cache_len, exchange)
+    ks, vs, spans = relayout(kvs, m, cache_len, exchange, cells)
     t = kvs[0][0].shape[1]
     out = []
     for k, v, (_, n) in zip(ks, vs, spans):
@@ -464,19 +551,22 @@ def xlstm_whole(view, cfg: ArchConfig, prefix: str, finals: dict,
 
 
 def group_prefill(view, cfg: ArchConfig, tokens: torch.Tensor,
-                  cache_len: int, image_embeds=None) -> tuple:
+                  cache_len: int, image_embeds=None,
+                  cells: Optional[tuple] = None) -> tuple:
     """One data group's prefill: (last-position logits ``[B, 1, V]`` on
     position 0, its caches ``[i][j]``, cross K/V ``[s][j]``, recurrent
-    states ``[i][j]``)."""
+    states ``[i][j]``); ``cells``: :func:`cell_range`'s ``(c0, n)`` of the
+    cache's split (default the group's own positions)."""
     t = tokens.shape[1]
     audio = cfg.family == "audio"
     if t > cache_len and not audio:
         raise ValueError(f"a prompt of {t} tokens does not fit a cache of "
                          f"{cache_len} slots")
     m = view.m
+    c0, n_cells = cells or (0, m)
     if cfg.family == "vlm":
         for j in range(m):
-            image_slots(j, m, cfg.n_image_tokens)
+            image_slots(c0 + j, n_cells, cfg.n_image_tokens)
     exchange = kv_by_exchange(m, cfg, cache_len)
     st = tp.Stream(view.devices, t)
     if audio:           # tokens are frame embeddings [B, T, d]
@@ -493,7 +583,7 @@ def group_prefill(view, cfg: ArchConfig, tokens: torch.Tensor,
         xs = [x + a for x, a in zip(xs, st.reduce(parts))]
         del hs, parts
         if not audio:
-            caches.append(to_cache(kvs, m, cache_len, exchange))
+            caches.append(to_cache(kvs, m, cache_len, exchange, cells))
         del kvs
         xs, _ = tp.mlp_block(view, prefix, cfg, st, xs, 0.0)
         return xs
@@ -519,7 +609,7 @@ def group_prefill(view, cfg: ArchConfig, tokens: torch.Tensor,
                 exchange=cross_ex, causal=False, kv_srcs=imgs)
             xs = [x + a for x, a in zip(xs, st.reduce(parts))]
             del hs, parts
-            ks, vs, _ = relayout(kvs, m, n_img, cross_ex)
+            ks, vs, _ = relayout(kvs, m, n_img, cross_ex, cells)
             cross.append(list(zip(ks, vs)))
             del kvs
             xs, _ = tp.mlp_block(view, prefix, cfg, st, xs, 0.0)
@@ -546,22 +636,25 @@ def prefill(lm, cfg: ArchConfig, tokens: torch.Tensor, cache_len: int,
     :class:`GridState`, ``None`` for the encoder): ``transformer.prefill``
     over ``lm``'s grid, each data group on its rows (and the VLM's
     ``image_embeds`` of those rows)."""
+    folded = specs.folds(tokens.shape[0])
     outs, caches, cross, rec = [], [], [], []
     for g, (r0, n) in enumerate(group_rows(lm, tokens.shape[0])):
         view = tp.GridView(lm, g)
         img = None if image_embeds is None else image_embeds[r0:r0 + n]
         lg, c, x, r = group_prefill(view, cfg, tokens[r0:r0 + n].to(
-            view.devices[0]), cache_len, img)
+            view.devices[0]), cache_len, img, cell_range(lm, g, folded))
         outs.append(lg.to(lm.device))
         caches.append(c)
         cross.append(x)
         rec.append(r)
+    if folded:      # every group ran the row: group 0's logits
+        outs = outs[:1]
     if cfg.family == "audio":
         return torch.cat(outs, 0), None
     return torch.cat(outs, 0), GridState(
         caches=caches, cache_len=cache_len,
         cross_kv=cross if cfg.family == "vlm" else None,
-        recurrent=rec if has_recurrent(cfg) else None)
+        recurrent=rec if has_recurrent(cfg) else None, folded=folded)
 
 
 # ------------------------------------------------------------------- decode
@@ -585,13 +678,16 @@ def columns(view, prefix: str, hs, names) -> list:
                            for j, h in enumerate(hs)], 2) for name in names]
 
 
-def combine(view, prefix: str, qs, att, lengths, offs, cfg: ArchConfig,
+def combine(views, prefix: str, qs, att, lengths, offs, cfg: ArchConfig,
             window: Optional[int], dtype) -> list:
-    """Each position's ``wo`` partial of the read of a cache split by
-    sequence (module docstring): ``qs[j]`` the whole query, ``att[j]`` its
-    slots' K/V from ``offs[j]`` in the model dtype, ``lengths[j]`` the
-    rows' lengths (None: every slot read)."""
-    hd, m = cfg.hd, view.m
+    """Each cell's ``wo`` partial of the read of a cache split by sequence
+    over the cells of ``views`` (one data group's positions, or every
+    group's where the batch folds; module docstring), in cell order:
+    ``qs[c]`` the whole query, ``att[c]`` the cell's slots' K/V from
+    ``offs[c]`` in the model dtype, ``lengths[c]`` the rows' lengths (None:
+    every slot read). Position ``j`` of each group receives ``wo``'s row
+    chunk ``j`` of the P·V sum."""
+    hd = cfg.hd
     scores = [attn.slice_scores(qj, ka, lj, off, hd=hd, window=window)
               for qj, (ka, _), lj, off in zip(qs, att, lengths, offs)]
     mx = tp.all_max([x.float().amax(-1) for x in scores])
@@ -601,9 +697,27 @@ def combine(view, prefix: str, qs, att, lengths, offs, cfg: ArchConfig,
     pv = [attn.slice_pv(e, tot, va).flatten(2)
           for (e, _), tot, (_, va) in zip(es, total, att)]
     del es
-    wos = [share(view, j, prefix + "wo", 0) for j in range(m)]
+    wos = [share(view, j, prefix + "wo", 0) for view in views
+           for j in range(view.m)]
     os_ = tp.reduce_scatter(pv, 2, [piece for _, piece in wos])
     return [o.to(dtype) @ w for o, (w, _) in zip(os_, wos)]
+
+
+def combined(views, folded: bool, prefix: str, qs, att, lengths, offs,
+             cfg: ArchConfig, window: Optional[int], dtype) -> list:
+    """:func:`combine` over every group's cells at once where ``folded``,
+    else over each group's alone; the per-cell lists are every group's
+    positions in order. Each group's partials."""
+    m, groups = views[0].m, list(range(len(views)))
+    parts = [None] * len(qs)
+    for gs in [groups] if folded else [[g] for g in groups]:
+        cells = [g * m + j for g in gs for j in range(m)]
+        out = combine([views[g] for g in gs], prefix, *[
+            [x[c] for c in cells] for x in (qs, att, lengths, offs)],
+            cfg, window, dtype)
+        for c, part in zip(cells, out):
+            parts[c] = part
+    return [parts[g * m:(g + 1) * m] for g in range(len(views))]
 
 
 def own_heads(view, prefix: str, hs, qs, att, masks,
@@ -626,53 +740,69 @@ def own_heads(view, prefix: str, hs, qs, att, masks,
     return parts
 
 
-def decode_attention(view, prefix: str, hs, caches, cfg: ArchConfig,
-                     cache_len: int) -> list:
-    """Each position's ``wo`` partial ``[B, 1, d]`` of one decode step's
-    attention under ``prefix`` on the whole normed rows ``hs[j]``; writes
-    the new entry into the position holding its slot and advances every
-    position's lengths (module docstring). With a split cache the P·V
-    partials are reduce-scattered by ``wo``'s row chunks (by head where
-    ``m`` divides the heads), so no position reads another's ``wo``."""
-    hd, m = cfg.hd, view.m
-    dtype = hs[0].dtype
-    q, k, v = [[x.reshape(x.shape[0], 1, -1, hd) for x in xs]
-               for xs in columns(view, prefix, hs, ("wq", "wk", "wv"))]
-    entries = [attn.decode_entry(qj, kj, vj, c.length, rope=cfg.rope,
-                                 kv_dtype=c.k.dtype)
-               for qj, kj, vj, c in zip(q, k, v, caches)]
-    offs = [slots(j, m, cache_len)[0] for j in range(m)]
-    att = []
-    for (_, kn, vn), c, off in zip(entries, caches, offs):
-        attn.write_slice(c, kn, vn, off)
-        att.append(attn.attended(c, dtype))
-    qs = [qj for qj, _, _ in entries]
+def grid_attention(views, prefix: str, hss, cachess, cfg: ArchConfig,
+                   cache_len: int, folded: bool) -> list:
+    """Each data group's position partials of ``wo`` ``[B, 1, d]`` of one
+    decode step's attention under ``prefix`` on its whole normed rows
+    ``hss[g][j]``; writes the new entry into the cell holding its slot and
+    advances every cell's lengths (module docstring). With a split cache
+    the P·V partials are reduce-scattered by ``wo``'s row chunks (by head
+    where ``m`` divides the heads), so no position reads another's ``wo``;
+    the statistics combine over every group's cells where ``folded``."""
+    hd, m = cfg.hd, views[0].m
+    dtype = hss[0][0].dtype
+    qs, att, lengths, offs = [], [], [], []
+    for view, hs, caches in zip(views, hss, cachess):
+        q, k, v = [[x.reshape(x.shape[0], 1, -1, hd) for x in xs]
+                   for xs in columns(view, prefix, hs, ("wq", "wk", "wv"))]
+        entries = [attn.decode_entry(qj, kj, vj, c.length, rope=cfg.rope,
+                                     kv_dtype=c.k.dtype)
+                   for qj, kj, vj, c in zip(q, k, v, caches)]
+        c0, n_cells = cell_range(view.lm, view.g, folded)
+        for j, ((qj, kn, vn), c) in enumerate(zip(entries, caches)):
+            off = slots(c0 + j, n_cells, cache_len)[0]
+            attn.write_slice(c, kn, vn, off)
+            att.append(attn.attended(c, dtype))
+            qs.append(qj)
+            lengths.append(c.length)
+            offs.append(off)
     if split_over_model(cache_len):
-        parts = combine(view, prefix, qs, att, [c.length for c in caches],
-                        offs, cfg, cfg.window, dtype)
+        parts = combined(views, folded, prefix, qs, att, lengths, offs, cfg,
+                         cfg.window, dtype)
     else:
-        parts = own_heads(view, prefix, hs, qs, att, [
+        parts = [own_heads(view, prefix, hss[g], qs[g * m:(g + 1) * m],
+                           att[g * m:(g + 1) * m], [
             attn.decode_valid(c.length, 0, ka.shape[1],
                               cfg.window)[:, None, None, None]
-            for c, (ka, _) in zip(caches, att)], cfg)
-    for c in caches:
-        c.length += 1
+            for c, (ka, _) in zip(cachess[g], att[g * m:(g + 1) * m])], cfg)
+            for g, view in enumerate(views)]
+    for caches in cachess:
+        for c in caches:
+            c.length += 1
     return parts
 
 
-def cross_attention(view, prefix: str, hs, kvs, cfg: ArchConfig) -> list:
-    """Each position's ``wo`` partial of one decode step's cross read under
-    ``prefix`` on the whole normed rows ``hs[j]``, ``kvs[j]`` its image
-    tokens' K/V: the split combine with every token valid, or each
+def grid_cross(views, prefix: str, hss, kvss, cfg: ArchConfig,
+               folded: bool) -> list:
+    """Each data group's position partials of ``wo`` of one decode step's
+    cross read under ``prefix`` on the whole normed rows ``hss[g][j]``,
+    ``kvss[g][j]`` the cell's image tokens' K/V: the split combine with
+    every token valid (over every group's cells where ``folded``), or each
     position's own heads over the whole K/V, unmasked."""
-    hd, m = cfg.hd, view.m
-    [q] = columns(view, prefix, hs, ("wq",))
-    qs = [x.reshape(x.shape[0], 1, -1, hd) for x in q]
-    if split_over_model(cfg.n_image_tokens):
-        offs = [image_slots(j, m, cfg.n_image_tokens)[0] for j in range(m)]
-        return combine(view, prefix, qs, kvs, [None] * m, offs, cfg, None,
-                       hs[0].dtype)
-    return own_heads(view, prefix, hs, qs, kvs, [None] * m, cfg)
+    hd, m, n_img = cfg.hd, views[0].m, cfg.n_image_tokens
+    qs, offs = [], []
+    for view, hs in zip(views, hss):
+        [q] = columns(view, prefix, hs, ("wq",))
+        qs += [x.reshape(x.shape[0], 1, -1, hd) for x in q]
+        c0, n_cells = cell_range(view.lm, view.g, folded)
+        offs += [image_slots(c0 + j, n_cells, n_img)[0] for j in range(m)]
+    if split_over_model(n_img):
+        return combined(views, folded, prefix, qs,
+                        [kv for kvs in kvss for kv in kvs],
+                        [None] * len(qs), offs, cfg, None, hss[0][0].dtype)
+    return [own_heads(view, prefix, hs, qs[g * m:(g + 1) * m], kvs,
+                      [None] * m, cfg)
+            for g, (view, hs, kvs) in enumerate(zip(views, hss, kvss))]
 
 
 def ssm_decode(view, prefix: str, cfg: ArchConfig, st, xs, states) -> tuple:
@@ -723,46 +853,67 @@ def xlstm_decode(view, prefix: str, cfg: ArchConfig, st, xs,
 
 def group_decode(view, cfg: ArchConfig, token: torch.Tensor, caches,
                  cache_len: int, cross=None, rec=None) -> torch.Tensor:
-    """One data group's decode step: logits ``[B, 1, V]`` on position 0;
-    ``caches[i][j]`` written in place, ``rec[i]`` replaced."""
-    st = tp.Stream(view.devices, 1)
-    xs = tp.embed(view, cfg, st, token)
-    calls = iter(caches)
+    """One data group's decode step (:func:`grid_decode`): logits
+    ``[B, 1, V]`` on position 0; ``caches[i][j]`` written in place,
+    ``rec[i]`` replaced."""
+    return grid_decode([view], cfg, [token], [caches], cache_len, [cross],
+                       [rec], False)[0]
 
-    def self_layer(prefix, xs):
-        hs = tp._norms(view, prefix + "attn_norm.", xs, cfg)
-        parts = decode_attention(view, prefix + "attn.", hs, next(calls),
-                                 cfg, cache_len)
-        xs = [x + a for x, a in zip(xs, st.reduce(parts))]
-        xs, _ = tp.mlp_block(view, prefix, cfg, st, xs, 0.0)
-        return xs
+
+def grid_decode(views, cfg: ArchConfig, tokens, caches, cache_len: int,
+                cross, rec, folded: bool) -> list:
+    """The data groups' decode step, layer by layer in lockstep: each
+    group's logits ``[B, 1, V]`` on its position 0; ``caches[g][i][j]``
+    written in place, ``rec[g][i]`` replaced. A cache read combines over
+    every group's cells where ``folded``."""
+    groups = range(len(views))
+    sts = [tp.Stream(view.devices, 1) for view in views]
+    xss = [tp.embed(view, cfg, st, tok)
+           for view, st, tok in zip(views, sts, tokens)]
+    calls = [iter(c) for c in caches]
+
+    def norms(prefix):
+        return [tp._norms(view, prefix + "attn_norm.", xs, cfg)
+                for view, xs in zip(views, xss)]
+
+    def close(prefix, partss):      # the row-parallel reduce, then the MLP
+        for g, parts in enumerate(partss):
+            xs = [x + a for x, a in zip(xss[g], sts[g].reduce(parts))]
+            xss[g], _ = tp.mlp_block(views[g], prefix, cfg, sts[g], xs, 0.0)
+
+    def self_layer(prefix):
+        close(prefix, grid_attention(views, prefix + "attn.", norms(prefix),
+                                     [next(c) for c in calls], cfg,
+                                     cache_len, folded))
 
     if cfg.xlstm:
         for i in range(cfg.n_layers):
             prefix = f"{'slstm' if i % 2 == 0 else 'mlstm'}.{i // 2}."
-            xs, rec[i] = xlstm_decode(view, prefix, cfg, st, xs, rec[i])
+            for g in groups:
+                xss[g], rec[g][i] = xlstm_decode(views[g], prefix, cfg,
+                                                 sts[g], xss[g], rec[g][i])
     elif cfg.family == "vlm":
         for s in range(tf.n_super(cfg)):
             for i in range(cfg.cross_attn_every):
-                xs = self_layer(f"self_blocks.{s}.{i}.", xs)
+                self_layer(f"self_blocks.{s}.{i}.")
             prefix = f"cross_blocks.{s}."
-            hs = tp._norms(view, prefix + "attn_norm.", xs, cfg)
-            parts = cross_attention(view, prefix + "attn.", hs, cross[s],
-                                    cfg)
-            xs = [x + a for x, a in zip(xs, st.reduce(parts))]
-            xs, _ = tp.mlp_block(view, prefix, cfg, st, xs, 0.0)
+            close(prefix, grid_cross(views, prefix + "attn.", norms(prefix),
+                                     [cross[g][s] for g in groups], cfg,
+                                     folded))
     elif cfg.family == "hybrid":
         per = cfg.shared_attn_every
         for s in range(tf.n_super(cfg)):
             for i in range(per):
                 li = s * per + i
-                xs, rec[li] = ssm_decode(view, f"ssm_blocks.{s}.{i}.", cfg,
-                                         st, xs, rec[li])
-            xs = self_layer("shared_block.", xs)
+                for g in groups:
+                    xss[g], rec[g][li] = ssm_decode(
+                        views[g], f"ssm_blocks.{s}.{i}.", cfg, sts[g], xss[g],
+                        rec[g][li])
+            self_layer("shared_block.")
     else:
         for i in range(cfg.n_layers):
-            xs = self_layer(f"blocks.{i}.", xs)
-    return logits(view, cfg, xs)
+            self_layer(f"blocks.{i}.")
+    return [logits(view, cfg, xs) for view, xs in zip(views, xss)]
 
 
 @torch.inference_mode()
@@ -771,15 +922,19 @@ def decode_step(lm, cfg: ArchConfig, token: torch.Tensor,
     """One token int[B, 1] -> (logits ``[B, 1, V]`` on the lead device,
     ``state``): ``transformer.decode_step`` over ``lm``'s grid; the
     state's caches are written and advanced in place, its recurrent states
-    replaced. The audio encoder raises ``ValueError``."""
+    replaced. A batch of one row runs on every data group (its caches
+    split over every cell); the logits are group 0's. The audio encoder
+    raises ``ValueError``."""
     check_decode(cfg)
-    outs = []
-    for g, (r0, n) in enumerate(group_rows(lm, token.shape[0])):
-        view = tp.GridView(lm, g)
-        outs.append(group_decode(
-            view, cfg, token[r0:r0 + n].to(view.devices[0]),
-            state.caches[g], state.cache_len,
-            None if state.cross_kv is None else state.cross_kv[g],
-            None if state.recurrent is None else state.recurrent[g]).to(
-                lm.device))
-    return torch.cat(outs, 0), state
+    rows = group_rows(lm, token.shape[0])
+    views = [tp.GridView(lm, g) for g in range(len(rows))]
+    none = [None] * len(views)
+    outs = grid_decode(
+        views, cfg, [token[r0:r0 + n].to(view.devices[0])
+                     for (r0, n), view in zip(rows, views)],
+        state.caches, state.cache_len,
+        none if state.cross_kv is None else state.cross_kv,
+        none if state.recurrent is None else state.recurrent, state.folded)
+    if state.folded:
+        outs = outs[:1]
+    return torch.cat([o.to(lm.device) for o in outs], 0), state

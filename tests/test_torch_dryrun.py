@@ -14,7 +14,8 @@ roofline over its records (``bench/paper/roofline.py``) against
   hand-counted on a toy mesh, and its tensor-parallel term (traced on
   the meta device at a cut depth and length) equal to the bytes and calls
   a counted ``launch/tp.py`` step returns on a CPU grid, for every arch;
-  Yi-6B's tensor-parallel term by hand;
+  Yi-6B's tensor-parallel term by hand; ``long_500k``'s folded decode
+  (one row over data and model) against a counted (2, 2) CPU grid decode;
 * ``chip_smoke.py``'s ``train_flops`` against the meta trace's
   ``FlopCounterMode`` count within 1%, at reduced widths and at Yi-6B's
   B 4 x T 4096 (8.7109e14);
@@ -647,6 +648,62 @@ def test_layout_collectives_equal_a_counted_grid_serve_step_of_a_family(
     assert counted == {op: want[op] for op in dryrun.COUNTED}
     if cfg.xlstm and kind == "prefill" and S == 1024:
         assert dryrun._lengths(S, m) == (128, 256)
+
+
+FOLDED_SERVE = ["yi_6b", "zamba2_7b", "llama32_vision_90b"]
+
+
+@pytest.mark.parametrize("arch", FOLDED_SERVE)
+def test_folded_decode_count_equals_a_counted_cpu_grid_decode(arch):
+    """``long_500k``'s decode row: ``layout_collectives`` under the
+    rewritten rules (``step_rules``: one row, ``kv_seq`` over data and
+    model) on a (2, 2) toy grid, which traces the folded grid decode on a
+    meta grid of every cell at no period of the layer pattern and one,
+    carried to the depth, equals what ``counting_tp((2, 2))`` returns over
+    one decode step of the reduced long-context model, one row on a CPU
+    grid of 2 data groups x 2 positions: the statistics' all-reduces and
+    the P·V reduce-scatter over all four cells once each, a group's own
+    collectives once (group 0's); the VLM with 1,024 image tokens."""
+    import dataclasses
+
+    from repro_torch.configs.base import reduced
+    from repro_torch.launch import fsdp, serve, specs
+    from repro_torch.launch.mesh import LogicalMesh
+    from repro_torch.models import transformer as tf
+
+    over = {"n_image_tokens": 1024} if arch.startswith("llama32") else {}
+    layers = {"zamba2_7b": 3}.get(arch, 4)
+    cfg = reduced(tconfigs.get(arch), dtype="float32", n_layers=layers,
+                  **over).long_context_variant()
+    if cfg.window is not None:
+        cfg = dataclasses.replace(cfg, window=16)
+    S, cpu = 1040, torch.device("cpu")
+    mesh = LogicalMesh((2, 2), ("data", "model"), "cpu")
+    lm = fsdp.shard(tf.init_params(cfg, torch.Generator().manual_seed(0),
+                                   device="cpu"),
+                    mesh, groups=[((cpu,) * 2, range(g, g + 1))
+                                  for g in range(2)])
+    rs = np.random.RandomState(3)
+    img = (torch.from_numpy(rs.randn(1, cfg.n_image_tokens, cfg.d_model)
+                            .astype(np.float32))
+           if cfg.family == "vlm" else None)
+    _, state = serve.make_prefill_step(cfg, S)(lm, torch.from_numpy(
+        rs.randint(0, cfg.vocab, (1, 8)).astype(np.int32)), img)
+    assert state.folded and state.split
+    tok = torch.from_numpy(rs.randint(0, cfg.vocab, (1, 1)).astype(np.int32))
+    with dryrun.counting_tp((2, 2)) as counted:
+        serve.make_decode_step(cfg)(lm, tok, state)
+    shape = specs.InputShape("long", S, 1, "decode")
+    rules = dryrun.step_rules(mesh, shape, None)
+    _, layout = _params_layout(cfg, mesh)
+    assert dryrun.serves_on_grid(cfg, shape, rules)
+    assert dryrun.fold_groups(shape, rules, mesh.shape) == 2
+    want = dryrun.layout_collectives(cfg, shape, mesh, rules, layout,
+                                     calls=1)
+    assert counted == {op: want[op] for op in dryrun.COUNTED}
+    # one P.V reduce-scatter an attention call (the VLM's cross reads too)
+    calls = (tf.n_super(cfg) if cfg.family == "hybrid" else cfg.n_layers)
+    assert counted["reduce-scatter"]["count"] == calls
 
 
 # ----------------------------------------------- chip_smoke's train FLOPs
