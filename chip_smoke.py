@@ -194,15 +194,23 @@ exits non-zero and no failure is caught:
      sharded encode/decode fed the serial run's deltas bit-equal to the
      serial one. The one-client shard's local SGD with and without its
      duplicated row, at the int8 arm's and VGG16's first round: bit-equal
-     to the cohort's batch or not, and timed. VGG16 under the table2
+     to the cohort's batch with it, timed beside the serial cohort's call;
+     the int8 arm's (mnist_mlp) local SGD bit-equal to
+     ``torch.func.grad_and_value`` inside ``vmap``.
+     VGG16's first local SGD step, client 0 in a vmapped call of 5 against
+     2 and 1 (duplicated): each layer's output and each gradient leaf,
+     printed under the plain ops (a grouped convolution, the BN formula
+     vmapped) with ``torch.func.grad`` inside ``vmap``, as the port ran
+     them before, under the per-client ops with it, and under the port's
+     per-client ops with autograd over the vmapped forward, which must be
+     bit-equal. VGG16 under the table2
      protocol, 2 rounds over 5 shards, under deterministic cuDNN: two
      serial runs bit-equal; the per-leaf sharded encode/decode fed the
-     serial deltas bit-equal; the sharded run bit-equal to a serial run
-     whose local SGD runs at the shards' batch shape; against the plain
-     serial run, the first round and leaf that differ, and the params
-     within ``VGG_PARAM_ATOL``. Round wall times, serial against sharded,
-     and the bytes the stream gather and the residual return copy a round
-     are printed.
+     serial deltas bit-equal; the sharded run bit-equal to the plain
+     serial run (params, residuals, ledger, accuracies; where not, the
+     first round and leaf that differ are named). Round wall times, serial
+     against sharded, and the bytes the stream gather and the residual
+     return copy a round are printed.
  15. bench: ``python -m repro_torch.bench --quick --out`` through its
      ``main()`` on the card, in a fresh process as the baselines were made
      (the ``round``, ``agg``, ``cohort`` and ``serve`` suites; that
@@ -7233,14 +7241,6 @@ PARITY_MESHES = (2, 3, 6)
 SHARDED_PRESETS = (("tree_quick", 3), ("dp_quick", 2))
 INT8_SHARDS = 5            # codec_sweep_quick's int8 arm, cohort 5
 VGG_SHARDS = 5             # table2 protocol, cohort 5: one client a shard
-# VGG16's sharded run against the plain serial one, under deterministic
-# cuDNN: cuDNN picks its convolution algorithm by batch shape, so a shard's
-# local SGD (2 rows) rounds otherwise than the cohort's (5 rows); the rest
-# of the round is held bit-exact apart. The limit on the largest param
-# difference after the 2 rounds is 1.5 times the reading that PERF.md
-# section 6 records for this script (1.579433e-02, the same in every run,
-# as the run is deterministic)
-VGG_PARAM_ATOL = 2.4e-2
 
 
 def parity_config():
@@ -7512,12 +7512,119 @@ def round_inputs(cfg, device):
     return sim._fresh_state().params, stacked, sim.loss_fn, sim.fed
 
 
+def plain_ops(fn, *args):
+    """``paper_models.per_client`` as the port ran it before: ``fn``
+    itself, which ``vmap`` batches (a grouped convolution, vmapped BN)."""
+    return fn(*args)
+
+
+def formula_conv_bn(h, w, b, scale, bias, padding: int, eps: float = 1e-5):
+    """VGG16's convolution and batch norm as the port wrote them before:
+    the BN formula's ops (mean, biased variance, rsqrt, affine map)."""
+    import torch
+
+    from repro_torch.models import paper_models as pm
+
+    h = pm._conv2d(h, w, b, padding)
+    mu = h.mean(dim=(0, 2, 3), keepdim=True)
+    var = h.var(dim=(0, 2, 3), unbiased=False, keepdim=True)
+    return ((h - mu) * torch.rsqrt(var + eps) * scale[None, :, None, None]
+            + bias[None, :, None, None])
+
+
+PORT_VARIANT = "per-client ops, autograd over vmap (the port)"
+# name: (the ops as before: plain_ops and the BN formula; gradient by
+# torch.func.grad inside vmap)
+PROBE_VARIANTS = {
+    "plain ops, torch.func.grad inside vmap (before)": (True, True),
+    "per-client ops, torch.func.grad inside vmap": (False, True),
+    PORT_VARIANT: (False, False),
+}
+
+
+def client_count_probe(cfg, device) -> dict:
+    """Client 0's first local SGD step at ``cfg``'s first round, in one
+    vmapped call with 5 clients against 2 and against 1 (its row
+    duplicated): the largest difference of each VGG16 layer's output
+    (convolution, BN and relu) and of each gradient leaf, and the first of
+    each that differs, under each of ``PROBE_VARIANTS``: the ops as the
+    port ran them before (``plain_ops``) or per client, the gradient
+    taken by ``torch.func.grad`` inside ``vmap`` (as before) or by
+    autograd over the vmapped forward (``fedavg``'s path for such a
+    model). Prints a line a variant and count; returns {(variant, C):
+    (forward max, first layer, gradient max, first leaf)}."""
+    import functools
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import paper_models as pm
+
+    params, batches, loss_fn, _ = round_inputs(cfg, device)
+    x, y = batches[0][:, 0], batches[1][:, 0]       # the first local step
+
+    def layers(p, x):
+        h, i, out = pm._nchw(x), 0, []
+        for v in pm._VGG_CFG:
+            if v == "M":
+                h = F.max_pool2d(h, 2)
+                continue
+            h = torch.relu(pm.per_client(
+                functools.partial(pm._conv_bn, padding=1), h, p[f"c{i}.w"],
+                p[f"c{i}.b"], p[f"bn{i}.scale"], p[f"bn{i}.bias"]))
+            out.append((f"c{i}+bn{i}+relu", h))
+            i += 1
+        return dict(out)
+
+    def client0(C, grad_inside):
+        xs, ys = x[:C], y[:C]
+        if C == 1:
+            xs, ys = torch.cat([xs, xs]), torch.cat([ys, ys])
+        ps = {n: torch.stack([v] * xs.shape[0]) for n, v in params.items()}
+        fwd = torch.func.vmap(layers)(ps, xs)
+        if grad_inside:
+            grads = torch.func.vmap(torch.func.grad(loss_fn))(ps, (xs, ys))
+        else:
+            leaves = {n: v.requires_grad_() for n, v in ps.items()}
+            loss = torch.func.vmap(loss_fn)(leaves, (xs, ys))
+            grads = dict(zip(leaves, torch.autograd.grad(
+                loss.sum(), list(leaves.values()))))
+        return ({n: t[0].detach() for n, t in fwd.items()},
+                {n: t[0] for n, t in grads.items()})
+
+    def gaps(a, b):
+        d = {n: (a[n] - b[n]).abs().max().item() for n in a}
+        return max(d.values()), next((n for n in d if d[n]), "none")
+
+    out = {}
+    for name, (before, grad_inside) in PROBE_VARIANTS.items():
+        real = pm.per_client, pm._conv_bn
+        if before:
+            pm.per_client, pm._conv_bn = plain_ops, formula_conv_bn
+        try:
+            f5, g5 = client0(5, grad_inside)
+            for C in (2, 1):
+                f, g = client0(C, grad_inside)
+                out[name, C] = gaps(f, f5) + gaps(g, g5)
+                fm, fl, gm, gl = out[name, C]
+                print(f"[sharded] probe, {name}: client 0 of C={C}"
+                      f"{' (row duplicated)' if C == 1 else ''} against C=5 "
+                      f"(VGG16, first round, first step): forward max abs "
+                      f"{fm:.6e}, first layer apart {fl}; gradient max abs "
+                      f"{gm:.6e}, first leaf apart {gl}", flush=True)
+        finally:
+            pm.per_client, pm._conv_bn = real
+    del params, batches
+    torch.cuda.empty_cache()
+    return out
+
+
 def pad_readings(tag: str, cfg, device, reps: int) -> dict:
     """The one-client shard's local SGD at ``cfg``'s first round, over one
     shard a client of ``device``: with its duplicated row (``pad_one``, the
     default) and without, each held against the serial cohort's deltas (bit
     for bit or not, and the largest difference) and timed on the host clock
-    (median of ``reps``)."""
+    (median of ``reps``), beside the serial cohort's call (``serial_ms``)."""
     import torch
 
     from repro_torch.core import fedavg
@@ -7527,9 +7634,23 @@ def pad_readings(tag: str, cfg, device, reps: int) -> dict:
     params, batches, loss_fn, fed = round_inputs(cfg, device)
     C = batches[0].shape[0]
     mesh = ClientsMesh((device,) * C)
-    whole, _ = fedavg.batched_client_update(params, batches, loss_fn,
-                                            fed.local_steps, fed.local_lr)
-    out = {}
+
+    def serial():
+        return fedavg.batched_client_update(params, batches, loss_fn,
+                                            fed.local_steps, fed.local_lr)[0]
+
+    def median_ms(fn):
+        ts = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        return 1e3 * statistics.median(ts)
+
+    whole = serial()
+    out = {"serial_ms": median_ms(serial)}
     for pad in (True, False):
         def sgd():
             return fedavg.batched_client_update_sharded(
@@ -7537,74 +7658,58 @@ def pad_readings(tag: str, cfg, device, reps: int) -> dict:
                 fed.local_lr, pad_one=pad)[0]
 
         got = se.all_gather_round(sgd(), device)
-        ts = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            sgd()
-            torch.cuda.synchronize()
-            ts.append(time.perf_counter() - t0)
         out[pad] = dict(
             bit_equal=all(bits_equal(got[n], whole[n]) for n in whole),
             max_abs=max((got[n] - whole[n]).abs().max().item()
                         for n in whole),
-            ms=1e3 * statistics.median(ts))
+            ms=median_ms(sgd))
     print(f"[sharded] {tag}: local SGD of {C} one-client shards, first "
           f"round: with the duplicated row bit-equal to the cohort's="
           f"{out[True]['bit_equal']} (max abs {out[True]['max_abs']:.6e}) "
           f"{out[True]['ms']:.3f} ms; without it bit-equal="
           f"{out[False]['bit_equal']} (max abs {out[False]['max_abs']:.6e}) "
-          f"{out[False]['ms']:.3f} ms (median of {reps})", flush=True)
+          f"{out[False]['ms']:.3f} ms; the serial cohort's call "
+          f"{out['serial_ms']:.3f} ms (median of {reps})", flush=True)
     return out
 
 
-class sgd_at_shard_shape:
-    """Inside the block the serial round's local SGD runs shard by shard at
-    the sharded round's batch shapes: ``c_loc`` clients a call (a
-    one-client shard as two rows, keeping the first), each through the
-    unchanged ``batched_client_update``; the encode and the decode stay
-    serial. A sharded run must be bit-equal to such a run."""
+def mlp_program_check(tag: str, cfg, device) -> None:
+    """``cfg``'s first-round local SGD (an MLP, no per-client op) through
+    ``fedavg.batched_client_update`` (autograd over the vmapped forward)
+    bit-equal to ``torch.func.grad_and_value`` inside ``vmap``, the
+    program before per-client ops."""
+    import torch
 
-    def __init__(self, c_loc: int):
-        self.c_loc = c_loc
+    from repro_torch.core import fedavg
 
-    def __enter__(self):
-        import torch
-
-        from repro_torch.core import fedavg
-
-        self.real = real = fedavg.batched_client_update
-        c_loc = self.c_loc
-
-        def per_shard(params, batches, *a, **kw):
-            parts = []
-            for i0 in range(0, batches[0].shape[0], c_loc):
-                b = tuple(x[i0:i0 + c_loc] for x in batches)
-                if c_loc == 1:
-                    b = tuple(torch.cat([x, x]) for x in b)
-                d, losses = real(params, b, *a, **kw)
-                parts.append(({n: v[:c_loc] for n, v in d.items()},
-                              losses[:c_loc]))
-            return ({n: torch.cat([d[n] for d, _ in parts])
-                     for n in parts[0][0]},
-                    torch.cat([losses for _, losses in parts]))
-
-        fedavg.batched_client_update = per_shard
-
-    def __exit__(self, *exc):
-        from repro_torch.core import fedavg
-
-        fedavg.batched_client_update = self.real
+    params, batches, loss_fn, fed = round_inputs(cfg, device)
+    C = batches[0].shape[0]
+    stacked = {n: torch.stack([p] * C) for n, p in params.items()}
+    got, got_loss = fedavg.batched_client_update(
+        params, batches, loss_fn, fed.local_steps, fed.local_lr)
+    want, want_loss = torch.func.vmap(
+        lambda p, *b: fedavg._client_update(p, b, loss_fn, fed.local_steps,
+                                            fed.local_lr),
+        randomness="error")(stacked, *batches)
+    same = (all(bits_equal(got[n], want[n]) for n in want)
+            and bits_equal(got_loss, want_loss))
+    print(f"[sharded] {tag}: local SGD of {C} clients (autograd over the "
+          f"vmapped forward) bit-equal to torch.func.grad_and_value inside "
+          f"vmap={same}", flush=True)
+    check(same, f"{tag}: the local SGD differs from torch.func.grad_and_value "
+          "inside vmap")
 
 
 def vgg16_sharded(cfg, shards: int, device) -> dict:
     """VGG16 over ``shards`` one-client shards under deterministic cuDNN
-    (module docstring, phase 14). Returns the row printed."""
+    (module docstring, phase 14): the sharded encode/decode fed the serial
+    run's deltas leaf by leaf (a second serial run, bit-equal to the
+    first), then the sharded run against the plain serial run bit for bit.
+    Returns the row printed."""
     import torch
 
     serial = timed_run(cfg, 0, device)
-    serial_log = []
-    lw = leafwise_check(cfg, shards, device, log=serial_log)
+    lw = leafwise_check(cfg, shards, device)
     print(f"[sharded] cifar_vgg16: the sharded encode/decode fed the "
           f"serial run's deltas over {shards} shards: {lw['leaves']} "
           f"leaves, bit-equal except {lw['differ']}; per round the "
@@ -7615,38 +7720,8 @@ def vgg16_sharded(cfg, shards: int, device) -> dict:
           f"serial deltas differs at leaves {lw['differ']}")
     check(states_equal(lw["state"], serial[0].state) == (True, True),
           "VGG16: two serial runs under deterministic cuDNN differ")
-    shaped_log, sharded_log = [], []
-    with sgd_at_shard_shape(cfg.clients_per_round // shards):
-        shaped = timed_run(cfg, 0, device, log=shaped_log)
-    sharded = timed_run(cfg, shards, device, log=sharded_log)
-    exact = run_row("cifar_vgg16 table2 (serial local SGD at the "
-                    "shard shape)", shards, cfg, sharded, shaped)
-    sgd_eq = len(shaped_log) == len(sharded_log) and all(
-        bits_equal(a[1], b[1]) for a, b in zip(shaped_log, sharded_log))
-    check(exact["exact"] and sgd_eq,
-          "VGG16: the sharded run is not bit-equal to the serial run "
-          "whose local SGD runs at the shard shape (local SGD deltas "
-          f"bit-equal={sgd_eq})")
-    row = run_row("cifar_vgg16 table2", shards, cfg, sharded, serial)
-    p0, p1 = serial[0].state.params, sharded[0].state.params
-    first = next((f"round {i // len(p0)} leaf {n}" for i, ((n, a), (_, b))
-                  in enumerate(zip(serial_log, sharded_log))
-                  if not bits_equal(a, b)), "none")
-    init = serial[0]._fresh_state().params
-    diff = max((p1[n] - p0[n]).abs().max().item() for n in p0)
-    rel = (sum(((p1[n] - p0[n]) ** 2).sum().item() for n in p0)
-           / sum(((p0[n] - init[n]) ** 2).sum().item() for n in p0)) ** 0.5
-    row.update(first_divergence=first, max_param_diff=diff, rel_l2=rel)
-    print(f"[sharded] cifar_vgg16 over {shards} shards against the plain "
-          f"serial run (deterministic cuDNN): first difference in the local "
-          f"SGD deltas at {first}; after {cfg.rounds} rounds the params "
-          f"differ by max abs {diff:.6e} (limit {VGG_PARAM_ATOL:.1e}), "
-          f"||diff|| / ||serial update|| {rel:.6e}; the sharded run equals "
-          f"the serial run with local SGD at the shard shape bit for bit",
-          flush=True)
-    check(diff <= VGG_PARAM_ATOL, f"VGG16: params differ by {diff:.3e}, over "
-          f"the limit {VGG_PARAM_ATOL:.1e}")
-    del serial, lw, shaped, sharded, serial_log, shaped_log, sharded_log
+    row = compare_sharded("cifar_vgg16 table2", cfg, serial, shards, device)
+    del serial, lw
     torch.cuda.empty_cache()
     return row
 
@@ -7740,11 +7815,20 @@ def sharded_phase(kind: str, card: str, device) -> tuple[dict, list]:
     pad = pad_readings("codec_sweep_quick int8", cfg, device, reps=7)
     check(pad[True]["bit_equal"], "int8: the one-client shards' local SGD "
           "with the duplicated row is not bit-equal to the cohort's")
+    mlp_program_check("codec_sweep_quick int8", cfg, device)
 
     # VGG16 under the table2 protocol, 2 rounds over 5 shards
     cfg = vgg16_table2()
-    pad_readings("cifar_vgg16 table2 (deterministic cuDNN)", cfg, device,
-                 reps=3)
+    probe = client_count_probe(cfg, device)
+    check(all(probe[PORT_VARIANT, C] == (0.0, "none", 0.0, "none")
+              for C in (2, 1)),
+          "VGG16: client 0's forward or gradient in a call of 2 clients, or "
+          "of 1 with its row duplicated, differs from its own in a call of "
+          "5")
+    pad = pad_readings("cifar_vgg16 table2 (deterministic cuDNN)", cfg,
+                       device, reps=3)
+    check(pad[True]["bit_equal"], "VGG16: the one-client shards' local SGD "
+          "with the duplicated row is not bit-equal to the cohort's")
     row = vgg16_sharded(cfg, VGG_SHARDS, device)
     for r, dropped, x in row["per_round"]:
         check(x["pair_mask_streams"] == VGG_SHARDS,

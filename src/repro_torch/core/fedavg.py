@@ -4,10 +4,14 @@ or client-sharded, and the async buffered update).
 
 A round is:
   1. ``batched_client_update`` — local SGD for every participant,
-     ``torch.func.vmap`` of ``torch.func.grad_and_value`` over the stacked
-     client batches and one stacked copy of the parameters per client (one
+     ``torch.func.vmap`` of the loss over the stacked client batches and
+     one stacked copy of the parameters per client (one
      batched program, as the reference's ``jax.vmap``; the async update
-     runs the same program);
+     runs the same program), differentiated by autograd. The conv models'
+     convolutions and batch norms run one client at a time inside it
+     (``paper_models.per_client``), backward included, so a client's bits
+     do not depend on how many clients share the call: a sharded round is
+     the serial one bit for bit, as the reference's (DESIGN.md §11);
   2. ``streams.encode_leaf_batch`` per leaf — the unified top-k ∪
      mask-support encode for all clients. The pair masks of every leaf
      come first, from ONE ``pair_mask_streams`` launch a round
@@ -70,23 +74,27 @@ Params = dict[str, torch.Tensor]
 LossFn = Callable[[Mapping[str, torch.Tensor], Any], torch.Tensor]
 
 
+def _prox_grads(p: Params, params: Params, prox_mu: float) -> Params:
+    """FedProx's gradient of ``mu/2 ||p - params||^2`` at ``p``."""
+    def prox_term(p):
+        sq = sum(torch.sum((p[n] - params[n]) ** 2) for n in params)
+        return 0.5 * prox_mu * sq
+
+    return torch.func.grad(prox_term)(p)
+
+
 def _client_update(params: Params, batches, loss_fn: LossFn,
                    local_steps: int, lr: float,
                    prox_mu: float = 0.0) -> tuple[Params, torch.Tensor]:
     """Local SGD (optionally FedProx-proximal) over ``batches = (x, y)``
     stacked on a leading ``local_steps`` axis; returns (delta, mean loss)."""
     grad_fn = torch.func.grad_and_value(loss_fn)
-
-    def prox_term(p):
-        sq = sum(torch.sum((p[n] - params[n]) ** 2) for n in params)
-        return 0.5 * prox_mu * sq
-
     p = dict(params)
     losses = []
     for s in range(local_steps):
         g, loss = grad_fn(p, tuple(b[s] for b in batches))
         if prox_mu != 0.0:
-            gp = torch.func.grad(prox_term)(p)
+            gp = _prox_grads(p, params, prox_mu)
             g = {n: g[n] + gp[n] for n in g}
         p = {n: p[n] - lr * g[n] for n in p}
         losses.append(loss)
@@ -131,11 +139,34 @@ def batched_client_update_multi(params_stacked: Params, batches_stacked,
     """Every report's local SGD from its own parameters: params vmapped
     beside the batches (``{name: [B, ...]}`` and ``(x[B, steps, ...],
     y[B, steps, ...])``; the async update's reports are stale versions).
-    Returns (deltas ``{name: [B, ...]}``, losses [B])."""
-    return torch.func.vmap(
-        lambda p, *b: _client_update(p, b, loss_fn, local_steps, lr,
-                                     prox_mu),
-        randomness="error")(params_stacked, *batches_stacked)
+    Returns (deltas ``{name: [B, ...]}``, losses [B]).
+
+    :func:`_client_update` for every client at once: autograd
+    differentiates the vmapped forward, the clients' losses summed with
+    weight 1, so each client's gradient is its own loss's. The backward of
+    an op that runs one client at a time under ``vmap``
+    (``paper_models.per_client``: the conv models' convolutions and batch
+    norms) then runs per client too, where ``torch.func.grad`` inside
+    ``vmap`` would batch it; for every other op the two give the same
+    bits (the MLPs: ``tests/test_torch_client_shape.py``, ``chip_smoke.py``
+    ``[sharded]``)."""
+    vloss = torch.func.vmap(loss_fn, randomness="error")
+    p = dict(params_stacked)
+    losses = []
+    for s in range(local_steps):
+        with torch.enable_grad():
+            leaves = {n: x.detach().requires_grad_() for n, x in p.items()}
+            loss = vloss(leaves, tuple(b[:, s] for b in batches_stacked))
+            g = dict(zip(leaves, torch.autograd.grad(
+                loss.sum(), list(leaves.values()))))
+        if prox_mu != 0.0:
+            gp = torch.func.vmap(lambda q, q0: _prox_grads(q, q0, prox_mu))(
+                p, params_stacked)
+            g = {n: g[n] + gp[n] for n in g}
+        p = {n: p[n] - lr * g[n] for n in p}
+        losses.append(loss.detach())
+    delta = {n: p[n] - params_stacked[n] for n in params_stacked}
+    return delta, torch.stack(losses, 1).mean(1)
 
 
 def batched_client_update_sharded(mesh, params: Params, batches_stacked,
@@ -151,12 +182,12 @@ def batched_client_update_sharded(mesh, params: Params, batches_stacked,
     here over the shards. Returns (one deltas dict
     ``{name: [C_loc, ...]}`` per shard, on the shard's device; the losses
     ``[C]`` gathered in client order onto ``device``, default the params'
-    device). Per-client math is independent, so the deltas are bit-equal to
-    the serial program's where the batched products round alike. With
-    ``pad_one`` a one-client shard runs as two rows and keeps the first:
-    ATen computes a batch of ONE matrix product unbatched, which sums in
-    another order, on the CPU and on the card alike (PERF.md §6 has the
-    readings and the cost)."""
+    device). A client's bits do not depend on how many clients share a
+    call (module docstring), so the deltas are bit-equal to the serial
+    program's. With ``pad_one`` a one-client shard runs as two rows and
+    keeps the first: ATen computes a batch of ONE matrix product
+    unbatched, which sums in another order, on the CPU and on the card
+    alike (PERF.md §6 has the readings and the cost)."""
     device = device if device is not None else \
         next(iter(params.values())).device
     C = batches_stacked[0].shape[0]

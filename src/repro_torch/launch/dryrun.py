@@ -560,11 +560,20 @@ def layout_collectives(cfg, shape, mesh, rules, layout: dict, calls: int,
     the reference's keys. ``calls``: the step's calls a device makes (the
     training microbatches; 1 for prefill and decode). ``rules`` name the
     data-parallel axes (``batch``); ``n_fed`` participants split the
-    global batch first."""
+    global batch first. A folded batch (``long_500k``, :func:`step_rules`)
+    moved those axes into ``kv_seq``: no row splits over them, but the
+    weights stay sharded over them (``param_specs``' ``fsdp``) and each
+    data group's ``GridView`` gathers its weights, so they are the
+    gathers' axes still."""
     sizes = mesh.shape
-    batch = rules["batch"]
-    dp_axes = tuple(a for a in (batch if isinstance(batch, tuple)
-                                else (batch,)) if a and sizes[a] > 1)
+
+    def axes(rule):
+        return tuple(a for a in (rule if isinstance(rule, tuple) else (rule,))
+                     if a and a != "model" and sizes[a] > 1)
+
+    n = fold_groups(shape, rules, sizes)
+    dp_axes = axes(rules["batch"])
+    gather_axes = dp_axes or (axes(rules["kv_seq"]) if n > 1 else ())
     train_step = shape.kind == "train"
     passes = 2 if train_step else 1            # forward (+ backward)
     out = {op: {"bytes": 0, "count": 0} for op in COUNTED}
@@ -577,7 +586,7 @@ def layout_collectives(cfg, shape, mesh, rules, layout: dict, calls: int,
         stack = math.prod(shp[:len(shp) - len(rule)])
         entries = [e if isinstance(e, tuple) else (e,) for e in spec]
         on = {a for e in entries for a in e if a}
-        fsdp = [a for a in dp_axes if a in on]
+        fsdp = [a for a in gather_axes if a in on]
         if fsdp:
             gathered = P(*[tuple(a for a in e if a and a not in fsdp) or None
                            for e in entries])
@@ -590,7 +599,6 @@ def layout_collectives(cfg, shape, mesh, rules, layout: dict, calls: int,
         if train_step and any(a not in on for a in dp_axes):
             _add(out, "all-reduce", calls * shard_bytes(shp, dt, spec, sizes),
                  calls * stack)
-    n = fold_groups(shape, rules, sizes)
     if m > 1 or n > 1:
         terms = (serve_collectives(cfg, rows, shape.kind, shape.seq_len, m,
                                    n)

@@ -19,9 +19,15 @@ head weights mean what they mean in the reference.
 ``apply(params, x)`` is a pure function of a ``{name: tensor}`` dict (what
 ``torch.func`` differentiates); ``forward(x)`` applies the module's own
 parameters. BatchNorm uses the batch's statistics, as the reference does.
+
+Local SGD vmaps ``apply`` over clients (``core/fedavg.py``). The two ops
+whose bits would then depend on how many clients share the call, the
+convolution and the batch norm, run one client at a time
+(:func:`per_client`); every other op is vmapped as it is.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Mapping
 
 import torch
@@ -108,17 +114,64 @@ def _flatten_nhwc(h: torch.Tensor) -> torch.Tensor:
     return h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
 
 
-def _conv2d(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-            padding: int) -> torch.Tensor:
+class _PerClient(torch.autograd.Function):
+    """``fn(*args)``; under ``vmap``, ``fn`` once per client on that
+    client's unbatched arguments, the results stacked (:func:`per_client`).
+    Its backward is ``fn``'s own (``torch.func.vjp``, ``fn`` run again)."""
+
+    @staticmethod
+    def forward(fn, *args):
+        return fn(*args)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.fn = inputs[0]
+        ctx.save_for_backward(*inputs[1:])
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None,) + torch.func.vjp(ctx.fn, *ctx.saved_tensors)[1](g)
+
+    @staticmethod
+    def vmap(info, in_dims, fn, *args):
+        # unbind, not indexing: autograd then stacks the clients' gradients
+        # once instead of scattering each into a zeroed whole
+        per = [(a,) * info.batch_size if d is None
+               else a.movedim(d, 0).unbind(0)
+               for a, d in zip(args, in_dims[1:])]
+        return torch.stack([fn(*a) for a in zip(*per)]), 0
+
+
+def per_client(fn, *args: torch.Tensor) -> torch.Tensor:
+    """``fn(*args)`` (tensors in, one tensor out), run one client at a
+    time under ``vmap``.
+
+    Local SGD vmaps ``apply`` over the clients (``core/fedavg.py``). With
+    per-client weights ``vmap`` lowers a convolution to one grouped
+    convolution, ``groups`` = clients, and oneDNN and cuDNN pick their
+    algorithm by the group count; on the card a batch norm's reduction
+    over ``(B, H, W)`` splits across blocks by its number of outputs
+    (clients x channels). Either way a client's bits would move with the
+    cohort or shard size. Through ``per_client`` each client computes
+    ``fn`` at its own unbatched shape, whatever the number of clients.
+    Local SGD differentiates the vmapped forward with autograd, which
+    records these per-client ops, so their backward runs per client as
+    well."""
+    return _PerClient.apply(fn, *args)
+
+
+def _conv2d(h, w, b, padding: int):
     """NCHW activations x an HWIO kernel."""
     return F.conv2d(h, w.permute(3, 2, 0, 1), b, padding=padding)
 
 
-def _apply_bn(scale, bias, h, eps=1e-5):
-    mu = h.mean(dim=(0, 2, 3), keepdim=True)
-    var = h.var(dim=(0, 2, 3), unbiased=False, keepdim=True)
-    return ((h - mu) * torch.rsqrt(var + eps) * scale[None, :, None, None]
-            + bias[None, :, None, None])
+def _conv_bn(h, w, b, scale, bias, padding: int, eps: float = 1e-5):
+    """:func:`_conv2d`, then batch-statistics BN: the reference's mean,
+    biased variance and affine map, as ATen's fused batch norm
+    (``torch.native_batch_norm`` runs ATen's own kernels, never
+    cuDNN's)."""
+    return torch.native_batch_norm(_conv2d(h, w, b, padding), scale, bias,
+                                   None, None, True, 0.0, eps)[0]
 
 
 # ------------------------------------------------------------------ MLPs
@@ -144,9 +197,11 @@ def make_mlp(dims) -> Callable[[], PaperModel]:
 
 # ------------------------------------------------------------------ MNIST CNN
 def _mnist_cnn_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
-    h = torch.relu(_conv2d(_nchw(x), p["c1.w"], p["c1.b"], 0))   # 24
+    h = torch.relu(per_client(functools.partial(_conv2d, padding=0),
+                              _nchw(x), p["c1.w"], p["c1.b"]))   # 24
     h = F.max_pool2d(h, 2)                                       # 12
-    h = torch.relu(_conv2d(h, p["c2.w"], p["c2.b"], 0))          # 8
+    h = torch.relu(per_client(functools.partial(_conv2d, padding=0),
+                              h, p["c2.w"], p["c2.b"]))          # 8
     h = F.max_pool2d(h, 2)                                       # 4
     h = _flatten_nhwc(h)                                         # 1024
     h = torch.relu(h @ p["f1.w"] + p["f1.b"])
@@ -171,8 +226,9 @@ def _vgg_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
         if v == "M":
             h = F.max_pool2d(h, 2)
             continue
-        h = _conv2d(h, p[f"c{i}.w"], p[f"c{i}.b"], 1)
-        h = torch.relu(_apply_bn(p[f"bn{i}.scale"], p[f"bn{i}.bias"], h))
+        h = torch.relu(per_client(
+            functools.partial(_conv_bn, padding=1), h, p[f"c{i}.w"],
+            p[f"c{i}.b"], p[f"bn{i}.scale"], p[f"bn{i}.bias"]))
         i += 1
     h = _flatten_nhwc(h)                   # 1x1x512 after 5 pools on 32x32
     return h @ p["head.w"] + p["head.b"]

@@ -457,6 +457,58 @@ def test_layout_collectives_hand_counted_on_a_toy_mesh():
     assert got["weight-reads"] == {"bytes": 0, "count": 0}
 
 
+def test_layout_collectives_hand_counted_folded_row_on_a_toy_mesh():
+    """``long_500k``'s folded decode on the toy mesh above (data 2 x model
+    2, the same three leaves): ``step_rules`` move the batch axis into
+    ``kv_seq``, but ``param_specs`` still shard the weights over data and
+    each data group's ``GridView`` gathers its weights, so the row counts
+    the FSDP all-gathers an ordinary decode of the layout counts: each
+    data-sharded leaf gathered to its model slice, 2 x 8 x 8 bf16 (256 B),
+    once a stacked layer (2 each), 512 B in 4 calls; the replicated norm
+    none. The traced terms of the folded grid decode (no parameter leaf)
+    are the rest of the count, unchanged; every row whose batch is on an
+    axis counts as before (the toy test above pins them by hand)."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import LogicalMesh
+    from repro_torch.models.sharding import P
+
+    mesh = LogicalMesh((2, 2), ("data", "model"), device="meta")
+    bf16, f32 = torch.bfloat16, torch.float32
+    layout = {"params": [
+        ("blocks.mlp.wi_gate", (2, 8, 16), bf16, P(None, "data", "model")),
+        ("blocks.mlp.wo", (2, 16, 8), bf16, P(None, "model", "data")),
+        ("final_norm.scale", (8,), f32, P(None))]}
+    cfg = reduced(tconfigs.get("yi_6b"), dtype="bfloat16",
+                  n_layers=2).long_context_variant()
+    shape = specs.InputShape("long", 16, 1, "decode")
+    rules = dryrun.step_rules(mesh, shape, None)
+    assert rules["batch"] is None and rules["kv_seq"] == ("data", "model")
+    assert dryrun.fold_groups(shape, rules, mesh.shape) == 2
+    got = dryrun.layout_collectives(cfg, shape, mesh, rules, layout,
+                                    calls=1)
+    traced = dryrun.layout_collectives(cfg, shape, mesh, rules,
+                                       {"params": []}, calls=1)
+    assert got["all-gather"] == {
+        "bytes": traced["all-gather"]["bytes"] + 2 * 256,
+        "count": traced["all-gather"]["count"] + 4}
+    for op in dryrun.COUNTED:
+        if op != "all-gather":
+            assert got[op] == traced[op]
+    # the same FSDP gathers as a decode of 8 rows with its batch on data
+    plain_shape = types.SimpleNamespace(kind="decode", global_batch=8,
+                                        seq_len=16)
+    plain_rules = dryrun.step_rules(mesh, plain_shape, None)
+    assert plain_rules["batch"] == "data"
+    plain = dryrun.layout_collectives(cfg, plain_shape, mesh, plain_rules,
+                                      layout, calls=1)
+    bare = dryrun.layout_collectives(cfg, plain_shape, mesh, plain_rules,
+                                     {"params": []}, calls=1)
+    assert plain["all-gather"] == {
+        "bytes": bare["all-gather"]["bytes"] + 2 * 256,
+        "count": bare["all-gather"]["count"] + 4}
+
+
 def _counted_grid_step(cfg, m: int, B: int, T: int) -> dict:
     """One dense step of ``cfg`` over ``(data 1, model m)`` positions
     sharing the CPU, counted by ``dryrun.counting_tp``."""
@@ -663,13 +715,18 @@ def test_folded_decode_count_equals_a_counted_cpu_grid_decode(arch):
     one decode step of the reduced long-context model, one row on a CPU
     grid of 2 data groups x 2 positions: the statistics' all-reduces and
     the P·V reduce-scatter over all four cells once each, a group's own
-    collectives once (group 0's); the VLM with 1,024 image tokens."""
+    collectives once (group 0's); the VLM with 1,024 image tokens. The
+    layout adds the weights' FSDP all-gathers over data on top, one a
+    data-sharded leaf and stacked layer."""
     import dataclasses
 
     from repro_torch.configs.base import reduced
-    from repro_torch.launch import fsdp, serve, specs
+    from repro_torch.launch import fsdp, serve
+    from repro_torch.launch import shardings as shd
+    from repro_torch.launch import specs
     from repro_torch.launch.mesh import LogicalMesh
     from repro_torch.models import transformer as tf
+    from repro_torch.models.sharding import P
 
     over = {"n_image_tokens": 1024} if arch.startswith("llama32") else {}
     layers = {"zamba2_7b": 3}.get(arch, 4)
@@ -698,9 +755,31 @@ def test_folded_decode_count_equals_a_counted_cpu_grid_decode(arch):
     _, layout = _params_layout(cfg, mesh)
     assert dryrun.serves_on_grid(cfg, shape, rules)
     assert dryrun.fold_groups(shape, rules, mesh.shape) == 2
-    want = dryrun.layout_collectives(cfg, shape, mesh, rules, layout,
-                                     calls=1)
+    # the traced terms alone (no parameter leaf): the weights' FSDP
+    # gathers, which each group's GridView makes outside ``launch/tp.py``,
+    # are counted from the layout's specs and added on top, each leaf
+    # sharded over data gathered once to its model slice
+    want = dryrun.layout_collectives(cfg, shape, mesh, rules,
+                                     {"params": []}, calls=1)
     assert counted == {op: want[op] for op in dryrun.COUNTED}
+    full = dryrun.layout_collectives(cfg, shape, mesh, rules, layout,
+                                     calls=1)
+    gathers = {"bytes": 0, "count": 0}
+    for path, shp, dt, spec in layout["params"]:
+        entries = [e if isinstance(e, tuple) else (e,) for e in spec]
+        if any("data" in e for e in entries):
+            model_slice = P(*["model" if "model" in e else None
+                              for e in entries])
+            rule = shd.leaf_rule(path, shp)
+            gathers["bytes"] += dryrun.shard_bytes(shp, dt, model_slice,
+                                                   mesh.shape)
+            gathers["count"] += math.prod(shp[:len(shp) - len(rule)])
+    assert gathers["count"] > 0
+    assert full["all-gather"] == {
+        k: want["all-gather"][k] + gathers[k] for k in gathers}
+    for op in dryrun.COUNTED:
+        if op != "all-gather":
+            assert full[op] == want[op]
     # one P.V reduce-scatter an attention call (the VLM's cross reads too)
     calls = (tf.n_super(cfg) if cfg.family == "hybrid" else cfg.n_layers)
     assert counted["reduce-scatter"]["count"] == calls

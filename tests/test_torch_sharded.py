@@ -9,7 +9,8 @@ another in this process.
   client's residuals, ledger entries and accuracies: the reference's parity
   configuration at cohorts 6 and 8 over 2, 3, 6 and 2, 8 shards (a dropout
   round included), the tree decode over 2 and 3, the int8 / int4 / 1bit
-  codecs over 2, DP at sigma 0.5 over 2, and a sharded run killed after
+  codecs over 2, DP at sigma 0.5 over 2, VGG16 (cohort 4, 2 rounds, secure
+  aggregation, a dropout round) over 2, and a sharded run killed after
   round 2 and resumed against the uninterrupted serial run.
 * Against the JAX package, as bits: ``encode_decode_leaf_sharded`` against
   the reference's serial ``encode_leaf_batch`` + ``decode_leaf_batch``, and
@@ -95,10 +96,19 @@ CONFIGS = {
     "dp": SimConfig(clients_per_round=6, **_BASE).replace(
         weight_by_data_count=False,
         dp=DPConfig(clip=1.0, sigma=0.5, seed=11)),
+    # a conv + BN model: its convolutions and batch norms run one client at
+    # a time under vmap, so a shard's clients round as the cohort's
+    "vgg16": SimConfig(
+        name="vgg16", model="cifar_vgg16", dataset="cifar10", rounds=2,
+        n_clients=4, clients_per_round=4, n_train=64, n_test=32,
+        local_steps=1, local_batch=4, eval_every=1,
+        thgs=THGSConfig(s0=0.05, alpha=0.9, s_min=0.01),
+        sa=SecureAggConfig(mask_ratio=0.01, seed=3), dropout_rate=0.4,
+        seed=1, shard_clients="off"),
 }
 RUNS = [("parity6", 2), ("parity6", 3), ("parity6", 6), ("parity8", 2),
         ("parity8", 8), ("tree", 2), ("tree", 3), ("int8", 2), ("int4", 2),
-        ("1bit", 2), ("dp", 2)]
+        ("1bit", 2), ("dp", 2), ("vgg16", 2)]
 
 
 def _run(cfg, shards):
